@@ -1,0 +1,91 @@
+"""The port's fused QP wrappers (tpu_bench_torch.kernels.bwdtrans3d) against
+the JAX package's Pallas kernels in interpret mode, on the same numpy-seeded
+random inputs, which vary per element so an element-axis bug shows."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_bench.kernels import bwdtrans3d as pl_bt
+from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+E, EPB = 256, 128
+SHAPES = [(4, 4, 4), (8, 8, 8), (3, 4, 5)]
+# f32: both sides sum the same products in other orders; f64: to rounding.
+TOLS = [(np.float32, 1e-5), (np.float64, 1e-12)]
+
+
+def _inputs(nq, dtype, seed=0):
+    nq0, nq1, nq2 = nq
+    nm0, nrq, nkj = nq0 - 1, (nq2 - 1) * (nq1 - 1), nq2 * nq1
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((nm0, nrq, E)).astype(dtype)
+    b0 = rng.standard_normal((nm0, nq0)).astype(dtype)
+    c12t = rng.standard_normal((nkj, nrq)).astype(dtype)
+    return x, b0, c12t
+
+
+def _close(out, ref, rtol):
+    np.testing.assert_allclose(out, ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("nq", SHAPES)
+def test_qp_shared3d_matches_jax(nq, dtype, rtol):
+    x, b0, c12t = _inputs(nq, dtype)
+    ref = pl_bt.qp_shared3d(jnp.asarray(x), jnp.asarray(b0),
+                            jnp.asarray(c12t), epb=EPB, interpret=True,
+                            precision=jax.lax.Precision.HIGHEST)
+    out = k1.qp_shared3d(torch.from_numpy(x), torch.from_numpy(b0),
+                         torch.from_numpy(c12t))
+    assert out.dtype == torch.from_numpy(x).dtype
+    _close(out.numpy(), np.asarray(ref), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("nq", SHAPES)
+def test_qp_shared3d_flat_matches_jax(nq, dtype, rtol):
+    x, b0, c12t = _inputs(nq, dtype, seed=1)
+    nm0, nrq, _ = x.shape
+    flat = x.reshape(nm0 * nrq, E)
+    ref = pl_bt.qp_shared3d_flat(jnp.asarray(flat), jnp.asarray(b0),
+                                 jnp.asarray(c12t), nrq=nrq, epb=EPB,
+                                 interpret=True,
+                                 precision=jax.lax.Precision.HIGHEST)
+    out = k1.qp_shared3d_flat(torch.from_numpy(flat), torch.from_numpy(b0),
+                              torch.from_numpy(c12t), nrq=nrq)
+    _close(out.numpy(), np.asarray(ref), rtol)
+
+
+@pytest.mark.parametrize("nq", SHAPES)
+def test_plane_and_flat_agree_bit_for_bit(nq):
+    x, b0, c12t = (torch.from_numpy(a) for a in _inputs(nq, np.float32, 2))
+    nm0, nrq, _ = x.shape
+    plane = k1.qp_shared3d(x, b0, c12t)
+    flat = k1.qp_shared3d_flat(x.reshape(nm0 * nrq, E), b0, c12t, nrq=nrq)
+    assert torch.equal(plane.reshape(flat.shape), flat)
+
+
+def test_wrapper_rejects_bad_input():
+    x, b0, c12t = (torch.from_numpy(a) for a in _inputs((4, 4, 4),
+                                                        np.float32))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k1.qp_shared3d(x.bfloat16(), b0.bfloat16(), c12t.bfloat16())
+    with pytest.raises(TypeError):
+        k1.qp_shared3d(x, b0.double(), c12t)
+    with pytest.raises(ValueError):
+        k1.qp_shared3d(x[:, :-1], b0, c12t)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.qp_shared3d_flat(x.reshape(-1, E)[:, ::2], b0, c12t, nrq=9)
+
+
+def test_non_cpu_tensor_never_takes_plain_path():
+    """Only a CPU tensor goes to the plain version; any other device
+    launches the kernel or raises."""
+    x, b0, c12t = (torch.from_numpy(a).to("meta")
+                   for a in _inputs((4, 4, 4), np.float32))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k1.qp_shared3d(x, b0, c12t)

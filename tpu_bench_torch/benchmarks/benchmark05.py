@@ -1,0 +1,181 @@
+"""Benchmark 05: 3D tensor-product sum-factorization (BwdTrans hex), port of
+tpu_bench/benchmarks/benchmark05.py.
+
+Reference: benchmark05/benchmark05.cc (harness :619-1421, CLI :1423-1442:
+`nq0 nq1 nq2 threads elblocks`).  Eleven columns; GDOF/s counts input DOFs:
+1e-9*nelmt*nm0*nm1*nm2/t (:1407-1419).  Sweep: nelmt = 128 .. 1,048,576.
+
+Seven columns are live: the five library columns (torch.einsum / matmul),
+Pallas(Coales) through the hand kernel K2 (kernels/bwdtrans2d.py) and
+Pallas(QP/Shared) through K1 (kernels/bwdtrans3d.py).  The four other
+hand-kernel columns raise NotImplementedError, which fail_soft reports on
+stderr and logs as a 0 column, as the reference format allows.  The column
+labels keep the reference names so postprocess/ reads the log unchanged.
+
+    python -m tpu_bench_torch.benchmarks.benchmark05 8 8 8 [--device cuda]
+"""
+
+from __future__ import annotations
+
+import functools
+
+from tpu_bench_torch.baselines import bwdtrans3d as lib_bt
+from tpu_bench_torch.core.config import Config
+from tpu_bench_torch.core.reporting import Reporter
+from tpu_bench_torch.core.validate import (check_norm_agreement, default_rtol,
+                                           measure_checked)
+from tpu_bench_torch.core.variants import Layouts, materialize
+from tpu_bench_torch.kernels import bwdtrans2d as k2
+from tpu_bench_torch.kernels import bwdtrans3d as k1
+from tpu_bench_torch.ops import bwdtrans, initdata
+
+LABELS = [
+    "XLA(Uncoales)", "XLA(Coales)", "XLA(QP)", "XLA(QP/DG)", "XLA(GEMM)",
+    "Pallas(Uncoales)", "Pallas(Coales)", "Pallas(QP)", "Pallas(QP/Shared)",
+    "Pallas(QP-1D)", "Pallas(QP-1D/Shared)",
+]
+
+# Widest element chunk of the Pallas(Coales) layout.  K2 tiles each chunk
+# into 128-wide output tiles and runs all chunks in one launch, so the
+# width only splits the batch: any multiple of 128 gives the same blocks
+# (on an NVIDIA H100 80GB HBM3 at 700 W, 1024 to 32768 timed within 4% of
+# each other; PERF.md).
+# 8192 keeps the chunk count within CUDA's grid limit up to 512Mi elements.
+KRON_CHUNK = 8192
+
+
+def _not_ported(label: str, item: int):
+    def fn(*_):
+        raise NotImplementedError(
+            f"{label} not yet ported: ROADMAP Queue 2 item {item}")
+    return fn
+
+
+def kron_chunk(e_pad: int) -> int:
+    """Largest power-of-two chunk width <= KRON_CHUNK dividing e_pad."""
+    ce = 128
+    while ce * 2 <= min(e_pad, KRON_CHUNK) and e_pad % (ce * 2) == 0:
+        ce *= 2
+    return ce
+
+
+def variant_specs(data, cfg):
+    """Ordered (label, fn, operand keys); keys resolve lazily (Layouts)."""
+    basis = data["basis"]
+    # One kernel serves the plane and flat QP layouts (same bytes); the JAX
+    # package's choice between them was TPU sublane geometry.
+    qp = functools.partial(k1.qp_shared3d_flat, nrq=basis.nm2 * basis.nm1,
+                           epb=data["epb_qp"])
+    return [
+        ("XLA(Uncoales)", lib_bt.einsum_em, ("in_em4", "b0", "b1", "b2")),
+        ("XLA(Coales)", lib_bt.einsum_coa, ("in_coa4", "b0", "b1", "b2")),
+        ("XLA(QP)", lib_bt.staged_em, ("in_em4", "b0", "b1", "b2")),
+        ("XLA(QP/DG)", lib_bt.staged_dotgeneral, ("in_em4", "b0", "b1", "b2")),
+        ("XLA(GEMM)", lib_bt.gemm_kron, ("in_coa", "c_coa3")),
+        ("Pallas(Uncoales)", _not_ported("Pallas(Uncoales)", 6), ()),
+        ("Pallas(Coales)", k2.kron_blocked, ("in_blk", "c_coa3")),
+        ("Pallas(QP)", _not_ported("Pallas(QP)", 3), ()),
+        ("Pallas(QP/Shared)", qp, ("in_pflat", "b0", "c12t")),
+        ("Pallas(QP-1D)", _not_ported("Pallas(QP-1D)", 5), ()),
+        ("Pallas(QP-1D/Shared)", _not_ported("Pallas(QP-1D/Shared)", 4), ()),
+    ]
+
+
+def build_variants(data, cfg):
+    """(label, fn, args) with every operand materialized: test-suite and
+    small-size convenience; sweeps use variant_specs + lazy resolution."""
+    return materialize(variant_specs(data, cfg), data)
+
+
+def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
+    basis = bwdtrans.make_basis3d(nq0, nq1, nq2, cfg.dtype, cfg.device)
+    e_pad = initdata.round_up(nelmt, 128)
+    nm0, nm1, nm2 = basis.nm0, basis.nm1, basis.nm2
+    nm_tot = basis.nm_tot
+    src = bwdtrans.stream_sources(bwdtrans.element_data3d(basis, cfg.dtype),
+                                  (nm2, nm1, nm0), nelmt, e_pad, cfg.dtype)
+    c_em3, c12t = bwdtrans.operators3d(basis)
+    ce = kron_chunk(e_pad)
+    return Layouts(
+        base=dict(
+            basis=basis,
+            nelmt=nelmt,
+            e_pad=e_pad,
+            epb_qp=cfg.epb or k1.EPB,
+            ce=ce,
+            b0=basis.b0, b1=basis.b1, b2=basis.b2,
+            c12t=c12t,
+            c_em3=c_em3,
+            c_coa3=c_em3.T.contiguous(),
+        ),
+        # every layout of the element stream is built fresh from the
+        # coefficient vector, one at a time
+        derived=dict(
+            in_coa=src["coa"],
+            in_em4=lambda: src["em2"]().reshape(e_pad, nm2, nm1, nm0),
+            in_coa4=lambda: src["coa"]().reshape(nm2, nm1, nm0, e_pad),
+            in_pcoa3=src["pcoa3"],
+            # the same bytes as pcoa3, viewed (nmTot, E)
+            in_pflat=lambda: src["pcoa3"]().reshape(nm_tot, e_pad),
+            in_blk=lambda: src["blk"](ce),
+        ),
+    )
+
+
+def run_test(nelmt: int, nq0: int, nq1: int, nq2: int, cfg: Config,
+             reporter: Reporter) -> None:
+    data = prepare(nq0, nq1, nq2, nelmt, cfg)
+    times, norms = [], []
+    with cfg.library_precision():
+        for label, fn, keys in variant_specs(data, cfg):
+            args = tuple(data[k] for k in keys)  # lazy derived layouts
+            t, norm = measure_checked(label, fn, args, cfg, reporter)
+            del args
+            times.append(t)
+            norms.append(norm)
+
+    if cfg.validate:
+        for msg in check_norm_agreement(LABELS, norms, default_rtol(cfg.dtype),
+                                        context=f"b05 nelmt={nelmt}"):
+            reporter.note("WARNING: " + msg)
+
+    nm = (nq0 - 1) * (nq1 - 1) * (nq2 - 1)
+    dofs = [1e-9 * nelmt * nm / t for t in times]
+    reporter.emit("nelmt", nelmt, LABELS, norms, dofs, "DOF/s")
+
+
+def main(argv=None):
+    from tpu_bench_torch.benchmarks import cli
+
+    parser = cli.build_parser(
+        "benchmark05",
+        positionals=[("nq0", 8), ("nq1", 8), ("nq2", 8), ("threads", None),
+                     ("elblocks", None)],
+    )
+    args = parser.parse_args(argv)
+    cfg = Config.from_flags(args)
+    if cfg.epb is None and args.threads and args.elblocks:
+        cfg.epb = args.threads * args.elblocks
+    nq0, nq1, nq2 = args.nq0, args.nq1, args.nq2
+    nm_tot = (nq0 - 1) * (nq1 - 1) * (nq2 - 1)
+    nq_tot = nq0 * nq1 * nq2
+    reporter = Reporter("Benchmark05 : BwdTrans (3D)")
+    reporter.sweep_title(f"BwdTrans (NQ = {nq0}, {nq1}, {nq2})")
+    cap = cfg.mem_cap_bytes
+    # residency: one input layout, two outputs (the timed one and the one
+    # being normed) and the two stage workspaces of the staged library
+    # columns
+    wsp = max((nq2 - 1) * (nq1 - 1) * nq0, (nq2 - 1) * nq1 * nq0)
+    with cli.profiled(args):
+        for nelmt in cli.sweep(128, 1048576, args):
+            need = (nm_tot + 2 * nq_tot + 2 * wsp) * nelmt * cfg.itemsize
+            if need > cap:
+                reporter.note(f"b05: stopping sweep at nelmt {nelmt} "
+                              "(memory cap)")
+                break
+            cli.guarded(reporter, "b05", nelmt, run_test, nelmt, nq0, nq1,
+                        nq2, cfg, reporter)
+
+
+if __name__ == "__main__":
+    main()

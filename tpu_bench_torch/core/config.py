@@ -1,0 +1,105 @@
+"""Run configuration shared by the benchmarks (port of
+tpu_bench/core/config.py).
+
+The reference suite configures runs through positional argv plus hard-coded
+sweep bounds; the benchmark CLIs keep that contract and gather everything
+else (dtype, repetition count, device, memory cap, block size) here.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+PRECISIONS = ("default", "highest")
+# Fraction of device memory a sweep size may use.
+MEM_FRACTION = 0.80
+
+
+def resolve_device(device) -> torch.device:
+    """The run's device.  A CUDA request without a CUDA device raises: a
+    run never moves to the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but "
+                           "torch.cuda.is_available() is False")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+@dataclasses.dataclass
+class Config:
+    """Knobs shared across benchmarks.
+
+    n_tests=40 and the min-of-N protocol mirror the reference harness
+    (benchmark01/benchmark01.cc:186, :208).  `epb` (elements per block, the
+    reference's threads*elblocks) is the block size of the fused QP kernel;
+    None takes the kernel's default.  `precision` governs the library tier
+    only: "highest" keeps float32 matmuls in full FP32 (TF32 off), "default"
+    lets cuBLAS/cuDNN use TF32.  The hand kernels always use FP32/FP64 FMA.
+    `flush_l2` overwrites the L2 cache between timed repetitions so working
+    sets that fit in L2 still report device-memory bandwidth.
+    """
+
+    dtype: torch.dtype = torch.float32
+    n_tests: int = 40
+    epb: Optional[int] = None
+    device: Union[str, torch.device] = "cuda"
+    precision: str = "highest"
+    validate: bool = True
+    flush_l2: bool = True
+
+    def __post_init__(self):
+        if self.dtype == torch.bfloat16:
+            raise NotImplementedError("bf16 is not ported yet "
+                                      "(ROADMAP Queue 1 item 5)")
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"unsupported dtype {self.dtype}")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision must be one of {PRECISIONS}")
+        self.device = resolve_device(self.device)
+
+    @property
+    def itemsize(self) -> int:
+        return self.dtype.itemsize
+
+    @property
+    def mem_cap_bytes(self) -> int:
+        if self.device.type == "cuda":
+            total = torch.cuda.mem_get_info(self.device)[1]
+        else:
+            total = 8 * 1024**3  # CPU runs: keep sweeps modest
+        return int(total * MEM_FRACTION)
+
+    @contextlib.contextmanager
+    def library_precision(self):
+        """Set the TF32 switches of cuBLAS and cuDNN for this run's
+        precision, and restore them on exit."""
+        tf32 = self.precision == "default"
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = saved
+
+    @classmethod
+    def from_flags(cls, args) -> "Config":
+        """Build from an argparse namespace produced by benchmarks.cli."""
+        return cls(
+            dtype=DTYPES[args.dtype],
+            n_tests=args.ntests,
+            epb=args.epb,
+            device=args.device,
+            precision=args.precision,
+            validate=not args.no_validate,
+            flush_l2=not args.l2_resident,
+        )

@@ -1,0 +1,81 @@
+"""Timing harness (port of the dispatch mode of tpu_bench/core/timing.py).
+
+Reference protocol (utils/timer.h:3-45 + benchmark01/benchmark01.cc:197-209):
+wall clock around each call, device synchronized before the clock stops,
+40 repetitions, the minimum kept.  Warm-up runs once outside the window.
+
+One addition: before each repetition, outside the timed window, the L2
+cache is overwritten (`L2Flush`), so a working set that fits in the
+card's L2 does not report L2 bandwidth where the reference measured device
+memory.  It is the analog of the JAX package's HBM-honest mode.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import torch
+
+
+class Timer:
+    """Stopwatch with the reference Timer's interface (utils/timer.h:3-45)."""
+
+    def __init__(self):
+        self._start = 0
+        self._stop = 0
+
+    def start(self) -> None:
+        self._start = time.perf_counter_ns()
+
+    def stop(self) -> None:
+        self._stop = time.perf_counter_ns()
+
+    def elapsed_seconds(self) -> float:
+        return (self._stop - self._start) * 1e-9
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class L2Flush:
+    """Overwrites a buffer of twice the card's L2 size; a no-op off CUDA."""
+
+    def __init__(self, device: torch.device):
+        self._buf = None
+        if device.type == "cuda":
+            l2 = torch.cuda.get_device_properties(device).L2_cache_size
+            self._buf = torch.empty(2 * l2, dtype=torch.uint8, device=device)
+
+    def __call__(self) -> None:
+        if self._buf is not None:
+            self._buf.zero_()
+
+
+def time_variant(step: Callable[[], object], n_tests: int,
+                 device: torch.device,
+                 flush: Optional[Callable[[], None]] = None) -> float:
+    """Minimum wall-clock seconds of `step` over n_tests calls, each
+    synchronized, after one untimed warm-up call."""
+    step()
+    synchronize(device)
+    timer = Timer()
+    best = float("inf")
+    for _ in range(n_tests):
+        if flush is not None:
+            flush()
+        synchronize(device)
+        timer.start()
+        step()
+        synchronize(device)
+        timer.stop()
+        best = min(best, timer.elapsed_seconds())
+    return best
+
+
+def measure(fn: Callable, args, cfg) -> float:
+    """Seconds of one application of fn(*args) under cfg's protocol."""
+    flush = L2Flush(cfg.device) if cfg.flush_l2 else None
+    return time_variant(lambda: fn(*args), cfg.n_tests, cfg.device, flush)

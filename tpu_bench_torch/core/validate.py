@@ -1,0 +1,77 @@
+"""Validation layer (port of tpu_bench/core/validate.py).
+
+The reference's correctness oracle is the side-by-side L2 norm of every
+variant's output: agreement across independent implementations of the same
+math.  The `norm:` log lines keep it, and check_norm_agreement asserts it.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+
+def l2norm(x: torch.Tensor) -> float:
+    """L2 norm on x's device, accumulated in f64."""
+    return float(torch.linalg.vector_norm(x.reshape(-1), dtype=torch.float64))
+
+
+def check_norm_agreement(labels: Sequence[str], norms: Sequence[float],
+                         rtol: float, context: str = "") -> list:
+    """All variant norms against the first finite one, to rtol.
+
+    Returns human-readable mismatch strings (empty = all agree).  NaN norms
+    mark variants that did not run (already reported) and are skipped; the
+    reference norm is the first non-NaN entry."""
+    ref_idx = next((i for i, n in enumerate(norms) if n == n), None)
+    if ref_idx is None:
+        return [f"{context}: no variant produced a norm; nothing validated"]
+    ref = norms[ref_idx]
+    scale = max(abs(ref), 1e-300)
+    mismatches = []
+    for label, n in zip(labels[ref_idx + 1:], norms[ref_idx + 1:]):
+        if n != n:
+            continue
+        if abs(n - ref) / scale > rtol:
+            mismatches.append(
+                f"{context} norm mismatch: {labels[ref_idx]}={ref!r} vs "
+                f"{label}={n!r} (rtol {rtol})")
+    return mismatches
+
+
+def fail_soft(label, reporter, thunk):
+    """Run thunk() -> (seconds, norm); a variant that raises reports
+    (inf, nan), a 0 in the throughput column, with a note on stderr, and
+    the rest of the row still runs.  Each distinct (variant, message) is
+    reported twice, the second time with a suppression notice, then
+    silenced."""
+    try:
+        return thunk()
+    except Exception as ex:  # fail-soft per variant, reported on stderr
+        first = str(ex).splitlines()[0][:300] if str(ex) else repr(ex)
+        seen = reporter.count_warning((label, first))
+        if seen == 1:
+            reporter.note(f"WARNING: variant {label} failed: {first}")
+        elif seen == 2:
+            reporter.note(f"WARNING: variant {label} failed again with the "
+                          "same error; suppressing identical repeats")
+        return math.inf, math.nan
+
+
+def measure_checked(label, fn, args, cfg, reporter):
+    """(seconds, norm) of one variant via fail_soft: the timed calls, then
+    one more call whose output gives the norm."""
+    from tpu_bench_torch.core.timing import measure
+
+    def thunk():
+        t = measure(fn, args, cfg)
+        return t, l2norm(fn(*args))
+
+    return fail_soft(label, reporter, thunk)
+
+
+def default_rtol(dtype) -> float:
+    """Cross-variant tolerance per dtype: f64 1e-10, f32 5e-4."""
+    return 1e-10 if dtype == torch.float64 else 5e-4

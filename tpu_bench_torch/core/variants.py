@@ -1,0 +1,40 @@
+"""One variant convention for the benchmarks (port of
+tpu_bench/core/variants.py).
+
+Each benchmark module defines
+
+    variant_specs(data, cfg) -> ordered list of (label, fn, operand_keys)
+
+the analog of the reference's run_test<T> body timing several
+implementations of the same math in sequence.  The ordered labels are the
+Case-line columns the postprocess scripts read.  operand_keys resolve
+through a Layouts, so each layout of the element stream is built fresh for
+the one variant that uses it and dropped afterwards.
+"""
+
+from __future__ import annotations
+
+
+class Layouts:
+    """Operand mapping with lazy derived layouts.
+
+    Canonical tensors (bases, operators, knobs) are stored; derived layouts
+    of the element stream are materialized fresh on each [] access and owned
+    by the caller, so at most one derived copy of the stream is resident
+    beside the canonicals."""
+
+    def __init__(self, base: dict, derived: dict):
+        self._base = dict(base)
+        self._derived = dict(derived)
+
+    def __getitem__(self, key):
+        if key in self._base:
+            return self._base[key]
+        return self._derived[key]()
+
+
+def materialize(specs, data):
+    """(label, fn, args) with every operand resolved up front: a test-suite
+    and small-size convenience.  Sweeps resolve keys per variant instead."""
+    return [(label, fn, tuple(data[k] for k in keys))
+            for label, fn, keys in specs]

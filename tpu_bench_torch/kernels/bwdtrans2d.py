@@ -1,0 +1,76 @@
+"""K2: the dense kron-operator GEMM over element chunks, benchmark05's
+Pallas(Coales) column.
+
+Port of tpu_bench/kernels/bwdtrans2d.py:kron_blocked:
+
+    out[b] = C @ in[b]    in (nblk, nmTot, ce), C (nqTot, nmTot)
+                          -> out (nblk, nqTot, ce)
+
+A tensor on the CPU goes to the plain PyTorch version in this module; a
+tensor on a CUDA device goes to the kernel (csrc/bwdtrans2d.cu), which
+raises rather than fall back when it cannot run.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_bench_torch.kernels import build
+
+_GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
+_BN = 128             # output tile width of the kernel (csrc/bwdtrans2d.cu)
+
+launches = 0  # K2 launches on a CUDA device
+
+
+def kron_blocked_plain(in_blk, c_coa):
+    """Plain PyTorch version of kron_blocked."""
+    return torch.matmul(c_coa, in_blk)
+
+
+def kron_blocked(in_blk, c_coa):
+    """out (nblk, nqTot, ce) = C (nqTot, nmTot) @ in (nblk, nmTot, ce)."""
+    _check(in_blk, c_coa)
+    if in_blk.device.type == "cpu":
+        return kron_blocked_plain(in_blk, c_coa)
+    if in_blk.device.type != "cuda":
+        raise ValueError(f"kron_blocked: no kernel for device {in_blk.device}")
+    return _launch(in_blk, c_coa)
+
+
+def _check(x, c):
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError("kron_blocked: bf16 is not ported yet "
+                                  "(ROADMAP Queue 1 item 5)")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kron_blocked: dtype {x.dtype} is not supported")
+    if c.dtype != x.dtype:
+        raise TypeError("kron_blocked: in and C must share one dtype")
+    if c.device != x.device:
+        raise ValueError("kron_blocked: in and C must share one device")
+    if x.dim() != 3 or c.dim() != 2 or c.shape[1] != x.shape[1]:
+        raise ValueError(f"kron_blocked: in {tuple(x.shape)} and C "
+                         f"{tuple(c.shape)} are not (nblk, nmTot, ce) and "
+                         "(nqTot, nmTot)")
+    if not (x.is_contiguous() and c.is_contiguous()):
+        raise ValueError("kron_blocked: in and C must be contiguous")
+
+
+def _launch(x, c):
+    global launches
+    nblk, nm_tot, ce = x.shape
+    nq_tot = c.shape[0]
+    if nblk > _GRID_YZ_MAX or -(-ce // _BN) > _GRID_YZ_MAX:
+        raise ValueError(f"kron_blocked: {nblk} chunks of {ce} elements "
+                         "exceed the kernel's grid")
+    out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
+    lib = build.library()
+    fn = (lib.tbt_kron_blocked_f32 if x.dtype == torch.float32
+          else lib.tbt_kron_blocked_f64)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(c.data_ptr(), x.data_ptr(), out.data_ptr(), nq_tot, nm_tot,
+                 ce, nblk, stream)
+    build.check(err, "kron_blocked")
+    launches += 1
+    return out

@@ -1,0 +1,132 @@
+"""3D tensor-product sum-factorization ("BwdTrans") machinery for
+benchmark05 (port of the 3D half of tpu_bench/ops/bwdtrans.py).
+
+Math (reference benchmark05/benchmark05.cc:695-740):
+
+    out[e, k, j, i] = sum_{r, q, p} in[e, r, q, p] * B0[p, i] * B1[q, j] * B2[r, k]
+
+with nm_d = nq_d - 1 modes per direction, element data
+in[e, (r, q, p)] = sin(flat + 1) (the same for every element) and basis
+B_d[m, n] = cos(m*nq_d + n).  Array layouts are the JAX package's, so the
+two packages' functions take and return the same shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tpu_bench.utils import native
+from tpu_bench_torch.ops import initdata
+
+
+@dataclasses.dataclass
+class Basis3D:
+    nq0: int
+    nq1: int
+    nq2: int
+    b0: torch.Tensor  # (nm0, nq0)
+    b1: torch.Tensor  # (nm1, nq1)
+    b2: torch.Tensor  # (nm2, nq2)
+
+    @property
+    def nm0(self):
+        return self.nq0 - 1
+
+    @property
+    def nm1(self):
+        return self.nq1 - 1
+
+    @property
+    def nm2(self):
+        return self.nq2 - 1
+
+    @property
+    def nm_tot(self):
+        return self.nm0 * self.nm1 * self.nm2
+
+    @property
+    def nq_tot(self):
+        return self.nq0 * self.nq1 * self.nq2
+
+
+def make_basis3d(nq0: int, nq1: int, nq2: int, dtype, device) -> Basis3D:
+    return Basis3D(
+        nq0=nq0, nq1=nq1, nq2=nq2,
+        b0=initdata.host_basis_cos(nq0 - 1, nq0, dtype, device),
+        b1=initdata.host_basis_cos(nq1 - 1, nq1, dtype, device),
+        b2=initdata.host_basis_cos(nq2 - 1, nq2, dtype, device),
+    )
+
+
+def element_data3d(basis: Basis3D, dtype) -> torch.Tensor:
+    """One element's mode coefficients, flat (nmTot,) with rows (r, q, p)
+    p-minor: sin(flat + 1), on the basis's device."""
+    elem = native.init_sin1(basis.nm_tot)
+    return torch.from_numpy(elem).to(device=basis.b0.device, dtype=dtype)
+
+
+def operators3d(basis: Basis3D):
+    """Operator matrices of the live benchmark05 columns.
+
+    c_em3:  kron(B2, B1, B0)   (nmTot, nqTot)      single-GEMM form
+    c12t:   kron(B2^T, B1^T)   (nq2*nq1, nm2*nm1)  pair stage of the fused
+                                                   sum-factorization kernel
+    """
+    b0, b1, b2 = basis.b0, basis.b1, basis.b2
+    c_em3 = torch.kron(b2, torch.kron(b1, b0))
+    c12t = torch.kron(b2.T.contiguous(), b1.T.contiguous())
+    return c_em3, c12t
+
+
+def stream_sources(elem_flat, nm_shape, nelmt: int, e_pad: int, dtype):
+    """Builders of the element stream in each layout, each materializing a
+    fresh contiguous tensor from the per-element coefficient vector, so a
+    sweep holds one layout at a time.  Elements past nelmt are zero.
+
+    nm_shape is (nm2, nm1, nm0).  Builders:
+      em2        (E, nmTot)           element-major
+      coa        (nmTot, E)           coalesced (element index fastest)
+      pcoa3      (nm0, rest, E)       p-major coalesced (fused QP kernel)
+      blk(ce)    (E/ce, nmTot, ce)    chunk-interleaved coalesced
+    """
+    nm_shape = tuple(int(n) for n in nm_shape)
+    nm0 = nm_shape[-1]
+    nm_tot = int(np.prod(nm_shape))
+    elem = elem_flat.to(dtype)
+    live = (torch.arange(e_pad, device=elem.device) < nelmt).to(dtype)
+
+    def em2():
+        return elem[None, :] * live[:, None]
+
+    def coa():
+        return elem[:, None] * live[None, :]
+
+    def pcoa3():
+        ep = elem.reshape(nm_tot // nm0, nm0).T  # (nm0, rest)
+        return ep[:, :, None] * live
+
+    def blk(ce):
+        return elem[None, :, None] * live.reshape(e_pad // ce, 1, ce)
+
+    return dict(em2=em2, coa=coa, pcoa3=pcoa3, blk=blk)
+
+
+def blocked_coa(in_coa: torch.Tensor, ce: int) -> torch.Tensor:
+    """Chunk-interleave the coalesced layout: (nmTot, E) -> (E/ce, nmTot, ce),
+    so each ce-element chunk's modes are one contiguous region."""
+    nm_tot, e = in_coa.shape
+    return in_coa.reshape(nm_tot, e // ce, ce).permute(1, 0, 2).contiguous()
+
+
+def reference3d(basis: Basis3D, nelmt: int) -> np.ndarray:
+    """f64 oracle out (nelmt, nq2, nq1, nq0), from the host formulas."""
+    elem = native.init_sin1(basis.nm_tot)
+    inp = np.broadcast_to(elem, (nelmt, basis.nm_tot)).reshape(
+        nelmt, basis.nm2, basis.nm1, basis.nm0)
+    b0 = native.init_cos(basis.nm0 * basis.nq0).reshape(basis.nm0, basis.nq0)
+    b1 = native.init_cos(basis.nm1 * basis.nq1).reshape(basis.nm1, basis.nq1)
+    b2 = native.init_cos(basis.nm2 * basis.nq2).reshape(basis.nm2, basis.nq2)
+    return native.bwdtrans3d_ref(inp, b0, b1, b2)
