@@ -1,6 +1,6 @@
-"""The port's benchmark05 on the CPU: every live column against the f64
-oracle, the reference log's golden norm, f32 cross-column agreement, the
-CLI's log through postprocess/common.py, and the headline entry point."""
+"""The port's benchmark05 on the CPU: every column against the f64 oracle,
+the reference log's golden norm, f32 cross-column agreement, the CLI's log
+through postprocess/common.py, and the headline entry point."""
 
 import contextlib
 import io
@@ -19,8 +19,7 @@ from tpu_bench_torch.core.validate import l2norm
 from tpu_bench_torch.ops import bwdtrans
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIVE = {"XLA(Uncoales)", "XLA(Coales)", "XLA(QP)", "XLA(QP/DG)", "XLA(GEMM)",
-        "Pallas(Coales)", "Pallas(QP/Shared)"}
+LIVE = set(b05.LABELS)
 
 
 def _cfg(dtype):
@@ -28,14 +27,9 @@ def _cfg(dtype):
 
 
 def _live_norms(data, cfg):
-    norms = {}
-    for label, fn, args in b05.build_variants(data, cfg):
-        if label in LIVE:
-            norms[label] = l2norm(fn(*args))
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-                fn(*args)
-    assert set(norms) == LIVE
+    norms = {label: l2norm(fn(*args))
+             for label, fn, args in b05.build_variants(data, cfg)}
+    assert set(norms) == LIVE and len(LIVE) == 11
     return norms
 
 

@@ -1,6 +1,7 @@
-"""The port's kron_blocked (tpu_bench_torch.kernels.bwdtrans2d) against the
-JAX package's Pallas kron_blocked in interpret mode, on the nq=4^3 and
-nq=8^3 kron operators and numpy-seeded random per-element inputs."""
+"""The port's kron_blocked and kron_elem_major
+(tpu_bench_torch.kernels.bwdtrans2d) against the JAX package's Pallas
+kernels in interpret mode, on kron and random dense operators and
+numpy-seeded random per-element inputs."""
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,39 @@ def test_kron_blocked_matches_jax(nq, dtype, rtol):
     assert out.shape == (NBLK, nq ** 3, CE)
     np.testing.assert_allclose(out, ref, rtol=rtol,
                                atol=rtol * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-5),
+                                        (np.float64, 1e-12)])
+@pytest.mark.parametrize("nq", [(4, 4, 4), (8, 8, 8), (3, 4, 5)])
+def test_kron_elem_major_matches_jax(nq, dtype, rtol):
+    """Random dense C_em of the (nmTot, nqTot) shape at order nq."""
+    nm_tot = int(np.prod([n - 1 for n in nq]))
+    rng = np.random.default_rng(sum(nq))
+    x = rng.standard_normal((2 * CE, nm_tot)).astype(dtype)
+    c = rng.standard_normal((nm_tot, int(np.prod(nq)))).astype(dtype)
+    ref = np.asarray(pl_bt2d.kron_elem_major(
+        jnp.asarray(x), jnp.asarray(c), epb=CE, interpret=True,
+        precision=jax.lax.Precision.HIGHEST))
+    out = k2.kron_elem_major(torch.from_numpy(x), torch.from_numpy(c),
+                             epb=CE).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+
+
+def test_em_gemm_rejects_bad_input():
+    x, s = torch.zeros(CE, 27), torch.zeros(27, 64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k2.kron_elem_major(x.bfloat16(), s.bfloat16())
+    with pytest.raises(ValueError, match="are not"):
+        k2.one_stage_em(x, s.T.contiguous())
+    with pytest.raises(TypeError):
+        k2.one_stage_em(x, s.double())
+    with pytest.raises(ValueError, match="elements per"):
+        k2.kron_elem_major(x, s, epb=256)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k2.one_stage_em(x.to("meta"), s.to("meta"))
 
 
 def test_kron_blocked_rejects_bad_input():

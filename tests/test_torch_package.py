@@ -1,6 +1,7 @@
-"""Package rules of the PyTorch/CUDA port: no JAX import, no silent move to
-the CPU, the nvcc build names only the package's own sources for sm_90a,
-and (on a CUDA card only) each kernel against its plain version."""
+"""Package rules of the PyTorch/CUDA port: no import of JAX or of the JAX
+package, no silent move to the CPU, the nvcc build names only the package's
+own sources for sm_90a, and (on a CUDA card only) each kernel against its
+plain version."""
 
 import os
 import shutil
@@ -24,13 +25,18 @@ names = [m.name for m in pkgutil.walk_packages(tpu_bench_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 16, names
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert len(names) >= 18, names
+foreign = sorted(m for m in sys.modules
+                 if m.startswith("jax") or m == "tpu_bench"
+                 or m.startswith("tpu_bench."))
+assert not foreign, foreign
 print(len(names))
 """
 
 
 def test_port_imports_no_jax():
+    """Every module of the port and chip_smoke import neither jax* nor any
+    module of the JAX package tpu_bench."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=120, env=env)
@@ -50,11 +56,21 @@ def test_bf16_config_names_roadmap_item():
 
 
 def test_nvcc_command_builds_package_sources_for_sm90a():
-    cmd = build.nvcc_command(Path("/nonexistent/lib.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    sources = [Path(a) for a in cmd if a.endswith((".cu", ".cuh"))]
-    assert {p.name for p in sources} == {"bwdtrans2d.cu", "bwdtrans3d.cu"}
+    """One nvcc per source, each for sm_90a, then one link of their
+    objects into the library."""
+    output = Path("/nonexistent/lib.so")
+    compiles, link = build.nvcc_commands(output)
+    sources = [Path(a) for cmd in compiles for a in cmd
+               if a.endswith((".cu", ".cuh"))]
+    assert {p.name for p in sources} == {"bwdtrans2d.cu", "bwdtrans3d.cu",
+                                         "qp1d_fused3d.cu"}
+    assert len(compiles) == len(sources)
     assert all(p.parent == build.CSRC_DIR for p in sources)
+    for cmd in (*compiles, link):
+        assert "arch=compute_90a,code=sm_90a" in cmd
+    objects = [cmd[cmd.index("-o") + 1] for cmd in compiles]
+    assert "-shared" in link and link[link.index("-o") + 1] == str(output)
+    assert link[-len(objects):] == objects
     assert build.library_path().parent == build.BUILD_DIR
 
 
@@ -68,26 +84,44 @@ def test_chip_smoke_alone_fails(tmp_path):
     assert '"ok"' not in r.stdout
 
 
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _kernel_cases(rnd):
+    """{kernel: (wrapper call, plain call)} at nq=8^3 shapes, E=1000."""
     from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
+    x, b0, c12t, c = rnd(7, 49, 1000), rnd(7, 8), rnd(64, 49), rnd(512, 343)
+    xb, w, em = rnd(2, 343, 1000), rnd(7, 64, 1000), rnd(1000, 343)
+    s = (rnd(343, 392), rnd(392, 448), rnd(448, 512))
+    c_em = rnd(343, 512)
+    return {
+        "qp_fused3d": (lambda: k1.qp_shared3d(x, b0, c12t),
+                       lambda: k1.qp_shared3d_plain(x, b0, c12t)),
+        "kron_blocked": (lambda: k2.kron_blocked(xb, c),
+                         lambda: k2.kron_blocked_plain(xb, c)),
+        "em_gemm": (lambda: k2.kron_elem_major(em, c_em),
+                    lambda: k2.kron_elem_major_plain(em, c_em)),
+        "qp_stage2_3d": (lambda: k1.qp_stage2_3d(w, b0),
+                         lambda: k1.qp_stage2_3d_plain(w, b0)),
+        "qp1d_fused3d": (lambda: k1.qp1d_shared3d(em, *s),
+                         lambda: k1.qp1d3d_plain(em, *s)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["qp_fused3d", "kron_blocked", "em_gemm",
+                                    "qp_stage2_3d", "qp1d_fused3d"])
+def test_kernels_match_plain_on_card(kernel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",
                                dtype=dtype)
 
-        x, b0, c12t, c = rnd(7, 49, 1000), rnd(7, 8), rnd(64, 49), rnd(512, 343)
-        before = (k1.launches, k2.launches)
-        out = k1.qp_shared3d(x, b0, c12t)
-        ref = k1.qp_shared3d_plain(x, b0, c12t)
+        run, plain = _kernel_cases(rnd)[kernel]
+        before = build.launches[kernel]
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
         assert float((out - ref).abs().max() / ref.abs().max()) <= tol
-        xb = rnd(2, 343, 1000)
-        out = k2.kron_blocked(xb, c)
-        ref = k2.kron_blocked_plain(xb, c)
-        assert float((out - ref).abs().max() / ref.abs().max()) <= tol
-        assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
+        assert build.launches[kernel] == before + 1

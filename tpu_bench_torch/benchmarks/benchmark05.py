@@ -5,12 +5,13 @@ Reference: benchmark05/benchmark05.cc (harness :619-1421, CLI :1423-1442:
 `nq0 nq1 nq2 threads elblocks`).  Eleven columns; GDOF/s counts input DOFs:
 1e-9*nelmt*nm0*nm1*nm2/t (:1407-1419).  Sweep: nelmt = 128 .. 1,048,576.
 
-Seven columns are live: the five library columns (torch.einsum / matmul),
-Pallas(Coales) through the hand kernel K2 (kernels/bwdtrans2d.py) and
-Pallas(QP/Shared) through K1 (kernels/bwdtrans3d.py).  The four other
-hand-kernel columns raise NotImplementedError, which fail_soft reports on
-stderr and logs as a 0 column, as the reference format allows.  The column
-labels keep the reference names so postprocess/ reads the log unchanged.
+All eleven columns are live: the five library columns (torch.einsum /
+matmul) and six hand columns through the port's CUDA kernels:
+Pallas(Uncoales) K3, Pallas(Coales) K2, Pallas(QP) K2 + K4,
+Pallas(QP/Shared) K1, Pallas(QP-1D) three K3 launches and
+Pallas(QP-1D/Shared) K5 (kernels/bwdtrans2d.py, kernels/bwdtrans3d.py).
+The column labels keep the reference names so postprocess/ reads the log
+unchanged.
 
     python -m tpu_bench_torch.benchmarks.benchmark05 8 8 8 [--device cuda]
 """
@@ -44,13 +45,6 @@ LABELS = [
 KRON_CHUNK = 8192
 
 
-def _not_ported(label: str, item: int):
-    def fn(*_):
-        raise NotImplementedError(
-            f"{label} not yet ported: ROADMAP Queue 2 item {item}")
-    return fn
-
-
 def kron_chunk(e_pad: int) -> int:
     """Largest power-of-two chunk width <= KRON_CHUNK dividing e_pad."""
     ce = 128
@@ -72,12 +66,14 @@ def variant_specs(data, cfg):
         ("XLA(QP)", lib_bt.staged_em, ("in_em4", "b0", "b1", "b2")),
         ("XLA(QP/DG)", lib_bt.staged_dotgeneral, ("in_em4", "b0", "b1", "b2")),
         ("XLA(GEMM)", lib_bt.gemm_kron, ("in_coa", "c_coa3")),
-        ("Pallas(Uncoales)", _not_ported("Pallas(Uncoales)", 6), ()),
+        ("Pallas(Uncoales)", k2.kron_elem_major, ("in_em2", "c_em3")),
         ("Pallas(Coales)", k2.kron_blocked, ("in_blk", "c_coa3")),
-        ("Pallas(QP)", _not_ported("Pallas(QP)", 3), ()),
+        ("Pallas(QP)", k1.qp_global3d, ("in_pcoa3", "b0", "c12t")),
         ("Pallas(QP/Shared)", qp, ("in_pflat", "b0", "c12t")),
-        ("Pallas(QP-1D)", _not_ported("Pallas(QP-1D)", 5), ()),
-        ("Pallas(QP-1D/Shared)", _not_ported("Pallas(QP-1D/Shared)", 4), ()),
+        ("Pallas(QP-1D)", k1.qp1d_global3d,
+         ("in_em2", "s1_em", "s2_em", "s3_em")),
+        ("Pallas(QP-1D/Shared)", k1.qp1d_shared3d,
+         ("in_em2", "s1_em", "s2_em", "s3_em")),
     ]
 
 
@@ -94,7 +90,7 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
     nm_tot = basis.nm_tot
     src = bwdtrans.stream_sources(bwdtrans.element_data3d(basis, cfg.dtype),
                                   (nm2, nm1, nm0), nelmt, e_pad, cfg.dtype)
-    c_em3, c12t = bwdtrans.operators3d(basis)
+    c_em3, c12t, s1_em, s2_em, s3_em = bwdtrans.operators3d(basis)
     ce = kron_chunk(e_pad)
     return Layouts(
         base=dict(
@@ -107,10 +103,12 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
             c12t=c12t,
             c_em3=c_em3,
             c_coa3=c_em3.T.contiguous(),
+            s1_em=s1_em, s2_em=s2_em, s3_em=s3_em,
         ),
         # every layout of the element stream is built fresh from the
         # coefficient vector, one at a time
         derived=dict(
+            in_em2=src["em2"],
             in_coa=src["coa"],
             in_em4=lambda: src["em2"]().reshape(e_pad, nm2, nm1, nm0),
             in_coa4=lambda: src["coa"]().reshape(nm2, nm1, nm0, e_pad),
@@ -163,8 +161,10 @@ def main(argv=None):
     reporter.sweep_title(f"BwdTrans (NQ = {nq0}, {nq1}, {nq2})")
     cap = cfg.mem_cap_bytes
     # residency: one input layout, two outputs (the timed one and the one
-    # being normed) and the two stage workspaces of the staged library
-    # columns
+    # being normed) and two stage workspaces.  That bounds every column:
+    # the staged library columns and Pallas(QP-1D) hold two workspaces
+    # (Pallas(QP-1D) nm2*nm1*nq0 and nm2*nq1*nq0 per element, at most wsp
+    # each) beside one output; Pallas(QP) holds one, nm0*nq1*nq2 < nqTot.
     wsp = max((nq2 - 1) * (nq1 - 1) * nq0, (nq2 - 1) * nq1 * nq0)
     with cli.profiled(args):
         for nelmt in cli.sweep(128, 1048576, args):

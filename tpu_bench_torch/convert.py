@@ -12,8 +12,9 @@ import numpy as np
 import torch
 
 # The b05 operands whose layout the two packages share.
-KEYS = ("b0", "b1", "b2", "c12t", "c_coa3", "in_pcoa3", "in_pflat", "in_blk",
-        "in_coa", "in_em4", "in_coa4")
+KEYS = ("b0", "b1", "b2", "c12t", "c_em3", "c_coa3", "s1_em", "s2_em",
+        "s3_em", "in_em2", "in_pcoa3", "in_pflat", "in_blk", "in_coa", "in_em4",
+        "in_coa4")
 
 
 def data_from_numpy(arrays: dict, *, device, dtype) -> dict:

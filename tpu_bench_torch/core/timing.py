@@ -75,6 +75,26 @@ def time_variant(step: Callable[[], object], n_tests: int,
     return best
 
 
+def event_ms(fn: Callable[[], object], reps: int = 20) -> float:
+    """Least device time in ms of one fn() on the current CUDA device, by
+    CUDA events around each call, the L2 flushed before each, after one
+    untimed call."""
+    flush = L2Flush(torch.device("cuda"))
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop))
+    return best
+
+
 def measure(fn: Callable, args, cfg) -> float:
     """Seconds of one application of fn(*args) under cfg's protocol."""
     flush = L2Flush(cfg.device) if cfg.flush_l2 else None

@@ -1,4 +1,5 @@
-// K1 qp_fused3d: the fused 3D sum-factorization of benchmark05's BwdTrans.
+// K1 qp_fused3d: the fused 3D sum-factorization of benchmark05's BwdTrans,
+// and K4 qp_stage2_3d (below): stage 2 of its two-kernel form.
 //
 // Replaces the Pallas kernels tpu_bench/kernels/bwdtrans3d.py:qp_shared3d
 // (_qp_fused_kernel3d) and qp_shared3d_flat (_qp_fused_flat_kernel3d).  Both
@@ -140,7 +141,85 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
     return cudaErrorInvalidValue;
 }
 
+// K4 qp_stage2_3d: stage 2 of benchmark05's Pallas(QP) column.
+//
+// Replaces tpu_bench/kernels/bwdtrans3d.py:qp_global3d's second
+// pallas_call (_stage2_kernel3d), the p contraction of the workspace that
+// stage 1 (K2, w[p] = C12T @ in[p]) left in device memory:
+//
+//   out[i*nkj + kj, e] = sum_p B0[p, i] * w[p*nkj + kj, e]
+//
+// with w (nm0, nkj, E) and out (nq0, nkj, E), element index fastest.
+//
+// What bounds it on an H100: memory.  Each (kj, e) reads nm0 values and
+// writes nq0 (7 and 8 at nq=8^3) for 2*nm0*nq0 FLOP, under 2 FLOP per byte.
+// So one thread owns one (kj, e): elements along threadIdx.x (coalesced,
+// ragged edge masked), kj on blockIdx.y; its nm0 workspace values are read
+// once into registers (unrolled to MAXP with a run-time guard) and B0 sits
+// in shared memory, where every thread reads the same address (broadcast).
+constexpr int QP2_MAXP = 16;
+constexpr int QP2_MAX_THREADS = 512;
+
+template <typename T>
+__global__ void __launch_bounds__(QP2_MAX_THREADS) qp_stage2_3d_kernel(const T* __restrict__ w,
+                                    const T* __restrict__ b0,
+                                    T* __restrict__ out, int nm0, int nq0,
+                                    int nkj, long long n_elem) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s_b0 = reinterpret_cast<T*>(smem_raw);  // (nm0, nq0)
+    for (int t = threadIdx.x; t < nm0 * nq0; t += blockDim.x) s_b0[t] = b0[t];
+    __syncthreads();
+
+    const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                        threadIdx.x;
+    if (e >= n_elem) return;
+    const long long kj = blockIdx.y;
+    T v[QP2_MAXP];
+#pragma unroll
+    for (int p = 0; p < QP2_MAXP; ++p)
+        v[p] = p < nm0 ? __ldg(w + (p * nkj + kj) * n_elem + e) : T(0);
+    for (int i = 0; i < nq0; ++i) {
+        T acc = T(0);
+#pragma unroll
+        for (int p = 0; p < QP2_MAXP; ++p)
+            if (p < nm0) acc = fma(s_b0[p * nq0 + i], v[p], acc);
+        out[(i * nkj + kj) * n_elem + e] = acc;
+    }
+}
+
+template <typename T>
+int launch_qp_stage2(const T* w, const T* b0, T* out, int nm0, int nq0,
+                     int nkj, long long n_elem, int epb,
+                     cudaStream_t stream) {
+    if (n_elem <= 0 || nkj <= 0) return cudaSuccess;
+    if (nm0 > QP2_MAXP || nkj > 65535 || epb > QP2_MAX_THREADS)
+        return cudaErrorInvalidValue;
+    const size_t smem = sizeof(T) * static_cast<size_t>(nm0 * nq0);
+    const dim3 grid(static_cast<unsigned>((n_elem + epb - 1) / epb), nkj);
+    qp_stage2_3d_kernel<T><<<grid, epb, smem, stream>>>(w, b0, out, nm0, nq0,
+                                                        nkj, n_elem);
+    return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int tbt_qp_stage2_3d_f32(const void* w, const void* b0, void* out,
+                                    int nm0, int nq0, int nkj,
+                                    long long n_elem, int epb, void* stream) {
+    return launch_qp_stage2(static_cast<const float*>(w),
+                            static_cast<const float*>(b0),
+                            static_cast<float*>(out), nm0, nq0, nkj, n_elem,
+                            epb, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_qp_stage2_3d_f64(const void* w, const void* b0, void* out,
+                                    int nm0, int nq0, int nkj,
+                                    long long n_elem, int epb, void* stream) {
+    return launch_qp_stage2(static_cast<const double*>(w),
+                            static_cast<const double*>(b0),
+                            static_cast<double*>(out), nm0, nq0, nkj, n_elem,
+                            epb, static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int tbt_qp_fused3d_f32(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,

@@ -1,10 +1,16 @@
-"""K2: the dense kron-operator GEMM over element chunks, benchmark05's
-Pallas(Coales) column.
+"""K2 and K3: the dense GEMMs over the element stream.
 
-Port of tpu_bench/kernels/bwdtrans2d.py:kron_blocked:
+K2, benchmark05's Pallas(Coales) column and stage 1 of Pallas(QP), is the
+port of tpu_bench/kernels/bwdtrans2d.py:kron_blocked:
 
     out[b] = C @ in[b]    in (nblk, nmTot, ce), C (nqTot, nmTot)
                           -> out (nblk, nqTot, ce)
+
+K3 (em_gemm), benchmark05's Pallas(Uncoales) column and the three stages
+of Pallas(QP-1D), is the port of kron_elem_major and _one_stage_em, the
+element-major product with elements on rows:
+
+    out (E, N) = in (E, K) @ S (K, N)
 
 A tensor on the CPU goes to the plain PyTorch version in this module; a
 tensor on a CUDA device goes to the kernel (csrc/bwdtrans2d.cu), which
@@ -19,8 +25,7 @@ from tpu_bench_torch.kernels import build
 
 _GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
 _BN = 128             # output tile width of the kernel (csrc/bwdtrans2d.cu)
-
-launches = 0  # K2 launches on a CUDA device
+EM_TILE = 128         # K3's element rows per block: the tile height BM
 
 
 def kron_blocked_plain(in_blk, c_coa):
@@ -57,7 +62,6 @@ def _check(x, c):
 
 
 def _launch(x, c):
-    global launches
     nblk, nm_tot, ce = x.shape
     nq_tot = c.shape[0]
     if nblk > _GRID_YZ_MAX or -(-ce // _BN) > _GRID_YZ_MAX:
@@ -71,6 +75,42 @@ def _launch(x, c):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(c.data_ptr(), x.data_ptr(), out.data_ptr(), nq_tot, nm_tot,
                  ce, nblk, stream)
-    build.check(err, "kron_blocked")
-    launches += 1
+    build.launched(err, "kron_blocked")
+    return out
+
+
+def kron_elem_major_plain(in_em2, c_em):
+    """Plain PyTorch version of kron_elem_major and one_stage_em."""
+    return torch.matmul(in_em2, c_em)
+
+
+def kron_elem_major(in_em2, c_em, *, epb=None):
+    """out (E, nqTot) = in (E, nmTot) @ C_em (nmTot, nqTot).  `epb`, the
+    elements per block, is the kernel's tile height: None or EM_TILE."""
+    return _em_gemm("kron_elem_major", in_em2, c_em, epb)
+
+
+def one_stage_em(x, s, *, epb=None):
+    """One element-major stage, out (E, N) = x (E, K) @ s (K, N)."""
+    return _em_gemm("one_stage_em", x, s, epb)
+
+
+def _em_gemm(name, x, s, epb):
+    build.check_operands(name, (x, s))
+    if x.dim() != 2 or s.dim() != 2 or s.shape[0] != x.shape[1]:
+        raise ValueError(f"{name}: in {tuple(x.shape)} and S "
+                         f"{tuple(s.shape)} are not (E, K) and (K, N)")
+    if epb not in (None, EM_TILE):
+        raise ValueError(f"{name}: the kernel tiles {EM_TILE} elements per "
+                         f"block, not epb={epb}")
+    if x.device.type == "cpu":
+        return kron_elem_major_plain(x, s)
+    e, k = x.shape
+    n = s.shape[1]
+    if max(e, k, n) >= 2**31:
+        raise ValueError(f"{name}: {tuple(x.shape)} @ {tuple(s.shape)} "
+                         "exceeds the kernel's 32-bit extents")
+    out = torch.empty((e, n), dtype=x.dtype, device=x.device)
+    build.run("em_gemm", x, x.data_ptr(), s.data_ptr(), out.data_ptr(), e, k,
+              n)
     return out

@@ -1,7 +1,7 @@
-"""K1: the fused 3D sum-factorization, benchmark05's Pallas(QP/Shared) column.
+"""The 3D QP kernels of benchmark05 (port of tpu_bench/kernels/bwdtrans3d.py).
 
-Port of tpu_bench/kernels/bwdtrans3d.py:qp_shared3d and qp_shared3d_flat.
-Both compute, for every element e and output plane i,
+K1 (qp_fused3d), the Pallas(QP/Shared) column, ports qp_shared3d and
+qp_shared3d_flat.  Both compute, for every element e and output plane i,
 
     out[i] = C12T @ (sum_p B0[p, i] * in[p])
 
@@ -9,6 +9,16 @@ with the p-major coalesced input (nm0, nrq, E), nrq = nm2*nm1, and the
 i-major output (nq0, nkj, E), nkj = nq2*nq1.  The flat wrapper takes the
 same bytes viewed as (nm0*nrq, E) and returns (nq0*nkj, E), so one CUDA
 kernel (csrc/bwdtrans3d.cu) serves both.
+
+qp_global3d, the Pallas(QP) column, is the same contraction in two kernels
+with the workspace w (nm0, nkj, E) in device memory: K2 (kernels/
+bwdtrans2d.py) for w[p] = C12T @ in[p], then K4 (qp_stage2_3d,
+csrc/bwdtrans3d.cu) for out[i] = sum_p B0[p, i] * w[p].
+
+qp1d_shared3d (K5, qp1d_fused3d, csrc/qp1d_fused3d.cu), the
+Pallas(QP-1D/Shared) column, and qp1d_global3d (three K3 launches), the
+Pallas(QP-1D) column, compute the element-major chain
+out (E, nqTot) = ((in (E, nmTot) @ S1) @ S2) @ S3.
 
 A tensor on the CPU goes to the plain PyTorch version in this module; a
 tensor on a CUDA device goes to the kernel, which raises rather than fall
@@ -19,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import build
 
 # Elements (= threads) per block.  A tuning knob only: the kernel masks the
@@ -29,8 +40,18 @@ from tpu_bench_torch.kernels import build
 EPB = 128
 # Largest nm2*nm1 the kernel keeps in registers (nq=10 isotropic).
 MAX_NRQ = 81
-
-launches = 0  # K1 launches on a CUDA device
+# K4: elements (= threads) per block; the largest block it is built for
+# and the largest nm0 it keeps in registers (csrc/bwdtrans3d.cu
+# QP2_MAX_THREADS, QP2_MAXP).  On the H100 at E=131072, 128 timed within
+# 2% of the best of 64..512 at nq 4^3-10^3 in f32 and f64 (PERF.md).
+QP2_EPB = 128
+QP2_MAX_EPB = 512
+QP2_MAX_NM0 = 16
+# K5: element tiles it is built for, in order of preference; it takes the
+# first whose workspaces fit the card's opt-in shared memory.  On the
+# H100 at E=131072, 32 was the fastest of 64/32/16 at nq 4^3-10^3 in f32
+# and f64 wherever it fits (PERF.md).
+QP1D_TILES = (32, 16)
 
 
 def qp_shared3d_plain(in_pcoa3, b0, c12t):
@@ -90,7 +111,6 @@ def _check(x, b0, c12t, nrq):
 
 
 def _launch(x, b0, c12t, nrq, epb):
-    global launches
     nm0, nq0 = b0.shape
     nkj = c12t.shape[0]
     e = x.shape[1]
@@ -113,6 +133,113 @@ def _launch(x, b0, c12t, nrq, epb):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), b0.data_ptr(), c12t.data_ptr(), out.data_ptr(),
                  nm0, nrq, nq0, nkj, e, epb, stream)
-    build.check(err, "qp_fused3d")
-    launches += 1
+    build.launched(err, "qp_fused3d")
+    return out
+
+
+# ---- Pallas(QP): K2 then K4, workspace in device memory ------------------
+
+
+def qp_stage2_3d_plain(w, b0):
+    """Plain PyTorch version of qp_stage2_3d."""
+    return torch.einsum("pi,pke->ike", b0, w)
+
+
+def qp_stage2_3d(w, b0, *, epb=None):
+    """out (nq0, nkj, E) = sum_p B0[p, i] * w[p] from w (nm0, nkj, E) and
+    b0 (nm0, nq0).  `epb`: elements (threads) per block, default QP2_EPB."""
+    build.check_operands("qp_stage2_3d", (w, b0))
+    if w.dim() != 3 or b0.dim() != 2 or b0.shape[0] != w.shape[0]:
+        raise ValueError(f"qp_stage2_3d: w {tuple(w.shape)} and b0 "
+                         f"{tuple(b0.shape)} are not (nm0, nkj, E) and "
+                         "(nm0, nq0)")
+    epb = QP2_EPB if epb is None else epb
+    if not 0 < epb <= QP2_MAX_EPB:
+        raise ValueError(f"qp_stage2_3d: epb={epb} is not in 1.."
+                         f"{QP2_MAX_EPB}")
+    if w.device.type == "cpu":
+        return qp_stage2_3d_plain(w, b0)
+    nm0, nkj, e = w.shape
+    nq0 = b0.shape[1]
+    if nm0 > QP2_MAX_NM0 or nkj > 65535:  # kj runs on gridDim.y
+        raise ValueError(f"qp_stage2_3d: nm0={nm0} or nkj={nkj} exceeds the "
+                         f"kernel's limits ({QP2_MAX_NM0}, 65535)")
+    if b0.numel() * b0.element_size() > 48 * 1024:
+        raise ValueError("qp_stage2_3d: b0 exceeds 48 KB of shared memory")
+    out = torch.empty((nq0, nkj, e), dtype=w.dtype, device=w.device)
+    build.run("qp_stage2_3d", w, w.data_ptr(), b0.data_ptr(), out.data_ptr(),
+              nm0, nq0, nkj, e, epb)
+    return out
+
+
+def qp_global3d_plain(in_pcoa3, b0, c12t):
+    """Plain PyTorch version of qp_global3d."""
+    return qp_stage2_3d_plain(torch.matmul(c12t, in_pcoa3), b0)
+
+
+def qp_global3d(in_pcoa3, b0, c12t, *, epb=None):
+    """out (nq0, nkj, E) from in (nm0, nrq, E), b0 (nm0, nq0) and c12t
+    (nkj, nrq), through the workspace w (nm0, nkj, E) = C12T @ in[p].
+    `epb`: K4's elements per block."""
+    return qp_stage2_3d(k2.kron_blocked(in_pcoa3, c12t), b0, epb=epb)
+
+
+# ---- Pallas(QP-1D) and Pallas(QP-1D/Shared): element-major chain ---------
+
+
+def qp1d3d_plain(in_em2, s1_em, s2_em, s3_em):
+    """Plain PyTorch version of qp1d_shared3d and qp1d_global3d."""
+    return torch.matmul(torch.matmul(torch.matmul(in_em2, s1_em), s2_em),
+                        s3_em)
+
+
+def qp1d_global3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
+    """The chain as three K3 launches, w1 and w2 in device memory.
+    `epb`: K3's elements per block (None or its tile height)."""
+    w1 = k2.one_stage_em(in_em2, s1_em, epb=epb)
+    w2 = k2.one_stage_em(w1, s2_em, epb=epb)
+    return k2.one_stage_em(w2, s3_em, epb=epb)
+
+
+def qp1d_tiles(in_em2, s1_em, s2_em, s3_em) -> list:
+    """The element tiles of QP1D_TILES whose workspaces fit the card's
+    opt-in shared memory for these operands, in order of preference."""
+    k0, n1, n2 = in_em2.shape[1], s1_em.shape[1], s2_em.shape[1]
+    props = torch.cuda.get_device_properties(in_em2.device)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    smem = build.library().tbt_qp1d_fused3d_smem
+    return [et for et in QP1D_TILES
+            if smem(in_em2.element_size(), et, k0, n1, n2) <= limit]
+
+
+def qp1d_shared3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
+    """The chain in one K5 launch, w1 and w2 of each element tile in
+    shared memory.  `epb`: the element tile, one of QP1D_TILES; None takes
+    the first that fits."""
+    ops = (in_em2, s1_em, s2_em, s3_em)
+    build.check_operands("qp1d_shared3d", ops)
+    if (any(t.dim() != 2 for t in ops) or s1_em.shape[0] != in_em2.shape[1]
+            or s2_em.shape[0] != s1_em.shape[1]
+            or s3_em.shape[0] != s2_em.shape[1]):
+        raise ValueError("qp1d_shared3d: shapes "
+                         f"{[tuple(t.shape) for t in ops]} do not chain")
+    if epb is not None and epb not in QP1D_TILES:
+        raise ValueError(f"qp1d_shared3d: epb={epb} is not one of the "
+                         f"kernel's element tiles {QP1D_TILES}")
+    if in_em2.device.type == "cpu":
+        return qp1d3d_plain(*ops)
+    fits = qp1d_tiles(*ops)
+    if epb is not None:
+        fits = [et for et in fits if et == epb]
+    if not fits:
+        raise ValueError(f"qp1d_shared3d: element tile {epb or 'of any size'}"
+                         f" with workspaces of widths {s1_em.shape[1]} and "
+                         f"{s2_em.shape[1]} does not fit the card's shared "
+                         "memory")
+    e, k0 = in_em2.shape
+    n1, n2, n3 = s1_em.shape[1], s2_em.shape[1], s3_em.shape[1]
+    out = torch.empty((e, n3), dtype=in_em2.dtype, device=in_em2.device)
+    build.run("qp1d_fused3d", in_em2, in_em2.data_ptr(), s1_em.data_ptr(),
+              s2_em.data_ptr(), s3_em.data_ptr(), out.data_ptr(), e, k0, n1,
+              n2, n3, fits[0])
     return out

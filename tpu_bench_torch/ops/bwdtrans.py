@@ -18,8 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from tpu_bench.utils import native
 from tpu_bench_torch.ops import initdata
+from tpu_bench_torch.utils import native
 
 
 @dataclasses.dataclass
@@ -69,16 +69,26 @@ def element_data3d(basis: Basis3D, dtype) -> torch.Tensor:
 
 
 def operators3d(basis: Basis3D):
-    """Operator matrices of the live benchmark05 columns.
+    """Operator matrices of the benchmark05 columns.
 
     c_em3:  kron(B2, B1, B0)   (nmTot, nqTot)      single-GEMM form
-    c12t:   kron(B2^T, B1^T)   (nq2*nq1, nm2*nm1)  pair stage of the fused
-                                                   sum-factorization kernel
+    c12t:   kron(B2^T, B1^T)   (nq2*nq1, nm2*nm1)  pair stage of the QP
+                                                   kernels (contract q, r)
+    s1/s2/s3_em: the dense, mostly-zero per-stage operators of the
+                 element-major QP-1D columns, (nmTot, nm2*nm1*nq0),
+                 (nm2*nm1*nq0, nm2*nq1*nq0), (nm2*nq1*nq0, nqTot)
     """
     b0, b1, b2 = basis.b0, basis.b1, basis.b2
+
+    def eye(n):
+        return torch.eye(n, dtype=b0.dtype, device=b0.device)
+
     c_em3 = torch.kron(b2, torch.kron(b1, b0))
     c12t = torch.kron(b2.T.contiguous(), b1.T.contiguous())
-    return c_em3, c12t
+    s1_em = torch.kron(eye(basis.nm2 * basis.nm1), b0)
+    s2_em = torch.kron(eye(basis.nm2), torch.kron(b1, eye(basis.nq0)))
+    s3_em = torch.kron(b2, eye(basis.nq1 * basis.nq0))
+    return c_em3, c12t, s1_em, s2_em, s3_em
 
 
 def stream_sources(elem_flat, nm_shape, nelmt: int, e_pad: int, dtype):
@@ -105,7 +115,7 @@ def stream_sources(elem_flat, nm_shape, nelmt: int, e_pad: int, dtype):
         return elem[:, None] * live[None, :]
 
     def pcoa3():
-        ep = elem.reshape(nm_tot // nm0, nm0).T  # (nm0, rest)
+        ep = elem.reshape(nm_tot // nm0, nm0).T.contiguous()  # (nm0, rest)
         return ep[:, :, None] * live
 
     def blk(ce):

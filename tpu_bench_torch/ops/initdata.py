@@ -2,16 +2,16 @@
 
 The reference initializes every operand with fixed analytic formulas so that
 validation norms are reproducible machine to machine.  The BwdTrans inputs
-are evaluated in f64 on the host by tpu_bench.utils.native (numpy + ctypes,
-no JAX), then cast and copied onto the run's device, so the port and the JAX
-package start from the same bytes.
+are evaluated in f64 on the host by the port's utils/native.py (NumPy), then
+cast and copied onto the run's device, so the port and the JAX package start
+from the same bytes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpu_bench.utils import native
+from tpu_bench_torch.utils import native
 
 
 def round_up(n: int, m: int) -> int:

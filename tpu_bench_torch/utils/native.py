@@ -1,0 +1,29 @@
+"""f64 host initializers and oracle of the benchmark inputs, in NumPy.
+
+The port's own copy of what it uses from the JAX package's
+tpu_bench/utils/native.py, without that module's native library: the
+formulas are the reference's, evaluated in f64 so every run starts from the
+same bytes.  np.sin / np.cos of the integer ramps give the native library's
+values bit for bit, so the two packages build identical operands.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def init_sin1(n: int) -> np.ndarray:
+    """a[l] = sin(l+1): b04/b05 element data (benchmark03/benchmark03.cc:161)."""
+    return np.sin(np.arange(1, n + 1, dtype=np.float64))
+
+
+def init_cos(n: int) -> np.ndarray:
+    """B[l] = cos(l): basis init (benchmark04/benchmark04.cc:478-486)."""
+    return np.cos(np.arange(n, dtype=np.float64))
+
+
+def bwdtrans3d_ref(inp: np.ndarray, b0: np.ndarray, b1: np.ndarray,
+                   b2: np.ndarray) -> np.ndarray:
+    """out[e,k,j,i] = sum_{r,q,p} in[e,r,q,p] b0[p,i] b1[q,j] b2[r,k] (f64)."""
+    f64 = [np.asarray(a, dtype=np.float64) for a in (inp, b0, b1, b2)]
+    return np.einsum("erqp,pi,qj,rk->ekji", *f64, optimize=True)
