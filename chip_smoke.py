@@ -5,35 +5,49 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds the hand kernels from the checkout's sources and drives the port's
-two paths through the entry points a user calls: the headline
-(benchmark05's three headline columns at nq=8^3, nelmt=131072, f32) and
-the benchmark05 CLI with all eleven columns.  Every phase is fatal:
+paths through the entry points a user calls: the headline (benchmark05's
+three headline columns at nq=8^3, nelmt=131072, f32), the benchmark05 CLI
+and the benchmark04 CLI, each with all eleven columns.  Every phase is
+fatal:
 
 1. device facts (nvidia-smi, torch, nvcc, device properties);
 2. build of K1 (qp_fused3d), K2 (kron_blocked), K3 (em_gemm),
-   K4 (qp_stage2_3d) and K5 (qp1d_fused3d) with nvcc for sm_90a;
+   K4 (qp_stage2_3d) and K5 (qp1d_fused3d, two-stage entry qp1d_fused2d)
+   with nvcc for sm_90a, one process per source;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
-   three-launch Pallas(QP-1D) compositions against their plain PyTorch
+   multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random per-element inputs and random dense
    operators in f32 and f64 (f32 to 1e-5, f64 to 1e-12 relative to the
-   largest output) at nq 4^3, 8^3, 10^3 and (3,4,5), E=1000 (ragged) and
-   131072; at the main path's shapes (nq=8^3, E=131072, f32) each is timed
+   largest output): the benchmark05 uses at nq 4^3, 8^3, 10^3 and
+   (3,4,5), E=1000 (ragged) and 131072; the benchmark04 uses at nq (2,2),
+   (8,8), (10,12), (16,16) and (32,32), E=1000 and 1,048,576.  At each
+   path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32),
+   and for the b04 uses of B04_USES at their own order, each use is timed
    beside its plain version, one library call and its bound; then every
-   column's f64 golden norm of the benchmark data at nq=8^3, nelmt=128;
+   column's f64 golden norm of the benchmark data (b05
+   nq=8^3 and b04 nq=8^2, nelmt=128), and every b04 column in f32 at
+   (10, 12) and (12, 10) against the f64 oracle;
 4. the headline (`python -m tpu_bench_torch.bench`): K1's and K2's launch
    counts must rise during it, and the three columns' norms must agree
    with each other and with the f64 oracle to 5e-4;
 5. the benchmark05 CLI (`python -m tpu_bench_torch.benchmarks.benchmark05
-   8 8 8`), an f32 sweep to nelmt 131072 and a short f64 sweep: every
-   kernel's launch count must rise during the f32 sweep, the logs must
-   parse with postprocess/common.py with all eleven columns > 0, and the
-   norms of each row must agree to 5e-4 (f32) and 1e-10 (f64).
+   8 8 8`), an f32 sweep to nelmt 131072 and a short f64 sweep;
+6. the benchmark04 CLI (`python -m tpu_bench_torch.benchmarks.benchmark04
+   8 8`), an f32 sweep to nelmt 1,048,576 and a short f64 sweep;
+7. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
+   (2 .. 32) and at (10, 12), f32 and f64.
 
-The line before the last is a JSON object with each kernel's launches in
-the f32 sweep, its error, its time beside its plain version's and a
-library call's, and its bound; the last line is {"ok": true, "device":
-{...}}.  Without a CUDA device, or outside a checkout of the repository,
-it exits non-zero and prints no result.
+In phases 5-7 the kernels of the sweep's own set must each launch, and no
+other; the logs must parse with postprocess/common.py with all eleven
+columns > 0, and the norms of each row must agree to 5e-4 (f32) and 1e-10
+(f64).
+
+The line before the last is a JSON object with each kernel use's launches
+in its path's f32 run (the b05 or b04 sweep of phase 5 or 6, or phase 7's
+run at the use's order), its error, its time beside its plain version's
+and a library call's, and its bound; the last line is {"ok":
+true, "device": {...}}.  Without a CUDA device, or outside a checkout of
+the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -52,30 +66,69 @@ from typing import Callable, NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_NQ8_NELMT128 = 189.3141665  # reference benchmark05/nq8x8x8.log
+GOLDEN_B04_NQ8_NELMT128 = 29.12205853  # reference benchmark04/nq8x8.log
 RTOL = {"float32": 1e-5, "float64": 1e-12}
 HEADLINE_NELMT = 131072
+B04_NELMT = 1048576  # the reference sweep's largest size
+RUN04_ORDERS = (2, 4, 6, 8, 10, 12, 14, 16, 32)  # scripts/run04.sh
+B04_MAIN = (8, 8)
+# phase 7's orders: run04.sh's, and (10, 12), where the JAX package's f32
+# Pallas(QP/Shared) runs qp_w_flat (ROADMAP Queue 3)
+B04_ORDERS = [(nq, nq) for nq in RUN04_ORDERS] + [(10, 12)]
 # Published H100 SXM rates (NVIDIA's data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12  # outside the tensor cores
-# kernel name: (its source, the TPU kernel it replaces, the use whose time
-# stands in the kernels line)
+BT2D_CU = "tpu_bench_torch/csrc/bwdtrans2d.cu"
+BT3D_CU = "tpu_bench_torch/csrc/bwdtrans3d.cu"
+QP1D_CU = "tpu_bench_torch/csrc/qp1d_fused3d.cu"
+PL2D = "tpu_bench/kernels/bwdtrans2d.py"
+# benchmark05's kernels: name: (its source, the TPU kernel it replaces, the
+# use whose time stands in the kernels line)
 KERNELS = {
-    "qp_fused3d": ("tpu_bench_torch/csrc/bwdtrans3d.cu",
-                   "tpu_bench/kernels/bwdtrans3d.py:137",
+    "qp_fused3d": (BT3D_CU, "tpu_bench/kernels/bwdtrans3d.py:137",
                    "K1 qp_shared3d_flat"),
-    "kron_blocked": ("tpu_bench_torch/csrc/bwdtrans2d.cu",
-                     "tpu_bench/kernels/bwdtrans2d.py:113",
-                     "K2 kron_blocked (Coales)"),
-    "em_gemm": ("tpu_bench_torch/csrc/bwdtrans2d.cu",
-                "tpu_bench/kernels/bwdtrans2d.py:551",
-                "K3 kron_elem_major (Uncoales)"),
-    "qp_stage2_3d": ("tpu_bench_torch/csrc/bwdtrans3d.cu",
-                     "tpu_bench/kernels/bwdtrans3d.py:198",
+    "kron_blocked": (BT2D_CU, f"{PL2D}:113", "K2 kron_blocked (Coales)"),
+    "em_gemm": (BT2D_CU, f"{PL2D}:551", "K3 kron_elem_major (Uncoales)"),
+    "qp_stage2_3d": (BT3D_CU, "tpu_bench/kernels/bwdtrans3d.py:198",
                      "K4 qp_stage2_3d (QP stage 2)"),
-    "qp1d_fused3d": ("tpu_bench_torch/csrc/qp1d_fused3d.cu",
-                     "tpu_bench/kernels/bwdtrans3d.py:250",
+    "qp1d_fused3d": (QP1D_CU, "tpu_bench/kernels/bwdtrans3d.py:250",
                      "K5 qp1d_shared3d (QP-1D/Shared)"),
 }
+# benchmark04's kernel uses: (entry of the kernels line, kernel launched,
+# its source, the TPU kernel it replaces, the use timed in phase 3, the
+# order where it is timed and its launches counted).  The port runs one
+# kernel per column at every order; the JAX package's f32 dispatch
+# (tpu_bench/benchmarks/benchmark04.py:94-143) picks another TPU kernel for
+# Pallas(Coales) at nq=2 and for Pallas(QP/Shared) from nq=10, so those
+# entries read the same use at the order where that TPU kernel runs.
+K1_2D, K2_COALES = "K1 qp_shared3d (QP/Shared)", "K2 kron_wide4 (Coales)"
+B04_USES = [
+    ("kron_blocked (b04 kron_wide4)", "kron_blocked", BT2D_CU,
+     f"{PL2D}:164", K2_COALES, B04_MAIN),
+    ("kron_blocked (b04 kron_vpu_blocked, nq=2)", "kron_blocked", BT2D_CU,
+     f"{PL2D}:211", K2_COALES, (2, 2)),
+    ("qp_fused3d (b04 qp_shared)", "qp_fused3d", BT3D_CU, f"{PL2D}:265",
+     K1_2D, B04_MAIN),
+    ("qp_fused3d (b04 qp_w_flat, nq=(10,12))", "qp_fused3d", BT3D_CU,
+     f"{PL2D}:377", K1_2D, (10, 12)),
+    ("qp_fused3d (b04 qp_w, nq=16)", "qp_fused3d", BT3D_CU, f"{PL2D}:314",
+     K1_2D, (16, 16)),
+    ("qp_fused3d (b04 qp_mxu_grouped, nq=32)", "qp_fused3d", BT3D_CU,
+     f"{PL2D}:505", K1_2D, (32, 32)),
+    ("kron_blocked (b04 qp_global stage 1)", "kron_blocked", BT2D_CU,
+     f"{PL2D}:441", "K2 kron_blocked (QP stage 1)", B04_MAIN),
+    ("qp_stage2_3d (b04 qp_global stage 2)", "qp_stage2_3d", BT3D_CU,
+     f"{PL2D}:441", "K4 qp_stage2 (QP stage 2)", B04_MAIN),
+    ("em_gemm (b04 kron_elem_major)", "em_gemm", BT2D_CU, f"{PL2D}:551",
+     "K3 kron_elem_major (Uncoales)", B04_MAIN),
+    ("em_gemm (b04 _one_stage_em stage 1)", "em_gemm", BT2D_CU,
+     f"{PL2D}:614", "K3 one_stage_em (QP-1D stage 1)", B04_MAIN),
+    ("em_gemm (b04 _one_stage_em stage 2)", "em_gemm", BT2D_CU,
+     f"{PL2D}:614", "K3 one_stage_em (QP-1D stage 2)", B04_MAIN),
+    ("qp1d_fused2d (b04 qp1d_shared)", "qp1d_fused2d", QP1D_CU,
+     f"{PL2D}:580", "K5 qp1d_fused (QP-1D/Shared)", B04_MAIN),
+]
+B04_KERNELS = {kernel for _, kernel, *_ in B04_USES}
 
 
 def _run(cmd) -> str:
@@ -83,9 +136,14 @@ def _run(cmd) -> str:
                           check=True).stdout.strip()
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"])
+
+
 def device_facts(torch) -> None:
-    print(_run(["nvidia-smi", "--query-gpu=name,power.limit",
-                "--format=csv,noheader"]))
+    print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     from tpu_bench_torch.kernels import build
 
@@ -133,6 +191,31 @@ class Case(NamedTuple):
     flops: int
 
 
+def chain_flops(*dims) -> int:
+    """Least FLOP of the matrix chain (d0 x d1) @ (d1 x d2) @ ... over its
+    association orders (the textbook dynamic program), 2 per multiply-add.
+    (in @ S1) @ S2 may cost more than in @ (S1 @ S2): the bound takes the
+    cheaper, as torch.linalg.multi_dot does."""
+    n = len(dims) - 1
+    cost = [[0] * n for _ in range(n)]
+    for length in range(1, n):
+        for i in range(n - length):
+            j = i + length
+            cost[i][j] = min(cost[i][k] + cost[k + 1][j]
+                             + 2 * dims[i] * dims[k + 1] * dims[j + 1]
+                             for k in range(i, j))
+    return cost[0][n - 1]
+
+
+def qp_flops(e, nm0, nrq, nq0, nkj) -> int:
+    """Least FLOP of out[i, k] = sum_{p, r} B0[p, i] C12T[k, r] in[p, r]
+    over E elements: p contracted first, r first, or the kron of B0 and
+    C12T formed once and applied densely."""
+    return min(2 * e * nq0 * nrq * (nm0 + nkj),
+               2 * e * nm0 * nkj * (nrq + nq0),
+               nm0 * nq0 * nrq * nkj * (1 + 2 * e))
+
+
 def shape_cases(torch, rnd, nq, e) -> list:
     """Every kernel use and composition at order nq and E elements, on
     random inputs and random dense operators."""
@@ -158,8 +241,8 @@ def shape_cases(torch, rnd, nq, e) -> list:
     def k1_library():
         return torch.einsum("pi,kr,pre->ike", b0, c12t, x)
 
-    k1_flops = 2 * nq0 * nrq * (nm0 + nkj) * e
-    k5_flops = 2 * e * (nm_tot * n1 + n1 * n2 + n2 * nq_tot)
+    k1_flops = qp_flops(e, nm0, nrq, nq0, nkj)
+    k5_flops = chain_flops(e, nm_tot, n1, n2, nq_tot)
     return [
         Case("K1 qp_shared3d", lambda: k1.qp_shared3d(x, b0, c12t),
              lambda: k1.qp_shared3d_plain(x, b0, c12t), k1_library,
@@ -180,7 +263,7 @@ def shape_cases(torch, rnd, nq, e) -> list:
              2 * nm0 * nq0 * nkj * e),
         Case("Pallas(QP) qp_global3d", lambda: k1.qp_global3d(x, b0, c12t),
              lambda: k1.qp_global3d_plain(x, b0, c12t), k1_library,
-             (x, b0, c12t), 2 * nm0 * nkj * (nrq + nq0) * e),
+             (x, b0, c12t), k1_flops),
         Case("K3 kron_elem_major (Uncoales)",
              lambda: k2.kron_elem_major(em, c_em),
              lambda: k2.kron_elem_major_plain(em, c_em),
@@ -210,10 +293,81 @@ def shape_cases(torch, rnd, nq, e) -> list:
     ]
 
 
+def shape_cases_2d(torch, rnd, nq, e) -> list:
+    """Every benchmark04 kernel use and composition at order nq = (nq0,
+    nq1) and E elements, on random inputs and random dense operators."""
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    nq0, nq1 = nq
+    nm0, nm1 = nq0 - 1, nq1 - 1
+    nm_tot, nq_tot, n1 = nm0 * nm1, nq0 * nq1, nm1 * nq0
+    b0, b1t = rnd(nm0, nq0), rnd(nq1, nm1)
+    # p-major; its bytes also serve the 4D chunk and element-major layouts
+    x = rnd(nm0, nm1, e)
+    ce, lanes = (8192, 128) if e % 8192 == 0 else (e, 8)
+    xb4 = x.view(e // ce, nm_tot, ce // lanes, lanes)
+    em = x.view(e, nm_tot)
+    c_coa, c_em = rnd(nq_tot, nm_tot), rnd(nm_tot, nq_tot)
+    w, w1 = rnd(nm0, nq1, e), rnd(e, n1)
+    s1, s2 = rnd(nm_tot, n1), rnd(n1, nq_tot)
+    mm = torch.matmul
+
+    def k1_library():
+        return torch.einsum("pi,jq,pqe->ije", b0, b1t, x)
+
+    def kron_library():
+        return mm(c_coa, xb4.view(e // ce, nm_tot, ce))
+
+    k1_flops = qp_flops(e, nm0, nm1, nq0, nq1)
+    kron_flops = 2 * nq_tot * nm_tot * e
+    k5_flops = chain_flops(e, nm_tot, n1, nq_tot)
+    return [
+        Case(K2_COALES, lambda: k2.kron_wide4(xb4, c_coa),
+             lambda: k2.kron_wide4_plain(xb4, c_coa), kron_library,
+             (xb4, c_coa), kron_flops),
+        Case(K1_2D, lambda: k1.qp_shared3d(x, b0, b1t),
+             lambda: k1.qp_shared3d_plain(x, b0, b1t), k1_library,
+             (x, b0, b1t), k1_flops),
+        Case("K2 kron_blocked (QP stage 1)", lambda: k2.kron_blocked(x, b1t),
+             lambda: k2.kron_blocked_plain(x, b1t), lambda: mm(b1t, x),
+             (x, b1t), 2 * nq1 * nm1 * nm0 * e),
+        Case("K4 qp_stage2 (QP stage 2)", lambda: k1.qp_stage2_3d(w, b0),
+             lambda: k1.qp_stage2_3d_plain(w, b0),
+             lambda: mm(b0.T, w.reshape(nm0, -1)), (w, b0),
+             2 * nm0 * nq0 * nq1 * e),
+        Case("Pallas(QP) qp_global3d", lambda: k1.qp_global3d(x, b0, b1t),
+             lambda: k1.qp_global3d_plain(x, b0, b1t), k1_library,
+             (x, b0, b1t), k1_flops),
+        Case("K3 kron_elem_major (Uncoales)",
+             lambda: k2.kron_elem_major(em, c_em),
+             lambda: k2.kron_elem_major_plain(em, c_em),
+             lambda: mm(em, c_em), (em, c_em), kron_flops),
+        Case("K3 one_stage_em (QP-1D stage 1)",
+             lambda: k2.one_stage_em(em, s1),
+             lambda: k2.kron_elem_major_plain(em, s1), lambda: mm(em, s1),
+             (em, s1), 2 * e * nm_tot * n1),
+        Case("K3 one_stage_em (QP-1D stage 2)",
+             lambda: k2.one_stage_em(w1, s2),
+             lambda: k2.kron_elem_major_plain(w1, s2), lambda: mm(w1, s2),
+             (w1, s2), 2 * e * n1 * nq_tot),
+        Case("Pallas(QP-1D) qp1d_global",
+             lambda: k2.qp1d_global(em, s1, s2),
+             lambda: k2.qp1d_plain(em, s1, s2),
+             lambda: torch.linalg.multi_dot([em, s1, s2]), (em, s1, s2),
+             k5_flops),
+        Case("K5 qp1d_fused (QP-1D/Shared)",
+             lambda: k1.qp1d_fused(em, s1, s2),
+             lambda: k2.qp1d_plain(em, s1, s2),
+             lambda: torch.linalg.multi_dot([em, s1, s2]), (em, s1, s2),
+             k5_flops),
+    ]
+
+
 def bound(inputs, out, flops) -> tuple:
     """(least ms the card could take, what bounds it): each input read
-    once and the output written once at the HBM rate, against the FLOP at
-    the FP32 rate."""
+    once and the output written once at the HBM rate, against the least
+    FLOP of the function (over its association orders) at the FP32 rate."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -222,61 +376,102 @@ def bound(inputs, out, flops) -> tuple:
 
 
 def kernels_vs_plain(torch) -> dict:
-    """Phase 3.  Returns, per use, the error, times and bound at the main
-    path's shapes (nq=8^3, E=131072, f32)."""
+    """Phase 3.  Returns {(use, nq): its error, times and bound} in f32 at
+    each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
+    E=1,048,576) and for the b04 uses of B04_USES at their own order,
+    E=1,048,576."""
     from tpu_bench_torch.core.timing import event_ms
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    main_path = {}
+    measured = {}
+    sets = [(shape_cases, nq, e, (8, 8, 8), HEADLINE_NELMT)
+            for nq in ((4, 4, 4), (8, 8, 8), (10, 10, 10), (3, 4, 5))
+            for e in (1000, HEADLINE_NELMT)]
+    sets += [(shape_cases_2d, nq, e, B04_MAIN, B04_NELMT)
+             for nq in ((2, 2), (8, 8), (10, 12), (16, 16), (32, 32))
+             for e in (1000, B04_NELMT)]
+    at_order = {(use, order) for *_, use, order in B04_USES}
     for dtype in (torch.float32, torch.float64):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",
                                dtype=dtype)
 
-        for nq in ((4, 4, 4), (8, 8, 8), (10, 10, 10), (3, 4, 5)):
-            for e in (1000, HEADLINE_NELMT):
-                tag = f"{str(dtype)[6:]} nq={nq} E={e}"
-                timed = (dtype == torch.float32 and nq == (8, 8, 8)
-                         and e == HEADLINE_NELMT)
-                for case in shape_cases(torch, rnd, nq, e):
-                    out = case.run()
-                    err = compare(torch, f"{case.label} {tag}", out,
-                                  case.plain(), dtype)
-                    if not timed:
-                        continue
+        for cases, nq, e, main_nq, main_e in sets:
+            tag = f"{str(dtype)[6:]} nq={nq} E={e}"
+            for case in cases(torch, rnd, nq, e):
+                out = case.run()
+                err = compare(torch, f"{case.label} {tag}", out,
+                              case.plain(), dtype)
+                if (dtype == torch.float32 and e == main_e
+                        and (nq == main_nq or (case.label, nq) in at_order)):
                     bound_ms, bound_by = bound(case.inputs, out, case.flops)
-                    main_path[case.label] = dict(
+                    measured[(case.label, nq)] = dict(
                         max_abs_err=err, ms=event_ms(case.run),
                         plain_ms=event_ms(case.plain),
                         library_ms=event_ms(case.library),
                         bound_ms=bound_ms, bound_by=bound_by)
-    for label, k in main_path.items():
-        print(f"  {label} at nq=8^3 E={HEADLINE_NELMT} f32: kernel "
+                del out
+            torch.cuda.empty_cache()
+        # K5's element tile at b04 nq=32 (widths 961, 992): 16 in f32, 8
+        # in f64 (32 fits neither)
+        em, s1, s2 = (torch.empty(n, device="cuda", dtype=dtype)
+                      for n in ((1, 961), (961, 992), (992, 1024)))
+        print(f"  K5 tiles that fit at b04 nq=32 {str(dtype)[6:]}: "
+              f"{k1.qp1d_tiles(em, s1, s2)}")
+    for (label, nq), k in measured.items():
+        e = HEADLINE_NELMT if len(nq) == 3 else B04_NELMT
+        print(f"  {label} at nq={nq} E={e} f32: kernel "
               f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})")
-    return main_path
+    return measured
 
 
-def golden_norm(torch) -> None:
+def golden_norm(torch, bench, args, golden) -> None:
     """Phase 3, benchmark data: the reference log's f64 norm through every
-    column."""
-    from tpu_bench_torch.benchmarks import benchmark05 as b05
+    column of `bench` (benchmark05 or benchmark04) at prepare(*args)."""
     from tpu_bench_torch.core.config import Config
     from tpu_bench_torch.core.validate import l2norm
 
     cfg = Config(dtype=torch.float64, device="cuda")
-    data = b05.prepare(8, 8, 8, 128, cfg)
+    data = bench.prepare(*args, cfg)
     labels = []
-    for label, fn, args in b05.build_variants(data, cfg):
-        norm = l2norm(fn(*args))
+    for label, fn, fargs in bench.build_variants(data, cfg):
+        norm = l2norm(fn(*fargs))
         torch.cuda.synchronize()
-        rel = abs(norm - GOLDEN_NQ8_NELMT128) / GOLDEN_NQ8_NELMT128
-        print(f"  golden f64 nq=8^3 nelmt=128 {label}: {norm!r} "
-              f"(rel {rel:.2e})")
+        rel = abs(norm - golden) / golden
+        print(f"  golden f64 {bench.__name__.split('.')[-1]} {args} "
+              f"{label}: {norm!r} (rel {rel:.2e})")
         assert rel <= 1e-8, (label, norm)
         labels.append(label)
-    assert labels == b05.LABELS, labels
+    assert labels == bench.LABELS, labels
+
+
+def anisotropic_b04(torch) -> None:
+    """Phase 3, benchmark data: every benchmark04 column in f32 at the
+    anisotropic orders (10, 12) and (12, 10), nelmt=128, against the f64
+    oracle to 5e-4.  The JAX package's f32 Pallas(QP/Shared) at (10, 12)
+    computes the (12, 10) problem (ROADMAP Queue 3)."""
+    import numpy as np
+
+    from tpu_bench_torch.benchmarks import benchmark04 as b04
+    from tpu_bench_torch.core.config import Config
+    from tpu_bench_torch.core.validate import l2norm
+    from tpu_bench_torch.ops import bwdtrans
+
+    cfg = Config(dtype=torch.float32, device="cuda")
+    for nq in ((10, 12), (12, 10)):
+        data = b04.prepare(*nq, 128, cfg)
+        oracle = float(np.linalg.norm(bwdtrans.reference2d(data["basis"],
+                                                           128)))
+        for label, fn, args in b04.build_variants(data, cfg):
+            norm = l2norm(fn(*args))
+            rel = abs(norm - oracle) / oracle
+            if label == "Pallas(QP/Shared)":
+                print(f"  f32 b04 nq={nq} nelmt=128 {label}: {norm!r} "
+                      f"(oracle {oracle!r}, rel {rel:.2e})")
+            assert rel <= 5e-4, (nq, label, norm, oracle)
 
 
 def headline(torch) -> None:
@@ -326,24 +521,27 @@ def parse_log_fn():
     return namespace["parse_log"]
 
 
-def cli_sweep(torch, dtype: str, size_args: list) -> dict:
-    """Phase 5: `python -m tpu_bench_torch.benchmarks.benchmark05 8 8 8
-    --dtype <dtype> <size_args>`, run in this process so the kernels'
-    launch counts can be read; its log is parsed as postprocess does.
-    Returns the launches of each kernel during the sweep."""
-    from tpu_bench_torch.benchmarks import benchmark05 as b05
+def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
+              kernels: set, last_size: int) -> tuple:
+    """Phases 5-7: `python -m tpu_bench_torch.benchmarks.<bench>
+    <positionals> --dtype <dtype> <size_args>`, run in this process so the
+    kernels' launch counts can be read; its log is parsed as postprocess
+    does.  Exactly the kernels of `kernels` must launch.  Returns the
+    launches of each kernel during the sweep and the last row's GDOF/s by
+    column."""
     from tpu_bench_torch.core.validate import default_rtol
     from tpu_bench_torch.kernels import build
 
-    argv = ["8", "8", "8", "--dtype", dtype, *size_args]
+    argv = [*map(str, positionals), "--dtype", dtype, *size_args]
     err = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
-        log = os.path.join(tmp, "nq8x8x8.log")
+        log = os.path.join(tmp, "nq" + "x".join(map(str, positionals))
+                           + ".log")
         with open(log, "w") as out:
             build.launches.clear()
             with contextlib.redirect_stdout(out), \
                     contextlib.redirect_stderr(err):
-                b05.main(argv)
+                bench.main(argv)
             torch.cuda.synchronize()
             counts = dict(build.launches)
         sizes, series, labels, title = parse_log_fn()(log, "nelmt", "DOF/s")
@@ -353,8 +551,8 @@ def cli_sweep(torch, dtype: str, size_args: list) -> dict:
     notes = [line for line in err.getvalue().splitlines() if line.strip()]
     print(f"  {dtype} {title}: {len(sizes)} rows, nelmt {int(sizes[0])}.."
           f"{int(sizes[-1])}; launches {counts}")
-    assert labels == b05.LABELS, labels
-    assert sizes[-1] == HEADLINE_NELMT and len(norm_rows) == len(sizes), sizes
+    assert labels == bench.LABELS, labels
+    assert sizes[-1] == last_size and len(norm_rows) == len(sizes), sizes
     for row in series:
         for label, v in zip(labels, row):
             assert v > 0, (dtype, label, v)
@@ -364,12 +562,34 @@ def cli_sweep(torch, dtype: str, size_args: list) -> dict:
         worst = max(abs(n - norms[0]) / norms[0] for n in norms)
         assert worst <= rtol, (dtype, size, norms)
     last = dict(zip(labels, series[-1]))
-    print(f"  {dtype} nelmt {HEADLINE_NELMT} GDOF/s: " + ", ".join(
+    print(f"  {dtype} nelmt {int(sizes[-1])} GDOF/s: " + ", ".join(
         f"{k} {v:.4f}" for k, v in last.items()))
     bad = [n for n in notes if "WARNING" in n or "failed" in n]
     assert not bad, bad
-    assert set(counts) == set(KERNELS) and min(counts.values()) > 0, counts
-    return counts
+    assert set(counts) == kernels and min(counts.values()) > 0, counts
+    return counts, last
+
+
+def b04_orders(torch) -> dict:
+    """Phase 7: benchmark04 at nelmt 1,048,576 at each order of
+    B04_ORDERS, f32 and f64; prints each order's best column and returns
+    the kernels' launches in each f32 run, by order."""
+    from tpu_bench_torch.benchmarks import benchmark04 as b04
+
+    launches = {}
+    for dtype in ("f32", "f64"):
+        for nq in B04_ORDERS:
+            counts, last = cli_sweep(torch, b04, list(nq), dtype,
+                                     ["--min-size", str(B04_NELMT),
+                                      "--max-size", str(B04_NELMT),
+                                      "--ntests", "3"],
+                                     B04_KERNELS, B04_NELMT)
+            if dtype == "f32":
+                launches[nq] = counts
+            best = max(last, key=last.get)
+            print(f"  best {dtype} nq={nq} nelmt {B04_NELMT}: {best} "
+                  f"{last[best]:.4f} GDOF/s", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -393,21 +613,44 @@ def main() -> int:
     print("== 2. build", flush=True)
     build_kernels()
     print("== 3. kernels against their plain versions", flush=True)
-    uses = kernels_vs_plain(torch)
-    golden_norm(torch)
+    measured = kernels_vs_plain(torch)
+    from tpu_bench_torch.benchmarks import benchmark04 as b04
+    from tpu_bench_torch.benchmarks import benchmark05 as b05
+
+    golden_norm(torch, b05, (8, 8, 8, 128), GOLDEN_NQ8_NELMT128)
+    golden_norm(torch, b04, (8, 8, 128), GOLDEN_B04_NQ8_NELMT128)
+    anisotropic_b04(torch)
     print("== 4. headline", flush=True)
     headline(torch)
     print("== 5. benchmark05 CLI sweeps", flush=True)
-    launches = cli_sweep(torch, "f32", ["--max-size", str(HEADLINE_NELMT),
-                                        "--ntests", "10"])
-    cli_sweep(torch, "f64", ["--min-size", "128", "--max-size",
-                             str(HEADLINE_NELMT), "--step", "32",
-                             "--ntests", "5"])
+    launches, _ = cli_sweep(torch, b05, [8, 8, 8], "f32",
+                            ["--max-size", str(HEADLINE_NELMT), "--ntests",
+                             "10"], set(KERNELS), HEADLINE_NELMT)
+    cli_sweep(torch, b05, [8, 8, 8], "f64",
+              ["--min-size", "128", "--max-size", str(HEADLINE_NELMT),
+               "--step", "32", "--ntests", "5"], set(KERNELS),
+              HEADLINE_NELMT)
+    print("== 6. benchmark04 CLI sweeps", flush=True)
+    launches_b04, _ = cli_sweep(torch, b04, [8, 8], "f32",
+                                ["--max-size", str(B04_NELMT), "--ntests",
+                                 "10"], B04_KERNELS, B04_NELMT)
+    cli_sweep(torch, b04, [8, 8], "f64",
+              ["--min-size", "128", "--max-size", str(B04_NELMT), "--step",
+               "32", "--ntests", "5"], B04_KERNELS, 131072)
+    print("== 7. benchmark04 at every order of run04.sh and (10, 12)",
+          flush=True)
+    launches_by_order = b04_orders(torch)
+    launches_by_order[B04_MAIN] = launches_b04  # the full f32 sweep
 
+    print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[name], **uses[use])
-        for name, (source, replaces, use) in KERNELS.items()]}))
+             launches=launches[name], **measured[(use, (8, 8, 8))])
+        for name, (source, replaces, use) in KERNELS.items()] + [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches_by_order[order][kernel],
+             **measured[(use, order)])
+        for name, kernel, source, replaces, use, order in B04_USES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

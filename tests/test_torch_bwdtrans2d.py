@@ -1,7 +1,10 @@
-"""The port's kron_blocked and kron_elem_major
-(tpu_bench_torch.kernels.bwdtrans2d) against the JAX package's Pallas
+"""The port's kernels/bwdtrans2d.py against the JAX package's Pallas
 kernels in interpret mode, on kron and random dense operators and
-numpy-seeded random per-element inputs."""
+numpy-seeded random per-element inputs: kron_blocked and kron_elem_major,
+and benchmark04's kernels (kron_wide4, kron_vpu_blocked, qp_shared, qp_w,
+qp_w_flat, qp_mxu_grouped, qp_global, qp1d_shared, qp1d_global) against the
+port's calls that serve them: k2.kron_wide4, K1 (k1.qp_shared3d and
+k1.qp_shared3d_flat), k1.qp_global3d, k1.qp1d_fused and k2.qp1d_global."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +15,7 @@ import torch
 from tpu_bench.kernels import bwdtrans2d as pl_bt2d
 from tpu_bench.utils import native
 from tpu_bench_torch.kernels import bwdtrans2d as k2
+from tpu_bench_torch.kernels import bwdtrans3d as k1
 
 NBLK, CE = 2, 128
 
@@ -82,3 +86,168 @@ def test_kron_blocked_rejects_bad_input():
         k2.kron_blocked(x, c.double())
     with pytest.raises(ValueError, match="no kernel for device"):
         k2.kron_blocked(x.to("meta"), c.to("meta"))
+
+
+# ---- benchmark04's kernels -------------------------------------------------
+
+# f32: both sides sum the same products in other orders; f64: to rounding.
+TOLS = [(np.float32, 1e-5), (np.float64, 1e-12)]
+HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _close(out, ref, rtol):
+    np.testing.assert_allclose(out, ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+
+
+def _qp_inputs(nq, dtype, seed, e=CE):
+    """in (nm0, nm1, E), b0 (nm0, nq0), b1t (nq1, nm1), random."""
+    nq0, nq1 = nq
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((nq0 - 1, nq1 - 1, e)).astype(dtype),
+            rng.standard_normal((nq0 - 1, nq0)).astype(dtype),
+            rng.standard_normal((nq1, nq1 - 1)).astype(dtype))
+
+
+def _pad_rows(m, mult=8):
+    """m with zero rows appended up to a multiple of mult (the JAX
+    package's sublane-padded B1^T)."""
+    return np.concatenate([m, np.zeros((-m.shape[0] % mult, m.shape[1]),
+                                       m.dtype)])
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("name,nq", [("kron_wide4", (4, 4)),
+                                     ("kron_wide4", (8, 8)),
+                                     ("kron_vpu_blocked", (2, 2)),
+                                     ("kron_vpu_blocked", (3, 3))])
+def test_kron_4d_matches_jax(name, nq, dtype, rtol):
+    """The 4D chunk layout (nblk, nmTot, ce/128, 128) through K2: both
+    JAX kernels compute the one function kron_wide4 serves."""
+    nm_tot, nq_tot = (nq[0] - 1) * (nq[1] - 1), nq[0] * nq[1]
+    rng = np.random.default_rng(nm_tot)
+    x = rng.standard_normal((NBLK, nm_tot, 2, 128)).astype(dtype)
+    c = rng.standard_normal((nq_tot, nm_tot)).astype(dtype)
+    ref = np.asarray(getattr(pl_bt2d, name)(
+        jnp.asarray(x), jnp.asarray(c), interpret=True, precision=HIGHEST))
+    out = k2.kron_wide4(torch.from_numpy(x), torch.from_numpy(c))
+    assert tuple(out.shape) == ref.shape == (NBLK, nq_tot, 2, 128)
+    _close(out.numpy(), ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("nq", [(4, 4), (8, 8), (3, 5)])
+def test_qp_shared_matches_jax(nq, dtype, rtol):
+    x, b0, b1t = _qp_inputs(nq, dtype, seed=10)
+    ref = np.asarray(pl_bt2d.qp_shared(
+        jnp.asarray(x), jnp.asarray(b0), jnp.asarray(b1t), epb=CE,
+        interpret=True, precision=HIGHEST))
+    out = k1.qp_shared3d(*map(torch.from_numpy, (x, b0, b1t)))
+    assert tuple(out.shape) == ref.shape == (nq[0], nq[1], CE)
+    _close(out.numpy(), ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("nq", [(11, 11), (10, 12)])
+def test_qp_w_matches_jax(nq, dtype, rtol):
+    """B1^T zero-padded to 16 rows (nq1 = 11, 12) for the JAX kernel; K1
+    takes its first nq1 rows."""
+    x, b0, b1t = _qp_inputs(nq, dtype, seed=11)
+    b1tp = _pad_rows(b1t)
+    assert b1tp.shape[0] == 16
+    ref = np.asarray(pl_bt2d.qp_w(
+        jnp.asarray(x), jnp.asarray(b0), jnp.asarray(b1tp), nq1=nq[1],
+        epb=CE, interpret=True, precision=HIGHEST))
+    out = k1.qp_shared3d(*map(torch.from_numpy, (x, b0, b1tp[:nq[1]])))
+    _close(out.numpy(), ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+def test_qp_w_flat_matches_jax(dtype, rtol):
+    """Both kernels given the p-major flat layout (nm0*nm1, E); the JAX
+    column instead hands its kernel the q-major in_coa (ROADMAP Queue 3),
+    so this holds the kernels, not the columns, against each other."""
+    x, b0, b1t = _qp_inputs((11, 11), dtype, seed=12)
+    flat, b1tp = x.reshape(-1, CE), _pad_rows(b1t)
+    ref = np.asarray(pl_bt2d.qp_w_flat(
+        jnp.asarray(flat), jnp.asarray(b0), jnp.asarray(b1tp), nm1=10,
+        nq1=11, epb=CE, interpret=True, precision=HIGHEST))
+    out = k1.qp_shared3d_flat(*map(torch.from_numpy, (flat, b0, b1tp[:11])),
+                              nrq=10)
+    assert tuple(out.shape) == ref.shape == (121, CE)
+    _close(out.numpy(), ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+def test_qp_mxu_grouped_matches_jax(dtype, rtol):
+    """nq=32: the JAX kernel takes the p-grouped layout and block-diagonal
+    operators (g=2, nm0=31 zero-padded to 32) and returns (nq1, nq0, E);
+    the port takes in_pcoa3 and returns (nq0, nq1, E)."""
+    g, nq = 2, 32
+    x, b0, b1t = _qp_inputs((nq, nq), dtype, seed=13)
+    nm = nq - 1
+    xp = np.concatenate([x, np.zeros((1, nm, CE), dtype)])  # p to 32
+    in_g3 = xp.reshape(nq // g, g * nm, CE)
+    b0t_p = np.concatenate([b0.T, np.zeros((nq, 1), dtype)], axis=1)
+    s1g, s2g = (np.kron(np.eye(g, dtype=dtype), m) for m in (b1t, b0t_p))
+    ref = np.asarray(pl_bt2d.qp_mxu_grouped(
+        jnp.asarray(in_g3), jnp.asarray(s1g), jnp.asarray(s2g), nq0=nq,
+        nq1=nq, g=g, epb=CE, interpret=True, precision=HIGHEST))
+    out = k1.qp_shared3d(*map(torch.from_numpy, (x, b0, b1t)))
+    assert ref.shape == (nq, nq, CE)
+    _close(out.numpy(), ref.transpose(1, 0, 2), rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("nq", [(8, 8), (3, 5), (32, 32)])
+def test_qp_global_matches_jax(nq, dtype, rtol):
+    """K2 then K4; nq=32 has nm0 = 31, K4's 32 bucket on the card."""
+    x, b0, b1t = _qp_inputs(nq, dtype, seed=14)
+    ref = np.asarray(pl_bt2d.qp_global(
+        jnp.asarray(x), jnp.asarray(b0), jnp.asarray(b1t), epb=CE,
+        interpret=True, precision=HIGHEST))
+    out = k1.qp_global3d(*map(torch.from_numpy, (x, b0, b1t)))
+    assert tuple(out.shape) == ref.shape
+    _close(out.numpy(), ref, rtol)
+
+
+@pytest.mark.parametrize("dtype,rtol", TOLS)
+@pytest.mark.parametrize("nq", [(4, 4), (8, 8), (3, 5), (32, 32)])
+@pytest.mark.parametrize("name", ["qp1d_shared", "qp1d_global"])
+def test_qp1d_matches_jax(name, nq, dtype, rtol):
+    """Random dense stage operators of the 2D widths: (nmTot, nm1*nq0) and
+    (nm1*nq0, nqTot); at nq=32 those are 961, 992 and 1024 wide."""
+    nq0, nq1 = nq
+    widths = ((nq0 - 1) * (nq1 - 1), (nq1 - 1) * nq0, nq0 * nq1)
+    rng = np.random.default_rng(sum(nq))
+    x = rng.standard_normal((CE, widths[0])).astype(dtype)
+    s1, s2 = (rng.standard_normal((k, n)).astype(dtype)
+              for k, n in zip(widths, widths[1:]))
+    ref = np.asarray(getattr(pl_bt2d, name)(
+        jnp.asarray(x), jnp.asarray(s1), jnp.asarray(s2), epb=CE,
+        interpret=True, precision=HIGHEST))
+    port = {"qp1d_shared": k1.qp1d_fused, "qp1d_global": k2.qp1d_global}
+    out = port[name](*map(torch.from_numpy, (x, s1, s2)))
+    assert tuple(out.shape) == ref.shape == (CE, widths[2])
+    _close(out.numpy(), ref, rtol)
+
+
+def test_2d_wrappers_reject_bad_input():
+    x, b0, b1t = map(torch.from_numpy, _qp_inputs((4, 4), np.float32, 15))
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.kron_wide4(torch.zeros(2, 9, 128, 2).transpose(2, 3),
+                      torch.zeros(16, 9))
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.kron_wide4(torch.zeros(9, 256), torch.zeros(16, 9))
+    with pytest.raises(ValueError):
+        k1.qp_shared3d(x, b0, b1t[:, :-1].contiguous())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        k1.qp_global3d(x.bfloat16(), b0.bfloat16(), b1t.bfloat16())
+    em, s = torch.zeros(CE, 9), torch.zeros(9, 12)
+    with pytest.raises(ValueError, match="do not chain"):
+        k1.qp1d_fused(em, s, s)
+    with pytest.raises(ValueError, match="element tiles"):
+        k1.qp1d_fused(em, s, s.T.contiguous(), epb=4)
+    meta = [t.to("meta") for t in (em, s, s.T.contiguous())]
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k1.qp1d_fused(*meta)

@@ -25,7 +25,9 @@ names = [m.name for m in pkgutil.walk_packages(tpu_bench_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-assert len(names) >= 18, names
+assert len(names) >= 20, names
+assert {"tpu_bench_torch.benchmarks.benchmark04",
+        "tpu_bench_torch.baselines.bwdtrans2d"} <= set(names), names
 foreign = sorted(m for m in sys.modules
                  if m.startswith("jax") or m == "tpu_bench"
                  or m.startswith("tpu_bench."))
@@ -85,7 +87,8 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 
 def _kernel_cases(rnd):
-    """{kernel: (wrapper call, plain call)} at nq=8^3 shapes, E=1000."""
+    """{kernel: (wrapper call, plain call)} at nq=8^3 shapes (qp1d_fused2d:
+    b04 nq=8^2), E=1000."""
     from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -93,6 +96,7 @@ def _kernel_cases(rnd):
     xb, w, em = rnd(2, 343, 1000), rnd(7, 64, 1000), rnd(1000, 343)
     s = (rnd(343, 392), rnd(392, 448), rnd(448, 512))
     c_em = rnd(343, 512)
+    em2, s2d = rnd(1000, 49), (rnd(49, 56), rnd(56, 64))
     return {
         "qp_fused3d": (lambda: k1.qp_shared3d(x, b0, c12t),
                        lambda: k1.qp_shared3d_plain(x, b0, c12t)),
@@ -104,12 +108,15 @@ def _kernel_cases(rnd):
                          lambda: k1.qp_stage2_3d_plain(w, b0)),
         "qp1d_fused3d": (lambda: k1.qp1d_shared3d(em, *s),
                          lambda: k1.qp1d3d_plain(em, *s)),
+        "qp1d_fused2d": (lambda: k1.qp1d_fused(em2, *s2d),
+                         lambda: k2.qp1d_plain(em2, *s2d)),
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["qp_fused3d", "kron_blocked", "em_gemm",
-                                    "qp_stage2_3d", "qp1d_fused3d"])
+                                    "qp_stage2_3d", "qp1d_fused3d",
+                                    "qp1d_fused2d"])
 def test_kernels_match_plain_on_card(kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

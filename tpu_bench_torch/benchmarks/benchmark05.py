@@ -23,34 +23,11 @@ import functools
 from tpu_bench_torch.baselines import bwdtrans3d as lib_bt
 from tpu_bench_torch.core.config import Config
 from tpu_bench_torch.core.reporting import Reporter
-from tpu_bench_torch.core.validate import (check_norm_agreement, default_rtol,
-                                           measure_checked)
-from tpu_bench_torch.core.variants import Layouts, materialize
+from tpu_bench_torch.core.validate import measure_row
+from tpu_bench_torch.core.variants import LABELS, Layouts, materialize
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
 from tpu_bench_torch.ops import bwdtrans, initdata
-
-LABELS = [
-    "XLA(Uncoales)", "XLA(Coales)", "XLA(QP)", "XLA(QP/DG)", "XLA(GEMM)",
-    "Pallas(Uncoales)", "Pallas(Coales)", "Pallas(QP)", "Pallas(QP/Shared)",
-    "Pallas(QP-1D)", "Pallas(QP-1D/Shared)",
-]
-
-# Widest element chunk of the Pallas(Coales) layout.  K2 tiles each chunk
-# into 128-wide output tiles and runs all chunks in one launch, so the
-# width only splits the batch: any multiple of 128 gives the same blocks
-# (on an NVIDIA H100 80GB HBM3 at 700 W, 1024 to 32768 timed within 4% of
-# each other; PERF.md).
-# 8192 keeps the chunk count within CUDA's grid limit up to 512Mi elements.
-KRON_CHUNK = 8192
-
-
-def kron_chunk(e_pad: int) -> int:
-    """Largest power-of-two chunk width <= KRON_CHUNK dividing e_pad."""
-    ce = 128
-    while ce * 2 <= min(e_pad, KRON_CHUNK) and e_pad % (ce * 2) == 0:
-        ce *= 2
-    return ce
 
 
 def variant_specs(data, cfg):
@@ -91,7 +68,7 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
     src = bwdtrans.stream_sources(bwdtrans.element_data3d(basis, cfg.dtype),
                                   (nm2, nm1, nm0), nelmt, e_pad, cfg.dtype)
     c_em3, c12t, s1_em, s2_em, s3_em = bwdtrans.operators3d(basis)
-    ce = kron_chunk(e_pad)
+    ce = bwdtrans.kron_chunk(e_pad)
     return Layouts(
         base=dict(
             basis=basis,
@@ -123,23 +100,8 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
 def run_test(nelmt: int, nq0: int, nq1: int, nq2: int, cfg: Config,
              reporter: Reporter) -> None:
     data = prepare(nq0, nq1, nq2, nelmt, cfg)
-    times, norms = [], []
-    with cfg.library_precision():
-        for label, fn, keys in variant_specs(data, cfg):
-            args = tuple(data[k] for k in keys)  # lazy derived layouts
-            t, norm = measure_checked(label, fn, args, cfg, reporter)
-            del args
-            times.append(t)
-            norms.append(norm)
-
-    if cfg.validate:
-        for msg in check_norm_agreement(LABELS, norms, default_rtol(cfg.dtype),
-                                        context=f"b05 nelmt={nelmt}"):
-            reporter.note("WARNING: " + msg)
-
-    nm = (nq0 - 1) * (nq1 - 1) * (nq2 - 1)
-    dofs = [1e-9 * nelmt * nm / t for t in times]
-    reporter.emit("nelmt", nelmt, LABELS, norms, dofs, "DOF/s")
+    measure_row("b05", LABELS, variant_specs(data, cfg), data, nelmt,
+                (nq0 - 1) * (nq1 - 1) * (nq2 - 1), cfg, reporter)
 
 
 def main(argv=None):

@@ -1,9 +1,10 @@
 """Carry operands across from the JAX package.
 
 The port keeps the JAX package's array layouts at every public function, so
-an operand built by `tpu_bench.benchmarks.benchmark05.prepare` converts by
-a plain copy: `np.asarray` on the JAX side, then `data_from_numpy` here.
-Tests use it to run both packages on the same bytes.
+an operand built by `tpu_bench.benchmarks.benchmark05.prepare` or
+`benchmark04.prepare` converts by a plain copy: `np.asarray` on the JAX
+side, then `data_from_numpy` here.  Tests use it to run both packages on
+the same bytes.
 """
 
 from __future__ import annotations
@@ -11,16 +12,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# The b05 operands whose layout the two packages share.
-KEYS = ("b0", "b1", "b2", "c12t", "c_em3", "c_coa3", "s1_em", "s2_em",
-        "s3_em", "in_em2", "in_pcoa3", "in_pflat", "in_blk", "in_coa", "in_em4",
-        "in_coa4")
+# The operands of each benchmark whose name and layout the two packages
+# share (b04's in_blk_w4 is the 4D chunk layout of its Coales column).
+B05_KEYS = ("b0", "b1", "b2", "c12t", "c_em3", "c_coa3", "s1_em", "s2_em",
+            "s3_em", "in_em2", "in_pcoa3", "in_pflat", "in_blk", "in_coa",
+            "in_em4", "in_coa4")
+B04_KEYS = ("b0", "b1", "b1t", "c_em", "c_coa", "s1_em", "s2_em", "in_em2",
+            "in_coa", "in_em3", "in_coa3", "in_pcoa3", "in_blk_w4")
 
 
 def data_from_numpy(arrays: dict, *, device, dtype) -> dict:
     """{key: tensor} on `device` in `dtype` from {key: np.ndarray} keyed by
-    the JAX prepare dict's names (see KEYS)."""
-    unknown = sorted(set(arrays) - set(KEYS))
+    the JAX prepare dict's names (see B05_KEYS and B04_KEYS)."""
+    unknown = sorted(set(arrays) - set(B05_KEYS) - set(B04_KEYS))
     if unknown:
         raise KeyError(f"no port layout for JAX operands {unknown}")
     # np.array copies: JAX hands out read-only buffers

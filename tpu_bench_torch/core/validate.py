@@ -72,6 +72,32 @@ def measure_checked(label, fn, args, cfg, reporter):
     return fail_soft(label, reporter, thunk)
 
 
+def measure_row(bench: str, labels, specs, data, nelmt: int, dofs: int,
+                cfg, reporter) -> None:
+    """One sweep point of a BwdTrans benchmark: every column of `specs`
+    (label, fn, operand keys; operands resolved one column at a time) timed
+    and normed, the norms checked against each other, and the
+    Case/norm/DOF/s line triple emitted with GDOF/s = 1e-9*nelmt*dofs/t,
+    `dofs` the input modes per element."""
+    times, norms = [], []
+    with cfg.library_precision():
+        for label, fn, keys in specs:
+            args = tuple(data[k] for k in keys)  # lazy derived layouts
+            t, norm = measure_checked(label, fn, args, cfg, reporter)
+            del args
+            times.append(t)
+            norms.append(norm)
+
+    if cfg.validate:
+        for msg in check_norm_agreement(labels, norms,
+                                        default_rtol(cfg.dtype),
+                                        context=f"{bench} nelmt={nelmt}"):
+            reporter.note("WARNING: " + msg)
+
+    reporter.emit("nelmt", nelmt, labels, norms,
+                  [1e-9 * nelmt * dofs / t for t in times], "DOF/s")
+
+
 def default_rtol(dtype) -> float:
     """Cross-variant tolerance per dtype: f64 1e-10, f32 5e-4."""
     return 1e-10 if dtype == torch.float64 else 5e-4

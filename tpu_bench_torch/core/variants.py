@@ -14,6 +14,14 @@ the one variant that uses it and dropped afterwards.
 
 from __future__ import annotations
 
+# The eleven columns of benchmark04 and benchmark05, with the reference's
+# names so postprocess/ reads the port's logs unchanged.
+LABELS = [
+    "XLA(Uncoales)", "XLA(Coales)", "XLA(QP)", "XLA(QP/DG)", "XLA(GEMM)",
+    "Pallas(Uncoales)", "Pallas(Coales)", "Pallas(QP)", "Pallas(QP/Shared)",
+    "Pallas(QP-1D)", "Pallas(QP-1D/Shared)",
+]
+
 
 class Layouts:
     """Operand mapping with lazy derived layouts.

@@ -10,6 +10,13 @@
 //
 // with nrq = nm2*nm1 and nkj = nq2*nq1 (49 and 64 at nq=8^3).
 //
+// It also serves benchmark04's Pallas(QP/Shared) column: the 2D
+// sum-factorization is the same contraction with nrq = nm1, nkj = nq1 and
+// C12T = B1^T, so one kernel replaces tpu_bench/kernels/bwdtrans2d.py:
+// qp_shared, qp_w, qp_w_flat and qp_mxu_grouped, whose differences were TPU
+// sublane and MXU-tile geometry.  nm1 <= 31 (b04's nq <= 32) sits in the
+// 16 and 49 register buckets below.
+//
 // What bounds it on an H100: each element streams nm0*nrq values in and
 // nq0*nkj out exactly once (343 + 512 at nq=8^3) and takes
 // 2*nq0*nrq*(nm0 + nkj) FLOP (55,664 at nq=8^3): about 16 FLOP per byte in
@@ -141,26 +148,30 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
     return cudaErrorInvalidValue;
 }
 
-// K4 qp_stage2_3d: stage 2 of benchmark05's Pallas(QP) column.
+// K4 qp_stage2_3d: stage 2 of benchmark05's and benchmark04's Pallas(QP).
 //
 // Replaces tpu_bench/kernels/bwdtrans3d.py:qp_global3d's second
-// pallas_call (_stage2_kernel3d), the p contraction of the workspace that
-// stage 1 (K2, w[p] = C12T @ in[p]) left in device memory:
+// pallas_call (_stage2_kernel3d) and tpu_bench/kernels/bwdtrans2d.py:
+// qp_global's (_stage2_kernel), the p contraction of the workspace that
+// stage 1 (K2, w[p] = C12T @ in[p], or B1^T @ in[p] in 2D) left in device
+// memory:
 //
 //   out[i*nkj + kj, e] = sum_p B0[p, i] * w[p*nkj + kj, e]
 //
-// with w (nm0, nkj, E) and out (nq0, nkj, E), element index fastest.
+// with w (nm0, nkj, E) and out (nq0, nkj, E), element index fastest;
+// nkj = nq2*nq1 in 3D and nq1 in 2D.
 //
 // What bounds it on an H100: memory.  Each (kj, e) reads nm0 values and
 // writes nq0 (7 and 8 at nq=8^3) for 2*nm0*nq0 FLOP, under 2 FLOP per byte.
 // So one thread owns one (kj, e): elements along threadIdx.x (coalesced,
 // ragged edge masked), kj on blockIdx.y; its nm0 workspace values are read
-// once into registers (unrolled to MAXP with a run-time guard) and B0 sits
+// once into registers (unrolled to a compile-time bucket MAXP with a
+// run-time guard: 16 covers nm0 <= 16, 32 the 2D nq=32 order) and B0 sits
 // in shared memory, where every thread reads the same address (broadcast).
-constexpr int QP2_MAXP = 16;
+constexpr int QP2_MAX_NM0 = 32;
 constexpr int QP2_MAX_THREADS = 512;
 
-template <typename T>
+template <typename T, int MAXP>
 __global__ void __launch_bounds__(QP2_MAX_THREADS) qp_stage2_3d_kernel(const T* __restrict__ w,
                                     const T* __restrict__ b0,
                                     T* __restrict__ out, int nm0, int nq0,
@@ -174,14 +185,14 @@ __global__ void __launch_bounds__(QP2_MAX_THREADS) qp_stage2_3d_kernel(const T* 
                         threadIdx.x;
     if (e >= n_elem) return;
     const long long kj = blockIdx.y;
-    T v[QP2_MAXP];
+    T v[MAXP];
 #pragma unroll
-    for (int p = 0; p < QP2_MAXP; ++p)
+    for (int p = 0; p < MAXP; ++p)
         v[p] = p < nm0 ? __ldg(w + (p * nkj + kj) * n_elem + e) : T(0);
     for (int i = 0; i < nq0; ++i) {
         T acc = T(0);
 #pragma unroll
-        for (int p = 0; p < QP2_MAXP; ++p)
+        for (int p = 0; p < MAXP; ++p)
             if (p < nm0) acc = fma(s_b0[p * nq0 + i], v[p], acc);
         out[(i * nkj + kj) * n_elem + e] = acc;
     }
@@ -192,12 +203,13 @@ int launch_qp_stage2(const T* w, const T* b0, T* out, int nm0, int nq0,
                      int nkj, long long n_elem, int epb,
                      cudaStream_t stream) {
     if (n_elem <= 0 || nkj <= 0) return cudaSuccess;
-    if (nm0 > QP2_MAXP || nkj > 65535 || epb > QP2_MAX_THREADS)
+    if (nm0 > QP2_MAX_NM0 || nkj > 65535 || epb > QP2_MAX_THREADS)
         return cudaErrorInvalidValue;
     const size_t smem = sizeof(T) * static_cast<size_t>(nm0 * nq0);
     const dim3 grid(static_cast<unsigned>((n_elem + epb - 1) / epb), nkj);
-    qp_stage2_3d_kernel<T><<<grid, epb, smem, stream>>>(w, b0, out, nm0, nq0,
-                                                        nkj, n_elem);
+    auto kernel = nm0 <= 16 ? &qp_stage2_3d_kernel<T, 16>
+                            : &qp_stage2_3d_kernel<T, QP2_MAX_NM0>;
+    kernel<<<grid, epb, smem, stream>>>(w, b0, out, nm0, nq0, nkj, n_elem);
     return cudaGetLastError();
 }
 

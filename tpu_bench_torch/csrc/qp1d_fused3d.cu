@@ -1,32 +1,36 @@
-// K5 qp1d_fused3d: benchmark05's Pallas(QP-1D/Shared) column.
+// K5 qp1d_fused3d: benchmark05's and benchmark04's Pallas(QP-1D/Shared).
 //
-// Replaces the Pallas kernel tpu_bench/kernels/bwdtrans3d.py:qp1d_shared3d
+// Replaces the Pallas kernels tpu_bench/kernels/bwdtrans3d.py:qp1d_shared3d
 // (_stages3_em_kernel), the element-major three-stage product
 //
 //   out (E x N3) = ((X (E x K0) @ S1 (K0 x N1)) @ S2 (N1 x N2)) @ S3 (N2 x N3)
 //
-// with both workspaces w1 = X @ S1 and w2 = w1 @ S2 of an element tile
-// kept on chip.  S1..S3 are dense (the benchmark's are kron-structured and
-// mostly zero, but the kernel computes the same function for any S).
+// and tpu_bench/kernels/bwdtrans2d.py:qp1d_shared (_stages_em_kernel), its
+// two-stage form out (E x N2) = (X @ S1) @ S2, with the workspaces of an
+// element tile kept on chip.  One template, on the stage count, serves both
+// (entry points tbt_qp1d_fused3d_* and tbt_qp1d_fused2d_*).  The S are dense
+// (the benchmarks' are kron-structured and mostly zero, but the kernel
+// computes the same function for any S).
 //
 // What bounds it on an H100: FMA issue.  The dense stages do
 // 2*(K0*N1 + N1*N2 + N2*N3) FLOP per element (1.08 M at nq=8^3) for
 // 4*(K0 + N3) bytes of the element stream.  The operators (539,448 values at
 // nq=8^3, 1.6 M at nq=10^3) do not fit in shared memory, so the design is:
-//   - one block per tile of ET elements; the tile's input and both
+//   - one block per tile of ET elements; the tile's input and its
 //     workspaces live in shared memory, transposed to [column][element]
 //     so a thread's ET-direction fragment is one 16-byte load;
-//     buffer A holds w1, buffer B first X and then w2;
+//     buffer A holds w1, buffer B first X and then (three stages) w2;
 //   - each stage is a GEMM of that tile against S streamed from L2 in
 //     8 x 128 tiles through shared memory, the next tile read into
 //     registers while the current one is used; 256 threads, each a
 //     4 x (ET/8) register micro-tile, full FP32/FP64 FMA (never TF32);
-//   - ET is 32, or 16 where 32 elements' buffers do not fit the card's
-//     opt-in shared memory (nq=10^3 f64); the wrapper chooses it and
-//     refuses a shape that does not fit.  On the H100, 32 timed fastest
-//     of 64/32/16 at nq 4^3-10^3 in f32 and f64: two blocks share an SM
-//     up to nq=8^3 f32 and 6^3 f64, and the registers are capped at 128
-//     a thread so that they can;
+//   - ET is 32, or 16 or 8 where the larger tile's buffers do not fit the
+//     card's opt-in shared memory (16: b05 nq=10^3 f64 and b04 nq=32 f32;
+//     8: b04 nq=32 f64, whose workspace widths are 961 and 992); the
+//     wrapper chooses it and refuses a shape that fits none.  On the H100,
+//     32 timed fastest of 64/32/16 at nq 4^3-10^3 in f32 and f64: two
+//     blocks share an SM up to nq=8^3 f32 and 6^3 f64, and the registers
+//     are capped at 128 a thread so that they can;
 //   - K, N and E edges masked; workspace rows past a stage's width up to
 //     the next multiple of 8 are written as zeros, so the next stage's K
 //     loop runs over whole 8-row steps.
@@ -48,7 +52,8 @@ constexpr int SPAD = 4;   // keeps S tile rows 16-byte aligned
 
 __host__ __device__ constexpr int pad_k(int n) { return (n + BK - 1) / BK * BK; }
 
-// Rows of buffer B, which holds first X (k0 columns) and then w2 (n2).
+// Rows of buffer B, which holds first X (k0 columns) and then, in the
+// three-stage chain, w2 (n2); n2 = 0 in the two-stage chain.
 __host__ __device__ constexpr int rows_b(int k0, int n2) {
     return pad_k(k0) > pad_k(n2) ? pad_k(k0) : pad_k(n2);
 }
@@ -149,16 +154,19 @@ __device__ __forceinline__ void stage(const T* src, int k_depth,
     }
 }
 
-template <typename T, int ET>
+// STAGES == 3: out (E x n3) = ((X @ S1) @ S2) @ S3, workspaces n1 and n2
+// wide.  STAGES == 2: out (E x n2) = (X @ S1) @ S2; s3 and n3 are unused.
+template <typename T, int ET, int STAGES>
 __global__ void __launch_bounds__(THREADS, 2)
-    qp1d_fused3d_kernel(const T* __restrict__ x, const T* __restrict__ s1,
-                        const T* __restrict__ s2, const T* __restrict__ s3,
-                        T* __restrict__ out, long long n_elem, int k0, int n1,
-                        int n2, int n3) {
+    qp1d_fused_kernel(const T* __restrict__ x, const T* __restrict__ s1,
+                      const T* __restrict__ s2, const T* __restrict__ s3,
+                      T* __restrict__ out, long long n_elem, int k0, int n1,
+                      int n2, int n3) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* buf_a = reinterpret_cast<T*>(smem_raw);           // w1: pad_k(n1) rows
     T* buf_b = buf_a + static_cast<size_t>(pad_k(n1)) * ET;  // X, then w2
-    T* s_tile = buf_b + static_cast<size_t>(rows_b(k0, n2)) * ET;
+    T* s_tile =
+        buf_b + static_cast<size_t>(rows_b(k0, STAGES == 3 ? n2 : 0)) * ET;
     const long long e0 = static_cast<long long>(blockIdx.x) * ET;
 
     // X tile, transposed into buf_b; rows k0..pad_k(k0)-1 and elements past
@@ -173,23 +181,29 @@ __global__ void __launch_bounds__(THREADS, 2)
     __syncthreads();
     stage<T, ET, false>(buf_b, k0, s1, n1, s_tile, buf_a, e0, n_elem);
     __syncthreads();
-    stage<T, ET, false>(buf_a, n1, s2, n2, s_tile, buf_b, e0, n_elem);
-    __syncthreads();
-    stage<T, ET, true>(buf_b, n2, s3, n3, s_tile, out, e0, n_elem);
+    if constexpr (STAGES == 2) {
+        stage<T, ET, true>(buf_a, n1, s2, n2, s_tile, out, e0, n_elem);
+    } else {
+        stage<T, ET, false>(buf_a, n1, s2, n2, s_tile, buf_b, e0, n_elem);
+        __syncthreads();
+        stage<T, ET, true>(buf_b, n2, s3, n3, s_tile, out, e0, n_elem);
+    }
 }
 
+// Dynamic shared memory of one block: w1, buffer B and the S tile.  n2 is
+// the second workspace's width, 0 for the two-stage chain.
 template <typename T>
 size_t smem_bytes(int et, int k0, int n1, int n2) {
     const int rows = pad_k(n1) + rows_b(k0, n2);
     return sizeof(T) * (static_cast<size_t>(rows) * et + BK * (BN + SPAD));
 }
 
-template <typename T, int ET>
+template <typename T, int ET, int STAGES>
 int launch_tile(const T* x, const T* s1, const T* s2, const T* s3, T* out,
                 long long n_elem, int k0, int n1, int n2, int n3,
                 cudaStream_t stream) {
-    const size_t smem = smem_bytes<T>(ET, k0, n1, n2);
-    auto kernel = qp1d_fused3d_kernel<T, ET>;
+    const size_t smem = smem_bytes<T>(ET, k0, n1, STAGES == 3 ? n2 : 0);
+    auto kernel = qp1d_fused_kernel<T, ET, STAGES>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -200,18 +214,21 @@ int launch_tile(const T* x, const T* s1, const T* s2, const T* s3, T* out,
     return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int STAGES>
 int launch(const T* x, const T* s1, const T* s2, const T* s3, T* out,
            long long n_elem, int k0, int n1, int n2, int n3, int et,
            cudaStream_t stream) {
-    if (n_elem <= 0 || n3 <= 0) return cudaSuccess;
+    if (n_elem <= 0 || (STAGES == 3 ? n3 : n2) <= 0) return cudaSuccess;
     switch (et) {
         case 32:
-            return launch_tile<T, 32>(x, s1, s2, s3, out, n_elem, k0, n1, n2,
-                                      n3, stream);
+            return launch_tile<T, 32, STAGES>(x, s1, s2, s3, out, n_elem, k0,
+                                              n1, n2, n3, stream);
         case 16:
-            return launch_tile<T, 16>(x, s1, s2, s3, out, n_elem, k0, n1, n2,
-                                      n3, stream);
+            return launch_tile<T, 16, STAGES>(x, s1, s2, s3, out, n_elem, k0,
+                                              n1, n2, n3, stream);
+        case 8:
+            return launch_tile<T, 8, STAGES>(x, s1, s2, s3, out, n_elem, k0,
+                                             n1, n2, n3, stream);
         default:
             return cudaErrorInvalidValue;
     }
@@ -219,8 +236,10 @@ int launch(const T* x, const T* s1, const T* s2, const T* s3, T* out,
 
 }  // namespace
 
-extern "C" long long tbt_qp1d_fused3d_smem(int itemsize, int et, int k0,
-                                           int n1, int n2) {
+// Shared memory a block of element tile et needs; n2 is the second
+// workspace's width, 0 for the two-stage chain.
+extern "C" long long tbt_qp1d_smem(int itemsize, int et, int k0, int n1,
+                                   int n2) {
     return itemsize == 4
                ? static_cast<long long>(smem_bytes<float>(et, k0, n1, n2))
                : static_cast<long long>(smem_bytes<double>(et, k0, n1, n2));
@@ -230,20 +249,40 @@ extern "C" int tbt_qp1d_fused3d_f32(const void* x, const void* s1,
                                     const void* s2, const void* s3, void* out,
                                     long long n_elem, int k0, int n1, int n2,
                                     int n3, int et, void* stream) {
-    return launch(static_cast<const float*>(x), static_cast<const float*>(s1),
-                  static_cast<const float*>(s2), static_cast<const float*>(s3),
-                  static_cast<float*>(out), n_elem, k0, n1, n2, n3, et,
-                  static_cast<cudaStream_t>(stream));
+    return launch<float, 3>(
+        static_cast<const float*>(x), static_cast<const float*>(s1),
+        static_cast<const float*>(s2), static_cast<const float*>(s3),
+        static_cast<float*>(out), n_elem, k0, n1, n2, n3, et,
+        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_qp1d_fused3d_f64(const void* x, const void* s1,
                                     const void* s2, const void* s3, void* out,
                                     long long n_elem, int k0, int n1, int n2,
                                     int n3, int et, void* stream) {
-    return launch(static_cast<const double*>(x),
-                  static_cast<const double*>(s1),
-                  static_cast<const double*>(s2),
-                  static_cast<const double*>(s3), static_cast<double*>(out),
-                  n_elem, k0, n1, n2, n3, et,
-                  static_cast<cudaStream_t>(stream));
+    return launch<double, 3>(
+        static_cast<const double*>(x), static_cast<const double*>(s1),
+        static_cast<const double*>(s2), static_cast<const double*>(s3),
+        static_cast<double*>(out), n_elem, k0, n1, n2, n3, et,
+        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_qp1d_fused2d_f32(const void* x, const void* s1,
+                                    const void* s2, void* out,
+                                    long long n_elem, int k0, int n1, int n2,
+                                    int et, void* stream) {
+    return launch<float, 2>(
+        static_cast<const float*>(x), static_cast<const float*>(s1),
+        static_cast<const float*>(s2), nullptr, static_cast<float*>(out),
+        n_elem, k0, n1, n2, 0, et, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_qp1d_fused2d_f64(const void* x, const void* s1,
+                                    const void* s2, void* out,
+                                    long long n_elem, int k0, int n1, int n2,
+                                    int et, void* stream) {
+    return launch<double, 2>(
+        static_cast<const double*>(x), static_cast<const double*>(s1),
+        static_cast<const double*>(s2), nullptr, static_cast<double*>(out),
+        n_elem, k0, n1, n2, 0, et, static_cast<cudaStream_t>(stream));
 }

@@ -35,7 +35,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 # Launches of each kernel on a CUDA device since the count was last reset:
 # qp_fused3d (K1), kron_blocked (K2), em_gemm (K3), qp_stage2_3d (K4),
-# qp1d_fused3d (K5).
+# qp1d_fused3d (K5, three stages) and qp1d_fused2d (K5, two stages).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -52,6 +52,8 @@ _SIGNATURES = {
     "tbt_qp_stage2_3d": [_P, _P, _P, _I, _I, _I, _L, _I, _P],
     # x, s1, s2, s3, out, n_elem, k0, n1, n2, n3, et, stream
     "tbt_qp1d_fused3d": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+    # x, s1, s2, out, n_elem, k0, n1, n2, et, stream
+    "tbt_qp1d_fused2d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
 }
 
 
@@ -132,8 +134,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{dtype}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.tbt_qp1d_fused3d_smem.argtypes = [_I, _I, _I, _I, _I]
-    lib.tbt_qp1d_fused3d_smem.restype = _L
+    lib.tbt_qp1d_smem.argtypes = [_I, _I, _I, _I, _I]
+    lib.tbt_qp1d_smem.restype = _L
     lib.tbt_error_string.argtypes = [ctypes.c_int]
     lib.tbt_error_string.restype = ctypes.c_char_p
     return lib

@@ -12,9 +12,21 @@ element-major product with elements on rows:
 
     out (E, N) = in (E, K) @ S (K, N)
 
-A tensor on the CPU goes to the plain PyTorch version in this module; a
-tensor on a CUDA device goes to the kernel (csrc/bwdtrans2d.cu), which
-raises rather than fall back when it cannot run.
+The rest of tpu_bench/kernels/bwdtrans2d.py, benchmark04's 2D kernels, is
+served by kernels that already compute each function on the same bytes;
+the TPU kernels' differences were DMA, sublane or MXU-tile geometry:
+
+    kron_wide4, kron_vpu_blocked     kron_wide4 below: K2 on a view of
+                                     the 4D chunk layout
+    qp_shared, qp_w, qp_w_flat,      K1, kernels/bwdtrans3d.qp_shared3d
+    qp_mxu_grouped                   with nrq = nm1 and C12T = B1^T
+    qp_global                        bwdtrans3d.qp_global3d: K2, then K4
+    qp1d_shared                      bwdtrans3d.qp1d_fused: K5, two stages
+    qp1d_global                      qp1d_global below: K3 twice
+
+A tensor on the CPU goes to the plain PyTorch version; a tensor on a CUDA
+device goes to the kernel (csrc/), which raises rather than fall back when
+it cannot run.
 """
 
 from __future__ import annotations
@@ -114,3 +126,36 @@ def _em_gemm(name, x, s, epb):
     build.run("em_gemm", x, x.data_ptr(), s.data_ptr(), out.data_ptr(), e, k,
               n)
     return out
+
+
+# ---- benchmark04 (2D) ------------------------------------------------------
+
+
+def kron_wide4_plain(in_blk4, c_coa):
+    """Plain PyTorch version of kron_wide4."""
+    nblk, nm, cr, lanes = in_blk4.shape
+    out = torch.matmul(c_coa, in_blk4.reshape(nblk, nm, cr * lanes))
+    return out.reshape(nblk, c_coa.shape[0], cr, lanes)
+
+
+def kron_wide4(in_blk4, c_coa):
+    """out (nblk, nqTot, cr, lanes) = C (nqTot, nmTot) @ in (nblk, nmTot,
+    cr, lanes) per chunk: K2 on the contiguous bytes viewed (nblk, nmTot,
+    cr*lanes)."""
+    if in_blk4.dim() != 4 or not in_blk4.is_contiguous():
+        raise ValueError(f"kron_wide4: in {tuple(in_blk4.shape)} is not a "
+                         "contiguous (nblk, nmTot, cr, lanes) tensor")
+    nblk, nm, cr, lanes = in_blk4.shape
+    out = kron_blocked(in_blk4.view(nblk, nm, cr * lanes), c_coa)
+    return out.view(nblk, c_coa.shape[0], cr, lanes)
+
+
+def qp1d_plain(in_em2, s1_em, s2_em):
+    """Plain PyTorch version of the two-stage chain (qp1d_global and
+    bwdtrans3d.qp1d_fused with two operators)."""
+    return torch.matmul(torch.matmul(in_em2, s1_em), s2_em)
+
+
+def qp1d_global(in_em2, s1_em, s2_em, *, epb=None):
+    """The chain as two K3 launches, the workspace in device memory."""
+    return one_stage_em(one_stage_em(in_em2, s1_em, epb=epb), s2_em, epb=epb)

@@ -1,4 +1,7 @@
 """The 3D QP kernels of benchmark05 (port of tpu_bench/kernels/bwdtrans3d.py).
+benchmark04 calls qp_shared3d, qp_global3d and qp1d_fused for its 2D QP
+columns: the 2D contraction is K1's with nrq = nm1 and C12T = B1^T, and
+its QP-1D chain has two stages.
 
 K1 (qp_fused3d), the Pallas(QP/Shared) column, ports qp_shared3d and
 qp_shared3d_flat.  Both compute, for every element e and output plane i,
@@ -15,9 +18,10 @@ with the workspace w (nm0, nkj, E) in device memory: K2 (kernels/
 bwdtrans2d.py) for w[p] = C12T @ in[p], then K4 (qp_stage2_3d,
 csrc/bwdtrans3d.cu) for out[i] = sum_p B0[p, i] * w[p].
 
-qp1d_shared3d (K5, qp1d_fused3d, csrc/qp1d_fused3d.cu), the
-Pallas(QP-1D/Shared) column, and qp1d_global3d (three K3 launches), the
-Pallas(QP-1D) column, compute the element-major chain
+qp1d_shared3d (K5, qp1d_fused3d, csrc/qp1d_fused3d.cu; qp1d_fused
+takes two or three stages), the Pallas(QP-1D/Shared) column, and
+qp1d_global3d (three K3 launches), the Pallas(QP-1D) column, compute the
+element-major chain
 out (E, nqTot) = ((in (E, nmTot) @ S1) @ S2) @ S3.
 
 A tensor on the CPU goes to the plain PyTorch version in this module; a
@@ -42,16 +46,18 @@ EPB = 128
 MAX_NRQ = 81
 # K4: elements (= threads) per block; the largest block it is built for
 # and the largest nm0 it keeps in registers (csrc/bwdtrans3d.cu
-# QP2_MAX_THREADS, QP2_MAXP).  On the H100 at E=131072, 128 timed within
-# 2% of the best of 64..512 at nq 4^3-10^3 in f32 and f64 (PERF.md).
+# QP2_MAX_THREADS, QP2_MAX_NM0: buckets 16 and 32, the latter for b04
+# nq=32).  On the H100 at E=131072, 128 timed within 2% of the best of
+# 64..512 at nq 4^3-10^3 in f32 and f64 (PERF.md).
 QP2_EPB = 128
 QP2_MAX_EPB = 512
-QP2_MAX_NM0 = 16
+QP2_MAX_NM0 = 32
 # K5: element tiles it is built for, in order of preference; it takes the
 # first whose workspaces fit the card's opt-in shared memory.  On the
 # H100 at E=131072, 32 was the fastest of 64/32/16 at nq 4^3-10^3 in f32
-# and f64 wherever it fits (PERF.md).
-QP1D_TILES = (32, 16)
+# and f64 wherever it fits (PERF.md); 8 exists for b04 nq=32 f64, where
+# 16 does not fit.
+QP1D_TILES = (32, 16, 8)
 
 
 def qp_shared3d_plain(in_pcoa3, b0, c12t):
@@ -201,45 +207,58 @@ def qp1d_global3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
     return k2.one_stage_em(w2, s3_em, epb=epb)
 
 
-def qp1d_tiles(in_em2, s1_em, s2_em, s3_em) -> list:
+def qp1d_tiles(in_em2, *ops) -> list:
     """The element tiles of QP1D_TILES whose workspaces fit the card's
-    opt-in shared memory for these operands, in order of preference."""
-    k0, n1, n2 = in_em2.shape[1], s1_em.shape[1], s2_em.shape[1]
+    opt-in shared memory for the chain in_em2 @ ops[0] @ ... (two or three
+    stages), in order of preference."""
+    k0, n1 = in_em2.shape[1], ops[0].shape[1]
+    n2 = ops[1].shape[1] if len(ops) == 3 else 0  # second workspace
     props = torch.cuda.get_device_properties(in_em2.device)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    smem = build.library().tbt_qp1d_fused3d_smem
+    smem = build.library().tbt_qp1d_smem
     return [et for et in QP1D_TILES
             if smem(in_em2.element_size(), et, k0, n1, n2) <= limit]
 
 
-def qp1d_shared3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
-    """The chain in one K5 launch, w1 and w2 of each element tile in
-    shared memory.  `epb`: the element tile, one of QP1D_TILES; None takes
-    the first that fits."""
-    ops = (in_em2, s1_em, s2_em, s3_em)
-    build.check_operands("qp1d_shared3d", ops)
-    if (any(t.dim() != 2 for t in ops) or s1_em.shape[0] != in_em2.shape[1]
-            or s2_em.shape[0] != s1_em.shape[1]
-            or s3_em.shape[0] != s2_em.shape[1]):
-        raise ValueError("qp1d_shared3d: shapes "
-                         f"{[tuple(t.shape) for t in ops]} do not chain")
+def qp1d_fused(in_em2, *ops, epb=None):
+    """out (E, N) = in_em2 (E, K0) @ ops[0] @ ... in one K5 launch, the
+    workspaces of each element tile in shared memory: three operators
+    (benchmark05, entry qp1d_fused3d) or two (benchmark04, qp1d_fused2d).
+    `epb`: the element tile, one of QP1D_TILES; None takes the first that
+    fits."""
+    ops = (in_em2, *ops)
+    build.check_operands("qp1d_fused", ops)
+    if (len(ops) not in (3, 4) or any(t.dim() != 2 for t in ops)
+            or any(a.shape[1] != b.shape[0] for a, b in zip(ops, ops[1:]))):
+        raise ValueError("qp1d_fused: shapes "
+                         f"{[tuple(t.shape) for t in ops]} do not chain "
+                         "through two or three stages")
     if epb is not None and epb not in QP1D_TILES:
-        raise ValueError(f"qp1d_shared3d: epb={epb} is not one of the "
+        raise ValueError(f"qp1d_fused: epb={epb} is not one of the "
                          f"kernel's element tiles {QP1D_TILES}")
     if in_em2.device.type == "cpu":
-        return qp1d3d_plain(*ops)
+        out = in_em2
+        for s in ops[1:]:
+            out = torch.matmul(out, s)
+        return out
     fits = qp1d_tiles(*ops)
     if epb is not None:
         fits = [et for et in fits if et == epb]
     if not fits:
-        raise ValueError(f"qp1d_shared3d: element tile {epb or 'of any size'}"
-                         f" with workspaces of widths {s1_em.shape[1]} and "
-                         f"{s2_em.shape[1]} does not fit the card's shared "
-                         "memory")
+        raise ValueError(f"qp1d_fused: element tile {epb or 'of any size'}"
+                         " with workspaces of widths "
+                         f"{[t.shape[1] for t in ops[1:-1]]} does not fit "
+                         "the card's shared memory")
     e, k0 = in_em2.shape
-    n1, n2, n3 = s1_em.shape[1], s2_em.shape[1], s3_em.shape[1]
-    out = torch.empty((e, n3), dtype=in_em2.dtype, device=in_em2.device)
-    build.run("qp1d_fused3d", in_em2, in_em2.data_ptr(), s1_em.data_ptr(),
-              s2_em.data_ptr(), s3_em.data_ptr(), out.data_ptr(), e, k0, n1,
-              n2, n3, fits[0])
+    widths = [t.shape[1] for t in ops[1:]]
+    out = torch.empty((e, widths[-1]), dtype=in_em2.dtype,
+                      device=in_em2.device)
+    name = "qp1d_fused3d" if len(ops) == 4 else "qp1d_fused2d"
+    build.run(name, in_em2, *(t.data_ptr() for t in ops), out.data_ptr(), e,
+              k0, *widths, fits[0])
     return out
+
+
+def qp1d_shared3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
+    """The three-stage chain in one K5 launch (qp1d_fused)."""
+    return qp1d_fused(in_em2, s1_em, s2_em, s3_em, epb=epb)

@@ -1,14 +1,17 @@
-"""3D tensor-product sum-factorization ("BwdTrans") machinery for
-benchmark05 (port of the 3D half of tpu_bench/ops/bwdtrans.py).
+"""2D and 3D tensor-product sum-factorization ("BwdTrans") machinery for
+benchmark04 and benchmark05 (port of tpu_bench/ops/bwdtrans.py without its
+TPU block-sizing helpers).
 
-Math (reference benchmark05/benchmark05.cc:695-740):
+Math (reference benchmark04/benchmark04.cc:489-523 and
+benchmark05/benchmark05.cc:695-740):
 
-    out[e, k, j, i] = sum_{r, q, p} in[e, r, q, p] * B0[p, i] * B1[q, j] * B2[r, k]
+    2D: out[e, j, i]    = sum_{q, p} in[e, q, p] * B0[p, i] * B1[q, j]
+    3D: out[e, k, j, i] = sum_{r, q, p} in[e, r, q, p] * B0[p, i] * B1[q, j] * B2[r, k]
 
 with nm_d = nq_d - 1 modes per direction, element data
-in[e, (r, q, p)] = sin(flat + 1) (the same for every element) and basis
-B_d[m, n] = cos(m*nq_d + n).  Array layouts are the JAX package's, so the
-two packages' functions take and return the same shapes.
+in[e, flat] = sin(flat + 1) with p the fastest mode (the same for every
+element) and basis B_d[m, n] = cos(m*nq_d + n).  Array layouts are the JAX
+package's, so the two packages' functions take and return the same shapes.
 """
 
 from __future__ import annotations
@@ -20,6 +23,61 @@ import torch
 
 from tpu_bench_torch.ops import initdata
 from tpu_bench_torch.utils import native
+
+
+@dataclasses.dataclass
+class Basis2D:
+    nq0: int
+    nq1: int
+    b0: torch.Tensor  # (nm0, nq0)
+    b1: torch.Tensor  # (nm1, nq1)
+
+    @property
+    def nm0(self):
+        return self.nq0 - 1
+
+    @property
+    def nm1(self):
+        return self.nq1 - 1
+
+    @property
+    def nm_tot(self):
+        return self.nm0 * self.nm1
+
+    @property
+    def nq_tot(self):
+        return self.nq0 * self.nq1
+
+
+def make_basis2d(nq0: int, nq1: int, dtype, device) -> Basis2D:
+    return Basis2D(
+        nq0=nq0, nq1=nq1,
+        b0=initdata.host_basis_cos(nq0 - 1, nq0, dtype, device),
+        b1=initdata.host_basis_cos(nq1 - 1, nq1, dtype, device),
+    )
+
+
+def element_data2d(basis: Basis2D, dtype) -> torch.Tensor:
+    """One element's mode coefficients, flat (nmTot,) with rows (q, p)
+    p-minor: sin(flat + 1), on the basis's device."""
+    elem = native.init_sin1(basis.nm_tot)
+    return torch.from_numpy(elem).to(device=basis.b0.device, dtype=dtype)
+
+
+def operators2d(basis: Basis2D):
+    """Operator matrices of the benchmark04 columns.
+
+    c_em:  kron(B1, B0)      (nmTot, nqTot)      single-GEMM form
+    s1_em: kron(I_nm1, B0)   (nmTot, nm1*nq0)    element-major QP-1D stage 1
+    s2_em: kron(B1, I_nq0)   (nm1*nq0, nqTot)    element-major QP-1D stage 2
+    """
+    b0, b1 = basis.b0, basis.b1
+
+    def eye(n):
+        return torch.eye(n, dtype=b0.dtype, device=b0.device)
+
+    return (torch.kron(b1, b0), torch.kron(eye(basis.nm1), b0),
+            torch.kron(b1, eye(basis.nq0)))
 
 
 @dataclasses.dataclass
@@ -96,7 +154,7 @@ def stream_sources(elem_flat, nm_shape, nelmt: int, e_pad: int, dtype):
     fresh contiguous tensor from the per-element coefficient vector, so a
     sweep holds one layout at a time.  Elements past nelmt are zero.
 
-    nm_shape is (nm2, nm1, nm0).  Builders:
+    nm_shape is (nm1, nm0) in 2D or (nm2, nm1, nm0) in 3D.  Builders:
       em2        (E, nmTot)           element-major
       coa        (nmTot, E)           coalesced (element index fastest)
       pcoa3      (nm0, rest, E)       p-major coalesced (fused QP kernel)
@@ -124,11 +182,38 @@ def stream_sources(elem_flat, nm_shape, nelmt: int, e_pad: int, dtype):
     return dict(em2=em2, coa=coa, pcoa3=pcoa3, blk=blk)
 
 
+# Widest element chunk of the Pallas(Coales) layout.  K2 tiles each chunk
+# into 128-wide output tiles and runs all chunks in one launch, so the
+# width only splits the batch: any multiple of 128 gives the same blocks
+# (on an NVIDIA H100 80GB HBM3 at 700 W, 1024 to 32768 timed within 4% of
+# each other; PERF.md).
+# 8192 keeps the chunk count within CUDA's grid limit up to 512Mi elements.
+KRON_CHUNK = 8192
+
+
+def kron_chunk(e_pad: int) -> int:
+    """Largest power-of-two chunk width <= KRON_CHUNK dividing e_pad."""
+    ce = 128
+    while ce * 2 <= min(e_pad, KRON_CHUNK) and e_pad % (ce * 2) == 0:
+        ce *= 2
+    return ce
+
+
 def blocked_coa(in_coa: torch.Tensor, ce: int) -> torch.Tensor:
     """Chunk-interleave the coalesced layout: (nmTot, E) -> (E/ce, nmTot, ce),
     so each ce-element chunk's modes are one contiguous region."""
     nm_tot, e = in_coa.shape
     return in_coa.reshape(nm_tot, e // ce, ce).permute(1, 0, 2).contiguous()
+
+
+def reference2d(basis: Basis2D, nelmt: int) -> np.ndarray:
+    """f64 oracle out (nelmt, nq1, nq0), from the host formulas."""
+    elem = native.init_sin1(basis.nm_tot)
+    inp = np.broadcast_to(elem, (nelmt, basis.nm_tot)).reshape(
+        nelmt, basis.nm1, basis.nm0)
+    b0 = native.init_cos(basis.nm0 * basis.nq0).reshape(basis.nm0, basis.nq0)
+    b1 = native.init_cos(basis.nm1 * basis.nq1).reshape(basis.nm1, basis.nq1)
+    return native.bwdtrans2d_ref(inp, b0, b1)
 
 
 def reference3d(basis: Basis3D, nelmt: int) -> np.ndarray:

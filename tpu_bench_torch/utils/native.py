@@ -22,6 +22,13 @@ def init_cos(n: int) -> np.ndarray:
     return np.cos(np.arange(n, dtype=np.float64))
 
 
+def bwdtrans2d_ref(inp: np.ndarray, b0: np.ndarray,
+                   b1: np.ndarray) -> np.ndarray:
+    """out[e,j,i] = sum_{q,p} in[e,q,p] b0[p,i] b1[q,j] (f64)."""
+    f64 = [np.asarray(a, dtype=np.float64) for a in (inp, b0, b1)]
+    return np.einsum("eqp,pi,qj->eji", *f64, optimize=True)
+
+
 def bwdtrans3d_ref(inp: np.ndarray, b0: np.ndarray, b1: np.ndarray,
                    b2: np.ndarray) -> np.ndarray:
     """out[e,k,j,i] = sum_{r,q,p} in[e,r,q,p] b0[p,i] b1[q,j] b2[r,k] (f64)."""
