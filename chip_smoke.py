@@ -6,27 +6,33 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds the hand kernels from the checkout's sources and drives the port's
 paths through the entry points a user calls: the headline (benchmark05's
-three headline columns at nq=8^3, nelmt=131072, f32), the benchmark05 CLI
-and the benchmark04 CLI, each with all eleven columns.  Every phase is
-fatal:
+three headline columns at nq=8^3, nelmt=131072, f32), the benchmark05 and
+benchmark04 CLIs, each with all eleven columns, and the benchmark01, 02 and
+03 CLIs, each with all five.  Every phase is fatal:
 
 1. device facts (nvidia-smi, torch, nvcc, device properties);
 2. build of K1 (qp_fused3d), K2 (kron_blocked), K3 (em_gemm),
-   K4 (qp_stage2_3d) and K5 (qp1d_fused3d, two-stage entry qp1d_fused2d)
-   with nvcc for sm_90a, one process per source;
+   K4 (qp_stage2_3d), K5 (qp1d_fused3d, two-stage entry qp1d_fused2d),
+   K6 (sumsq), K7 (map2_inplace), K8 (matvec_rm) and K9 (matvec_cm) with
+   nvcc for sm_90a, one process per source;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
-   versions on the card, on random per-element inputs and random dense
-   operators in f32 and f64 (f32 to 1e-5, f64 to 1e-12 relative to the
-   largest output): the benchmark05 uses at nq 4^3, 8^3, 10^3 and
-   (3,4,5), E=1000 (ragged) and 131072; the benchmark04 uses at nq (2,2),
-   (8,8), (10,12), (16,16) and (32,32), E=1000 and 1,048,576.  At each
-   path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32),
-   and for the b04 uses of B04_USES at their own order, each use is timed
-   beside its plain version, one library call and its bound; then every
-   column's f64 golden norm of the benchmark data (b05
-   nq=8^3 and b04 nq=8^2, nelmt=128), and every b04 column in f32 at
-   (10, 12) and (12, 10) against the f64 oracle;
+   versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
+   K6's f32 sums to 1e-4, f64 to 1e-12, relative to the largest output):
+   the benchmark05 uses at nq 4^3, 8^3, 10^3 and (3,4,5), E=1000 (ragged)
+   and 131072; the benchmark04 uses at nq (2,2), (8,8), (10,12), (16,16)
+   and (32,32), E=1000 and 1,048,576; the K6 and K7 uses at n = 1000 (x
+   and y placed differently against 16-byte boundaries), 1,048,579 and
+   536,870,912; K8 and K9 at (1000, 777), (4096, 16384), (16384, 4096) and
+   (16384, 16384).  At each path's main shapes (b05 nq=8^3, E=131072; b04
+   nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912 and b03 16384^2, f32
+   and f64), and for the b04 uses of B04_USES at their own order, each use
+   is timed beside its plain version, one library call and its bound; then
+   every column's f64 golden norm of the benchmark data (b05 nq=8^3 and b04
+   nq=8^2, nelmt=128; b01 and b02 at 1024, b02 after 40 accumulating
+   calls; b03 at 128), device_x and device_y built on the card against
+   utils/native.py bit for bit, and every b04 column in f32 at (10, 12)
+   and (12, 10) against the f64 oracle;
 4. the headline (`python -m tpu_bench_torch.bench`): K1's and K2's launch
    counts must rise during it, and the three columns' norms must agree
    with each other and with the f64 oracle to 5e-4;
@@ -35,19 +41,23 @@ fatal:
 6. the benchmark04 CLI (`python -m tpu_bench_torch.benchmarks.benchmark04
    8 8`), an f32 sweep to nelmt 1,048,576 and a short f64 sweep;
 7. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
-   (2 .. 32) and at (10, 12), f32 and f64.
+   (2 .. 32) and at (10, 12), f32 and f64;
+8. the benchmark01, 02 and 03 CLIs, f32 over the reference's sweeps (to
+   536,870,912 and 16384) and f64 over every 32nd size to the same tops.
 
-In phases 5-7 the kernels of the sweep's own set must each launch, and no
-other; the logs must parse with postprocess/common.py with all eleven
-columns > 0, and the norms of each row must agree to 5e-4 (f32) and 1e-10
-(f64).
+In phases 5-8 the kernels of the sweep's own set must each launch, and no
+other; the logs must parse with postprocess/common.py with every column
+> 0, and the norms of each row must agree to 5e-4 (f32) and 1e-10 (f64).
+In phase 8 no column may read above the HBM rate (+5%) once the operands
+exceed twice the L2.
 
 The line before the last is a JSON object with each kernel use's launches
-in its path's f32 run (the b05 or b04 sweep of phase 5 or 6, or phase 7's
-run at the use's order), its error, its time beside its plain version's
-and a library call's, and its bound; the last line is {"ok":
-true, "device": {...}}.  Without a CUDA device, or outside a checkout of
-the repository, it exits non-zero and prints no result.
+in its path's run (the b05 or b04 sweep of phase 5 or 6, phase 7's run at
+the use's order, or the b01-b03 sweep of phase 8 in the use's dtype), its
+error, its time beside its plain version's and a library call's, and its
+bound; the last line is {"ok": true, "device": {...}}.  Without a CUDA
+device, or outside a checkout of the repository, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -129,6 +139,66 @@ B04_USES = [
      f"{PL2D}:580", "K5 qp1d_fused (QP-1D/Shared)", B04_MAIN),
 ]
 B04_KERNELS = {kernel for _, kernel, *_ in B04_USES}
+# Benchmarks 01-03: the largest sizes of their sweeps, the sizes and
+# shapes each use is checked at in phase 3, and the reference logs' f64
+# norms (benchmark01/outfile.log, benchmark02/outfile.log after 40
+# accumulating additions, benchmark03/outfile.log).
+STREAM_N = 536870912
+MATVEC_N = 16384
+MATVEC_SHAPES = ((1000, 777), (4096, 16384), (16384, 4096),
+                 (MATVEC_N, MATVEC_N))
+GOLDEN_B01_1024 = 231.3925755
+GOLDEN_B02_1024 = 5979.883197
+GOLDEN_B03_128 = 1053.208334
+# K6's f32 sum runs through serial per-thread sums of up to about 500
+# terms (n / (MAX_BLOCKS * 256 threads * 4 accumulators) at 536,870,912),
+# whose rounding is bounded by about 500 * 2**-24 = 3e-5, then a tree;
+# the plain torch.sum rounds too.  1e-4, under the package's 5e-4.
+SUM_RTOL_F32 = 1e-4
+RED_CU = "tpu_bench_torch/csrc/reduction.cu"
+STREAM_CU = "tpu_bench_torch/csrc/stream.cu"
+MV_CU = "tpu_bench_torch/csrc/matvec.cu"
+PL = "tpu_bench/kernels"
+DF2 = f"{PL}/df2stream.py"
+# benchmarks 01-03's kernel uses: (entry of the kernels line, kernel
+# launched, its source, the TPU kernel it replaces, the use timed in phase
+# 3, the dtype of the timing and of the sweep its launches come from).
+# The JAX package runs its f64 columns on (hi, lo) f32 pairs (df2stream);
+# the port runs the same kernels built in double.
+STREAM_USES = [
+    ("sumsq (b01 sumsq_two_pass)", "sumsq", RED_CU, f"{PL}/reduction.py:67",
+     "K6 sumsq_two_pass", "float32"),
+    ("sumsq (b01 sumsq_wide)", "sumsq", RED_CU, f"{PL}/reduction.py:108",
+     "K6 sumsq_wide", "float32"),
+    ("sumsq (b01 sumsq_functor)", "sumsq", RED_CU,
+     f"{PL}/reduction.py:108", "K6 sumsq_functor", "float32"),
+    ("map2_inplace (b02 add_inplace)", "map2_inplace", STREAM_CU,
+     f"{PL}/axpy.py:38", "K7 add_inplace", "float32"),
+    ("map2_inplace (b02 add_inplace_manual)", "map2_inplace", STREAM_CU,
+     f"{PL}/stream.py:120", "K7 add_inplace_manual", "float32"),
+    ("map2_inplace (b02 map2_inplace)", "map2_inplace", STREAM_CU,
+     f"{PL}/axpy.py:38", "K7 map2_inplace", "float32"),
+    ("matvec_rm (b03 matvec_vpu)", "matvec_rm", MV_CU, f"{PL}/matvec.py:46",
+     "K8 matvec_rm", "float32"),
+    ("matvec_cm (b03 matvec_mxu)", "matvec_cm", MV_CU, f"{PL}/matvec.py:85",
+     "K9 matvec_cm", "float32"),
+    ("sumsq f64 (b01 sumsq_pair_two_pass)", "sumsq", RED_CU, f"{DF2}:79",
+     "K6 sumsq_two_pass", "float64"),
+    ("sumsq f64 (b01 sumsq_pair_wide)", "sumsq", RED_CU, f"{DF2}:166",
+     "K6 sumsq_wide", "float64"),
+    ("sumsq f64 (b01 sumsq_pair_one_pass)", "sumsq", RED_CU, f"{DF2}:133",
+     "K6 sumsq_functor", "float64"),
+    ("map2_inplace f64 (b02 add_pair)", "map2_inplace", STREAM_CU,
+     f"{DF2}:181", "K7 add_inplace", "float64"),
+    ("map2_inplace f64 (b02 add_pair_wide)", "map2_inplace", STREAM_CU,
+     f"{DF2}:212", "K7 add_inplace_manual", "float64"),
+    ("map2_inplace f64 (b02 map2_pair)", "map2_inplace", STREAM_CU,
+     f"{DF2}:218", "K7 map2_inplace", "float64"),
+    ("matvec_rm f64 (b03 matvec_pair_rm)", "matvec_rm", MV_CU, f"{DF2}:248",
+     "K8 matvec_rm", "float64"),
+    ("matvec_cm f64 (b03 matvec_pair_cm)", "matvec_cm", MV_CU, f"{DF2}:302",
+     "K9 matvec_cm", "float64"),
+]
 
 
 def _run(cmd) -> str:
@@ -167,13 +237,13 @@ def build_kernels() -> None:
                 print("  ptxas:", line.strip())
 
 
-def compare(torch, name, out, ref, dtype) -> float:
+def compare(torch, name, out, ref, dtype, tol=None) -> float:
     torch.cuda.synchronize()
     assert out.shape == ref.shape, (name, out.shape, ref.shape)
     assert bool(torch.isfinite(out).all()), f"{name}: non-finite output"
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
-    tol = RTOL[str(dtype).split(".")[-1]]
+    tol = tol or RTOL[str(dtype).split(".")[-1]]
     print(f"  {name}: max rel err {rel:.3e} (tol {tol:g})")
     assert rel <= tol, f"{name}: {rel} > {tol}"
     return err
@@ -182,13 +252,16 @@ def compare(torch, name, out, ref, dtype) -> float:
 class Case(NamedTuple):
     """One use of a kernel: the wrapper call, its plain version, one
     library call computing the same function, the tensors it must read,
-    and the FLOP it must do."""
+    the FLOP it must do, what restores the operands of an in-place use
+    before the check, and a tolerance other than RTOL's."""
     label: str
     run: Callable
     plain: Callable
     library: Callable
     inputs: tuple
     flops: int
+    reset: Callable = None
+    rtol: float = None
 
 
 def chain_flops(*dims) -> int:
@@ -364,6 +437,64 @@ def shape_cases_2d(torch, rnd, nq, e) -> list:
     ]
 
 
+def stream_cases(torch, rnd, n, offsets) -> list:
+    """Every K6 and K7 use on n random elements; x and y start `offsets`
+    elements into their buffers, so (1, 3) places them differently
+    against 16-byte boundaries and (1, 1) both off one."""
+    from tpu_bench_torch.kernels import axpy as k7
+    from tpu_bench_torch.kernels import reduction as k6
+    from tpu_bench_torch.kernels import stream
+
+    ox, oy = offsets
+    x, y = rnd(n + 4)[ox:ox + n], rnd(n + 4)[oy:oy + n]
+    # K7's operand, placed as x, and the plain version's
+    xs = torch.empty(n + 4, dtype=x.dtype, device="cuda")[ox:ox + n]
+    xp = torch.empty_like(x)
+    eps = 0.0 if n == STREAM_N else 0.5
+    sum_tol = SUM_RTOL_F32 if x.dtype == torch.float32 else None
+
+    def reset():
+        xs.copy_(x)
+        xp.copy_(x)
+
+    def k6_case(label, fn):
+        # the library call is timed at n = STREAM_N only, where eps = 0
+        return Case(label, lambda: fn(x, eps),
+                    lambda: k6.sumsq_plain(x, eps), lambda: torch.dot(x, x),
+                    (x,), 3 * n, rtol=sum_tol)
+
+    def k7_case(label, fn):
+        return Case(label, lambda: fn(xs, y),
+                    lambda: k7.map2_inplace_plain(xp, y),
+                    lambda: xs.add_(y), (x, y), n, reset=reset)
+
+    return [
+        k6_case("K6 sumsq_two_pass", k6.sumsq_two_pass),
+        k6_case("K6 sumsq_wide", k6.sumsq_wide),
+        k6_case("K6 sumsq_functor", k6.sumsq_functor),
+        k7_case("K7 add_inplace", k7.add_inplace),
+        k7_case("K7 add_inplace_wide", k7.add_inplace_wide),
+        k7_case("K7 add_inplace_manual", stream.add_inplace_manual),
+        k7_case("K7 map2_inplace", k7.map2_inplace),
+    ]
+
+
+def matvec_cases(torch, rnd, m, n) -> list:
+    """K8 and K9 on a random (m, n) matrix, K9 on its transposed copy."""
+    from tpu_bench_torch.kernels import matvec as kmv
+
+    a, x = rnd(m, n), rnd(n)
+    a_cm = a.t().contiguous()
+    return [
+        Case("K8 matvec_rm", lambda: kmv.matvec_rm(a, x),
+             lambda: kmv.matvec_rm_plain(a, x), lambda: torch.mv(a, x),
+             (a, x), 2 * m * n),
+        Case("K9 matvec_cm", lambda: kmv.matvec_cm(a_cm, x),
+             lambda: kmv.matvec_cm_plain(a_cm, x),
+             lambda: torch.mv(a_cm.t(), x), (a_cm, x), 2 * m * n),
+    ]
+
+
 def bound(inputs, out, flops) -> tuple:
     """(least ms the card could take, what bounds it): each input read
     once and the output written once at the HBM rate, against the least
@@ -428,22 +559,93 @@ def kernels_vs_plain(torch) -> dict:
     return measured
 
 
-def golden_norm(torch, bench, args, golden) -> None:
+def streams_vs_plain(torch) -> dict:
+    """Phase 3, benchmarks 01-03.  Every K6-K9 use against its plain
+    version on random inputs, in f32 and f64: K6 and K7 at n = 1000 (x and
+    y placed differently against 16-byte boundaries), 1,048,579 (both one
+    element off) and 536,870,912; K8 and K9 at MATVEC_SHAPES.  At
+    536,870,912 and 16384^2 each use is timed beside its plain version, one
+    library call and its bound; returns {(use, dtype): those}."""
+    from tpu_bench_torch.core.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    measured = {}
+    for dtype in (torch.float32, torch.float64):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        tag = str(dtype)[6:]
+        sets = [(stream_cases, (n, offsets), n == STREAM_N)
+                for n, offsets in ((1000, (1, 3)), (1048579, (1, 1)),
+                                   (STREAM_N, (0, 0)))]
+        sets += [(matvec_cases, shape, shape == (MATVEC_N, MATVEC_N))
+                 for shape in MATVEC_SHAPES]
+        for cases, args, main in sets:
+            for case in cases(torch, rnd, *args):
+                if case.reset:
+                    case.reset()
+                out = case.run()
+                err = compare(torch, f"{case.label} {tag} {args}", out,
+                              case.plain(), dtype, case.rtol)
+                if main:
+                    bound_ms, bound_by = bound(case.inputs, out, case.flops)
+                    measured[(case.label, tag)] = dict(
+                        max_abs_err=err, ms=event_ms(case.run),
+                        plain_ms=event_ms(case.plain),
+                        library_ms=event_ms(case.library),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                del out
+            torch.cuda.empty_cache()
+    for (label, tag), k in measured.items():
+        print(f"  {label} at its main shape {tag}: kernel {k['ms']:.4f} ms, "
+              f"plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
+    return measured
+
+
+def initdata_on_card(torch) -> None:
+    """Phase 3, benchmark data: device_x and device_y built on the card
+    equal utils/native.py's f64 bytes, and the CPU's f32 bytes, at a size
+    past both periods of the formulas (13 | 100191 and 8, 100721)."""
+    import numpy as np
+
+    from tpu_bench_torch.ops import initdata
+    from tpu_bench_torch.utils import native
+
+    n = 1048579
+    for build_fn, ref in ((initdata.device_x, native.init_mod13),
+                          (initdata.device_y, native.init_mod8)):
+        f64 = build_fn(n, torch.float64, "cuda").cpu().numpy()
+        assert np.array_equal(f64, ref(n)), build_fn.__name__
+        f32 = build_fn(n, torch.float32, "cuda").cpu()
+        assert torch.equal(f32, build_fn(n, torch.float32, "cpu")), \
+            build_fn.__name__
+    print(f"  device_x, device_y at n={n}: f64 equal to utils/native.py, "
+          "f32 equal to the CPU's")
+
+
+def golden_norm(torch, bench, args, golden, norm=None, run=None) -> None:
     """Phase 3, benchmark data: the reference log's f64 norm through every
-    column of `bench` (benchmark05 or benchmark04) at prepare(*args)."""
+    column of `bench` at prepare(*args).  `run(fn, args, cfg)` gives
+    (seconds, output) where the norm is not of one call's output (b02's
+    accumulating protocol, at the reference's 40 calls); `norm` maps the
+    output to the norm (b01's square root of the sum)."""
     from tpu_bench_torch.core.config import Config
     from tpu_bench_torch.core.validate import l2norm
 
-    cfg = Config(dtype=torch.float64, device="cuda")
+    cfg = Config(dtype=torch.float64, device="cuda", n_tests=40)
     data = bench.prepare(*args, cfg)
+    norm = norm or l2norm
     labels = []
-    for label, fn, fargs in bench.build_variants(data, cfg):
-        norm = l2norm(fn(*fargs))
-        torch.cuda.synchronize()
-        rel = abs(norm - golden) / golden
+    for label, fn, keys in bench.variant_specs(data, cfg):
+        fargs = tuple(data[k] for k in keys)
+        value = norm(run(fn, fargs, cfg)[1] if run else fn(*fargs))
+        rel = abs(value - golden) / golden
         print(f"  golden f64 {bench.__name__.split('.')[-1]} {args} "
-              f"{label}: {norm!r} (rel {rel:.2e})")
-        assert rel <= 1e-8, (label, norm)
+              f"{label}: {value!r} (rel {rel:.2e})")
+        assert rel <= 1e-8, (label, value)
         labels.append(label)
     assert labels == bench.LABELS, labels
 
@@ -522,21 +724,24 @@ def parse_log_fn():
 
 
 def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
-              kernels: set, last_size: int) -> tuple:
-    """Phases 5-7: `python -m tpu_bench_torch.benchmarks.<bench>
+              kernels: set, last_size: int, key: str = "nelmt",
+              unit: str = "DOF/s", operand_bytes=None) -> tuple:
+    """Phases 5-8: `python -m tpu_bench_torch.benchmarks.<bench>
     <positionals> --dtype <dtype> <size_args>`, run in this process so the
     kernels' launch counts can be read; its log is parsed as postprocess
-    does.  Exactly the kernels of `kernels` must launch.  Returns the
-    launches of each kernel during the sweep and the last row's GDOF/s by
-    column."""
+    does, by `key` and `unit`.  Exactly the kernels of `kernels` must
+    launch.  With `operand_bytes(size, itemsize)`, no column of a row
+    whose operands exceed twice the L2 may read above the HBM rate (+5%),
+    which holds the timing and the byte counts.  Returns the launches of
+    each kernel during the sweep and the last row's throughput by column."""
     from tpu_bench_torch.core.validate import default_rtol
     from tpu_bench_torch.kernels import build
 
     argv = [*map(str, positionals), "--dtype", dtype, *size_args]
+    name = bench.__name__.split(".")[-1]
     err = io.StringIO()
     with tempfile.TemporaryDirectory() as tmp:
-        log = os.path.join(tmp, "nq" + "x".join(map(str, positionals))
-                           + ".log")
+        log = os.path.join(tmp, f"{name}.log")
         with open(log, "w") as out:
             build.launches.clear()
             with contextlib.redirect_stdout(out), \
@@ -544,30 +749,65 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
                 bench.main(argv)
             torch.cuda.synchronize()
             counts = dict(build.launches)
-        sizes, series, labels, title = parse_log_fn()(log, "nelmt", "DOF/s")
+        sizes, series, labels, title = parse_log_fn()(log, key, unit)
         with open(log) as f:
             norm_rows = [[float(v) for v in line.split()[3:]]
                          for line in f if " norm: " in line]
     notes = [line for line in err.getvalue().splitlines() if line.strip()]
-    print(f"  {dtype} {title}: {len(sizes)} rows, nelmt {int(sizes[0])}.."
-          f"{int(sizes[-1])}; launches {counts}")
+    print(f"  {dtype} {name} {title}: {len(sizes)} rows, {key} "
+          f"{int(sizes[0])}..{int(sizes[-1])}; launches {counts}")
     assert labels == bench.LABELS, labels
     assert sizes[-1] == last_size and len(norm_rows) == len(sizes), sizes
     for row in series:
         for label, v in zip(labels, row):
             assert v > 0, (dtype, label, v)
-    rtol = default_rtol(getattr(torch, {"f32": "float32",
-                                        "f64": "float64"}[dtype]))
+    torch_dtype = getattr(torch, {"f32": "float32", "f64": "float64"}[dtype])
+    rtol = default_rtol(torch_dtype)
     for size, norms in zip(sizes, norm_rows):
         worst = max(abs(n - norms[0]) / norms[0] for n in norms)
         assert worst <= rtol, (dtype, size, norms)
+    if operand_bytes is not None:
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        ceiling = HBM_BYTES_PER_S * 1.05 * 1e-9
+        for size, row in zip(sizes, series):
+            if operand_bytes(int(size), torch_dtype.itemsize) > 2 * l2:
+                assert max(row) <= ceiling, (dtype, size, row, ceiling)
     last = dict(zip(labels, series[-1]))
-    print(f"  {dtype} nelmt {int(sizes[-1])} GDOF/s: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in last.items()))
+    print(f"  {dtype} {key} {int(sizes[-1])} {unit}: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in last.items()), flush=True)
     bad = [n for n in notes if "WARNING" in n or "failed" in n]
     assert not bad, bad
     assert set(counts) == kernels and min(counts.values()) > 0, counts
     return counts, last
+
+
+def stream_sweeps(torch) -> dict:
+    """Phase 8: the benchmark01, 02 and 03 CLIs, f32 over the reference's
+    sweeps (b01/b02 1024..536,870,912, b03 128..16384; 5 reps) and f64 over
+    every 32nd size to the same tops (3 reps).  Returns the launches of
+    each kernel in each sweep, by (kernel, dtype)."""
+    from tpu_bench_torch.benchmarks import benchmark01 as b01
+    from tpu_bench_torch.benchmarks import benchmark02 as b02
+    from tpu_bench_torch.benchmarks import benchmark03 as b03
+
+    sweeps = [
+        (b01, {"sumsq"}, STREAM_N, "16384", lambda n, s: n * s),
+        (b02, {"map2_inplace"}, STREAM_N, "16384", lambda n, s: 2 * n * s),
+        (b03, {"matvec_rm", "matvec_cm"}, MATVEC_N, "512",
+         lambda n, s: n * n * s),
+    ]
+    launches = {}
+    for bench, kernels, top, f64_min, operand_bytes in sweeps:
+        for dtype, size_args in (
+                ("f32", ["--ntests", "5"]),
+                ("f64", ["--min-size", f64_min, "--step", "32",
+                         "--ntests", "3"])):
+            counts, _ = cli_sweep(torch, bench, [], dtype, size_args,
+                                  kernels, top, key="Size", unit="GB/s",
+                                  operand_bytes=operand_bytes)
+            tag = {"f32": "float32", "f64": "float64"}[dtype]
+            launches.update({(k, tag): c for k, c in counts.items()})
+    return launches
 
 
 def b04_orders(torch) -> dict:
@@ -614,11 +854,20 @@ def main() -> int:
     build_kernels()
     print("== 3. kernels against their plain versions", flush=True)
     measured = kernels_vs_plain(torch)
+    measured_streams = streams_vs_plain(torch)
+    from tpu_bench_torch.benchmarks import benchmark01 as b01
+    from tpu_bench_torch.benchmarks import benchmark02 as b02
+    from tpu_bench_torch.benchmarks import benchmark03 as b03
     from tpu_bench_torch.benchmarks import benchmark04 as b04
     from tpu_bench_torch.benchmarks import benchmark05 as b05
+    from tpu_bench_torch.core.timing import accumulating
 
     golden_norm(torch, b05, (8, 8, 8, 128), GOLDEN_NQ8_NELMT128)
     golden_norm(torch, b04, (8, 8, 128), GOLDEN_B04_NQ8_NELMT128)
+    golden_norm(torch, b01, (1024,), GOLDEN_B01_1024, norm=b01.sumsq_norm)
+    golden_norm(torch, b02, (1024,), GOLDEN_B02_1024, run=accumulating)
+    golden_norm(torch, b03, (128,), GOLDEN_B03_128)
+    initdata_on_card(torch)
     anisotropic_b04(torch)
     print("== 4. headline", flush=True)
     headline(torch)
@@ -641,6 +890,8 @@ def main() -> int:
           flush=True)
     launches_by_order = b04_orders(torch)
     launches_by_order[B04_MAIN] = launches_b04  # the full f32 sweep
+    print("== 8. benchmark01, 02 and 03 CLI sweeps", flush=True)
+    launches_streams = stream_sweeps(torch)
 
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
@@ -650,7 +901,11 @@ def main() -> int:
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches_by_order[order][kernel],
              **measured[(use, order)])
-        for name, kernel, source, replaces, use, order in B04_USES]}))
+        for name, kernel, source, replaces, use, order in B04_USES] + [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches_streams[(kernel, dtype)],
+             **measured_streams[(use, dtype)])
+        for name, kernel, source, replaces, use, dtype in STREAM_USES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,8 +26,11 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert len(names) >= 20, names
-assert {"tpu_bench_torch.benchmarks.benchmark04",
-        "tpu_bench_torch.baselines.bwdtrans2d"} <= set(names), names
+assert {"tpu_bench_torch.benchmarks.benchmark0" + i for i in "12345"} | {
+    "tpu_bench_torch.baselines." + b
+    for b in ("bwdtrans2d", "reduction", "axpy", "matvec")} | {
+    "tpu_bench_torch.kernels." + k
+    for k in ("reduction", "axpy", "stream", "matvec")} <= set(names), names
 foreign = sorted(m for m in sys.modules
                  if m.startswith("jax") or m == "tpu_bench"
                  or m.startswith("tpu_bench."))
@@ -65,7 +68,8 @@ def test_nvcc_command_builds_package_sources_for_sm90a():
     sources = [Path(a) for cmd in compiles for a in cmd
                if a.endswith((".cu", ".cuh"))]
     assert {p.name for p in sources} == {"bwdtrans2d.cu", "bwdtrans3d.cu",
-                                         "qp1d_fused3d.cu"}
+                                         "qp1d_fused3d.cu", "reduction.cu",
+                                         "stream.cu", "matvec.cu"}
     assert len(compiles) == len(sources)
     assert all(p.parent == build.CSRC_DIR for p in sources)
     for cmd in (*compiles, link):
@@ -88,15 +92,21 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def _kernel_cases(rnd):
     """{kernel: (wrapper call, plain call)} at nq=8^3 shapes (qp1d_fused2d:
-    b04 nq=8^2), E=1000."""
+    b04 nq=8^2), E=1000; the stream kernels at n = 1000 with x one element
+    past a 16-byte boundary, and A (1000, 777)."""
+    from tpu_bench_torch.kernels import axpy as k7
     from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
+    from tpu_bench_torch.kernels import matvec as kmv
+    from tpu_bench_torch.kernels import reduction as k6
 
     x, b0, c12t, c = rnd(7, 49, 1000), rnd(7, 8), rnd(64, 49), rnd(512, 343)
     xb, w, em = rnd(2, 343, 1000), rnd(7, 64, 1000), rnd(1000, 343)
     s = (rnd(343, 392), rnd(392, 448), rnd(448, 512))
     c_em = rnd(343, 512)
     em2, s2d = rnd(1000, 49), (rnd(49, 56), rnd(56, 64))
+    v, y, a = rnd(1001)[1:], rnd(1001)[1:], rnd(1000, 777)
+    a_cm, xs, xp = a.t().contiguous(), v.clone(), v.clone()
     return {
         "qp_fused3d": (lambda: k1.qp_shared3d(x, b0, c12t),
                        lambda: k1.qp_shared3d_plain(x, b0, c12t)),
@@ -110,13 +120,22 @@ def _kernel_cases(rnd):
                          lambda: k1.qp1d3d_plain(em, *s)),
         "qp1d_fused2d": (lambda: k1.qp1d_fused(em2, *s2d),
                          lambda: k2.qp1d_plain(em2, *s2d)),
+        "sumsq": (lambda: k6.sumsq_wide(v, 0.5),
+                  lambda: k6.sumsq_plain(v, 0.5)),
+        "map2_inplace": (lambda: k7.add_inplace_wide(xs, y),
+                         lambda: k7.map2_inplace_plain(xp, y)),
+        "matvec_rm": (lambda: kmv.matvec_rm(a, v[:777]),
+                      lambda: kmv.matvec_rm_plain(a, v[:777])),
+        "matvec_cm": (lambda: kmv.matvec_cm(a_cm, v),
+                      lambda: kmv.matvec_cm_plain(a_cm, v)),
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["qp_fused3d", "kron_blocked", "em_gemm",
                                     "qp_stage2_3d", "qp1d_fused3d",
-                                    "qp1d_fused2d"])
+                                    "qp1d_fused2d", "sumsq", "map2_inplace",
+                                    "matvec_rm", "matvec_cm"])
 def test_kernels_match_plain_on_card(kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

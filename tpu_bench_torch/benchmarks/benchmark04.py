@@ -98,8 +98,9 @@ def prepare(nq0: int, nq1: int, nelmt: int, cfg: Config) -> Layouts:
 def run_test(nelmt: int, nq0: int, nq1: int, cfg: Config,
              reporter: Reporter) -> None:
     data = prepare(nq0, nq1, nelmt, cfg)
-    measure_row("b04", LABELS, variant_specs(data, cfg), data, nelmt,
-                (nq0 - 1) * (nq1 - 1), cfg, reporter)
+    measure_row("b04", LABELS, variant_specs(data, cfg), data, cfg, reporter,
+                key="nelmt", size=nelmt, work=nelmt * (nq0 - 1) * (nq1 - 1),
+                unit="DOF/s")
 
 
 def main(argv=None):

@@ -100,8 +100,10 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
 def run_test(nelmt: int, nq0: int, nq1: int, nq2: int, cfg: Config,
              reporter: Reporter) -> None:
     data = prepare(nq0, nq1, nq2, nelmt, cfg)
-    measure_row("b05", LABELS, variant_specs(data, cfg), data, nelmt,
-                (nq0 - 1) * (nq1 - 1) * (nq2 - 1), cfg, reporter)
+    measure_row("b05", LABELS, variant_specs(data, cfg), data, cfg, reporter,
+                key="nelmt", size=nelmt,
+                work=nelmt * (nq0 - 1) * (nq1 - 1) * (nq2 - 1),
+                unit="DOF/s")
 
 
 def main(argv=None):

@@ -56,10 +56,11 @@ class L2Flush:
 
 def time_variant(step: Callable[[], object], n_tests: int,
                  device: torch.device,
-                 flush: Optional[Callable[[], None]] = None) -> float:
+                 flush: Optional[Callable[[], None]] = None,
+                 warmup: Optional[Callable[[], object]] = None) -> float:
     """Minimum wall-clock seconds of `step` over n_tests calls, each
-    synchronized, after one untimed warm-up call."""
-    step()
+    synchronized, after one untimed warm-up call (`warmup`, else `step`)."""
+    (warmup or step)()
     synchronize(device)
     timer = Timer()
     best = float("inf")
@@ -99,3 +100,28 @@ def measure(fn: Callable, args, cfg) -> float:
     """Seconds of one application of fn(*args) under cfg's protocol."""
     flush = L2Flush(cfg.device) if cfg.flush_l2 else None
     return time_variant(lambda: fn(*args), cfg.n_tests, cfg.device, flush)
+
+
+def timed_then_applied(fn: Callable, args, cfg) -> tuple:
+    """(seconds of fn(*args) under cfg's protocol, one more call's
+    output): the row protocol of every benchmark but b02."""
+    return measure(fn, args, cfg), fn(*args)
+
+
+def accumulating(fn: Callable, args, cfg) -> tuple:
+    """b02's protocol (tpu_bench/benchmarks/benchmark02.py:148-163): one
+    warm-up on a scratch copy of x, then exactly cfg.n_tests timed
+    accumulating calls x = fn(x, y) on x itself, the L2 flushed before
+    each.  Returns (least seconds, the final x), so the output is
+    x0 + n_tests*y, whose norm the reference prints
+    (benchmark02/benchmark02.cc:161-164)."""
+    x, y = args
+    flush = L2Flush(cfg.device) if cfg.flush_l2 else None
+
+    def step():
+        nonlocal x
+        x = fn(x, y)
+
+    t = time_variant(step, cfg.n_tests, cfg.device, flush,
+                     warmup=lambda: fn(x.clone(), y))
+    return t, x

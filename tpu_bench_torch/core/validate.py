@@ -60,42 +60,48 @@ def fail_soft(label, reporter, thunk):
         return math.inf, math.nan
 
 
-def measure_checked(label, fn, args, cfg, reporter):
-    """(seconds, norm) of one variant via fail_soft: the timed calls, then
-    one more call whose output gives the norm."""
-    from tpu_bench_torch.core.timing import measure
+def measure_checked(label, fn, args, cfg, reporter, norm=l2norm, run=None):
+    """(seconds, norm) of one variant via fail_soft.  `run(fn, args, cfg)`
+    gives (seconds, output), by default the timed calls, then one more
+    call (timing.timed_then_applied); `norm` maps the output to the
+    printed norm."""
+    from tpu_bench_torch.core import timing
+
+    run = run or timing.timed_then_applied
 
     def thunk():
-        t = measure(fn, args, cfg)
-        return t, l2norm(fn(*args))
+        t, out = run(fn, args, cfg)
+        return t, norm(out)
 
     return fail_soft(label, reporter, thunk)
 
 
-def measure_row(bench: str, labels, specs, data, nelmt: int, dofs: int,
-                cfg, reporter) -> None:
-    """One sweep point of a BwdTrans benchmark: every column of `specs`
-    (label, fn, operand keys; operands resolved one column at a time) timed
-    and normed, the norms checked against each other, and the
-    Case/norm/DOF/s line triple emitted with GDOF/s = 1e-9*nelmt*dofs/t,
-    `dofs` the input modes per element."""
+def measure_row(bench: str, labels, specs, data, cfg, reporter, *,
+                key: str, size: int, work: float, unit: str,
+                norm=l2norm, run=None) -> None:
+    """One sweep point of a benchmark: every column of `specs` (label, fn,
+    operand keys; operands resolved one column at a time) timed and normed
+    (measure_checked with `norm` and `run`), the norms checked against
+    each other, and the `<key> <size>` Case/norm/<unit> line triple
+    emitted with throughput 1e-9*work/t: DOF for b04/b05, bytes for
+    b01-b03."""
     times, norms = [], []
     with cfg.library_precision():
         for label, fn, keys in specs:
             args = tuple(data[k] for k in keys)  # lazy derived layouts
-            t, norm = measure_checked(label, fn, args, cfg, reporter)
+            t, n = measure_checked(label, fn, args, cfg, reporter, norm, run)
             del args
             times.append(t)
-            norms.append(norm)
+            norms.append(n)
 
     if cfg.validate:
         for msg in check_norm_agreement(labels, norms,
                                         default_rtol(cfg.dtype),
-                                        context=f"{bench} nelmt={nelmt}"):
+                                        context=f"{bench} {key}={size}"):
             reporter.note("WARNING: " + msg)
 
-    reporter.emit("nelmt", nelmt, labels, norms,
-                  [1e-9 * nelmt * dofs / t for t in times], "DOF/s")
+    reporter.emit(key, size, labels, norms, [1e-9 * work / t for t in times],
+                  unit)
 
 
 def default_rtol(dtype) -> float:

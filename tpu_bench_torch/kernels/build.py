@@ -35,12 +35,17 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 # Launches of each kernel on a CUDA device since the count was last reset:
 # qp_fused3d (K1), kron_blocked (K2), em_gemm (K3), qp_stage2_3d (K4),
-# qp1d_fused3d (K5, three stages) and qp1d_fused2d (K5, two stages).
+# qp1d_fused3d (K5, three stages), qp1d_fused2d (K5, two stages), sumsq
+# (K6, either form counts once per call), map2_inplace (K7), matvec_rm (K8)
+# and matvec_cm (K9).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
+# Every scalar of the kernels' arithmetic (eps) goes as a C double, so one
+# signature serves the _f32 and _f64 entries.
 _SIGNATURES = {
     # in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, epb, stream
     "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
@@ -54,6 +59,14 @@ _SIGNATURES = {
     "tbt_qp1d_fused3d": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     # x, s1, s2, out, n_elem, k0, n1, n2, et, stream
     "tbt_qp1d_fused2d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # x, n, eps, out, partials, max_blocks, one_pass, stream
+    "tbt_sumsq": [_P, _L, _D, _P, _P, _I, _I, _P],
+    # x, y, n, vector, stream
+    "tbt_map2_inplace": [_P, _P, _L, _I, _P],
+    # a, x, y, m, n, stream
+    "tbt_matvec_rm": [_P, _P, _P, _I, _I, _P],
+    # a_cm, x, y, n_rows, m_cols, stream
+    "tbt_matvec_cm": [_P, _P, _P, _I, _I, _P],
 }
 
 
