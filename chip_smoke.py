@@ -6,15 +6,16 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds the hand kernels from the checkout's sources and drives the port's
 paths through the entry points a user calls: the headline (benchmark05's
-three headline columns at nq=8^3, nelmt=131072, f32), the benchmark05 and
-benchmark04 CLIs, each with all eleven columns, and the benchmark01, 02 and
-03 CLIs, each with all five.  Every phase is fatal:
+three headline columns at nq=8^3, nelmt=131072, f32), the ceilings CLI,
+the benchmark05 and benchmark04 CLIs, each with all eleven columns, and the
+benchmark01, 02 and 03 CLIs, each with all five.  Every phase is fatal:
 
 1. device facts (nvidia-smi, torch, nvcc, device properties);
 2. build of K1 (qp_fused3d), K2 (kron_blocked), K3 (em_gemm),
    K4 (qp_stage2_3d), K5 (qp1d_fused3d, two-stage entry qp1d_fused2d),
-   K6 (sumsq), K7 (map2_inplace), K8 (matvec_rm) and K9 (matvec_cm) with
-   nvcc for sm_90a, one process per source;
+   K6 (sumsq), K7 (map2_inplace), K8 (matvec_rm), K9 (matvec_cm), K10
+   (stream_read), K11 (stream_fill), K12 (stream_map) and K13
+   (stream_expand) with nvcc for sm_90a, one process per source;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -24,10 +25,15 @@ benchmark04 CLIs, each with all eleven columns, and the benchmark01, 02 and
    and (32,32), E=1000 and 1,048,576; the K6 and K7 uses at n = 1000 (x
    and y placed differently against 16-byte boundaries), 1,048,579 and
    536,870,912; K8 and K9 at (1000, 777), (4096, 16384), (16384, 4096) and
-   (16384, 16384).  At each path's main shapes (b05 nq=8^3, E=131072; b04
-   nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912 and b03 16384^2, f32
-   and f64), and for the b04 uses of B04_USES at their own order, each use
-   is timed beside its plain version, one library call and its bound; then
+   (16384, 16384); the seven ceiling probes of K10-K13 (expand at m = 2, 4
+   and 8) at n = 128*8 (one chunk), 128*64 and 128*24 in chunks of 8 rows
+   (more chunks than the ring's depth, and exactly depth), 128*64 with x
+   and y off a 16-byte boundary, and the ceilings' 134,217,728 (copy, fill,
+   expand and the token bit for bit).  At each path's main shapes (b05
+   nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
+   and b03 16384^2, f32 and f64; the probes at 134,217,728, f32), and for
+   the b04 uses of B04_USES at their own order, each use is timed beside
+   its plain version, one library call and its bound; then
    every column's f64 golden norm of the benchmark data (b05 nq=8^3 and b04
    nq=8^2, nelmt=128; b01 and b02 at 1024, b02 after 40 accumulating
    calls; b03 at 128), device_x and device_y built on the card against
@@ -36,26 +42,33 @@ benchmark04 CLIs, each with all eleven columns, and the benchmark01, 02 and
 4. the headline (`python -m tpu_bench_torch.bench`): K1's and K2's launch
    counts must rise during it, and the three columns' norms must agree
    with each other and with the f64 oracle to 5e-4;
-5. the benchmark05 CLI (`python -m tpu_bench_torch.benchmarks.benchmark05
+5. the ceilings (`python -m tpu_bench_torch.benchmarks.ceilings`) at their
+   defaults: K6, K7 and K10-K13 must each launch, and no other; the
+   JSON line must carry the JAX CLI's keys, and every measured rate must
+   be > 0 and at most the HBM rate (+5%);
+6. the benchmark05 CLI (`python -m tpu_bench_torch.benchmarks.benchmark05
    8 8 8`), an f32 sweep to nelmt 131072 and a short f64 sweep;
-6. the benchmark04 CLI (`python -m tpu_bench_torch.benchmarks.benchmark04
+7. the benchmark04 CLI (`python -m tpu_bench_torch.benchmarks.benchmark04
    8 8`), an f32 sweep to nelmt 1,048,576 and a short f64 sweep;
-7. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
+8. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
    (2 .. 32) and at (10, 12), f32 and f64;
-8. the benchmark01, 02 and 03 CLIs, f32 over the reference's sweeps (to
+9. the benchmark01, 02 and 03 CLIs, f32 over the reference's sweeps (to
    536,870,912 and 16384) and f64 over every 32nd size to the same tops.
 
-In phases 5-8 the kernels of the sweep's own set must each launch, and no
+In phases 6-9 the kernels of the sweep's own set must each launch, and no
 other; the logs must parse with postprocess/common.py with every column
 > 0, and the norms of each row must agree to 5e-4 (f32) and 1e-10 (f64).
-In phase 8 no column may read above the HBM rate (+5%) once the operands
-exceed twice the L2.
+Once a row's operands exceed twice the L2, at an isotropic order, no
+column may read above the honesty cap of phase 5's ceilings for its
+traffic mix (core/roofline.honesty_cap_mix, honesty_cap_bwdtrans; +5%),
+nor, in phase 9, above the HBM rate (+5%).
 
 The line before the last is a JSON object with each kernel use's launches
-in its path's run (the b05 or b04 sweep of phase 5 or 6, phase 7's run at
-the use's order, or the b01-b03 sweep of phase 8 in the use's dtype), its
-error, its time beside its plain version's and a library call's, and its
-bound; the last line is {"ok": true, "device": {...}}.  Without a CUDA
+in its path's run (the ceilings run of phase 5, the b05 or b04 sweep of
+phase 6 or 7, phase 8's run at the use's order, or the b01-b03 sweep of
+phase 9 in the use's dtype), its error, its time beside its plain
+version's and a library call's, and its bound; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
@@ -82,7 +95,7 @@ HEADLINE_NELMT = 131072
 B04_NELMT = 1048576  # the reference sweep's largest size
 RUN04_ORDERS = (2, 4, 6, 8, 10, 12, 14, 16, 32)  # scripts/run04.sh
 B04_MAIN = (8, 8)
-# phase 7's orders: run04.sh's, and (10, 12), where the JAX package's f32
+# phase 8's orders: run04.sh's, and (10, 12), where the JAX package's f32
 # Pallas(QP/Shared) runs qp_w_flat (ROADMAP Queue 3)
 B04_ORDERS = [(nq, nq) for nq in RUN04_ORDERS] + [(10, 12)]
 # Published H100 SXM rates (NVIDIA's data sheet) for the bounds.
@@ -199,6 +212,35 @@ STREAM_USES = [
     ("matvec_cm f64 (b03 matvec_pair_cm)", "matvec_cm", MV_CU, f"{DF2}:302",
      "K9 matvec_cm", "float64"),
 ]
+# The ceilings: the CLI's default buffer (f32 elements), the JAX CLI's
+# measured keys (tpu_bench/benchmarks/ceilings.py) and the kernels its run
+# launches
+CEILING_N = 128 * 2**20
+CEILING_KEYS = ("read_dma", "read_auto", "read", "write_dma", "write_auto",
+                "write", "copy_2x", "scale_2x", "add_3x", "triad_3x",
+                "expand2", "expand4", "expand8")
+CEILING_KERNELS = {"stream_read", "stream_fill", "stream_map",
+                   "stream_expand", "sumsq", "map2_inplace"}
+PROBES_CU = "tpu_bench_torch/csrc/stream_probes.cu"
+PLS = f"{PL}/stream.py"
+# the ceiling probes' entries: (entry of the kernels line, kernel launched,
+# the TPU kernel it replaces, the use timed in phase 3); launches from the
+# ceilings run of phase 5
+PROBE_USES = [
+    ("stream_map (copy_manual)", "stream_map", f"{PLS}:151",
+     "K12 copy_manual"),
+    ("stream_map (scale_manual)", "stream_map", f"{PLS}:163",
+     "K12 scale_manual"),
+    ("stream_map (triad_manual)", "stream_map", f"{PLS}:171",
+     "K12 triad_manual"),
+    ("stream_fill (fill)", "stream_fill", f"{PLS}:188", "K11 fill"),
+    ("stream_fill (fill_manual)", "stream_fill", f"{PLS}:234",
+     "K11 fill_manual"),
+    ("stream_expand (expand_manual, m=8)", "stream_expand", f"{PLS}:295",
+     "K13 expand_manual m=8"),
+    ("stream_read (read_manual)", "stream_read", f"{PLS}:354",
+     "K10 read_manual"),
+]
 
 
 def _run(cmd) -> str:
@@ -243,7 +285,8 @@ def compare(torch, name, out, ref, dtype, tol=None) -> float:
     assert bool(torch.isfinite(out).all()), f"{name}: non-finite output"
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
-    tol = tol or RTOL[str(dtype).split(".")[-1]]
+    if tol is None:
+        tol = RTOL[str(dtype).split(".")[-1]]
     print(f"  {name}: max rel err {rel:.3e} (tol {tol:g})")
     assert rel <= tol, f"{name}: {rel} > {tol}"
     return err
@@ -605,6 +648,117 @@ def streams_vs_plain(torch) -> dict:
     return measured
 
 
+def probe_cases(torch, rnd, n, chunk_bytes, offsets) -> list:
+    """The seven ceiling probes (K10-K13; expand at m = 2, 4, 8) on n
+    random elements in chunks of chunk_bytes; x and y start `offsets`
+    elements into their buffers.  Copy, fill, expand and the token are
+    held bit for bit."""
+    from tpu_bench_torch.kernels import stream
+
+    ox, oy = offsets
+    x, y = rnd(n + 4)[ox:ox + n], rnd(n + 4)[oy:oy + n]
+    c, seed, bias = rnd(1, 1), rnd(1, 1), rnd(1, 1)
+    rows = n // stream.LANES
+    # the copies' destinations, and K12's in-place operand, placed as x,
+    # beside the plain version's
+    out, out_plain, fill_out = (torch.empty_like(x), torch.empty_like(x),
+                                torch.empty((rows, stream.LANES),
+                                            dtype=x.dtype, device="cuda"))
+    xs = torch.empty(n + 4, dtype=x.dtype, device="cuda")[ox:ox + n]
+    xp = torch.empty_like(x)
+    chunk = stream.chunk_rows(rows, x.element_size(),
+                              chunk_bytes) * stream.LANES
+    alpha = float(c)  # add_'s alpha is a host number; read before timing
+    kw = {"chunk_bytes": chunk_bytes}
+
+    def reset():
+        xs.copy_(x)
+        xp.copy_(x)
+
+    def expand_library(m):
+        # one broadcasting add into the interleaved view of the output
+        src = x.view(-1, 1, chunk).expand(-1, m, chunk)
+        dst = torch.empty((m * rows, stream.LANES), dtype=x.dtype,
+                          device="cuda")
+        return torch.add(src, bias.reshape(()), out=dst.view(-1, m, chunk))
+
+    def fill_case(label, fn):
+        return Case(label, lambda: fn(rows, seed, dtype=x.dtype),
+                    lambda: stream.fill_plain(rows, seed, dtype=x.dtype),
+                    lambda: fill_out.fill_(seed.reshape(())), (seed,), 0,
+                    rtol=0.0)
+
+    return [
+        Case("K12 copy_manual", lambda: stream.copy_manual(x, out=out),
+             lambda: stream.copy_plain(x, out_plain), lambda: out.copy_(x),
+             (x,), 0, rtol=0.0),
+        Case("K12 scale_manual", lambda: stream.scale_manual(xs, c),
+             lambda: stream.scale_plain(xp, c),
+             lambda: xs.mul_(c.reshape(())), (x, c), n, reset=reset),
+        Case("K12 triad_manual", lambda: stream.triad_manual(xs, y, c),
+             lambda: stream.triad_plain(xp, y, c),
+             lambda: xs.add_(y, alpha=alpha), (x, y, c), 2 * n,
+             reset=reset),
+        fill_case("K11 fill", stream.fill),
+        fill_case("K11 fill_manual", stream.fill_manual),
+        *[Case(f"K13 expand_manual m={m}",
+               lambda m=m: stream.expand_manual(x, m, bias, **kw),
+               lambda m=m: stream.expand_plain(x, m, bias, **kw),
+               lambda m=m: expand_library(m), (x, bias), n, rtol=0.0)
+          for m in (2, 4, 8)],
+        Case("K10 read_manual", lambda: stream.read_manual(x, bias, **kw),
+             lambda: stream.read_plain(x, bias, **kw), x.sum, (x, bias), 0,
+             rtol=0.0),
+    ]
+
+
+def probes_vs_plain(torch) -> dict:
+    """Phase 3, the ceilings.  Every probe against its plain version on
+    random inputs, in f32 and f64: at n = 128*8 in one chunk, at 128*64
+    and 128*24 in chunks of 8 rows (more chunks than the ring's depth, and
+    exactly depth), at 128*64 with x and y off a 16-byte boundary and
+    placed differently, and at CEILING_N, where each f32 probe is timed
+    beside its plain version, one library call and its bound; returns
+    {use: those}."""
+    from tpu_bench_torch.core.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    measured = {}
+    for dtype in (torch.float32, torch.float64):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        tag = str(dtype)[6:]
+        rows8 = 8 * 128 * dtype.itemsize
+        for n, chunk_bytes, offsets in (
+                (128 * 8, 1 << 20, (0, 0)), (128 * 64, rows8, (0, 0)),
+                (128 * 24, rows8, (0, 0)), (128 * 64, rows8, (1, 3)),
+                (CEILING_N, 16 * 2**20, (0, 0))):
+            for case in probe_cases(torch, rnd, n, chunk_bytes, offsets):
+                if case.reset:
+                    case.reset()
+                out = case.run()
+                err = compare(torch, f"{case.label} {tag} n={n} "
+                              f"chunk {chunk_bytes} B at {offsets}", out,
+                              case.plain(), dtype, case.rtol)
+                if n == CEILING_N and dtype == torch.float32:
+                    bound_ms, bound_by = bound(case.inputs, out, case.flops)
+                    measured[case.label] = dict(
+                        max_abs_err=err, ms=event_ms(case.run),
+                        plain_ms=event_ms(case.plain),
+                        library_ms=event_ms(case.library),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                del out
+            torch.cuda.empty_cache()
+    for label, k in measured.items():
+        print(f"  {label} at n={CEILING_N} f32: kernel {k['ms']:.4f} ms, "
+              f"plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
+    return measured
+
+
 def initdata_on_card(torch) -> None:
     """Phase 3, benchmark data: device_x and device_y built on the card
     equal utils/native.py's f64 bytes, and the CPU's f32 bytes, at a size
@@ -725,15 +879,16 @@ def parse_log_fn():
 
 def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
               kernels: set, last_size: int, key: str = "nelmt",
-              unit: str = "DOF/s", operand_bytes=None) -> tuple:
-    """Phases 5-8: `python -m tpu_bench_torch.benchmarks.<bench>
+              unit: str = "DOF/s", operand_bytes=None, caps=None) -> tuple:
+    """Phases 6-9: `python -m tpu_bench_torch.benchmarks.<bench>
     <positionals> --dtype <dtype> <size_args>`, run in this process so the
     kernels' launch counts can be read; its log is parsed as postprocess
     does, by `key` and `unit`.  Exactly the kernels of `kernels` must
-    launch.  With `operand_bytes(size, itemsize)`, no column of a row
-    whose operands exceed twice the L2 may read above the HBM rate (+5%),
-    which holds the timing and the byte counts.  Returns the launches of
-    each kernel during the sweep and the last row's throughput by column."""
+    launch.  With `operand_bytes(size, itemsize)` and `caps(itemsize)`
+    ({name: cap in `unit`}), no column of a row whose operands exceed twice
+    the L2 may read above any cap (+5%), which holds the timing and the
+    byte counts.  Returns the launches of each kernel during the sweep and
+    the last row's throughput by column."""
     from tpu_bench_torch.core.validate import default_rtol
     from tpu_bench_torch.kernels import build
 
@@ -768,10 +923,18 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
         assert worst <= rtol, (dtype, size, norms)
     if operand_bytes is not None:
         l2 = torch.cuda.get_device_properties(0).L2_cache_size
-        ceiling = HBM_BYTES_PER_S * 1.05 * 1e-9
-        for size, row in zip(sizes, series):
-            if operand_bytes(int(size), torch_dtype.itemsize) > 2 * l2:
-                assert max(row) <= ceiling, (dtype, size, row, ceiling)
+        limits = caps(torch_dtype.itemsize)
+        held = [(size, max(row)) for size, row in zip(sizes, series)
+                if operand_bytes(int(size), torch_dtype.itemsize) > 2 * l2]
+        for size, top in held:
+            for cap_name, cap in limits.items():
+                assert top <= cap * 1.05, (dtype, size, top, cap_name, cap)
+        if held:
+            size, top = max(held, key=lambda h: h[1])
+            print(f"  {dtype} {name}: {len(held)} rows above 2x L2 under "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in limits.items())
+                  + f" (x1.05); highest column {top:.4f} at {key} "
+                  f"{int(size)}")
     last = dict(zip(labels, series[-1]))
     print(f"  {dtype} {key} {int(sizes[-1])} {unit}: " + ", ".join(
         f"{k} {v:.4f}" for k, v in last.items()), flush=True)
@@ -781,49 +944,106 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
     return counts, last
 
 
-def stream_sweeps(torch) -> dict:
-    """Phase 8: the benchmark01, 02 and 03 CLIs, f32 over the reference's
+def ceilings_run(torch) -> tuple:
+    """Phase 5: `python -m tpu_bench_torch.benchmarks.ceilings` at its
+    defaults, in this process; prints its lines.  Returns the measured
+    rates (its JSON line) and each kernel's launches during the run."""
+    from tpu_bench_torch.benchmarks import ceilings
+    from tpu_bench_torch.kernels import build
+
+    out = io.StringIO()
+    build.launches.clear()
+    with contextlib.redirect_stdout(out):
+        ceilings.main([])
+    torch.cuda.synchronize()
+    counts = dict(build.launches)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"  {line}")
+    print(f"  launches in the ceilings run: {counts}")
+    bw = json.loads(lines[-1])
+    assert list(bw) == ["device", "f32_elems", *CEILING_KEYS], list(bw)
+    assert bw["f32_elems"] == CEILING_N, bw
+    assert sum(line.startswith("Ceiling ") for line in lines) == 17, lines
+    top = HBM_BYTES_PER_S * 1.05 * 1e-9
+    for key in CEILING_KEYS:
+        assert 0 < bw[key] <= top, (key, bw[key], top)
+    assert set(counts) == CEILING_KERNELS and min(counts.values()) > 0, \
+        counts
+    return bw, counts
+
+
+def bwdtrans_caps(bw, nq, dim):
+    """caps(itemsize) of cli_sweep for b04 (dim 2) or b05 (dim 3) at the
+    isotropic order nq, in GDOF/s, from phase 5's ceilings."""
+    from tpu_bench_torch.core import roofline
+
+    return lambda s: {"measured-mix cap": roofline.honesty_cap_bwdtrans(
+        bw, nq, dim, s)}
+
+
+def bwdtrans_bytes(nq, dim):
+    """operand_bytes of cli_sweep for b04/b05 at order nq: each element's
+    nm^dim modes in and nq^dim points out."""
+    return lambda nelmt, s: ((nq - 1) ** dim + nq ** dim) * nelmt * s
+
+
+def stream_sweeps(torch, bw) -> dict:
+    """Phase 9: the benchmark01, 02 and 03 CLIs, f32 over the reference's
     sweeps (b01/b02 1024..536,870,912, b03 128..16384; 5 reps) and f64 over
-    every 32nd size to the same tops (3 reps).  Returns the launches of
-    each kernel in each sweep, by (kernel, dtype)."""
+    every 32nd size to the same tops (3 reps).  Above twice the L2 each
+    column stays under the HBM rate and under the measured cap of its mix
+    (bw, phase 5): b01 and b03 count one read, b02 two reads and a write.
+    The mixes are those of tests/test_artifact_honesty.py.  Returns the
+    launches of each kernel in each sweep, by (kernel, dtype)."""
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03
+    from tpu_bench_torch.core import roofline
 
     sweeps = [
-        (b01, {"sumsq"}, STREAM_N, "16384", lambda n, s: n * s),
-        (b02, {"map2_inplace"}, STREAM_N, "16384", lambda n, s: 2 * n * s),
+        (b01, {"sumsq"}, STREAM_N, "16384", lambda n, s: n * s, (1, 0)),
+        (b02, {"map2_inplace"}, STREAM_N, "16384", lambda n, s: 2 * n * s,
+         (2, 1)),
         (b03, {"matvec_rm", "matvec_cm"}, MATVEC_N, "512",
-         lambda n, s: n * n * s),
+         lambda n, s: n * n * s, (1, 0)),
     ]
     launches = {}
-    for bench, kernels, top, f64_min, operand_bytes in sweeps:
+    for bench, kernels, top, f64_min, operand_bytes, mix in sweeps:
+        caps = {"HBM rate": HBM_BYTES_PER_S * 1e-9,
+                "measured-mix cap": roofline.honesty_cap_mix(bw, *mix)}
         for dtype, size_args in (
                 ("f32", ["--ntests", "5"]),
                 ("f64", ["--min-size", f64_min, "--step", "32",
                          "--ntests", "3"])):
             counts, _ = cli_sweep(torch, bench, [], dtype, size_args,
                                   kernels, top, key="Size", unit="GB/s",
-                                  operand_bytes=operand_bytes)
+                                  operand_bytes=operand_bytes,
+                                  caps=lambda s, caps=caps: caps)
             tag = {"f32": "float32", "f64": "float64"}[dtype]
             launches.update({(k, tag): c for k, c in counts.items()})
     return launches
 
 
-def b04_orders(torch) -> dict:
-    """Phase 7: benchmark04 at nelmt 1,048,576 at each order of
-    B04_ORDERS, f32 and f64; prints each order's best column and returns
-    the kernels' launches in each f32 run, by order."""
+def b04_orders(torch, bw) -> dict:
+    """Phase 8: benchmark04 at nelmt 1,048,576 at each order of
+    B04_ORDERS, f32 and f64, the isotropic ones held to their measured
+    caps (bw, phase 5); prints each order's best column and returns the
+    kernels' launches in each f32 run, by order."""
     from tpu_bench_torch.benchmarks import benchmark04 as b04
 
     launches = {}
     for dtype in ("f32", "f64"):
         for nq in B04_ORDERS:
+            held = {}
+            if nq[0] == nq[1]:
+                held = dict(operand_bytes=bwdtrans_bytes(nq[0], 2),
+                            caps=bwdtrans_caps(bw, nq[0], 2))
             counts, last = cli_sweep(torch, b04, list(nq), dtype,
                                      ["--min-size", str(B04_NELMT),
                                       "--max-size", str(B04_NELMT),
                                       "--ntests", "3"],
-                                     B04_KERNELS, B04_NELMT)
+                                     B04_KERNELS, B04_NELMT, **held)
             if dtype == "f32":
                 launches[nq] = counts
             best = max(last, key=last.get)
@@ -855,6 +1075,7 @@ def main() -> int:
     print("== 3. kernels against their plain versions", flush=True)
     measured = kernels_vs_plain(torch)
     measured_streams = streams_vs_plain(torch)
+    measured_probes = probes_vs_plain(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03
@@ -871,27 +1092,33 @@ def main() -> int:
     anisotropic_b04(torch)
     print("== 4. headline", flush=True)
     headline(torch)
-    print("== 5. benchmark05 CLI sweeps", flush=True)
+    print("== 5. ceilings", flush=True)
+    bw, launches_ceilings = ceilings_run(torch)
+    print("== 6. benchmark05 CLI sweeps", flush=True)
+    b05_held = dict(operand_bytes=bwdtrans_bytes(8, 3),
+                    caps=bwdtrans_caps(bw, 8, 3))
     launches, _ = cli_sweep(torch, b05, [8, 8, 8], "f32",
                             ["--max-size", str(HEADLINE_NELMT), "--ntests",
-                             "10"], set(KERNELS), HEADLINE_NELMT)
+                             "10"], set(KERNELS), HEADLINE_NELMT, **b05_held)
     cli_sweep(torch, b05, [8, 8, 8], "f64",
               ["--min-size", "128", "--max-size", str(HEADLINE_NELMT),
                "--step", "32", "--ntests", "5"], set(KERNELS),
-              HEADLINE_NELMT)
-    print("== 6. benchmark04 CLI sweeps", flush=True)
+              HEADLINE_NELMT, **b05_held)
+    print("== 7. benchmark04 CLI sweeps", flush=True)
+    b04_held = dict(operand_bytes=bwdtrans_bytes(8, 2),
+                    caps=bwdtrans_caps(bw, 8, 2))
     launches_b04, _ = cli_sweep(torch, b04, [8, 8], "f32",
                                 ["--max-size", str(B04_NELMT), "--ntests",
-                                 "10"], B04_KERNELS, B04_NELMT)
+                                 "10"], B04_KERNELS, B04_NELMT, **b04_held)
     cli_sweep(torch, b04, [8, 8], "f64",
               ["--min-size", "128", "--max-size", str(B04_NELMT), "--step",
-               "32", "--ntests", "5"], B04_KERNELS, 131072)
-    print("== 7. benchmark04 at every order of run04.sh and (10, 12)",
+               "32", "--ntests", "5"], B04_KERNELS, 131072, **b04_held)
+    print("== 8. benchmark04 at every order of run04.sh and (10, 12)",
           flush=True)
-    launches_by_order = b04_orders(torch)
+    launches_by_order = b04_orders(torch, bw)
     launches_by_order[B04_MAIN] = launches_b04  # the full f32 sweep
-    print("== 8. benchmark01, 02 and 03 CLI sweeps", flush=True)
-    launches_streams = stream_sweeps(torch)
+    print("== 9. benchmark01, 02 and 03 CLI sweeps", flush=True)
+    launches_streams = stream_sweeps(torch, bw)
 
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
@@ -905,7 +1132,10 @@ def main() -> int:
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches_streams[(kernel, dtype)],
              **measured_streams[(use, dtype)])
-        for name, kernel, source, replaces, use, dtype in STREAM_USES]}))
+        for name, kernel, source, replaces, use, dtype in STREAM_USES] + [
+        dict(name=name, route="cuda", source=PROBES_CU, replaces=replaces,
+             launches=launches_ceilings[kernel], **measured_probes[use])
+        for name, kernel, replaces, use in PROBE_USES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -30,7 +30,9 @@ assert {"tpu_bench_torch.benchmarks.benchmark0" + i for i in "12345"} | {
     "tpu_bench_torch.baselines." + b
     for b in ("bwdtrans2d", "reduction", "axpy", "matvec")} | {
     "tpu_bench_torch.kernels." + k
-    for k in ("reduction", "axpy", "stream", "matvec")} <= set(names), names
+    for k in ("reduction", "axpy", "stream", "matvec")} | {
+    "tpu_bench_torch.benchmarks.ceilings",
+    "tpu_bench_torch.core.roofline"} <= set(names), names
 foreign = sorted(m for m in sys.modules
                  if m.startswith("jax") or m == "tpu_bench"
                  or m.startswith("tpu_bench."))
@@ -69,7 +71,8 @@ def test_nvcc_command_builds_package_sources_for_sm90a():
                if a.endswith((".cu", ".cuh"))]
     assert {p.name for p in sources} == {"bwdtrans2d.cu", "bwdtrans3d.cu",
                                          "qp1d_fused3d.cu", "reduction.cu",
-                                         "stream.cu", "matvec.cu"}
+                                         "stream.cu", "matvec.cu",
+                                         "stream_probes.cu"}
     assert len(compiles) == len(sources)
     assert all(p.parent == build.CSRC_DIR for p in sources)
     for cmd in (*compiles, link):
@@ -93,12 +96,15 @@ def test_chip_smoke_alone_fails(tmp_path):
 def _kernel_cases(rnd):
     """{kernel: (wrapper call, plain call)} at nq=8^3 shapes (qp1d_fused2d:
     b04 nq=8^2), E=1000; the stream kernels at n = 1000 with x one element
-    past a 16-byte boundary, and A (1000, 777)."""
+    past a 16-byte boundary, and A (1000, 777); the ceiling probes at
+    n = 128 * 64 in chunks of 8 rows, K12 as triad with x and y one element
+    past a boundary, K13 with m = 4."""
     from tpu_bench_torch.kernels import axpy as k7
     from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
     from tpu_bench_torch.kernels import matvec as kmv
     from tpu_bench_torch.kernels import reduction as k6
+    from tpu_bench_torch.kernels import stream
 
     x, b0, c12t, c = rnd(7, 49, 1000), rnd(7, 8), rnd(64, 49), rnd(512, 343)
     xb, w, em = rnd(2, 343, 1000), rnd(7, 64, 1000), rnd(1000, 343)
@@ -107,6 +113,8 @@ def _kernel_cases(rnd):
     em2, s2d = rnd(1000, 49), (rnd(49, 56), rnd(56, 64))
     v, y, a = rnd(1001)[1:], rnd(1001)[1:], rnd(1000, 777)
     a_cm, xs, xp = a.t().contiguous(), v.clone(), v.clone()
+    p, q, k, bias = rnd(8193)[1:], rnd(8193)[1:], rnd(1, 1), rnd(1, 1)
+    ps, pp, cb = p.clone(), p.clone(), 8 * 128 * p.element_size()
     return {
         "qp_fused3d": (lambda: k1.qp_shared3d(x, b0, c12t),
                        lambda: k1.qp_shared3d_plain(x, b0, c12t)),
@@ -126,8 +134,18 @@ def _kernel_cases(rnd):
                          lambda: k7.map2_inplace_plain(xp, y)),
         "matvec_rm": (lambda: kmv.matvec_rm(a, v[:777]),
                       lambda: kmv.matvec_rm_plain(a, v[:777])),
-        "matvec_cm": (lambda: kmv.matvec_cm(a_cm, v),
-                      lambda: kmv.matvec_cm_plain(a_cm, v)),
+        "matvec_cm": (lambda: kmv.matvec_cm(a_cm, v[:777]),
+                      lambda: kmv.matvec_cm_plain(a_cm, v[:777])),
+        "stream_read": (
+            lambda: stream.read_manual(p, bias, chunk_bytes=cb),
+            lambda: stream.read_plain(p, bias, chunk_bytes=cb)),
+        "stream_fill": (lambda: stream.fill_manual(64, k, dtype=k.dtype),
+                        lambda: stream.fill_plain(64, k, dtype=k.dtype)),
+        "stream_map": (lambda: stream.triad_manual(ps, q, k),
+                       lambda: stream.triad_plain(pp, q, k)),
+        "stream_expand": (
+            lambda: stream.expand_manual(p, 4, bias, chunk_bytes=cb),
+            lambda: stream.expand_plain(p, 4, bias, chunk_bytes=cb)),
     }
 
 
@@ -135,7 +153,9 @@ def _kernel_cases(rnd):
 @pytest.mark.parametrize("kernel", ["qp_fused3d", "kron_blocked", "em_gemm",
                                     "qp_stage2_3d", "qp1d_fused3d",
                                     "qp1d_fused2d", "sumsq", "map2_inplace",
-                                    "matvec_rm", "matvec_cm"])
+                                    "matvec_rm", "matvec_cm", "stream_read",
+                                    "stream_fill", "stream_map",
+                                    "stream_expand"])
 def test_kernels_match_plain_on_card(kernel):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

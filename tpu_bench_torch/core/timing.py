@@ -76,16 +76,26 @@ def time_variant(step: Callable[[], object], n_tests: int,
     return best
 
 
+# Clock cycles the card spins before each window of event_ms, about 0.5 ms
+# at the H100's 1.98 GHz: many times what the host takes to enqueue one of
+# the port's calls, so the card is still busy when the call arrives and
+# the window holds no idle time.
+ENQUEUE_CYCLES = 1_000_000
+
+
 def event_ms(fn: Callable[[], object], reps: int = 20) -> float:
     """Least device time in ms of one fn() on the current CUDA device, by
     CUDA events around each call, the L2 flushed before each, after one
-    untimed call."""
+    untimed call.  The card spins (ENQUEUE_CYCLES) between the flush and
+    the window while the host enqueues the window, else the window would
+    also hold the host's time to enqueue fn."""
     flush = L2Flush(torch.device("cuda"))
     fn()
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(reps):
         flush()
+        torch.cuda._sleep(ENQUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -93,6 +103,31 @@ def event_ms(fn: Callable[[], object], reps: int = 20) -> float:
         stop.record()
         stop.synchronize()
         best = min(best, start.elapsed_time(stop))
+    return best
+
+
+def run_ms(fn: Callable[[], object], calls: int, runs: int = 5) -> float:
+    """Device time in ms of one fn() sustained over a run of `calls`
+    back-to-back calls on the current CUDA device: CUDA events around the
+    run, the least of `runs` runs, after one untimed run (which brings the
+    card's clocks up from idle).  The host enqueues each call while the
+    card runs the ones before it, so its enqueue time and the card's
+    launch latency do not stand in the per-call time (the analog of the
+    JAX package's chained timing).  The L2 is not flushed: the working set
+    must exceed it."""
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop) / calls)
     return best
 
 

@@ -36,8 +36,9 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 # Launches of each kernel on a CUDA device since the count was last reset:
 # qp_fused3d (K1), kron_blocked (K2), em_gemm (K3), qp_stage2_3d (K4),
 # qp1d_fused3d (K5, three stages), qp1d_fused2d (K5, two stages), sumsq
-# (K6, either form counts once per call), map2_inplace (K7), matvec_rm (K8)
-# and matvec_cm (K9).
+# (K6, either form counts once per call), map2_inplace (K7), matvec_rm (K8),
+# matvec_cm (K9), and the ceiling probes stream_read (K10), stream_fill
+# (K11), stream_map (K12) and stream_expand (K13).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -67,6 +68,14 @@ _SIGNATURES = {
     "tbt_matvec_rm": [_P, _P, _P, _I, _I, _P],
     # a_cm, x, y, n_rows, m_cols, stream
     "tbt_matvec_cm": [_P, _P, _P, _I, _I, _P],
+    # x, n, bias, tok, tok0, sink, stream
+    "tbt_stream_read": [_P, _L, _P, _P, _L, _P, _P],
+    # out, n, seed, vector, stream
+    "tbt_stream_fill": [_P, _L, _P, _I, _P],
+    # out, x, y, c, n, op, stream
+    "tbt_stream_map": [_P, _P, _P, _P, _L, _I, _P],
+    # x, n, bias, out, m, shift, stream
+    "tbt_stream_expand": [_P, _L, _P, _P, _I, _I, _P],
 }
 
 
