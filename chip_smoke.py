@@ -7,15 +7,18 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds the hand kernels from the checkout's sources and drives the port's
 paths through the entry points a user calls: the headline (benchmark05's
 three headline columns at nq=8^3, nelmt=131072, f32), the ceilings CLI,
-the benchmark05 and benchmark04 CLIs, each with all eleven columns, and the
-benchmark01, 02 and 03 CLIs, each with all five.  Every phase is fatal:
+the benchmark05 and benchmark04 CLIs, each with all eleven columns, also
+with the f64 Pallas(Coales) column on the split-mantissa route
+(`--f64-coales ozaki`), and the benchmark01, 02 and 03 CLIs, each with all
+five.  Every phase is fatal:
 
 1. device facts (nvidia-smi, torch, nvcc, device properties);
 2. build of K1 (qp_fused3d), K2 (kron_blocked), K3 (em_gemm),
    K4 (qp_stage2_3d), K5 (qp1d_fused3d, two-stage entry qp1d_fused2d),
    K6 (sumsq), K7 (map2_inplace), K8 (matvec_rm), K9 (matvec_cm), K10
-   (stream_read), K11 (stream_fill), K12 (stream_map) and K13
-   (stream_expand) with nvcc for sm_90a, one process per source;
+   (stream_read), K11 (stream_fill), K12 (stream_map), K13
+   (stream_expand) and K14 (ozaki_slices) with nvcc for sm_90a, one
+   process per source;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -29,11 +32,18 @@ benchmark01, 02 and 03 CLIs, each with all five.  Every phase is fatal:
    and 8) at n = 128*8 (one chunk), 128*64 and 128*24 in chunks of 8 rows
    (more chunks than the ring's depth, and exactly depth), 128*64 with x
    and y off a 16-byte boundary, and the ceilings' 134,217,728 (copy, fill,
-   expand and the token bit for bit).  At each path's main shapes (b05
+   expand and the token bit for bit); K14's pair and band forms bit for
+   bit in hi and lo on slices of random f64 operands at b04 nq=8^2 (E =
+   1000 and 1,048,576), b05 nq=8^3 (E = 1000 and 131072), K=729 with
+   nqTot=1000, and T_c < T_x and T_c > T_x, the recombined product within
+   5e-14 of K2 in double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3
+   in f32 and f64.  At each path's main shapes (b05
    nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
-   and b03 16384^2, f32 and f64; the probes at 134,217,728, f32), and for
-   the b04 uses of B04_USES at their own order, each use is timed beside
-   its plain version, one library call and its bound; then
+   and b03 16384^2, f32 and f64; the probes at 134,217,728, f32; K14 at
+   b04 nq=8^2, E=1,048,576 and b05 nq=8^3, E=131072, against torch.matmul
+   in f64; kron_coalesced at the same shapes, f32), and for the b04 uses
+   of B04_USES at their own order, each use is timed beside its plain
+   version, one library call and its bound; then
    every column's f64 golden norm of the benchmark data (b05 nq=8^3 and b04
    nq=8^2, nelmt=128; b01 and b02 at 1024, b02 after 40 accumulating
    calls; b03 at 128), device_x and device_y built on the card against
@@ -50,24 +60,29 @@ benchmark01, 02 and 03 CLIs, each with all five.  Every phase is fatal:
    8 8 8`), an f32 sweep to nelmt 131072 and a short f64 sweep;
 7. the benchmark04 CLI (`python -m tpu_bench_torch.benchmarks.benchmark04
    8 8`), an f32 sweep to nelmt 1,048,576 and a short f64 sweep;
-8. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
+8. the benchmark05 (8 8 8) and benchmark04 (8 8) CLIs with `--dtype f64
+   --f64-coales ozaki`, nelmt 128 to 131072 in steps of x32: the golden
+   norms at nelmt 128 in every column, and K14 launched;
+9. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
    (2 .. 32) and at (10, 12), f32 and f64;
-9. the benchmark01, 02 and 03 CLIs, f32 over the reference's sweeps (to
+10. the benchmark01, 02 and 03 CLIs, f32 over the reference's sweeps (to
    536,870,912 and 16384) and f64 over every 32nd size to the same tops.
 
-In phases 6-9 the kernels of the sweep's own set must each launch, and no
+In phases 6-10 the kernels of the sweep's own set must each launch, and no
 other; the logs must parse with postprocess/common.py with every column
 > 0, and the norms of each row must agree to 5e-4 (f32) and 1e-10 (f64).
 Once a row's operands exceed twice the L2, at an isotropic order, no
 column may read above the honesty cap of phase 5's ceilings for its
 traffic mix (core/roofline.honesty_cap_mix, honesty_cap_bwdtrans; +5%),
-nor, in phase 9, above the HBM rate (+5%).
+nor, in phase 10, above the HBM rate (+5%).
 
 The line before the last is a JSON object with each kernel use's launches
 in its path's run (the ceilings run of phase 5, the b05 or b04 sweep of
-phase 6 or 7, phase 8's run at the use's order, or the b01-b03 sweep of
-phase 9 in the use's dtype), its error, its time beside its plain
-version's and a library call's, and its bound; the last line is
+phase 6, 7 or 8, phase 9's run at the use's order, or the b01-b03 sweep of
+phase 10 in the use's dtype; K14's band form and kron_coalesced, which no
+CLI runs, in one call of each at b05 nq=8^3 in phase 3), its error, its
+time beside its plain version's and a library call's, and its bound; the
+last line is
 {"ok": true, "device": {...}}.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -95,7 +110,7 @@ HEADLINE_NELMT = 131072
 B04_NELMT = 1048576  # the reference sweep's largest size
 RUN04_ORDERS = (2, 4, 6, 8, 10, 12, 14, 16, 32)  # scripts/run04.sh
 B04_MAIN = (8, 8)
-# phase 8's orders: run04.sh's, and (10, 12), where the JAX package's f32
+# phase 9's orders: run04.sh's, and (10, 12), where the JAX package's f32
 # Pallas(QP/Shared) runs qp_w_flat (ROADMAP Queue 3)
 B04_ORDERS = [(nq, nq) for nq in RUN04_ORDERS] + [(10, 12)]
 # Published H100 SXM rates (NVIDIA's data sheet) for the bounds.
@@ -241,6 +256,31 @@ PROBE_USES = [
     ("stream_read (read_manual)", "stream_read", f"{PLS}:354",
      "K10 read_manual"),
 ]
+
+
+# K14 (csrc/ozaki.cu), the split-mantissa f64 GEMM of --f64-coales ozaki:
+# phase 3's shapes (label, K = nmTot, nqTot, E, T_c, T_x; None takes
+# slice_params' T), the shapes where both forms are timed, the last one's
+# band-form launches counted, and the recombined product's tolerance
+# against K2 in double (the JAX package's, tests/test_ozaki.py).
+OZAKI_CU = "tpu_bench_torch/csrc/ozaki.cu"
+PLO = f"{PL}/ozaki.py"
+OZAKI_SHAPES = [
+    ("b04 nq=8^2", 49, 64, 1000, None, None),
+    ("b04 nq=8^2", 49, 64, B04_NELMT, None, None),
+    ("b05 nq=8^3", 343, 512, 1000, None, None),
+    ("b05 nq=8^3", 343, 512, HEADLINE_NELMT, None, None),
+    ("K=729", 729, 1000, 1000, None, None),
+    ("T_c < T_x", 49, 64, 1000, 6, 8),
+    ("T_c > T_x", 343, 512, 1000, 9, 7),
+]
+OZAKI_TIMED = [("b04 nq=8^2", B04_NELMT), ("b05 nq=8^3", HEADLINE_NELMT)]
+OZAKI_RTOL = 5e-14
+BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores (NVIDIA's data sheet)
+# kron_coalesced (K2 on the flat layout): (label, nmTot, nqTot, E), the last
+# one's launches counted
+COALESCED_SHAPES = [("b04 nq=8^2", 49, 64, B04_NELMT),
+                    ("b05 nq=8^3", 343, 512, HEADLINE_NELMT)]
 
 
 def _run(cmd) -> str:
@@ -538,13 +578,16 @@ def matvec_cases(torch, rnd, m, n) -> list:
     ]
 
 
-def bound(inputs, out, flops) -> tuple:
+def bound(inputs, out, flops, flop_rate=FP32_FLOP_PER_S) -> tuple:
     """(least ms the card could take, what bounds it): each input read
-    once and the output written once at the HBM rate, against the least
-    FLOP of the function (over its association orders) at the FP32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, out))
+    once and the output (a tensor or a tuple of them) written once at the
+    HBM rate, against the least FLOP of the function (over its association
+    orders) at the peak rate of their type, FP32 outside the tensor cores
+    unless `flop_rate` says otherwise."""
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outs))
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = flops / flop_rate * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -759,6 +802,140 @@ def probes_vs_plain(torch) -> dict:
     return measured
 
 
+def ozaki_operands(torch, rng, k, nq_tot, e, t_c=None, t_x=None):
+    """Random f64 C (nq_tot, k) and X (k, e) on the card, and their slices
+    by the port's split_f64_np (T_c and T_x of them, by default
+    slice_params' T) in bf16 on the card with the product of the scales."""
+    from tpu_bench_torch.kernels import ozaki
+
+    w, t = ozaki.slice_params(k)
+    out = []
+    for a, n in ((rng.standard_normal((nq_tot, k)), t_c or t),
+                 (rng.standard_normal((k, e)), t_x or t)):
+        sl, scale = ozaki.split_f64_np(a, w, n)
+        out.append((torch.from_numpy(sl).to("cuda", torch.bfloat16), scale,
+                    torch.from_numpy(a).to("cuda")))
+        del a, sl
+    (c_sl, s_c, c64), (x_sl, s_x, x64) = out
+    return x_sl, c_sl, s_c * s_x, x64, c64
+
+
+def ozaki_vs_plain(torch) -> tuple:
+    """Phase 3, K14.  Both forms against kron_ozaki_pair_plain bit for bit
+    in hi and lo on slices of random f64 operands at OZAKI_SHAPES, and,
+    where T_c = T_x, scale * (hi + lo) against K2 in double on those f64
+    operands, to OZAKI_RTOL of the largest output.  At OZAKI_TIMED each
+    form is timed beside the plain version, torch.matmul in f64 on the f64
+    operands and its bound (bytes at the HBM rate; FLOP,
+    the band's slice products, at the bf16 tensor-core rate).  Returns
+    ({(use, shape label): those}, the band form's launches in one call at
+    b05 nq=8^3)."""
+    import numpy as np
+
+    from tpu_bench_torch.core.timing import event_ms
+    from tpu_bench_torch.kernels import build, ozaki
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+
+    rng = np.random.default_rng(8)
+    measured, band_launches = {}, None
+    forms = (("K14 kron_ozaki_pair", ozaki.kron_ozaki_pair),
+             ("K14 kron_ozaki_band", ozaki.kron_ozaki_band))
+    for label, k, nq_tot, e, t_c, t_x in OZAKI_SHAPES:
+        x_sl, c_sl, scale, x64, c64 = ozaki_operands(
+            torch, rng, k, nq_tot, e, t_c, t_x)
+        hi_p, lo_p = ozaki.kron_ozaki_pair_plain(x_sl, c_sl)
+        timed = (label, e) in OZAKI_TIMED
+        if timed:  # the plain version and the library call, once a shape
+            shared = dict(
+                plain_ms=event_ms(
+                    lambda: ozaki.kron_ozaki_pair_plain(x_sl, c_sl)),
+                library_ms=event_ms(lambda: torch.matmul(c64, x64)))
+            pairs = sum(len(ss) for _, ss in ozaki.bands(c_sl.shape[0],
+                                                         x_sl.shape[0]))
+            shared.update(zip(("bound_ms", "bound_by"), bound(
+                (x_sl, c_sl), (hi_p, lo_p), pairs * 2 * nq_tot * k * e,
+                BF16_FLOP_PER_S)))
+        for use, fn in forms:
+            hi, lo = fn(x_sl, c_sl)
+            torch.cuda.synchronize()
+            same = torch.equal(hi, hi_p) and torch.equal(lo, lo_p)
+            err = max(float((hi - hi_p).abs().max()),
+                      float((lo - lo_p).abs().max()))
+            print(f"  {use} {label} K={k} E={e} T_c={c_sl.shape[0]} "
+                  f"T_x={x_sl.shape[0]}: hi and lo equal to the plain "
+                  f"version: {same}")
+            assert same, (use, err)
+            del hi, lo
+            if timed:
+                measured[(use, label)] = dict(
+                    max_abs_err=err, ms=event_ms(lambda: fn(x_sl, c_sl)),
+                    **shared)
+        if t_c is None and t_x is None:
+            ref = k2.kron_coalesced(x64, c64)
+            out = scale * (hi_p.double() + lo_p.double())
+            compare(torch, f"K14 recombined vs K2 f64 {label} E={e}", out,
+                    ref, torch.float64, OZAKI_RTOL)
+            del ref, out
+        if (label, e) == OZAKI_TIMED[-1]:
+            build.launches.clear()
+            ozaki.kron_ozaki_band(x_sl, c_sl)
+            torch.cuda.synchronize()
+            band_launches = build.launches["ozaki_slices"]
+        del x_sl, c_sl, x64, c64, hi_p, lo_p
+        torch.cuda.empty_cache()
+    for (use, label), m in measured.items():
+        print(f"  {use} at {label}: kernel {m['ms']:.4f} ms, plain "
+              f"{m['plain_ms']:.4f} ms, torch.matmul f64 "
+              f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+              f"({m['bound_by']})")
+    return measured, band_launches
+
+
+def coalesced_vs_plain(torch) -> tuple:
+    """Phase 3, kron_coalesced (K2 on the flat layout) against its plain
+    version on random inputs in f32 and f64 at b04 nq=8^2, E=1,048,576 and
+    b05 nq=8^3, E=131072, timed in f32 beside torch.matmul and its bound.
+    Returns ({shape label: those}, its launches in one call at b05)."""
+    from tpu_bench_torch.core.timing import event_ms
+    from tpu_bench_torch.kernels import build
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    measured, launches = {}, None
+    for dtype in (torch.float32, torch.float64):
+        for label, nm_tot, nq_tot, e in COALESCED_SHAPES:
+            x = torch.randn(nm_tot, e, generator=gen, device="cuda",
+                            dtype=dtype)
+            c = torch.randn(nq_tot, nm_tot, generator=gen, device="cuda",
+                            dtype=dtype)
+            out = k2.kron_coalesced(x, c)
+            err = compare(torch, f"kron_coalesced {str(dtype)[6:]} {label} "
+                          f"E={e}", out, k2.kron_coalesced_plain(x, c),
+                          dtype)
+            if dtype == torch.float32:
+                bound_ms, bound_by = bound((x, c), out,
+                                           2 * nq_tot * nm_tot * e)
+                measured[label] = dict(
+                    max_abs_err=err, ms=event_ms(lambda: k2.kron_coalesced(
+                        x, c)),
+                    plain_ms=event_ms(lambda: k2.kron_coalesced_plain(x, c)),
+                    library_ms=event_ms(lambda: torch.matmul(c, x)),
+                    bound_ms=bound_ms, bound_by=bound_by)
+                if label == COALESCED_SHAPES[-1][0]:
+                    build.launches.clear()
+                    k2.kron_coalesced(x, c)
+                    torch.cuda.synchronize()
+                    launches = build.launches["kron_blocked"]
+            del x, c, out
+            torch.cuda.empty_cache()
+    for label, m in measured.items():
+        print(f"  kron_coalesced at {label} f32: kernel {m['ms']:.4f} ms, "
+              f"plain {m['plain_ms']:.4f} ms, torch.matmul "
+              f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+              f"({m['bound_by']})")
+    return measured, launches
+
+
 def initdata_on_card(torch) -> None:
     """Phase 3, benchmark data: device_x and device_y built on the card
     equal utils/native.py's f64 bytes, and the CPU's f32 bytes, at a size
@@ -879,16 +1056,18 @@ def parse_log_fn():
 
 def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
               kernels: set, last_size: int, key: str = "nelmt",
-              unit: str = "DOF/s", operand_bytes=None, caps=None) -> tuple:
-    """Phases 6-9: `python -m tpu_bench_torch.benchmarks.<bench>
+              unit: str = "DOF/s", operand_bytes=None, caps=None,
+              golden=None) -> tuple:
+    """Phases 6-10: `python -m tpu_bench_torch.benchmarks.<bench>
     <positionals> --dtype <dtype> <size_args>`, run in this process so the
     kernels' launch counts can be read; its log is parsed as postprocess
     does, by `key` and `unit`.  Exactly the kernels of `kernels` must
     launch.  With `operand_bytes(size, itemsize)` and `caps(itemsize)`
     ({name: cap in `unit`}), no column of a row whose operands exceed twice
     the L2 may read above any cap (+5%), which holds the timing and the
-    byte counts.  Returns the launches of each kernel during the sweep and
-    the last row's throughput by column."""
+    byte counts.  With `golden`, every column's norm in the first row must
+    be within 1e-8 of it.  Returns the launches of each kernel during the
+    sweep and the last row's throughput by column."""
     from tpu_bench_torch.core.validate import default_rtol
     from tpu_bench_torch.kernels import build
 
@@ -921,6 +1100,11 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
     for size, norms in zip(sizes, norm_rows):
         worst = max(abs(n - norms[0]) / norms[0] for n in norms)
         assert worst <= rtol, (dtype, size, norms)
+    if golden is not None:
+        worst = max(abs(n - golden) / golden for n in norm_rows[0])
+        print(f"  {dtype} {name} {key} {int(sizes[0])}: every column's norm "
+              f"within {worst:.2e} of the golden {golden}")
+        assert worst <= 1e-8, (norm_rows[0], golden)
     if operand_bytes is not None:
         l2 = torch.cuda.get_device_properties(0).L2_cache_size
         limits = caps(torch_dtype.itemsize)
@@ -989,7 +1173,7 @@ def bwdtrans_bytes(nq, dim):
 
 
 def stream_sweeps(torch, bw) -> dict:
-    """Phase 9: the benchmark01, 02 and 03 CLIs, f32 over the reference's
+    """Phase 10: the benchmark01, 02 and 03 CLIs, f32 over the reference's
     sweeps (b01/b02 1024..536,870,912, b03 128..16384; 5 reps) and f64 over
     every 32nd size to the same tops (3 reps).  Above twice the L2 each
     column stays under the HBM rate and under the measured cap of its mix
@@ -1025,8 +1209,33 @@ def stream_sweeps(torch, bw) -> dict:
     return launches
 
 
+def ozaki_route(torch, bw) -> dict:
+    """Phase 8: the benchmark05 (8 8 8) and benchmark04 (8 8) CLIs with
+    `--dtype f64 --f64-coales ozaki`, nelmt 128 to 131072 in steps of x32,
+    3 reps: the golden norms at nelmt 128, the eleven columns within 1e-10
+    of each other, K14 launched beside the kernels of the native f64 run,
+    and every column under phase 5's caps.  Returns K14's launches in each
+    run, by benchmark."""
+    from tpu_bench_torch.benchmarks import benchmark04 as b04
+    from tpu_bench_torch.benchmarks import benchmark05 as b05
+
+    size_args = ["--f64-coales", "ozaki", "--min-size", "128", "--max-size",
+                 str(HEADLINE_NELMT), "--step", "32", "--ntests", "3"]
+    launches = {}
+    for bench, nq, kernels, golden in (
+            (b05, 8, set(KERNELS), GOLDEN_NQ8_NELMT128),
+            (b04, 8, B04_KERNELS, GOLDEN_B04_NQ8_NELMT128)):
+        dim = 3 if bench is b05 else 2
+        counts, _ = cli_sweep(torch, bench, [nq] * dim, "f64", size_args,
+                              kernels | {"ozaki_slices"}, HEADLINE_NELMT,
+                              operand_bytes=bwdtrans_bytes(nq, dim),
+                              caps=bwdtrans_caps(bw, nq, dim), golden=golden)
+        launches[bench] = counts["ozaki_slices"]
+    return launches
+
+
 def b04_orders(torch, bw) -> dict:
-    """Phase 8: benchmark04 at nelmt 1,048,576 at each order of
+    """Phase 9: benchmark04 at nelmt 1,048,576 at each order of
     B04_ORDERS, f32 and f64, the isotropic ones held to their measured
     caps (bw, phase 5); prints each order's best column and returns the
     kernels' launches in each f32 run, by order."""
@@ -1076,6 +1285,8 @@ def main() -> int:
     measured = kernels_vs_plain(torch)
     measured_streams = streams_vs_plain(torch)
     measured_probes = probes_vs_plain(torch)
+    measured_ozaki, band_launches = ozaki_vs_plain(torch)
+    measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03
@@ -1113,11 +1324,14 @@ def main() -> int:
     cli_sweep(torch, b04, [8, 8], "f64",
               ["--min-size", "128", "--max-size", str(B04_NELMT), "--step",
                "32", "--ntests", "5"], B04_KERNELS, 131072, **b04_held)
-    print("== 8. benchmark04 at every order of run04.sh and (10, 12)",
+    print("== 8. benchmark05 and benchmark04 CLIs, f64, --f64-coales ozaki",
+          flush=True)
+    launches_ozaki = ozaki_route(torch, bw)
+    print("== 9. benchmark04 at every order of run04.sh and (10, 12)",
           flush=True)
     launches_by_order = b04_orders(torch, bw)
     launches_by_order[B04_MAIN] = launches_b04  # the full f32 sweep
-    print("== 9. benchmark01, 02 and 03 CLI sweeps", flush=True)
+    print("== 10. benchmark01, 02 and 03 CLI sweeps", flush=True)
     launches_streams = stream_sweeps(torch, bw)
 
     print(card())  # again beside the numbers, for a reader of the tail
@@ -1135,7 +1349,22 @@ def main() -> int:
         for name, kernel, source, replaces, use, dtype in STREAM_USES] + [
         dict(name=name, route="cuda", source=PROBES_CU, replaces=replaces,
              launches=launches_ceilings[kernel], **measured_probes[use])
-        for name, kernel, replaces, use in PROBE_USES]}))
+        for name, kernel, replaces, use in PROBE_USES] + [
+        dict(name="ozaki_slices (kron_ozaki_pair)", route="cuda",
+             source=OZAKI_CU, replaces=f"{PLO}:137",
+             launches=launches_ozaki[b05],
+             **measured_ozaki[("K14 kron_ozaki_pair", "b05 nq=8^3")]),
+        dict(name="ozaki_slices (b04 kron_ozaki_pair)", route="cuda",
+             source=OZAKI_CU, replaces=f"{PLO}:137",
+             launches=launches_ozaki[b04],
+             **measured_ozaki[("K14 kron_ozaki_pair", "b04 nq=8^2")]),
+        dict(name="ozaki_slices (kron_ozaki_band)", route="cuda",
+             source=OZAKI_CU, replaces=f"{PLO}:208", launches=band_launches,
+             **measured_ozaki[("K14 kron_ozaki_band", "b05 nq=8^3")]),
+        dict(name="kron_blocked (kron_coalesced)", route="cuda",
+             source=BT2D_CU, replaces=f"{PL2D}:86",
+             launches=coalesced_launches,
+             **measured_coalesced["b05 nq=8^3"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -106,3 +106,40 @@ def test_main_log_parses_with_postprocess(tmp_path):
 def test_main_refuses_bf16():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b04.main(["4", "4", "--dtype", "bf16", "--device", "cpu"])
+
+
+def test_ozaki_route_golden_norm():
+    """--dtype f64 --f64-coales ozaki: Pallas(Coales) runs the slice GEMM,
+    normed through its (hi, lo) pair; every column gives the golden norm
+    and all eleven agree to 1e-10."""
+    cfg = Config(dtype=torch.float64, n_tests=2, device="cpu",
+                 f64_coales="ozaki")
+    data = b04.prepare(8, 8, 128, cfg)
+    norms = {}
+    for label, fn, args, *norm in b04.build_variants(data, cfg):
+        norms[label] = (norm[0] if norm else l2norm)(fn(*args))
+    assert list(norms) == b04.LABELS
+    coales = b04.variant_specs(data, cfg)[6]
+    assert coales[0] == "Pallas(Coales)" and coales[2] == ("in_slices",
+                                                           "c_slices")
+    for label, norm in norms.items():
+        assert norm == pytest.approx(29.12205853, rel=1e-8), label
+        assert norm == pytest.approx(norms["XLA(GEMM)"], rel=1e-10), label
+
+
+def test_ozaki_route_cli_log():
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        b04.main(["8", "8", "--dtype", "f64", "--f64-coales", "ozaki",
+                  "--device", "cpu", "--max-size", "128", "--ntests", "1"])
+    norms = next(line for line in buf.getvalue().splitlines()
+                 if " norm: " in line).split()[3:]
+    assert len(norms) == 11 and set(norms) == {"29.12205853"}, norms
+    assert "WARNING" not in err.getvalue(), err.getvalue()
+
+
+def test_ozaki_route_needs_f64():
+    """The route is the f64 column's: any other dtype is refused."""
+    with pytest.raises(ValueError, match="needs dtype f64"):
+        b04.main(["8", "8", "--dtype", "f32", "--f64-coales", "ozaki",
+                  "--device", "cpu"])

@@ -1,6 +1,7 @@
 """The port's kernels/bwdtrans2d.py against the JAX package's Pallas
 kernels in interpret mode, on kron and random dense operators and
-numpy-seeded random per-element inputs: kron_blocked and kron_elem_major,
+numpy-seeded random per-element inputs: kron_blocked, kron_coalesced and
+kron_elem_major,
 and benchmark04's kernels (kron_wide4, kron_vpu_blocked, qp_shared, qp_w,
 qp_w_flat, qp_mxu_grouped, qp_global, qp1d_shared, qp1d_global) against the
 port's calls that serve them: k2.kron_wide4, K1 (k1.qp_shared3d and
@@ -59,6 +60,34 @@ def test_kron_elem_major_matches_jax(nq, dtype, rtol):
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, rtol=rtol,
                                atol=rtol * np.abs(ref).max())
+
+
+def _kron_operator_2d(nq, dtype):
+    """C_coa = kron(B1, B0)^T, (nqTot, nmTot), from the cos basis."""
+    b = native.init_cos((nq - 1) * nq).reshape(nq - 1, nq)
+    return np.ascontiguousarray(np.kron(b, b).T, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 5e-6),
+                                        (np.float64, 1e-13)])
+@pytest.mark.parametrize("op", ["b04 nq=8^2", "b05 nq=8^3"])
+def test_kron_coalesced_matches_jax(op, dtype, rtol):
+    """The flat coalesced layout (nmTot, E) through K2's (1, nmTot, E)
+    view, at the b04 nq=8^2 and b05 nq=8^3 operators."""
+    c = (_kron_operator_2d(8, dtype) if op.startswith("b04")
+         else _kron_operator(8, dtype))
+    x = np.random.default_rng(21).standard_normal(
+        (c.shape[1], 2 * CE)).astype(dtype)
+    ref = np.asarray(pl_bt2d.kron_coalesced(
+        jnp.asarray(x), jnp.asarray(c), epb=CE, interpret=True,
+        precision=jax.lax.Precision.HIGHEST))
+    out = k2.kron_coalesced(torch.from_numpy(x), torch.from_numpy(c),
+                            epb=CE).numpy()
+    assert out.shape == ref.shape == (c.shape[0], 2 * CE)
+    np.testing.assert_allclose(out, ref, rtol=rtol,
+                               atol=rtol * np.abs(ref).max())
+    with pytest.raises(ValueError, match="is not"):
+        k2.kron_coalesced(torch.from_numpy(x)[None], torch.from_numpy(c))
 
 
 def test_em_gemm_rejects_bad_input():

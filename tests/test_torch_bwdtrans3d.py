@@ -115,9 +115,9 @@ def test_new_wrappers_reject_bad_input():
                                                         np.float32))
     em, ops = _stage_operators((4, 4, 4), np.float32, seed=5)
     em, ops = torch.from_numpy(em), [torch.from_numpy(o) for o in ops]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
         k1.qp_global3d(x.bfloat16(), b0.bfloat16(), c12t.bfloat16())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
         k1.qp1d_shared3d(em.bfloat16(), *(o.bfloat16() for o in ops))
     with pytest.raises(TypeError):
         k1.qp_stage2_3d(x, b0.double())

@@ -30,7 +30,7 @@ assert {"tpu_bench_torch.benchmarks.benchmark0" + i for i in "12345"} | {
     "tpu_bench_torch.baselines." + b
     for b in ("bwdtrans2d", "reduction", "axpy", "matvec")} | {
     "tpu_bench_torch.kernels." + k
-    for k in ("reduction", "axpy", "stream", "matvec")} | {
+    for k in ("reduction", "axpy", "stream", "matvec", "ozaki")} | {
     "tpu_bench_torch.benchmarks.ceilings",
     "tpu_bench_torch.core.roofline"} <= set(names), names
 foreign = sorted(m for m in sys.modules
@@ -58,7 +58,7 @@ def test_cuda_config_without_cuda_raises(monkeypatch):
 
 
 def test_bf16_config_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
         Config(dtype=torch.bfloat16, device="cpu")
 
 
@@ -72,7 +72,7 @@ def test_nvcc_command_builds_package_sources_for_sm90a():
     assert {p.name for p in sources} == {"bwdtrans2d.cu", "bwdtrans3d.cu",
                                          "qp1d_fused3d.cu", "reduction.cu",
                                          "stream.cu", "matvec.cu",
-                                         "stream_probes.cu"}
+                                         "stream_probes.cu", "ozaki.cu"}
     assert len(compiles) == len(sources)
     assert all(p.parent == build.CSRC_DIR for p in sources)
     for cmd in (*compiles, link):
@@ -171,3 +171,32 @@ def test_kernels_match_plain_on_card(kernel):
         torch.cuda.synchronize()
         assert float((out - ref).abs().max() / ref.abs().max()) <= tol
         assert build.launches[kernel] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,t_c,t_x", [("pair", 9, 9), ("band", 9, 9),
+                                          ("band", 7, 9), ("band", 9, 7)])
+def test_ozaki_slices_match_plain_on_card(form, t_c, t_x):
+    """K14: bf16 slices of the b05 nq=8^3 depth in, hi and lo equal to the
+    plain version bit for bit; one launch for the pair form, one a band
+    for the band form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tpu_bench_torch.kernels import ozaki
+
+    rng = np.random.default_rng(t_c * 10 + t_x)
+    w, _ = ozaki.slice_params(343)
+    c_sl, _ = ozaki.split_f64_np(rng.standard_normal((512, 343)), w, t_c)
+    x_sl, _ = ozaki.split_f64_np(rng.standard_normal((343, 1000)), w, t_x)
+    c, x = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+            for a in (c_sl, x_sl))
+    fn = ozaki.kron_ozaki_pair if form == "pair" else ozaki.kron_ozaki_band
+    before = build.launches["ozaki_slices"]
+    hi, lo = fn(x, c)
+    torch.cuda.synchronize()
+    hi_p, lo_p = ozaki.kron_ozaki_pair_plain(x, c)
+    assert torch.equal(hi, hi_p) and torch.equal(lo, lo_p)
+    n_launches = 1 if form == "pair" else max(t_c, t_x)
+    assert build.launches["ozaki_slices"] == before + n_launches

@@ -13,10 +13,13 @@ Pallas(Coales) K2 on the 4D chunk layout, Pallas(QP) K2 + K4,
 Pallas(QP/Shared) K1, Pallas(QP-1D) two K3 launches and
 Pallas(QP-1D/Shared) K5 with two stages.  The JAX
 package's per-order choice of TPU kernel for a column (VMEM, sublane and
-MXU-tile thresholds) and its f64 Ozaki Coales are not carried over: on the
-card each column is one kernel built in f32 or f64.
+MXU-tile thresholds) is not carried over: on the card each column is one
+kernel built in f32 or f64.  The JAX package's f64 Pallas(Coales), the
+split-mantissa slice GEMM, is K14 under `--dtype f64 --f64-coales ozaki`
+(kernels/ozaki.py); the default, `native`, is K2 built in double.
 
     python -m tpu_bench_torch.benchmarks.benchmark04 8 8 [--device cuda]
+        [--dtype f64 --f64-coales ozaki]
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from tpu_bench_torch.core.validate import measure_row
 from tpu_bench_torch.core.variants import LABELS, Layouts, materialize
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
+from tpu_bench_torch.kernels import ozaki
 from tpu_bench_torch.ops import bwdtrans, initdata
 
 
@@ -45,6 +49,7 @@ def variant_specs(data, cfg):
         ("XLA(QP/DG)", lib_bt.staged_dotgeneral, ("in_em3", "b0", "b1")),
         ("XLA(GEMM)", lib_bt.gemm_kron, ("in_coa", "c_coa")),
         ("Pallas(Uncoales)", k2.kron_elem_major, ("in_em2", "c_em")),
+        ozaki.coales_pair_spec(data) if cfg.f64_coales == "ozaki" else
         ("Pallas(Coales)", k2.kron_wide4, ("in_blk_w4", "c_coa")),
         ("Pallas(QP)", k1.qp_global3d, ("in_pcoa3", "b0", "b1t")),
         ("Pallas(QP/Shared)", qp, ("in_pcoa3", "b0", "b1t")),
@@ -63,11 +68,11 @@ def prepare(nq0: int, nq1: int, nelmt: int, cfg: Config) -> Layouts:
     basis = bwdtrans.make_basis2d(nq0, nq1, cfg.dtype, cfg.device)
     e_pad = initdata.round_up(nelmt, 128)
     nm0, nm1, nm_tot = basis.nm0, basis.nm1, basis.nm_tot
-    src = bwdtrans.stream_sources(bwdtrans.element_data2d(basis, cfg.dtype),
-                                  (nm1, nm0), nelmt, e_pad, cfg.dtype)
+    elem = bwdtrans.element_data2d(basis, cfg.dtype)
+    src = bwdtrans.stream_sources(elem, (nm1, nm0), nelmt, e_pad, cfg.dtype)
     c_em, s1_em, s2_em = bwdtrans.operators2d(basis)
     ce = bwdtrans.kron_chunk(e_pad)
-    return Layouts(
+    data = Layouts(
         base=dict(
             basis=basis,
             nelmt=nelmt,
@@ -93,6 +98,9 @@ def prepare(nq0: int, nq1: int, nelmt: int, cfg: Config) -> Layouts:
                                                      ce // 128, 128),
         ),
     )
+    if cfg.f64_coales == "ozaki":
+        ozaki.prepare_f64_tier(data, data["c_coa"], elem, nelmt, e_pad)
+    return data
 
 
 def run_test(nelmt: int, nq0: int, nq1: int, cfg: Config,
@@ -110,6 +118,7 @@ def main(argv=None):
         "benchmark04",
         positionals=[("nq0", 8), ("nq1", 8), ("threads", None),
                      ("elblocks", None)],
+        f64_coales=True,
     )
     args = parser.parse_args(argv)
     cfg = Config.from_flags(args)
@@ -126,10 +135,15 @@ def main(argv=None):
     # column holds at most one workspace per element: nm1*nq0 (the staged
     # library columns, Pallas(QP-1D)) or nm0*nq1 (Pallas(QP)); the second
     # covers a copy torch.einsum may make of a permuted operand.
+    # Under --f64-coales ozaki the Pallas(Coales) column holds the bf16
+    # element slices and the (hi, lo) pairs instead (ozaki.bytes_per_elem).
     wsp = max((nq1 - 1) * nq0, (nq0 - 1) * nq1)
+    per_elem = (nm_tot + 2 * nq_tot + 2 * wsp) * cfg.itemsize
+    if cfg.f64_coales == "ozaki":
+        per_elem = max(per_elem, ozaki.bytes_per_elem(nm_tot, nq_tot))
     with cli.profiled(args):
         for nelmt in cli.sweep(128, 1048576, args):
-            need = (nm_tot + 2 * nq_tot + 2 * wsp) * nelmt * cfg.itemsize
+            need = per_elem * nelmt
             if need > cap:
                 reporter.note(f"b04: stopping sweep at nelmt {nelmt} "
                               "(memory cap)")

@@ -10,10 +10,13 @@ matmul) and six hand columns through the port's CUDA kernels:
 Pallas(Uncoales) K3, Pallas(Coales) K2, Pallas(QP) K2 + K4,
 Pallas(QP/Shared) K1, Pallas(QP-1D) three K3 launches and
 Pallas(QP-1D/Shared) K5 (kernels/bwdtrans2d.py, kernels/bwdtrans3d.py).
-The column labels keep the reference names so postprocess/ reads the log
-unchanged.
+The f64 Pallas(Coales) column is K2 built in double, or under
+`--f64-coales ozaki` the JAX package's split-mantissa slice GEMM through
+K14 (kernels/ozaki.py).  The column labels keep the reference names so
+postprocess/ reads the log unchanged.
 
     python -m tpu_bench_torch.benchmarks.benchmark05 8 8 8 [--device cuda]
+        [--dtype f64 --f64-coales ozaki]
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from tpu_bench_torch.core.validate import measure_row
 from tpu_bench_torch.core.variants import LABELS, Layouts, materialize
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
+from tpu_bench_torch.kernels import ozaki
 from tpu_bench_torch.ops import bwdtrans, initdata
 
 
@@ -44,6 +48,7 @@ def variant_specs(data, cfg):
         ("XLA(QP/DG)", lib_bt.staged_dotgeneral, ("in_em4", "b0", "b1", "b2")),
         ("XLA(GEMM)", lib_bt.gemm_kron, ("in_coa", "c_coa3")),
         ("Pallas(Uncoales)", k2.kron_elem_major, ("in_em2", "c_em3")),
+        ozaki.coales_pair_spec(data) if cfg.f64_coales == "ozaki" else
         ("Pallas(Coales)", k2.kron_blocked, ("in_blk", "c_coa3")),
         ("Pallas(QP)", k1.qp_global3d, ("in_pcoa3", "b0", "c12t")),
         ("Pallas(QP/Shared)", qp, ("in_pflat", "b0", "c12t")),
@@ -65,11 +70,12 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
     e_pad = initdata.round_up(nelmt, 128)
     nm0, nm1, nm2 = basis.nm0, basis.nm1, basis.nm2
     nm_tot = basis.nm_tot
-    src = bwdtrans.stream_sources(bwdtrans.element_data3d(basis, cfg.dtype),
-                                  (nm2, nm1, nm0), nelmt, e_pad, cfg.dtype)
+    elem = bwdtrans.element_data3d(basis, cfg.dtype)
+    src = bwdtrans.stream_sources(elem, (nm2, nm1, nm0), nelmt, e_pad,
+                                  cfg.dtype)
     c_em3, c12t, s1_em, s2_em, s3_em = bwdtrans.operators3d(basis)
     ce = bwdtrans.kron_chunk(e_pad)
-    return Layouts(
+    data = Layouts(
         base=dict(
             basis=basis,
             nelmt=nelmt,
@@ -95,6 +101,9 @@ def prepare(nq0: int, nq1: int, nq2: int, nelmt: int, cfg: Config) -> Layouts:
             in_blk=lambda: src["blk"](ce),
         ),
     )
+    if cfg.f64_coales == "ozaki":
+        ozaki.prepare_f64_tier(data, data["c_coa3"], elem, nelmt, e_pad)
+    return data
 
 
 def run_test(nelmt: int, nq0: int, nq1: int, nq2: int, cfg: Config,
@@ -113,6 +122,7 @@ def main(argv=None):
         "benchmark05",
         positionals=[("nq0", 8), ("nq1", 8), ("nq2", 8), ("threads", None),
                      ("elblocks", None)],
+        f64_coales=True,
     )
     args = parser.parse_args(argv)
     cfg = Config.from_flags(args)
@@ -129,10 +139,15 @@ def main(argv=None):
     # the staged library columns and Pallas(QP-1D) hold two workspaces
     # (Pallas(QP-1D) nm2*nm1*nq0 and nm2*nq1*nq0 per element, at most wsp
     # each) beside one output; Pallas(QP) holds one, nm0*nq1*nq2 < nqTot.
+    # Under --f64-coales ozaki the Pallas(Coales) column holds the bf16
+    # element slices and the (hi, lo) pairs instead (ozaki.bytes_per_elem).
     wsp = max((nq2 - 1) * (nq1 - 1) * nq0, (nq2 - 1) * nq1 * nq0)
+    per_elem = (nm_tot + 2 * nq_tot + 2 * wsp) * cfg.itemsize
+    if cfg.f64_coales == "ozaki":
+        per_elem = max(per_elem, ozaki.bytes_per_elem(nm_tot, nq_tot))
     with cli.profiled(args):
         for nelmt in cli.sweep(128, 1048576, args):
-            need = (nm_tot + 2 * nq_tot + 2 * wsp) * nelmt * cfg.itemsize
+            need = per_elem * nelmt
             if need > cap:
                 reporter.note(f"b05: stopping sweep at nelmt {nelmt} "
                               "(memory cap)")

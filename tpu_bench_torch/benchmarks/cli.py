@@ -15,7 +15,10 @@ import contextlib
 import os
 
 
-def build_parser(name: str, positionals=()) -> argparse.ArgumentParser:
+def build_parser(name: str, positionals=(),
+                 f64_coales: bool = False) -> argparse.ArgumentParser:
+    """The shared flags; `f64_coales` adds --f64-coales (benchmarks 04
+    and 05)."""
     p = argparse.ArgumentParser(prog=name)
     for pos, default in positionals:
         p.add_argument(pos, nargs="?", type=int, default=default)
@@ -47,6 +50,13 @@ def build_parser(name: str, positionals=()) -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace of the sweep "
                         "to DIR/trace.json")
+    if f64_coales:
+        p.add_argument("--f64-coales", choices=["native", "ozaki"],
+                       default="native",
+                       help="route of the f64 Pallas(Coales) column: native "
+                            "= the kron GEMM built in double; ozaki = the "
+                            "JAX package's exact bf16 slice GEMM (needs "
+                            "--dtype f64)")
     return p
 
 

@@ -16,6 +16,10 @@ import torch
 
 DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 PRECISIONS = ("default", "highest")
+# Routes of benchmarks 04/05's f64 Pallas(Coales) column: K2 built in
+# double, or the JAX package's split-mantissa slices through K14
+# (kernels/ozaki.py).
+F64_COALES = ("native", "ozaki")
 # Fraction of device memory a sweep size may use.
 MEM_FRACTION = 0.80
 
@@ -44,6 +48,8 @@ class Config:
     lets cuBLAS/cuDNN use TF32.  The hand kernels always use FP32/FP64 FMA.
     `flush_l2` overwrites the L2 cache between timed repetitions so working
     sets that fit in L2 still report device-memory bandwidth.
+    `f64_coales` is the route of benchmarks 04/05's f64 Pallas(Coales)
+    column (F64_COALES); "ozaki" needs f64.
     """
 
     dtype: torch.dtype = torch.float32
@@ -53,15 +59,22 @@ class Config:
     precision: str = "highest"
     validate: bool = True
     flush_l2: bool = True
+    f64_coales: str = "native"
 
     def __post_init__(self):
         if self.dtype == torch.bfloat16:
             raise NotImplementedError("bf16 is not ported yet "
-                                      "(ROADMAP Queue 1 item 5)")
+                                      "(ROADMAP Queue 1 item 2)")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"unsupported dtype {self.dtype}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
+        if self.f64_coales not in F64_COALES:
+            raise ValueError(f"f64_coales must be one of {F64_COALES}")
+        if self.f64_coales == "ozaki" and self.dtype != torch.float64:
+            raise ValueError("f64_coales='ozaki' routes the f64 "
+                             "Pallas(Coales) column; it needs dtype f64, "
+                             f"not {self.dtype}")
         self.device = resolve_device(self.device)
 
     @property
@@ -102,4 +115,5 @@ class Config:
             precision=args.precision,
             validate=not args.no_validate,
             flush_l2=not args.l2_resident,
+            f64_coales=getattr(args, "f64_coales", "native"),
         )

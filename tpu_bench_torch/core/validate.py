@@ -80,16 +80,18 @@ def measure_row(bench: str, labels, specs, data, cfg, reporter, *,
                 key: str, size: int, work: float, unit: str,
                 norm=l2norm, run=None) -> None:
     """One sweep point of a benchmark: every column of `specs` (label, fn,
-    operand keys; operands resolved one column at a time) timed and normed
-    (measure_checked with `norm` and `run`), the norms checked against
-    each other, and the `<key> <size>` Case/norm/<unit> line triple
-    emitted with throughput 1e-9*work/t: DOF for b04/b05, bytes for
-    b01-b03."""
+    operand keys[, the column's own norm]; operands resolved one column at
+    a time) timed and normed (measure_checked with the column's norm, else
+    `norm`, and `run`), the norms checked against each other, and the
+    `<key> <size>` Case/norm/<unit> line triple emitted with throughput
+    1e-9*work/t: DOF for b04/b05, bytes for b01-b03."""
     times, norms = [], []
     with cfg.library_precision():
-        for label, fn, keys in specs:
+        for label, fn, keys, *own_norm in specs:
             args = tuple(data[k] for k in keys)  # lazy derived layouts
-            t, n = measure_checked(label, fn, args, cfg, reporter, norm, run)
+            col_norm = own_norm[0] if own_norm else norm
+            t, n = measure_checked(label, fn, args, cfg, reporter, col_norm,
+                                   run)
             del args
             times.append(t)
             norms.append(n)

@@ -6,7 +6,10 @@ Each benchmark module defines
     variant_specs(data, cfg) -> ordered list of (label, fn, operand_keys)
 
 the analog of the reference's run_test<T> body timing several
-implementations of the same math in sequence.  The ordered labels are the
+implementations of the same math in sequence.  A spec whose output is not
+the tensor the row norms, as the (hi, lo) pair of the f64 Ozaki
+Pallas(Coales) column, carries its norm as a fourth entry
+(label, fn, operand_keys, norm).  The ordered labels are the
 Case-line columns the postprocess scripts read.  operand_keys resolve
 through a Layouts, so each layout of the element stream is built fresh for
 the one variant that uses it and dropped afterwards.
@@ -40,9 +43,16 @@ class Layouts:
             return self._base[key]
         return self._derived[key]()
 
+    def __setitem__(self, key, value):
+        self._base[key] = value
+
+    def add_derived(self, key, build):
+        self._derived[key] = build
+
 
 def materialize(specs, data):
-    """(label, fn, args) with every operand resolved up front: a test-suite
-    and small-size convenience.  Sweeps resolve keys per variant instead."""
-    return [(label, fn, tuple(data[k] for k in keys))
-            for label, fn, keys in specs]
+    """(label, fn, args[, norm]) with every operand resolved up front: a
+    test-suite and small-size convenience.  Sweeps resolve keys per variant
+    instead.  A spec that carries its own norm keeps it."""
+    return [(label, fn, tuple(data[k] for k in keys), *norm)
+            for label, fn, keys, *norm in specs]

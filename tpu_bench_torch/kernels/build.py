@@ -37,8 +37,9 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 # qp_fused3d (K1), kron_blocked (K2), em_gemm (K3), qp_stage2_3d (K4),
 # qp1d_fused3d (K5, three stages), qp1d_fused2d (K5, two stages), sumsq
 # (K6, either form counts once per call), map2_inplace (K7), matvec_rm (K8),
-# matvec_cm (K9), and the ceiling probes stream_read (K10), stream_fill
-# (K11), stream_map (K12) and stream_expand (K13).
+# matvec_cm (K9), the ceiling probes stream_read (K10), stream_fill (K11),
+# stream_map (K12) and stream_expand (K13), and ozaki_slices (K14, either
+# form counts once per launch: the band form launches once per band).
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -158,6 +159,12 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.tbt_qp1d_smem.argtypes = [_I, _I, _I, _I, _I]
     lib.tbt_qp1d_smem.restype = _L
+    # K14 takes bf16 slices and writes an f32 pair, so it has no _f32/_f64
+    # pair: c, x, hi, lo, t_c, t_x, m_rows, k_depth, n_cols, w[, u], stream
+    ozaki = [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I]
+    lib.tbt_ozaki_pair.argtypes = [*ozaki, _P]
+    lib.tbt_ozaki_band.argtypes = [*ozaki, _I, _P]
+    lib.tbt_ozaki_pair.restype = lib.tbt_ozaki_band.restype = ctypes.c_int
     lib.tbt_error_string.argtypes = [ctypes.c_int]
     lib.tbt_error_string.restype = ctypes.c_char_p
     return lib
@@ -178,7 +185,7 @@ def check_operands(name: str, tensors) -> None:
     x = tensors[0]
     if x.dtype == torch.bfloat16:
         raise NotImplementedError(f"{name}: bf16 is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 2)")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {x.dtype} is not supported")
     if any(t.dtype != x.dtype for t in tensors):

@@ -16,6 +16,8 @@ The rest of tpu_bench/kernels/bwdtrans2d.py, benchmark04's 2D kernels, is
 served by kernels that already compute each function on the same bytes;
 the TPU kernels' differences were DMA, sublane or MXU-tile geometry:
 
+    kron_coalesced                   kron_coalesced below: K2 on the
+                                     (1, nmTot, E) view of the flat layout
     kron_wide4, kron_vpu_blocked     kron_wide4 below: K2 on a view of
                                      the 4D chunk layout
     qp_shared, qp_w, qp_w_flat,      K1, kernels/bwdtrans3d.qp_shared3d
@@ -58,7 +60,7 @@ def kron_blocked(in_blk, c_coa):
 def _check(x, c):
     if x.dtype == torch.bfloat16:
         raise NotImplementedError("kron_blocked: bf16 is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 2)")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kron_blocked: dtype {x.dtype} is not supported")
     if c.dtype != x.dtype:
@@ -89,6 +91,24 @@ def _launch(x, c):
                  ce, nblk, stream)
     build.launched(err, "kron_blocked")
     return out
+
+
+def kron_coalesced_plain(in_coa, c_coa):
+    """Plain PyTorch version of kron_coalesced."""
+    return torch.matmul(c_coa, in_coa)
+
+
+def kron_coalesced(in_coa, c_coa, *, epb=None):
+    """out (nqTot, E) = C (nqTot, nmTot) @ in (nmTot, E), the flat
+    coalesced layout: K2 on the (1, nmTot, E) view, whose grid takes E up
+    to 65535 output tiles of 128.  `epb`, the TPU kernel's element block,
+    is accepted and ignored."""
+    if in_coa.dim() != 2:
+        raise ValueError(f"kron_coalesced: in {tuple(in_coa.shape)} is not "
+                         "(nmTot, E)")
+    nm_tot, e = in_coa.shape
+    out = kron_blocked(in_coa.view(1, nm_tot, e), c_coa)
+    return out.view(c_coa.shape[0], e)
 
 
 def kron_elem_major_plain(in_em2, c_em):

@@ -99,7 +99,7 @@ def _check(x, b0, c12t, nrq):
     tensors = (x, b0, c12t)
     if x.dtype == torch.bfloat16:
         raise NotImplementedError("qp_shared3d: bf16 is not ported yet "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 2)")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"qp_shared3d: dtype {x.dtype} is not supported")
     if any(t.dtype != x.dtype for t in tensors):
