@@ -18,7 +18,9 @@ five.  Every phase is fatal:
    K6 (sumsq), K7 (map2_inplace), K8 (matvec_rm), K9 (matvec_cm), K10
    (stream_read), K11 (stream_fill), K12 (stream_map), K13
    (stream_expand) and K14 (ozaki_slices) with nvcc for sm_90a, one
-   process per source;
+   process per source; ptxas must report no spills in the tensor-core
+   kernels K14 and K5, and `cuobjdump -sass` must show HMMA in K14 and in
+   K5's f32 entries and DMMA in its f64 entries;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -37,7 +39,9 @@ five.  Every phase is fatal:
    1000 and 1,048,576), b05 nq=8^3 (E = 1000 and 131072), K=729 with
    nqTot=1000, and T_c < T_x and T_c > T_x, the recombined product within
    5e-14 of K2 in double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3
-   in f32 and f64.  At each path's main shapes (b05
+   in f32 and f64; K14 and K5 (f32, and f64 timed apart) at their main
+   shapes with the rate they reach, their units' peak time and the SIMT
+   design's time.  At each path's main shapes (b05
    nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
    and b03 16384^2, f32 and f64; the probes at 134,217,728, f32; K14 at
    b04 nq=8^2, E=1,048,576 and b05 nq=8^3, E=131072, against torch.matmul
@@ -96,6 +100,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -277,6 +282,28 @@ OZAKI_SHAPES = [
 OZAKI_TIMED = [("b04 nq=8^2", B04_NELMT), ("b05 nq=8^3", HEADLINE_NELMT)]
 OZAKI_RTOL = 5e-14
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores (NVIDIA's data sheet)
+TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores
+FP64_TC_FLOP_PER_S = 67e12  # FP64 on the tensor cores (DMMA)
+# The tensor-core kernels: name: a tag of their instances' mangled names,
+# and the mma instruction each must hold in the SASS.
+TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
+              "K5 qp1d f32 (3xTF32)": "qp1d_tc_kernelIf",
+              "K5 qp1d f64 (DMMA)": "qp1d_tc_kernelId"}
+TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
+          ("K5 qp1d f64 (DMMA)", "DMMA")]
+# Times of the SIMT FMA designs that K14 and K5 replaced, CUDA events, L2
+# flushed, by (use, shape, units): from this script and, for K5 in f64,
+# benchmarks/kernel_blocks.py (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700.00 W).
+K5_3D = "K5 qp1d_shared3d (QP-1D/Shared)"
+K5_2D = "K5 qp1d_fused (QP-1D/Shared)"
+SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
+           ("K14 kron_ozaki_pair", "b04 nq=8^2", "bf16"): 15.4328,
+           ("K14 kron_ozaki_band", "b05 nq=8^3", "bf16"): 79.4008,
+           ("K14 kron_ozaki_band", "b04 nq=8^2", "bf16"): 16.3749,
+           (K5_3D, "b05 nq=8^3", "f32 3xTF32"): 6.3326,
+           (K5_3D, "b05 nq=8^3", "f64 DMMA"): 21.3871,
+           (K5_2D, "b04 nq=8^2", "f32 3xTF32"): 1.5546}
 # kron_coalesced (K2 on the flat layout): (label, nmTot, nqTot, E), the last
 # one's launches counted
 COALESCED_SHAPES = [("b04 nq=8^2", 49, 64, B04_NELMT),
@@ -306,6 +333,9 @@ def device_facts(torch) -> None:
 
 
 def build_kernels() -> None:
+    """Phase 2: the build, ptxas's registers and spills (none allowed in
+    the tensor-core kernels K14 and K5), and their mma instructions in the
+    library's SASS."""
     from tpu_bench_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -313,10 +343,42 @@ def build_kernels() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     log = (build.BUILD_DIR / "build.log")
     if log.exists():  # absent when the library was already built
+        function = None
         for line in log.read_text().splitlines():
             if any(w in line for w in ("entry function", "registers",
                                         "spill")):
                 print("  ptxas:", line.strip())
+            if "Function properties for" in line:
+                function = line.split()[-1]
+            elif "spill" in line and any(k in (function or "")
+                                         for k in TC_KERNELS.values()):
+                stores, loads = (int(n) for n in re.findall(
+                    r"(\d+) bytes spill (?:stores|loads)", line))
+                assert stores == loads == 0, (function, line)
+    counts = mma_counts(build.library_path())
+    for (kernel, op), n in sorted(counts.items()):
+        print(f"  SASS: {n} {op} in {kernel}")
+    for kernel, op in TC_MMA:
+        assert counts.get((kernel, op), 0) > 0, (kernel, op, counts)
+
+
+def mma_counts(library) -> dict:
+    """{(tensor-core kernel, HMMA or DMMA): instructions over its
+    instances} in `cuobjdump -sass` of the built library."""
+    from tpu_bench_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    counts, kernel = {}, None
+    for line in _run([tool, "-sass", str(library)]).splitlines():
+        if "Function :" in line:
+            name = line.split()[-1]
+            kernel = next((k for k, tag in TC_KERNELS.items() if tag in name),
+                          None)
+        elif kernel:
+            for op in ("HMMA", "DMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[(kernel, op)] = counts.get((kernel, op), 0) + 1
+    return counts
 
 
 def compare(torch, name, out, ref, dtype, tol=None) -> float:
@@ -630,8 +692,8 @@ def kernels_vs_plain(torch) -> dict:
                         bound_ms=bound_ms, bound_by=bound_by)
                 del out
             torch.cuda.empty_cache()
-        # K5's element tile at b04 nq=32 (widths 961, 992): 16 in f32, 8
-        # in f64 (32 fits neither)
+        # K5's element tiles at b04 nq=32 (widths 961, 992): only 16 fits
+        # in f32, only 8 in f64
         em, s1, s2 = (torch.empty(n, device="cuda", dtype=dtype)
                       for n in ((1, 961), (961, 992), (992, 1024)))
         print(f"  K5 tiles that fit at b04 nq=32 {str(dtype)[6:]}: "
@@ -889,6 +951,61 @@ def ozaki_vs_plain(torch) -> tuple:
               f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
               f"({m['bound_by']})")
     return measured, band_launches
+
+
+def tensor_core_times(torch, measured, measured_ozaki) -> None:
+    """Phase 3, the tensor-core kernels at their main shapes: K14 (both
+    forms; phase 3's times) and K5 in f32 (phase 3's times) and in f64
+    (timed here on random inputs): each one's time, the rate it reaches in
+    the FLOP of its own arithmetic (the slice products; the chain in stage
+    order), the time of the units it uses at their peak (dense bf16; 3
+    TF32 passes; DMMA), and the SIMT design's time."""
+    from tpu_bench_torch.core.timing import event_ms
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+    from tpu_bench_torch.kernels import ozaki
+
+    rows = []
+    for label, k, nq_tot, e, *_ in OZAKI_SHAPES:
+        if (label, e) not in OZAKI_TIMED:
+            continue
+        w, t = ozaki.slice_params(k)
+        flops = 2 * nq_tot * k * e * sum(len(ss) for _, ss in
+                                         ozaki.bands(t, t))
+        for use in ("K14 kron_ozaki_pair", "K14 kron_ozaki_band"):
+            rows.append((use, label, "bf16", measured_ozaki[(use, label)]
+                         ["ms"], flops, flops / BF16_FLOP_PER_S * 1e3))
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for use, label, nq, e in ((K5_3D, "b05 nq=8^3", (8, 8, 8),
+                               HEADLINE_NELMT),
+                              (K5_2D, "b04 nq=8^2", B04_MAIN, B04_NELMT)):
+        widths = stage_widths(nq)
+        flops = 2 * e * sum(a * b for a, b in zip(widths, widths[1:]))
+        rows.append((use, label, "f32 3xTF32", measured[(use, nq)]["ms"],
+                     flops, 3 * flops / TF32_FLOP_PER_S * 1e3))
+        em, *ops = (torch.randn(a, b, generator=gen, device="cuda",
+                                dtype=torch.float64)
+                    for a, b in zip((e, *widths), widths))
+        rows.append((use, label, "f64 DMMA",
+                     event_ms(lambda: k1.qp1d_fused(em, *ops)), flops,
+                     flops / FP64_TC_FLOP_PER_S * 1e3))
+        del em, ops
+        torch.cuda.empty_cache()
+    for use, label, units, ms, flops, unit_ms in rows:
+        simt = SIMT_MS.get((use, label, units))
+        print(f"  {use} at {label} {units}: {ms:.4f} ms, "
+              f"{flops / ms * 1e-9:.1f} TFLOP/s; its units at peak "
+              f"{unit_ms:.4f} ms; SIMT design "
+              + (f"{simt:.4f} ms" if simt else "not measured"))
+
+
+def stage_widths(nq) -> list:
+    """Widths of the QP-1D chain at order nq (2D or 3D): nmTot, each
+    workspace, nqTot."""
+    nm = [n - 1 for n in nq]
+    if len(nq) == 2:
+        return [nm[0] * nm[1], nm[1] * nq[0], nq[0] * nq[1]]
+    return [nm[0] * nm[1] * nm[2], nm[2] * nm[1] * nq[0],
+            nm[2] * nq[1] * nq[0], nq[0] * nq[1] * nq[2]]
 
 
 def coalesced_vs_plain(torch) -> tuple:
@@ -1286,6 +1403,7 @@ def main() -> int:
     measured_streams = streams_vs_plain(torch)
     measured_probes = probes_vs_plain(torch)
     measured_ozaki, band_launches = ozaki_vs_plain(torch)
+    tensor_core_times(torch, measured, measured_ozaki)
     measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02

@@ -200,3 +200,64 @@ def test_ozaki_slices_match_plain_on_card(form, t_c, t_x):
     assert torch.equal(hi, hi_p) and torch.equal(lo, lo_p)
     n_launches = 1 if form == "pair" else max(t_c, t_x)
     assert build.launches["ozaki_slices"] == before + n_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m,e,t_c,t_x", [
+    (49, 64, 1000, None, None), (343, 512, 1000, None, None),
+    (729, 1000, 1000, None, None), (49, 64, 1000, 6, 8),
+    (729, 1000, 1000, 11, 9), (343, 512, 999, 9, 9)])
+def test_ozaki_tensor_core_tile_edges_on_card(k, m, e, t_c, t_x):
+    """K14 on the tensor cores at its tile edges: the depths of b04 nq=8^2,
+    b05 nq=8^3 and nq=10^3 (k not a multiple of the mma depth), rows past
+    the 64- and 128-row tiles, E = 1000 (a ragged column tile) and 999
+    (rows of X that are not whole 16-byte chunks), T_c != T_x: both forms
+    bit for bit in hi and lo."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from tpu_bench_torch.kernels import ozaki
+
+    rng = np.random.default_rng(k + e)
+    w, t = ozaki.slice_params(k)
+    c_sl, _ = ozaki.split_f64_np(rng.standard_normal((m, k)), w, t_c or t)
+    x_sl, _ = ozaki.split_f64_np(rng.standard_normal((k, e)), w, t_x or t)
+    c, x = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+            for a in (c_sl, x_sl))
+    hi_p, lo_p = ozaki.kron_ozaki_pair_plain(x, c)
+    for fn in (ozaki.kron_ozaki_pair, ozaki.kron_ozaki_band):
+        hi, lo = fn(x, c)
+        torch.cuda.synchronize()
+        assert torch.equal(hi, hi_p) and torch.equal(lo, lo_p), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [(10, 10, 10), (32, 32)])
+def test_qp1d_tensor_core_tiles_on_card(nq):
+    """K5 (3xTF32 in f32, DMMA in f64) at every element tile that fits, at
+    b05 nq=10^3 (an S1 whose rows are not whole 16-byte chunks) and b04
+    nq=32^2 (the widest workspaces), E = 1000: within 1e-5 (f32) and 1e-12
+    (f64) of the plain version, relative to the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    nm = [n - 1 for n in nq]
+    widths = ([nm[0] * nm[1], nm[1] * nq[0], nq[0] * nq[1]] if len(nq) == 2
+              else [nm[0] * nm[1] * nm[2], nm[2] * nm[1] * nq[0],
+                    nm[2] * nq[1] * nq[0], nq[0] * nq[1] * nq[2]])
+    gen = torch.Generator(device="cuda").manual_seed(len(nq))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        em, *ops = (torch.randn(a, b, generator=gen, device="cuda",
+                                dtype=dtype)
+                    for a, b in zip((1000, *widths), widths))
+        ref = em
+        for s in ops:
+            ref = ref @ s
+        tiles = k1.qp1d_tiles(em, *ops)
+        assert tiles
+        for et in tiles:
+            out = k1.qp1d_fused(em, *ops, epb=et)
+            torch.cuda.synchronize()
+            assert float((out - ref).abs().max() / ref.abs().max()) <= tol

@@ -45,7 +45,11 @@ class Config:
     reference's threads*elblocks) is the block size of the fused QP kernel;
     None takes the kernel's default.  `precision` governs the library tier
     only: "highest" keeps float32 matmuls in full FP32 (TF32 off), "default"
-    lets cuBLAS/cuDNN use TF32.  The hand kernels always use FP32/FP64 FMA.
+    lets cuBLAS/cuDNN use TF32.  The hand kernels ignore it: they use
+    FP32/FP64 FMA, except K5 (QP-1D/Shared), whose f32 chain runs as
+    3xTF32 on the tensor cores (FP32-level accuracy) and its f64 chain on
+    DMMA, and K14, whose bf16 slice products sum exactly on the tensor
+    cores.
     `flush_l2` overwrites the L2 cache between timed repetitions so working
     sets that fit in L2 still report device-memory bandwidth.
     `f64_coales` is the route of benchmarks 04/05's f64 Pallas(Coales)

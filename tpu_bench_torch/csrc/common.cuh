@@ -100,4 +100,83 @@ __device__ __forceinline__ T warp_sum(T v) {
     return v;
 }
 
+// ---- Asynchronous copies and tensor-core fragments (sm_80 and later) ----
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// BYTES (4, 8 or 16) from global src to shared dst without passing through
+// registers; with valid false nothing is read and dst is zero-filled.  src
+// must be a readable address even then (the caller passes a base pointer).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+    const int src_bytes = valid ? BYTES : 0;
+    if constexpr (BYTES == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                         smem_addr(dst)),
+                     "l"(src), "r"(src_bytes));
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                         smem_addr(dst)),
+                     "l"(src), "n"(BYTES), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory; lanes 8j..8j+7 give the row
+// addresses of matrix j, and register j receives row lane/4, columns
+// 2*(lane%4) and +1 of it (of its transpose with .trans).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) @ b (16x8 bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (16x8 f32) += a (16x8 tf32, row) @ b (8x8 tf32, col).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (8x8 f64) += a (8x4 f64, row) @ b (4x8 f64, col): IEEE FP64 FMA on the
+// tensor cores (DMMA).
+__device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
+    asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+        "{%3}, {%0, %1};\n"
+        : "+d"(d[0]), "+d"(d[1])
+        : "d"(a), "d"(b));
+}
+
 }  // namespace tbt

@@ -165,6 +165,8 @@ def library() -> ctypes.CDLL:
     lib.tbt_ozaki_pair.argtypes = [*ozaki, _P]
     lib.tbt_ozaki_band.argtypes = [*ozaki, _I, _P]
     lib.tbt_ozaki_pair.restype = lib.tbt_ozaki_band.restype = ctypes.c_int
+    lib.tbt_ozaki_k_pad.argtypes = []
+    lib.tbt_ozaki_k_pad.restype = ctypes.c_int
     lib.tbt_error_string.argtypes = [ctypes.c_int]
     lib.tbt_error_string.restype = ctypes.c_char_p
     return lib

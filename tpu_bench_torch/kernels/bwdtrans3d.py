@@ -52,12 +52,12 @@ MAX_NRQ = 81
 QP2_EPB = 128
 QP2_MAX_EPB = 512
 QP2_MAX_NM0 = 32
-# K5: element tiles it is built for, in order of preference; it takes the
-# first whose workspaces fit the card's opt-in shared memory.  On the
-# H100 at E=131072, 32 was the fastest of 64/32/16 at nq 4^3-10^3 in f32
-# and f64 wherever it fits (PERF.md); 8 exists for b04 nq=32 f64, where
-# 16 does not fit.
-QP1D_TILES = (32, 16, 8)
+# K5: element tiles it is built for, by element size, in order of
+# preference; it takes the first whose workspaces fit the card's opt-in
+# shared memory.  Multiples of the mma tile's M side (16 rows for TF32, 8
+# for f64); the smallest exist for b04 nq=32 (workspaces 961 and 992
+# wide), where only 16 fits in f32 and 8 in f64.
+QP1D_TILES = {4: (64, 32, 16), 8: (32, 16, 8)}
 
 
 def qp_shared3d_plain(in_pcoa3, b0, c12t):
@@ -208,24 +208,25 @@ def qp1d_global3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
 
 
 def qp1d_tiles(in_em2, *ops) -> list:
-    """The element tiles of QP1D_TILES whose workspaces fit the card's
-    opt-in shared memory for the chain in_em2 @ ops[0] @ ... (two or three
-    stages), in order of preference."""
+    """The element tiles of QP1D_TILES for in_em2's dtype whose workspaces
+    fit the card's opt-in shared memory for the chain in_em2 @ ops[0] @ ...
+    (two or three stages), in order of preference."""
     k0, n1 = in_em2.shape[1], ops[0].shape[1]
     n2 = ops[1].shape[1] if len(ops) == 3 else 0  # second workspace
     props = torch.cuda.get_device_properties(in_em2.device)
     limit = getattr(props, "shared_memory_per_block_optin", 232448)
     smem = build.library().tbt_qp1d_smem
-    return [et for et in QP1D_TILES
-            if smem(in_em2.element_size(), et, k0, n1, n2) <= limit]
+    size = in_em2.element_size()
+    return [et for et in QP1D_TILES[size]
+            if smem(size, et, k0, n1, n2) <= limit]
 
 
 def qp1d_fused(in_em2, *ops, epb=None):
     """out (E, N) = in_em2 (E, K0) @ ops[0] @ ... in one K5 launch, the
     workspaces of each element tile in shared memory: three operators
     (benchmark05, entry qp1d_fused3d) or two (benchmark04, qp1d_fused2d).
-    `epb`: the element tile, one of QP1D_TILES; None takes the first that
-    fits."""
+    `epb`: the element tile, one of QP1D_TILES for the dtype; None takes
+    the first that fits."""
     ops = (in_em2, *ops)
     build.check_operands("qp1d_fused", ops)
     if (len(ops) not in (3, 4) or any(t.dim() != 2 for t in ops)
@@ -233,9 +234,10 @@ def qp1d_fused(in_em2, *ops, epb=None):
         raise ValueError("qp1d_fused: shapes "
                          f"{[tuple(t.shape) for t in ops]} do not chain "
                          "through two or three stages")
-    if epb is not None and epb not in QP1D_TILES:
+    tiles = QP1D_TILES[in_em2.element_size()]
+    if epb is not None and epb not in tiles:
         raise ValueError(f"qp1d_fused: epb={epb} is not one of the "
-                         f"kernel's element tiles {QP1D_TILES}")
+                         f"kernel's element tiles {tiles} for {in_em2.dtype}")
     if in_em2.device.type == "cpu":
         out = in_em2
         for s in ops[1:]:

@@ -151,6 +151,10 @@ def _ozaki(name, x, c, band_form):
     hi = torch.empty((nq_tot, e), dtype=torch.float32, device=x.device)
     lo = torch.empty_like(hi)
     lib = build.library()
+    # K14 copies C's rows in 16-byte pieces: they are padded with zeros to
+    # a multiple of its k step (nmTot = 343 is 686 bytes), in the call
+    k_pad = -(-nm_tot // lib.tbt_ozaki_k_pad()) * lib.tbt_ozaki_k_pad()
+    c = torch.nn.functional.pad(c, (0, k_pad - nm_tot))
     args = (c.data_ptr(), x.data_ptr(), hi.data_ptr(), lo.data_ptr(), t_c,
             t_x, nq_tot, nm_tot, e, w)
     with torch.cuda.device(x.device):
