@@ -19,8 +19,9 @@ five.  Every phase is fatal:
    (stream_read), K11 (stream_fill), K12 (stream_map), K13
    (stream_expand) and K14 (ozaki_slices) with nvcc for sm_90a, one
    process per source; ptxas must report no spills in the tensor-core
-   kernels K14 and K5, and `cuobjdump -sass` must show HMMA in K14 and in
-   K5's f32 entries and DMMA in its f64 entries;
+   kernels K14, K5 and K2's dense configuration, nor in K1 and K2's
+   C-resident configuration, and `cuobjdump -sass` must show HMMA in K14
+   and in K5's and K2's dense f32 entries and DMMA in their f64 entries;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -39,9 +40,18 @@ five.  Every phase is fatal:
    1000 and 1,048,576), b05 nq=8^3 (E = 1000 and 131072), K=729 with
    nqTot=1000, and T_c < T_x and T_c > T_x, the recombined product within
    5e-14 of K2 in double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3
-   in f32 and f64; K14 and K5 (f32, and f64 timed apart) at their main
-   shapes with the rate they reach, their units' peak time and the SIMT
-   design's time.  At each path's main shapes (b05
+   in f32 and f64; K14, K5 (f32, and f64 timed apart) and K2's dense
+   configuration at their main shapes with the rate they reach, their
+   units' peak time and the SIMT design's time; K1's and K2's
+   configuration rules (kernels/bwdtrans3d.qp_config,
+   kernels/bwdtrans2d.kron_config) against the library's own
+   shared-memory sizes and rule at every b05 order 2^3 .. 10^3 and (3,4,5)
+   and every b04 order of run04.sh and (10, 12), f32 and f64, then K1 at
+   every (element tile, plane group) that fits at b05 nq=8^3 and b04
+   nq=32^2, K2's QP stage 1 at every strip and dense, and K2 just either
+   side of its C-resident threshold, on E = 1000 and 131071; K1 and K2 in
+   f64 at b05 nq=8^3 timed beside their previous design.  At each path's
+   main shapes (b05
    nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
    and b03 16384^2, f32 and f64; the probes at 134,217,728, f32; K14 at
    b04 nq=8^2, E=1,048,576 and b05 nq=8^3, E=131072, against torch.matmul
@@ -288,9 +298,17 @@ FP64_TC_FLOP_PER_S = 67e12  # FP64 on the tensor cores (DMMA)
 # and the mma instruction each must hold in the SASS.
 TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
               "K5 qp1d f32 (3xTF32)": "qp1d_tc_kernelIf",
-              "K5 qp1d f64 (DMMA)": "qp1d_tc_kernelId"}
+              "K5 qp1d f64 (DMMA)": "qp1d_tc_kernelId",
+              "K2 kron dense f32 (3xTF32)": "kron_dense_kernelIf",
+              "K2 kron dense f64 (DMMA)": "kron_dense_kernelId"}
 TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
-          ("K5 qp1d f64 (DMMA)", "DMMA")]
+          ("K5 qp1d f64 (DMMA)", "DMMA"),
+          ("K2 kron dense f32 (3xTF32)", "HMMA"),
+          ("K2 kron dense f64 (DMMA)", "DMMA")]
+# The kernels ptxas must build without a spill: the tensor-core kernels,
+# K1 and K2's C-resident configuration.
+NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
+            "K2 kron resident": "kron_resident_kernel"}
 # Times of the SIMT FMA designs that K14 and K5 replaced, CUDA events, L2
 # flushed, by (use, shape, units): from this script and, for K5 in f64,
 # benchmarks/kernel_blocks.py (PERF.md section 6; NVIDIA H100 80GB HBM3,
@@ -303,7 +321,38 @@ SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
            ("K14 kron_ozaki_band", "b04 nq=8^2", "bf16"): 16.3749,
            (K5_3D, "b05 nq=8^3", "f32 3xTF32"): 6.3326,
            (K5_3D, "b05 nq=8^3", "f64 DMMA"): 21.3871,
-           (K5_2D, "b04 nq=8^2", "f32 3xTF32"): 1.5546}
+           (K5_2D, "b04 nq=8^2", "f32 3xTF32"): 1.5546,
+           # K2's first design (PREV_MS; f64 from the column's host clock)
+           ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f32 3xTF32"): 1.7305,
+           ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f64 DMMA"): 4.8021}
+# Times of K1's and K2's previous designs (the first SIMT designs) by (use,
+# order, dtype), CUDA events, L2 flushed, from this script (PERF.md section
+# 6; NVIDIA H100 80GB HBM3, 700.00 W); in f64 at b05 nq=8^3, the host
+# clock of its columns there (PERF.md section 5: K1 20.4077 GDOF/s, K2
+# 9.3621; 131072 * 343 DOF over each).
+PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
+           ("K1 qp_shared3d", (8, 8, 8), "float32"): 0.8836,
+           ("K2 kron_blocked (Coales)", (8, 8, 8), "float32"): 1.7305,
+           ("K2 kron_blocked (QP stage 1)", (8, 8, 8), "float32"): 0.7498,
+           (K2_COALES, (8, 8), "float32"): 0.8117,
+           (K2_COALES, (2, 2), "float32"): 0.0923,
+           (K1_2D, (8, 8), "float32"): 0.4352,
+           (K1_2D, (10, 12), "float32"): 1.7870,
+           (K1_2D, (16, 16), "float32"): 6.2892,
+           (K1_2D, (32, 32), "float32"): 52.1788,
+           ("K2 kron_blocked (QP stage 1)", (8, 8), "float32"): 0.7001,
+           ("kron_coalesced", "b05 nq=8^3", "float32"): 1.7319,
+           ("kron_coalesced", "b04 nq=8^2", "float32"): 0.8350,
+           ("K1 qp_shared3d_flat", (8, 8, 8), "float64"): 2.2030,
+           ("K2 kron_blocked (Coales)", (8, 8, 8), "float64"): 4.8021}
+# K1's and K2's uses also timed in f64 at b05 nq=8^3, E=131072
+K12_F64 = ("K1 qp_shared3d_flat", "K1 qp_shared3d", "K2 kron_blocked (Coales)",
+           "K2 kron_blocked (QP stage 1)")
+# The orders whose K1 and K2 configurations phase 3 holds to the library's
+# own rule and shared-memory sizes: every b05 order 2^3 .. 10^3 and
+# (3,4,5); every order of run04.sh and (10, 12)
+CONFIG_ORDERS = ([(n, n, n) for n in range(2, 11)] + [(3, 4, 5)]
+                 + [(n, n) for n in RUN04_ORDERS] + [(10, 12)])
 # kron_coalesced (K2 on the flat layout): (label, nmTot, nqTot, E), the last
 # one's launches counted
 COALESCED_SHAPES = [("b04 nq=8^2", 49, 64, B04_NELMT),
@@ -334,8 +383,9 @@ def device_facts(torch) -> None:
 
 def build_kernels() -> None:
     """Phase 2: the build, ptxas's registers and spills (none allowed in
-    the tensor-core kernels K14 and K5), and their mma instructions in the
-    library's SASS."""
+    NO_SPILL: the tensor-core kernels K14, K5 and K2's dense configuration,
+    K1 and K2's C-resident configuration), and the tensor-core kernels' mma
+    instructions in the library's SASS."""
     from tpu_bench_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -351,7 +401,7 @@ def build_kernels() -> None:
             if "Function properties for" in line:
                 function = line.split()[-1]
             elif "spill" in line and any(k in (function or "")
-                                         for k in TC_KERNELS.values()):
+                                         for k in NO_SPILL.values()):
                 stores, loads = (int(n) for n in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line))
                 assert stores == loads == 0, (function, line)
@@ -658,7 +708,10 @@ def kernels_vs_plain(torch) -> dict:
     """Phase 3.  Returns {(use, nq): its error, times and bound} in f32 at
     each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
     E=1,048,576) and for the b04 uses of B04_USES at their own order,
-    E=1,048,576."""
+    E=1,048,576, and {(use, nq, "float64"): the same} for K1's and K2's
+    uses in f64 at b05 nq=8^3 (K12_F64; the bound's FLOP at the card's
+    FP64 peak, DMMA).  K1's and K2's lines carry their previous design's
+    time (PREV_MS)."""
     from tpu_bench_torch.core.timing import event_ms
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -682,8 +735,18 @@ def kernels_vs_plain(torch) -> dict:
                 out = case.run()
                 err = compare(torch, f"{case.label} {tag}", out,
                               case.plain(), dtype)
-                if (dtype == torch.float32 and e == main_e
-                        and (nq == main_nq or (case.label, nq) in at_order)):
+                main = e == main_e and (nq == main_nq
+                                        or (case.label, nq) in at_order)
+                if dtype == torch.float64 and main and nq == (8, 8, 8) \
+                        and case.label in K12_F64:
+                    bound_ms, bound_by = bound(case.inputs, out, case.flops,
+                                               FP64_TC_FLOP_PER_S)
+                    measured[(case.label, nq, "float64")] = dict(
+                        max_abs_err=err, ms=event_ms(case.run),
+                        plain_ms=event_ms(case.plain),
+                        library_ms=event_ms(case.library),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                elif dtype == torch.float32 and main:
                     bound_ms, bound_by = bound(case.inputs, out, case.flops)
                     measured[(case.label, nq)] = dict(
                         max_abs_err=err, ms=event_ms(case.run),
@@ -698,10 +761,14 @@ def kernels_vs_plain(torch) -> dict:
                       for n in ((1, 961), (961, 992), (992, 1024)))
         print(f"  K5 tiles that fit at b04 nq=32 {str(dtype)[6:]}: "
               f"{k1.qp1d_tiles(em, s1, s2)}")
-    for (label, nq), k in measured.items():
+    for (label, nq, *f64), k in measured.items():
         e = HEADLINE_NELMT if len(nq) == 3 else B04_NELMT
-        print(f"  {label} at nq={nq} E={e} f32: kernel "
-              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
+        dtype = f64[0] if f64 else "float32"
+        prev = PREV_MS.get((label, nq, dtype))
+        print(f"  {label} at nq={nq} E={e} {dtype}: kernel "
+              f"{k['ms']:.4f} ms, "
+              + (f"previous design {prev:.4f} ms, " if prev else "")
+              + f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})")
     return measured
@@ -955,8 +1022,9 @@ def ozaki_vs_plain(torch) -> tuple:
 
 def tensor_core_times(torch, measured, measured_ozaki) -> None:
     """Phase 3, the tensor-core kernels at their main shapes: K14 (both
-    forms; phase 3's times) and K5 in f32 (phase 3's times) and in f64
-    (timed here on random inputs): each one's time, the rate it reaches in
+    forms; phase 3's times), K5 in f32 (phase 3's times) and in f64
+    (timed here on random inputs) and K2's dense configuration at b05
+    nq=8^3 in f32 and f64 (phase 3's times): each one's time, the rate it reaches in
     the FLOP of its own arithmetic (the slice products; the chain in stage
     order), the time of the units it uses at their peak (dense bf16; 3
     TF32 passes; DMMA), and the SIMT design's time."""
@@ -990,6 +1058,14 @@ def tensor_core_times(torch, measured, measured_ozaki) -> None:
                      flops / FP64_TC_FLOP_PER_S * 1e3))
         del em, ops
         torch.cuda.empty_cache()
+    # K2's dense configuration (phase 3's times): b05 nq=8^3 Pallas(Coales)
+    k2_use, flops = "K2 kron_blocked (Coales)", 2 * 512 * 343 * HEADLINE_NELMT
+    rows.append((k2_use, "b05 nq=8^3", "f32 3xTF32",
+                 measured[(k2_use, (8, 8, 8))]["ms"], flops,
+                 3 * flops / TF32_FLOP_PER_S * 1e3))
+    rows.append((k2_use, "b05 nq=8^3", "f64 DMMA",
+                 measured[(k2_use, (8, 8, 8), "float64")]["ms"], flops,
+                 flops / FP64_TC_FLOP_PER_S * 1e3))
     for use, label, units, ms, flops, unit_ms in rows:
         simt = SIMT_MS.get((use, label, units))
         print(f"  {use} at {label} {units}: {ms:.4f} ms, "
@@ -1046,11 +1122,130 @@ def coalesced_vs_plain(torch) -> tuple:
             del x, c, out
             torch.cuda.empty_cache()
     for label, m in measured.items():
+        prev = PREV_MS[("kron_coalesced", label, "float32")]
         print(f"  kron_coalesced at {label} f32: kernel {m['ms']:.4f} ms, "
+              f"previous design {prev:.4f} ms, "
               f"plain {m['plain_ms']:.4f} ms, torch.matmul "
               f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
               f"({m['bound_by']})")
     return measured, launches
+
+
+def config_operands(nq) -> tuple:
+    """K1's (nm0, nrq, nq0, nkj) and K2's products (M, K) at order nq: the
+    QP stage 1 operator and the kron operator."""
+    nm = [n - 1 for n in nq]
+    if len(nq) == 2:
+        k1_shape = (nm[0], nm[1], nq[0], nq[1])
+        return k1_shape, [(nq[1], nm[1]), (nq[0] * nq[1], nm[0] * nm[1])]
+    k1_shape = (nm[0], nm[1] * nm[2], nq[0], nq[1] * nq[2])
+    return k1_shape, [(nq[1] * nq[2], nm[1] * nm[2]),
+                      (nq[0] * nq[1] * nq[2], nm[0] * nm[1] * nm[2])]
+
+
+def k2_threshold(itemsize, k, limit) -> int:
+    """The largest M, a multiple of 4, at which C (M x k) still runs
+    C-resident under `limit` bytes; M + 4 runs dense."""
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+
+    m = 4
+    while k2.kron_config(itemsize, m + 4, k, limit):
+        m += 4
+    return m
+
+
+def k1_k2_configs(torch) -> None:
+    """Phase 3, K1's and K2's configurations.  At every order of
+    CONFIG_ORDERS in f32 and f64: K1's qp_config and K2's kron_config
+    (pure Python) fit the card, give whole micro-tiles, and agree with the
+    library's shared-memory sizes (tbt_qp_fused3d_smem at every tile and
+    plane group, tbt_kron_resident_smem at every strip) and with K2's own
+    rule (tbt_kron_strip).  Then every K1 (tile, planes) that fits, at b05
+    nq=8^3 and b04 nq=32^2, and K2's products in both configurations at
+    shapes just either side of the C-resident threshold, and K2's QP stage
+    1 at every strip, on E = 1000 and 131071 (neither a multiple of an
+    element tile or a strip), against their plain versions."""
+    from tpu_bench_torch.kernels import build
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    lib = build.library()
+    props = torch.cuda.get_device_properties(0)
+    block = props.shared_memory_per_block_optin
+    sm = getattr(props, "shared_memory_per_multiprocessor", k1.SMEM_SM)
+    chosen = {}
+    for size in (4, 8):
+        for nq in CONFIG_ORDERS:
+            (nm0, nrq, nq0, nkj), products = config_operands(nq)
+            et, g = k1.qp_config(size, nm0, nrq, nq0, nkj, block, sm)
+            assert et % k1.QP_TE == 0 and g in k1.QP_PLANE_GROUPS, (nq, et)
+            assert k1.qp_smem(size, et, g, nm0, nrq, nq0, nkj) <= block
+            for t in k1.QP_TILES[size]:
+                for p in k1.QP_PLANE_GROUPS:
+                    assert k1.qp_smem(size, t, p, nm0, nrq, nq0, nkj) == \
+                        lib.tbt_qp_fused3d_smem(size, t, p, nm0, nrq, nq0,
+                                                nkj), (nq, t, p)
+            strips = []
+            for m, k in products:
+                bn = k2.kron_config(size, m, k, block)
+                assert bn == lib.tbt_kron_strip(size, m, k, block), (m, k)
+                for w in k2.KRON_STRIPS:
+                    assert k2.kron_resident_smem(size, m, k, w) == \
+                        lib.tbt_kron_resident_smem(size, m, k, w), (m, k, w)
+                assert bn == 0 or (bn in k2.KRON_STRIPS and
+                                   k2.kron_resident_smem(size, m, k, bn)
+                                   <= block)
+                strips.append(bn)
+            chosen[(size, nq)] = ((et, g), strips)
+    for (size, nq), (k1_cfg, strips) in chosen.items():
+        print(f"  configs f{8 * size} nq={nq}: K1 (tile, planes) {k1_cfg};"
+              f" K2 strip (0: dense) QP stage 1 {strips[0]}, kron "
+              f"{strips[1]}")
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for dtype in (torch.float32, torch.float64):
+        size = dtype.itemsize
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        tag = str(dtype)[6:]
+        threshold = k2_threshold(size, 128, block)
+        for e in (1000, 131071):
+            for nq in ((8, 8, 8), (32, 32)):
+                (nm0, nrq, nq0, nkj), _ = config_operands(nq)
+                x, b0, c = rnd(nm0, nrq, e), rnd(nm0, nq0), rnd(nkj, nrq)
+                ref = k1.qp_shared3d_plain(x, b0, c)
+                for et in k1.QP_TILES[size]:
+                    for g in k1.QP_PLANE_GROUPS:
+                        if k1.qp_smem(size, et, g, nm0, nrq, nq0,
+                                      nkj) > block:
+                            continue
+                        compare(torch, f"K1 {tag} nq={nq} E={e} tile {et} "
+                                f"planes {g}", k1.qp_shared3d(
+                                    x, b0, c, epb=et, planes=g), ref, dtype)
+            x, c = rnd(7, 49, e), rnd(64, 49)
+            ref = k2.kron_blocked_plain(x, c)
+            for w in (0, *k2.KRON_STRIPS):
+                if w and k2.kron_resident_smem(size, 64, 49, w) > block:
+                    continue
+                compare(torch, f"K2 {tag} QP stage 1 (64 x 49) E={e} strip "
+                        f"{w}", k2.kron_blocked(x, c, strip=w), ref, dtype)
+            for m in (threshold, threshold + 4):
+                x, c = rnd(2, 128, e), rnd(m, 128)
+                bn = k2.kron_config(size, m, 128, block)
+                assert bool(bn) == (m == threshold), (m, bn)
+                compare(torch, f"K2 {tag} ({m} x 128) E={e} strip {bn} "
+                        f"({'resident' if bn else 'dense'})",
+                        k2.kron_blocked(x, c), k2.kron_blocked_plain(x, c),
+                        dtype)
+        x, c = rnd(16, 343, 8192), rnd(512, 343)
+        assert k2.kron_config(size, 512, 343, block) == 0
+        compare(torch, f"K2 {tag} b05 nq=8^3 Coales (dense)",
+                k2.kron_blocked(x, c), k2.kron_blocked_plain(x, c), dtype)
+        del x, c
+        torch.cuda.empty_cache()
 
 
 def initdata_on_card(torch) -> None:
@@ -1405,6 +1600,7 @@ def main() -> int:
     measured_ozaki, band_launches = ozaki_vs_plain(torch)
     tensor_core_times(torch, measured, measured_ozaki)
     measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)
+    k1_k2_configs(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03

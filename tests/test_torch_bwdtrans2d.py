@@ -5,7 +5,9 @@ kron_elem_major,
 and benchmark04's kernels (kron_wide4, kron_vpu_blocked, qp_shared, qp_w,
 qp_w_flat, qp_mxu_grouped, qp_global, qp1d_shared, qp1d_global) against the
 port's calls that serve them: k2.kron_wide4, K1 (k1.qp_shared3d and
-k1.qp_shared3d_flat), k1.qp_global3d, k1.qp1d_fused and k2.qp1d_global."""
+k1.qp_shared3d_flat), k1.qp_global3d, k1.qp1d_fused and k2.qp1d_global.
+K2's rule between its C-resident and dense configurations (kron_config)
+is held at every order both benchmarks sweep."""
 
 import jax
 import jax.numpy as jnp
@@ -280,3 +282,97 @@ def test_2d_wrappers_reject_bad_input():
     meta = [t.to("meta") for t in (em, s, s.T.contiguous())]
     with pytest.raises(ValueError, match="no kernel for device"):
         k1.qp1d_fused(*meta)
+
+
+# ---- K2's configurations (kernels/bwdtrans2d.kron_config) ------------------
+
+# K2's products (M, K) at every benchmark05 order 2^3 .. 10^3 (Pallas(QP)
+# stage 1 and the kron) and every benchmark04 order of scripts/run04.sh
+# (stage 1 and kron_wide4)
+K2_PRODUCTS = ([(f"b05 nq={n}^3 {use}", shape) for n in range(2, 11)
+                for use, shape in (("QP stage 1", (n * n, (n - 1) ** 2)),
+                                   ("kron", (n ** 3, (n - 1) ** 3)))]
+               + [(f"b04 nq={n}^2 {use}", shape)
+                  for n in (2, 4, 6, 8, 10, 12, 14, 16, 32)
+                  for use, shape in (("QP stage 1", (n, n - 1)),
+                                     ("kron", (n * n, (n - 1) ** 2)))])
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("label,shape", K2_PRODUCTS)
+def test_kron_config_fits_the_card(label, shape, itemsize):
+    """kron_config gives 0 (dense) or a strip width of KRON_STRIPS whose
+    C^T and ring fit 232,448 B, whole 4-column micro-tiles; the resident
+    configuration is taken wherever some strip fits."""
+    m, k = shape
+    bn = k2.kron_config(itemsize, m, k)
+    fits = [w for w in k2.KRON_STRIPS
+            if k2.kron_resident_smem(itemsize, m, k, w) <= 232448]
+    assert bool(bn) == bool(fits)
+    if bn:
+        assert bn in fits and bn % k2.KRON_TILE == 0
+
+
+def test_kron_config_rule():
+    """The narrowest strip whose 4 x 4 micro-tiles fill the 256 threads
+    (512 for M = 8, 64 for M = 64), narrowed until C^T and the ring fit;
+    the threshold at K = 128 in f32 lies where C^T and a ring of 64-wide
+    strips pass 232,448 B."""
+    assert k2.kron_config(4, 8, 7) == 512
+    assert k2.kron_config(4, 64, 49) == 64
+    assert k2.kron_config(4, 20, 12) == 256
+    assert k2.kron_config(4, 512, 343) == 0
+    assert k2.kron_resident_smem(4, 64, 49, 64) == 4 * (49 * 64 + 3 * 49 * 64)
+    assert k2.kron_resident_smem(8, 6, 7, 512) == 8 * (7 * 8 + 3 * 7 * 512)
+    # 4 * (128 * M + 3 * 128 * 64) <= 232448 up to M = 260
+    assert k2.kron_config(4, 260, 128) == 64
+    assert k2.kron_config(4, 264, 128) == 0
+    # a strip that does not fit is narrowed: M = 16 fills the block at 256
+    # columns, which do not fit at K = 100 in f32; 128 do
+    assert k2.kron_resident_smem(4, 16, 100, 256) > 232448
+    assert k2.kron_config(4, 16, 100) == 128
+
+
+def test_kron_blocked_rejects_unknown_strip():
+    c = torch.from_numpy(_kron_operator(4, np.float32))
+    x = torch.zeros(NBLK, c.shape[1], CE)
+    with pytest.raises(ValueError, match="strip=96"):
+        k2.kron_blocked(x, c, strip=96)
+    assert torch.equal(k2.kron_blocked(x, c, strip=0),
+                       k2.kron_blocked_plain(x, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_kron_blocked_both_configs_on_card(itemsize):
+    """K2 in both configurations against its plain version on E = 1000 and
+    131071 columns (neither a multiple of a strip or a tile): Pallas(QP)
+    stage 1 at b05 nq=8^3 at every strip and dense, the b05 nq=8^3 kron
+    (dense), and C (M x 128) just either side of the C-resident
+    threshold; 1e-5 (f32), 1e-12 (f64), relative to the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    tol = 1e-5 if itemsize == 4 else 1e-12
+    gen = torch.Generator(device="cuda").manual_seed(itemsize)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    threshold = 4
+    while k2.kron_config(itemsize, threshold + 4, 128):
+        threshold += 4
+    for e in (1000, 131071):
+        cases = [(rnd(7, 49, e), rnd(64, 49), w)
+                 for w in (None, 0, *k2.KRON_STRIPS)
+                 if not w or k2.kron_resident_smem(itemsize, 64, 49, w)
+                 <= 232448]
+        cases += [(rnd(1, 343, e), rnd(512, 343), None)]
+        cases += [(rnd(2, 128, e), rnd(m, 128), None)
+                  for m in (threshold, threshold + 4)]
+        for x, c, w in cases:
+            out = k2.kron_blocked(x, c, strip=w)
+            ref = k2.kron_blocked_plain(x, c)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max() / ref.abs().max())
+            assert err <= tol, (tuple(c.shape), e, w, err)

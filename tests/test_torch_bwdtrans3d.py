@@ -1,7 +1,9 @@
 """The port's 3D QP wrappers (tpu_bench_torch.kernels.bwdtrans3d) against
 the JAX package's Pallas kernels in interpret mode, on the same numpy-seeded
 random inputs, which vary per element so an element-axis bug shows, and
-random dense stage operators, so the kernels' generality shows too."""
+random dense stage operators, so the kernels' generality shows too.  K1's
+element tile and plane group (qp_config) are held to the card's shared
+memory at every order both benchmarks sweep."""
 
 import jax
 import jax.numpy as jnp
@@ -154,3 +156,108 @@ def test_non_cpu_tensor_never_takes_plain_path():
                    for a in _inputs((4, 4, 4), np.float32))
     with pytest.raises(ValueError, match="no kernel for device"):
         k1.qp_shared3d(x, b0, c12t)
+
+
+# ---- K1's element tile and plane group (kernels/bwdtrans3d.qp_config) ------
+
+# K1's shapes (nm0, nrq, nq0, nkj) at every benchmark05 order 2^3 .. 10^3
+# and every benchmark04 order of scripts/run04.sh
+B05_ORDERS = list(range(2, 11))
+RUN04_ORDERS = [2, 4, 6, 8, 10, 12, 14, 16, 32]
+K1_SHAPES = ([(f"b05 nq={n}^3", (n - 1, (n - 1) ** 2, n, n * n))
+              for n in B05_ORDERS]
+             + [(f"b04 nq={n}^2", (n - 1, n - 1, n, n))
+                for n in RUN04_ORDERS])
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("label,shape", K1_SHAPES)
+def test_qp_config_fits_the_card(label, shape, itemsize):
+    """At every order both benchmarks sweep, in f32 and f64, qp_config
+    gives one of K1's tiles and plane groups, whose buffers fit the
+    H100's 232,448 B of a block, and the tile is a whole number of
+    4-element micro-tiles."""
+    et, g = k1.qp_config(itemsize, *shape)
+    assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
+    assert et % k1.QP_TE == 0
+    assert k1.qp_smem(itemsize, et, g, *shape) <= 232448
+
+
+def test_qp_smem_counts_each_buffer():
+    """K1's shared memory at b05 nq=8^3, f32, tile 32, 4 planes: the slab
+    (343 x 32), V (4 x 49 x 32), C12T^T (49 x 64) and B0 (7 x 8)."""
+    assert k1.qp_smem(4, 32, 4, 7, 49, 8, 64) == 4 * (
+        343 * 32 + 4 * 49 * 32 + 49 * 64 + 7 * 8)
+    # nkj padded to the 8-row micro-tile, nq0 to the plane group
+    assert k1.qp_smem(8, 16, 8, 2, 12, 3, 20) == 8 * (
+        24 * 16 + 8 * 12 * 16 + 12 * 24 + 2 * 8)
+
+
+def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
+    """Outside the measured table: the largest tile whose buffers fit two
+    blocks an SM while stage 1 keeps half the block busy, else the largest
+    that fits one, else None."""
+    # (3, 4, 5) is not in the table: tile 128 fits two blocks in f32
+    assert (4, 2, 12, 3, 20) not in k1.QP_MEASURED
+    et, g = k1.qp_config(4, 2, 12, 3, 20)
+    assert et == 128
+    assert 2 * (k1.qp_smem(4, et, g, 2, 12, 3, 20) + k1.SMEM_RESERVED) \
+        <= k1.SMEM_SM
+    # 31 x 31 rows with 30 outputs a plane: tile 16 fits two blocks but
+    # leaves stage 1 more than half idle (31 * 16 / 4 < 128 positions), so
+    # the largest tile that fits one block, 32
+    shape = (31, 31, 32, 30)
+    assert 2 * (k1.qp_smem(4, 16, 8, *shape) + k1.SMEM_RESERVED) <= k1.SMEM_SM
+    assert k1.qp_config(4, *shape) == (32, 8)
+    # a 32^3 slab (961 x 31 rows) fits no tile at all
+    assert k1.qp_config(4, 31, 961, 32, 1024) is None
+    assert k1.qp_config(4, 7, 49, 8, 64, block_limit=1024) is None
+
+
+def test_qp_measured_settings_fit_and_are_the_configs():
+    for (itemsize, *shape), (et, g) in k1.QP_MEASURED.items():
+        assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
+        assert k1.qp_smem(itemsize, et, g, *shape) <= 232448
+        assert k1.qp_config(itemsize, *shape) == (et, g)
+
+
+@pytest.mark.parametrize("et,nkj,planes", [(32, 64, 4), (16, 64, 8),
+                                           (128, 8, 8), (16, 100, 4),
+                                           (32, 32, 8), (64, 16, 8)])
+def test_qp_planes_fills_stage_2(et, nkj, planes):
+    """8 planes a pass where 4 would leave more than half of the block's
+    256 threads without a stage-2 micro-tile (8 kj rows x 4 elements)."""
+    assert k1.qp_planes(et, nkj) == planes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [(8, 8, 8), (3, 4, 5), (32, 32), (10, 12)])
+def test_qp_fused3d_every_config_on_card(nq):
+    """K1 at every (element tile, plane group) that fits, and qp_config's,
+    on E = 1000 and 131071 elements (neither a multiple of a tile): within
+    1e-5 (f32) and 1e-12 (f64) of the plain version, relative to the
+    largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if len(nq) == 3:
+        nm0, nrq, nq0, nkj = nq[0] - 1, (nq[1] - 1) * (nq[2] - 1), nq[0], \
+            nq[1] * nq[2]
+    else:
+        nm0, nrq, nq0, nkj = nq[0] - 1, nq[1] - 1, nq[0], nq[1]
+    gen = torch.Generator(device="cuda").manual_seed(sum(nq))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        size = dtype.itemsize
+        for e in (1000, 131071):
+            x, b0, c = (torch.randn(*s, generator=gen, device="cuda",
+                                    dtype=dtype)
+                        for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
+            ref = k1.qp_shared3d_plain(x, b0, c)
+            configs = [(None, None)] + [
+                (et, g) for et in k1.QP_TILES[size]
+                for g in k1.QP_PLANE_GROUPS
+                if k1.qp_smem(size, et, g, nm0, nrq, nq0, nkj) <= 232448]
+            for et, g in configs:
+                out = k1.qp_shared3d(x, b0, c, epb=et, planes=g)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max() / ref.abs().max())
+                assert err <= tol, (dtype, e, et, g, err)

@@ -13,7 +13,10 @@ split into big, a rounded to TF32 to nearest with ties away from zero, and
 small = a - big, which the tensor cores truncate to TF32, and small*big +
 big*small + big*big accumulated in f32.  Emulated here on the port's own
 stage operators, it stays within K5's tolerance of the f64 chain and of the
-JAX kernel at precision HIGHEST, and a single TF32 pass does not.
+JAX kernel at precision HIGHEST, and a single TF32 pass does not.  K2's
+dense configuration (csrc/bwdtrans2d.cu) runs the same 3xTF32 arithmetic
+in 32-deep partial sums: emulated at the depths it runs, it stays within
+1e-5 of the f64 product too.
 """
 
 import jax
@@ -269,3 +272,26 @@ def test_qp1d_tiles_are_whole_mma_tiles(size):
     assert list(tiles) == sorted(tiles, reverse=True)
     for et in tiles:
         assert et % mma_m == 0 and 8 % (et // mma_m) == 0
+
+
+# K2's dense configuration (csrc/bwdtrans2d.cu) sums 3xTF32 products over
+# 32-deep k steps (its BK in f32), each step alone, added in round-to-nearest.
+K2_PART = 32
+
+
+@pytest.mark.parametrize("label,m,k", [("b05 nq=8^3", 512, 343),
+                                       ("b04 nq=16^2", 256, 225),
+                                       ("b04 nq=32^2", 1024, 961)])
+def test_k2_3xtf32_within_1e5_at_its_depths(label, m, k):
+    """K2's dense f32 product C (M x K) @ X (K x E) at the depths it runs
+    (b05 nq=8^3 K = 343; b04 nq=16^2 225, nq=32^2 961), emulated with the
+    tensor cores' truncating f32 sums: within 1e-5 of the f64 product,
+    relative to its largest output, on random dense operands (a slice of
+    C's rows: the error of an output depends on its own row only)."""
+    rng = np.random.default_rng(k)
+    c = rng.standard_normal((min(m, 64), k)).astype(np.float32)
+    x = rng.standard_normal((k, 32)).astype(np.float32)
+    ref = c.astype(np.float64) @ x.astype(np.float64)
+    out = matmul_3xtf32_truncating(c, x, K2_PART)
+    assert _rel(out, ref) <= K5_RTOL
+    assert _rel(matmul_1xtf32(c, x), ref) > K5_RTOL

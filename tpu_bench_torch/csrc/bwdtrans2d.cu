@@ -1,13 +1,15 @@
-// K2 kron_blocked and K3 em_gemm: tiled FMA GEMMs over the element stream.
+// K2 kron_blocked and K3 em_gemm: the GEMMs over the element stream.
 //
 // K2 replaces the Pallas kernel tpu_bench/kernels/bwdtrans2d.py:kron_blocked
 // (_kron_blk_kernel), benchmark05's Pallas(Coales) column from nq=8^3 up,
-// and stage 1 of Pallas(QP) (tpu_bench/kernels/bwdtrans3d.py:qp_global3d,
-// _stage1_kernel3d: w[p] = C12T @ in[p]):
+// stage 1 of Pallas(QP) (tpu_bench/kernels/bwdtrans3d.py:qp_global3d,
+// _stage1_kernel3d: w[p] = C12T @ in[p]; bwdtrans2d.py:qp_global in 2D),
+// and through views of the same bytes kron_coalesced, kron_wide4 and
+// kron_vpu_blocked:
 //
-//   out[b] (nqTot x ce) = C (nqTot x nmTot) @ in[b] (nmTot x ce)
+//   out[b] (M x N) = C (M x K) @ in[b] (K x N)
 //
-// for every contiguous element chunk b, one chunk per blockIdx.z.
+// for every contiguous element chunk b.
 //
 // K3 replaces tpu_bench/kernels/bwdtrans2d.py:kron_elem_major
 // (_kron_em_kernel, Pallas(Uncoales)) and _one_stage_em (_stage_em_kernel,
@@ -15,34 +17,80 @@
 //
 //   out (E x N) = X (E x K) @ S (K x N),  elements on rows.
 //
-// What bounds them on an H100: FMA issue.  The kron form does 2*nqTot*nmTot
-// FLOP per element (351,232 at nq=8^3) for the same 4*(343 + 512) bytes
-// the fused form moves, about 100 FLOP per byte in f32, far above the
-// card's FP32 FMA-to-bandwidth ratio; each QP-1D stage is as dense.  The
-// design is one plain tiled GEMM on the CUDA cores in full FP32/FP64 FMA
-// (never TF32: the f32 columns are held to 5e-4 of each other):
-//   - 128 x 128 output tiles, K in steps of 8, both operand tiles staged
-//     in shared memory, the A tile transposed to [k][m], an 8 x 8 register
-//     micro-tile per thread (256 threads) fed by 16-byte shared loads:
-//     64 FMAs per 4 loads (f32);
-//   - tile order: the blocks that share the large operand run together and
-//     find it in L2.  K2's large operand is the element chunk (B), so M
-//     tiles go on blockIdx.x and C (0.7 MB at nq=8^3 f32) stays in L2.
-//     K3's is the element strip of X (A), so the N tiles of one strip are
-//     neighbours in a 1D grid and S stays in L2;
-//   - M, N and K edges masked: nqTot=512, nmTot=343 and the QP-1D widths
-//     392 and 448 are not tile multiples, and E need not be one (the
-//     Pallas kernels needed E % epb == 0).
-// The element-major read of X runs along K: eight threads read the eight
-// consecutive k of one row (one 32-byte sector), four rows per warp.
-// Tensor cores (wgmma on TF32 splits or DMMA for f64), TMA, deeper
-// pipelining and the kron structure of the QP-1D operators are later work.
+// K2's products are of two kinds, and one kernel entry runs each on its
+// own configuration.  The rule (kron_strip below, kron_config in
+// kernels/bwdtrans2d.py): C resident when C^T and a ring of RING strips
+// of in[b] fit the card's opt-in shared memory at some strip width, else
+// dense.
+//
+// (a) C resident: the skinny products (Pallas(QP) stage 1, 64 x 49 at b05
+// nq=8^3 and 8 x 7 at b04 nq=8^2; kron_wide4 and kron_coalesced at b04
+// nq=8^2, 64 x 49).  They do 2*M*K FLOP for 4*(K + M) bytes of each element
+// column, under 30 FLOP per byte, so the bytes bound them.  The first
+// design ran them on a 128 x 128 output tile, so 64 or 8 of its 128 rows
+// worked, and read the element stream in scalar loads.  Here a persistent
+// block (as many as fit an SM, times the SMs) stages C transposed in
+// shared memory once and streams strips of BN element columns (K x BN) of
+// in[b] through a ring of RING shared-memory slots filled by 16-byte
+// cp.async (one element a copy where rows are not whole 16-byte words),
+// walking the strips of every chunk in a grid-stride loop on blockIdx.x
+// (no 65535-chunk limit).  All M rows of a strip are computed by 4 x 4
+// register micro-tiles spread over the 256 threads, e fastest: one 16-byte
+// load of C^T and one of the strip per k feed 16 FMAs, and each thread
+// writes 4 consecutive columns of 4 rows (16-byte stores where aligned).
+// BN is the narrowest of 64..512 whose micro-tiles fill the block (512 for
+// M = 8, 64 for M = 64): within 4% of the fastest strip, and 1.2-11x
+// faster than the dense configuration, at b05's Pallas(QP) stage 1 and
+// b04's stage 1 and kron_wide4 in f32 and f64
+// (benchmarks/kernel_blocks.py).
+//
+// (b) Dense: C does not fit (b05 nq=8^3: 512 x 343; b04 from nq=14^2 in
+// f32 and 12^2 in f64).
+// The product does 2*M*K FLOP per column, about 100 FLOP per byte in f32,
+// far above the card's FP32 FMA-to-bandwidth ratio, so the operations
+// bound it, and a SIMT design cannot get far under cuBLAS.  It runs on
+// the tensor cores with mma.sync:
+//   - f32: 3xTF32 as in K5 (csrc/qp1d_fused3d.cu): each operand split into
+//     big (rounded to TF32) and small (tbt::split_tf32), small*big +
+//     big*small + big*big summed by mma.sync.m16n8k8 into a partial sum
+//     one BK-deep step long, added to the tile's sum in f32
+//     round-to-nearest: the tensor cores' f32 sums truncate, and over the
+//     whole depth that bias breaks the 1e-5 held against the FP32 plain
+//     version (tests/test_torch_tensorcore.py).  Never plain TF32: the f32
+//     columns are held to 5e-4 of each other;
+//   - f64: mma.sync.m8n8k4 on f64 (DMMA), IEEE FP64 FMA;
+//   - f32: 128 x 128 output tiles, 8 warps of 64 x 32, one block an SM;
+//     f64: 128 x 64 tiles, 4 warps of 64 x 32, two blocks an SM.  The C
+//     tile (128 x BK) and the in tile (BK x the tile's width) go through a
+//     ring of RING slots filled by cp.async; rows padded so the fragment
+//     loads hit distinct banks;
+//   - tile order on a 1D grid, M tiles fastest: the blocks that share an
+//     in[b] tile run together and find it in L2, as C does.
+//   It stays short of cuBLAS at b05 nq=8^3 (PERF.md section 6): the
+//   operand splits and fragment loads of mma.sync cost about as many
+//   instructions as the mma, and C's 343-wide rows are not whole 16-byte
+//   words, so its tiles come in 4-byte copies.  wgmma with TMA, which
+//   reads both operands from shared memory without the register
+//   fragments, and persistent scheduling are later work.
+// M, N, K and E edges are masked in both: zero-filled copies, masked
+// stores.
+//
+// K3 is still the first SIMT design: 128 x 128 output tiles, K in steps of
+// 8, both operand tiles staged in shared memory, the A tile transposed to
+// [k][m], an 8 x 8 register micro-tile per thread (256 threads) fed by
+// 16-byte shared loads, full FP32/FP64 FMA; the N tiles of one element
+// strip are neighbours in a 1D grid, so S stays in L2.  The element-major
+// read of X runs along K: eight threads read the eight consecutive k of one
+// row (one 32-byte sector), four rows per warp.  Tensor cores and deeper
+// pipelining for it are later work.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
+
+// ---- K3 em_gemm: the SIMT tile GEMM ---------------------------------------
 
 constexpr int BM = 128;
 constexpr int BN = 128;
@@ -123,33 +171,12 @@ __device__ __forceinline__ void gemm_tile(const T* __restrict__ a,
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    kron_blocked_kernel(const T* __restrict__ c, const T* __restrict__ in,
-                        T* __restrict__ out, int m_rows, int k_depth,
-                        int n_cols) {
-    const size_t chunk = blockIdx.z;
-    gemm_tile(c, in + chunk * k_depth * n_cols, out + chunk * m_rows * n_cols,
-              m_rows, k_depth, n_cols, blockIdx.x * BM, blockIdx.y * BN);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
     em_gemm_kernel(const T* __restrict__ x, const T* __restrict__ s,
                    T* __restrict__ out, int e_rows, int k_depth, int n_cols) {
     const int n_tiles = (n_cols + BN - 1) / BN;
     const int m0 = static_cast<int>(blockIdx.x / n_tiles) * BM;
     const int n0 = static_cast<int>(blockIdx.x % n_tiles) * BN;
     gemm_tile(x, s, out, e_rows, k_depth, n_cols, m0, n0);
-}
-
-template <typename T>
-int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
-                        int k_depth, int n_cols, int n_chunks,
-                        cudaStream_t stream) {
-    if (m_rows <= 0 || n_cols <= 0 || n_chunks <= 0) return cudaSuccess;
-    const dim3 grid((m_rows + BM - 1) / BM, (n_cols + BN - 1) / BN, n_chunks);
-    kron_blocked_kernel<T><<<grid, THREADS, 0, stream>>>(c, in, out, m_rows,
-                                                          k_depth, n_cols);
-    return cudaGetLastError();
 }
 
 template <typename T>
@@ -164,23 +191,418 @@ int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
     return cudaGetLastError();
 }
 
+// ---- K2 kron_blocked --------------------------------------------------------
+
+constexpr int KB_THREADS = 256;
+constexpr int KB_RING = 3;  // strips (a) or operand tiles (b) in flight
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+    return (n + m - 1) / m * m;
+}
+
+// (a) C resident: 4 x 4 micro-tiles; strip widths 64..512.
+constexpr int KR_TM = 4, KR_TN = 4;
+constexpr int KR_MIN_BN = 64, KR_MAX_BN = 512;
+
+template <typename T>
+size_t kron_resident_smem(int m_rows, int k_depth, int bn) {
+    return sizeof(T) *
+           (static_cast<size_t>(k_depth) * round_up(m_rows, KR_TM) +
+            static_cast<size_t>(KB_RING) * k_depth * bn);
+}
+
+// The rule: the narrowest strip width whose micro-tiles fill the block's
+// threads, narrowed further (down to KR_MIN_BN) until C^T and the ring fit
+// `limit` bytes; 0, the dense configuration, if they fit at none.
+template <typename T>
+int kron_strip(int m_rows, int k_depth, long long limit) {
+    const int mgs = round_up(m_rows, KR_TM) / KR_TM;
+    int bn = KR_MIN_BN;
+    while (bn < KR_MAX_BN && mgs * (bn / KR_TN) < KB_THREADS) bn *= 2;
+    for (; bn >= KR_MIN_BN; bn /= 2)
+        if (static_cast<long long>(kron_resident_smem<T>(m_rows, k_depth,
+                                                         bn)) <= limit)
+            return bn;
+    return 0;
+}
+
+template <typename T, int BN>
+__global__ void __launch_bounds__(KB_THREADS)
+    kron_resident_kernel(const T* __restrict__ c, const T* __restrict__ in,
+                         T* __restrict__ out, int m_rows, int k_depth,
+                         int n_cols, long long n_strips) {
+    constexpr int TX = BN / KR_TN;
+    constexpr int V16 = 16 / sizeof(T);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int mp = round_up(m_rows, KR_TM), mgs = mp / KR_TM;
+    T* s_ct = reinterpret_cast<T*>(smem_raw);             // (K, mp): C^T
+    T* ring = s_ct + static_cast<size_t>(k_depth) * mp;   // RING x (K, BN)
+    const size_t slot = static_cast<size_t>(k_depth) * BN;
+    const int strips = (n_cols + BN - 1) / BN;  // per chunk
+    const bool vec_in = n_cols % V16 == 0 && tbt::aligned16(in);
+    const bool vec_out =
+        (static_cast<long long>(n_cols) * sizeof(T)) % 16 == 0 &&
+        tbt::aligned16(out);
+
+    // strip s (chunk s / strips, columns from (s % strips) * BN) into slot
+    auto load = [&](long long s, int r) {
+        tbt::copy_tile_async<T, BN, KB_THREADS>(
+            ring + r * slot, BN, k_depth, in + (s / strips) * k_depth * n_cols,
+            n_cols, 0, (s % strips) * BN, k_depth, n_cols, vec_in);
+    };
+    // the ring's first strips are in flight while C is staged
+#pragma unroll
+    for (int i = 0; i < KB_RING - 1; ++i) {
+        const long long s = blockIdx.x + static_cast<long long>(i) * gridDim.x;
+        if (s < n_strips) load(s, i);
+        tbt::cp_async_commit();
+    }
+    for (int t = threadIdx.x; t < k_depth * mp; t += KB_THREADS) {
+        const int k = t / mp, m = t % mp;
+        s_ct[t] = m < m_rows ? c[m * k_depth + k] : T(0);
+    }
+
+    int i = 0;
+    for (long long s = blockIdx.x; s < n_strips; s += gridDim.x, ++i) {
+        tbt::cp_async_wait<KB_RING - 2>();
+        __syncthreads();  // strip i landed; slot (i - 1) % RING is free
+        const long long next =
+            s + static_cast<long long>(KB_RING - 1) * gridDim.x;
+        if (next < n_strips) load(next, (i + KB_RING - 1) % KB_RING);
+        tbt::cp_async_commit();
+
+        const T* x = ring + (i % KB_RING) * slot;
+        T* y = out + (s / strips) * m_rows * n_cols;
+        const int n0 = static_cast<int>(s % strips) * BN;
+        for (int q = threadIdx.x; q < mgs * TX; q += KB_THREADS) {
+            const int e = (q % TX) * KR_TN, mg = q / TX;
+            T acc[KR_TM][KR_TN];
+#pragma unroll
+            for (int r = 0; r < KR_TM; ++r)
+#pragma unroll
+                for (int cc = 0; cc < KR_TN; ++cc) acc[r][cc] = T(0);
+#pragma unroll 4
+            for (int k = 0; k < k_depth; ++k) {
+                T cv[KR_TM], xv[KR_TN];
+                tbt::load4(s_ct + k * mp + mg * KR_TM, cv);
+                tbt::load4(x + k * BN + e, xv);
+#pragma unroll
+                for (int r = 0; r < KR_TM; ++r)
+#pragma unroll
+                    for (int cc = 0; cc < KR_TN; ++cc)
+                        acc[r][cc] = fma(cv[r], xv[cc], acc[r][cc]);
+            }
+            const int n = n0 + e;
+#pragma unroll
+            for (int r = 0; r < KR_TM; ++r) {
+                const int m = mg * KR_TM + r;
+                if (m >= m_rows) break;
+                T* dst = y + static_cast<long long>(m) * n_cols + n;
+                if (vec_out && n + KR_TN <= n_cols) {
+                    tbt::store4(dst, acc[r]);
+                } else {
+#pragma unroll
+                    for (int cc = 0; cc < KR_TN; ++cc)
+                        if (n + cc < n_cols) dst[cc] = acc[r][cc];
+                }
+            }
+        }
+    }
+}
+
+// (b) Dense on the tensor cores: WM x WN warps, each WMT x WNT mma tiles
+// of MMA_M x 8, so a block tile of (WM*WMT*MMA_M) x (WN*WNT*8); BK deep a
+// ring slot.  A_PAD and B_PAD make the row strides 4 mod 32 (A) and 8 mod
+// 32 (B) banks in f32, 4 mod 16 two-bank pairs in f64, so the fragment
+// loads are conflict-free.
+template <typename T>
+struct Dense;
+template <>
+struct Dense<float> {
+    static constexpr int BK = 32, MMA_M = 16, A_PAD = 4, B_PAD = 8;
+};
+template <>
+struct Dense<double> {
+    static constexpr int BK = 16, MMA_M = 8, A_PAD = 4, B_PAD = 4;
+};
+
+template <typename T, int BM, int BN>
+constexpr size_t kron_dense_smem() {
+    using D = Dense<T>;
+    return sizeof(T) * KB_RING *
+           (static_cast<size_t>(BM) * (D::BK + D::A_PAD) +
+            static_cast<size_t>(D::BK) * (BN + D::B_PAD));
+}
+
+template <typename T, int WM, int WN, int WMT, int WNT, int MINB>
+__global__ void __launch_bounds__(32 * WM * WN, MINB)
+    kron_dense_kernel(const T* __restrict__ c, const T* __restrict__ in,
+                      T* __restrict__ out, int m_rows, int k_depth,
+                      int n_cols) {
+    using D = Dense<T>;
+    constexpr int BK = D::BK, MT = WMT, MMA_M = D::MMA_M, KD_NT = WNT;
+    constexpr int KD_BM = WM * WMT * MMA_M, KD_BN = WN * WNT * 8;
+    constexpr int NTH = 32 * WM * WN, WTM = WMT * MMA_M, WTN = WNT * 8;
+    constexpr int LDA = BK + D::A_PAD, LDB = KD_BN + D::B_PAD;
+    constexpr int SLOT = KD_BM * LDA + BK * LDB;
+    constexpr int FRAG = MMA_M * 8 / 32;  // accumulators of a lane
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* smem = reinterpret_cast<T*>(smem_raw);
+
+    const int m_tiles = (m_rows + KD_BM - 1) / KD_BM;
+    const int n_tiles = (n_cols + KD_BN - 1) / KD_BN;
+    const int m0 = static_cast<int>(blockIdx.x % m_tiles) * KD_BM;
+    const int n0 = static_cast<int>((blockIdx.x / m_tiles) % n_tiles) * KD_BN;
+    const long long chunk = blockIdx.x / (static_cast<long long>(m_tiles) *
+                                          n_tiles);
+    const T* b = in + chunk * k_depth * n_cols;
+    T* y = out + chunk * m_rows * n_cols;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = (warp / WN) * WTM, col0 = (warp % WN) * WTN;
+    const int ksteps = (k_depth + BK - 1) / BK;
+    constexpr int V = 16 / sizeof(T);
+    const bool vec_a = k_depth % V == 0 && tbt::aligned16(c);
+    const bool vec_b = n_cols % V == 0 && tbt::aligned16(in);
+
+    auto load = [&](int i) {
+        T* a_s = smem + (i % KB_RING) * SLOT;
+        tbt::copy_tile_async<T, BK, NTH>(a_s, LDA, KD_BM, c, k_depth, m0,
+                                         i * BK, m_rows, k_depth, vec_a);
+        tbt::copy_tile_async<T, KD_BN, NTH>(a_s + KD_BM * LDA, LDB, BK, b,
+                                            n_cols, i * BK, n0, k_depth,
+                                            n_cols, vec_b);
+    };
+#pragma unroll
+    for (int i = 0; i < KB_RING - 1; ++i) {
+        if (i < ksteps) load(i);
+        tbt::cp_async_commit();
+    }
+
+    T acc[MT][KD_NT][FRAG];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < KD_NT; ++nt)
+#pragma unroll
+            for (int q = 0; q < FRAG; ++q) acc[mt][nt][q] = T(0);
+
+    for (int i = 0; i < ksteps; ++i) {
+        tbt::cp_async_wait<KB_RING - 2>();
+        __syncthreads();
+        if (i + KB_RING - 1 < ksteps) load(i + KB_RING - 1);
+        tbt::cp_async_commit();
+        const T* a_s = smem + (i % KB_RING) * SLOT + row0 * LDA;
+        const T* b_s = smem + (i % KB_RING) * SLOT + KD_BM * LDA + col0;
+        if constexpr (sizeof(T) == 4) {
+            // one BK-deep step summed alone, then added in round-to-nearest
+            float part[MT][KD_NT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < KD_NT; ++nt)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) part[mt][nt][q] = 0.0f;
+#pragma unroll
+            for (int kk = 0; kk < BK; kk += 8) {
+                unsigned ab[MT][4], as[MT][4];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) {
+                    const float* a = a_s + (mt * 16 + g) * LDA + kk + t;
+                    tbt::split_tf32(a[0], ab[mt][0], as[mt][0]);
+                    tbt::split_tf32(a[8 * LDA], ab[mt][1], as[mt][1]);
+                    tbt::split_tf32(a[4], ab[mt][2], as[mt][2]);
+                    tbt::split_tf32(a[8 * LDA + 4], ab[mt][3], as[mt][3]);
+                }
+#pragma unroll
+                for (int nt = 0; nt < KD_NT; ++nt) {
+                    const float* bp = b_s + (kk + t) * LDB + nt * 8 + g;
+                    unsigned bb[2], bs[2];
+                    tbt::split_tf32(bp[0], bb[0], bs[0]);
+                    tbt::split_tf32(bp[4 * LDB], bb[1], bs[1]);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt) {
+                        tbt::mma_tf32(part[mt][nt], as[mt], bb);
+                        tbt::mma_tf32(part[mt][nt], ab[mt], bs);
+                        tbt::mma_tf32(part[mt][nt], ab[mt], bb);
+                    }
+                }
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < KD_NT; ++nt)
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+                        acc[mt][nt][q] += part[mt][nt][q];
+        } else {
+#pragma unroll
+            for (int kk = 0; kk < BK; kk += 4) {
+                double a[MT];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+                    a[mt] = a_s[(mt * 8 + g) * LDA + kk + t];
+#pragma unroll
+                for (int nt = 0; nt < KD_NT; ++nt) {
+                    const double bv = b_s[(kk + t) * LDB + nt * 8 + g];
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+                        tbt::mma_f64(acc[mt][nt], a[mt], bv);
+                }
+            }
+        }
+    }
+
+    // fragment value q sits at row g + 8*(q/2), column 2t + q%2 of its tile
+    const bool pairs = n_cols % 2 == 0 && tbt::aligned16(out);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < KD_NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < FRAG / 2; ++h) {
+                const int m = m0 + row0 + mt * MMA_M + g + 8 * h;
+                const int n = n0 + col0 + nt * 8 + 2 * t;
+                if (m >= m_rows || n >= n_cols) continue;
+                T* dst = y + static_cast<long long>(m) * n_cols + n;
+                const T v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+                if (pairs) {
+                    if constexpr (sizeof(T) == 4)
+                        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+                    else
+                        *reinterpret_cast<double2*>(dst) = make_double2(v0, v1);
+                } else {
+                    dst[0] = v0;
+                    if (n + 1 < n_cols) dst[1] = v1;
+                }
+            }
+}
+
+template <typename T, int BN>
+int launch_resident(const T* c, const T* in, T* out, int m_rows, int k_depth,
+                    int n_cols, int n_chunks, int sms, cudaStream_t stream) {
+    const size_t smem = kron_resident_smem<T>(m_rows, k_depth, BN);
+    auto kernel = kron_resident_kernel<T, BN>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        KB_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long strips =
+        static_cast<long long>(n_chunks) * ((n_cols + BN - 1) / BN);
+    const long long full = static_cast<long long>(per_sm) * sms;
+    const unsigned blocks =
+        static_cast<unsigned>(strips < full ? strips : full);
+    kernel<<<blocks, KB_THREADS, smem, stream>>>(c, in, out, m_rows, k_depth,
+                                                 n_cols, strips);
+    return cudaGetLastError();
+}
+
+template <typename T, int WM, int WN, int WMT, int WNT, int MINB>
+int launch_dense(const T* c, const T* in, T* out, int m_rows, int k_depth,
+                 int n_cols, int n_chunks, cudaStream_t stream) {
+    constexpr int BM = WM * WMT * Dense<T>::MMA_M, BN = WN * WNT * 8;
+    constexpr size_t smem = kron_dense_smem<T, BM, BN>();
+    auto kernel = kron_dense_kernel<T, WM, WN, WMT, WNT, MINB>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const long long tiles = static_cast<long long>(n_chunks) *
+                            ((m_rows + BM - 1) / BM) *
+                            ((n_cols + BN - 1) / BN);
+    if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    kernel<<<static_cast<unsigned>(tiles), 32 * WM * WN, smem, stream>>>(
+        c, in, out, m_rows, k_depth, n_cols);
+    return cudaGetLastError();
+}
+
+// strip < 0: the rule (kron_strip); 0: the dense configuration; else C
+// resident with that strip width.
+template <typename T>
+int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
+                        int k_depth, int n_cols, int n_chunks, int strip,
+                        cudaStream_t stream) {
+    if (m_rows <= 0 || n_cols <= 0 || n_chunks <= 0) return cudaSuccess;
+    if (k_depth <= 0) return cudaErrorInvalidValue;
+    int dev = 0, limit = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return err;
+    const int bn = strip < 0 ? kron_strip<T>(m_rows, k_depth, limit) : strip;
+    switch (bn) {
+        case 0:
+            // f32: 128 x 128 tiles of 8 warps of 64 x 32, one block an SM
+            // (168 registers); f64: 128 x 64 tiles of 4 warps of 64 x 32,
+            // two blocks an SM.  The fastest of the tile shapes tried on
+            // the H100; 128 x 64 tiles of 8 warps of 32 x 32 spilled under
+            // the 128 registers of two blocks an SM in both types.
+            if constexpr (sizeof(T) == 4)
+                return launch_dense<T, 2, 4, 4, 4, 1>(
+                    c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
+            else
+                return launch_dense<T, 2, 2, 8, 4, 2>(
+                    c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
+        case 64:
+            return launch_resident<T, 64>(c, in, out, m_rows, k_depth, n_cols,
+                                          n_chunks, sms, stream);
+        case 128:
+            return launch_resident<T, 128>(c, in, out, m_rows, k_depth,
+                                           n_cols, n_chunks, sms, stream);
+        case 256:
+            return launch_resident<T, 256>(c, in, out, m_rows, k_depth,
+                                           n_cols, n_chunks, sms, stream);
+        case 512:
+            return launch_resident<T, 512>(c, in, out, m_rows, k_depth,
+                                           n_cols, n_chunks, sms, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
+
+// K2's rule: the strip width of the C-resident configuration for an M x K
+// operator of itemsize-byte values under `limit` bytes of shared memory,
+// 0 for the dense configuration; and the resident configuration's shared
+// memory at strip width bn.
+extern "C" int tbt_kron_strip(int itemsize, int m_rows, int k_depth,
+                              long long limit) {
+    return itemsize == 4 ? kron_strip<float>(m_rows, k_depth, limit)
+                         : kron_strip<double>(m_rows, k_depth, limit);
+}
+
+extern "C" long long tbt_kron_resident_smem(int itemsize, int m_rows,
+                                            int k_depth, int bn) {
+    return static_cast<long long>(
+        itemsize == 4 ? kron_resident_smem<float>(m_rows, k_depth, bn)
+                      : kron_resident_smem<double>(m_rows, k_depth, bn));
+}
 
 extern "C" int tbt_kron_blocked_f32(const void* c, const void* in, void* out,
                                     int m_rows, int k_depth, int n_cols,
-                                    int n_chunks, void* stream) {
+                                    int n_chunks, int strip, void* stream) {
     return launch_kron_blocked(
         static_cast<const float*>(c), static_cast<const float*>(in),
-        static_cast<float*>(out), m_rows, k_depth, n_cols, n_chunks,
+        static_cast<float*>(out), m_rows, k_depth, n_cols, n_chunks, strip,
         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_kron_blocked_f64(const void* c, const void* in, void* out,
                                     int m_rows, int k_depth, int n_cols,
-                                    int n_chunks, void* stream) {
+                                    int n_chunks, int strip, void* stream) {
     return launch_kron_blocked(
         static_cast<const double*>(c), static_cast<const double*>(in),
-        static_cast<double*>(out), m_rows, k_depth, n_cols, n_chunks,
+        static_cast<double*>(out), m_rows, k_depth, n_cols, n_chunks, strip,
         static_cast<cudaStream_t>(stream));
 }
 

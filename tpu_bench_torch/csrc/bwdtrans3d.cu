@@ -14,137 +14,232 @@
 // sum-factorization is the same contraction with nrq = nm1, nkj = nq1 and
 // C12T = B1^T, so one kernel replaces tpu_bench/kernels/bwdtrans2d.py:
 // qp_shared, qp_w, qp_w_flat and qp_mxu_grouped, whose differences were TPU
-// sublane and MXU-tile geometry.  nm1 <= 31 (b04's nq <= 32) sits in the
-// 16 and 49 register buckets below.
+// sublane and MXU-tile geometry.
 //
 // What bounds it on an H100: each element streams nm0*nrq values in and
 // nq0*nkj out exactly once (343 + 512 at nq=8^3) and takes
-// 2*nq0*nrq*(nm0 + nkj) FLOP (55,664 at nq=8^3): about 16 FLOP per byte in
-// f32 and 8 in f64, close to the card's ratio of FMA rate to memory
-// bandwidth in both types.  So the design keeps the FMA stream lean and the
-// memory stream coalesced:
-//   - one thread per element, elements along threadIdx.x: a warp reads and
-//     writes 32 consecutive e of one row (coalesced), ragged edge masked;
-//   - B0 and C12T staged in shared memory once per block; every thread
-//     reads the same address, so each load is a broadcast;
-//   - the plane intermediate v[nrq] lives in registers: the rq loops are
-//     unrolled to a compile-time bound MAXRQ with a run-time guard, so no
-//     local memory is used; where registers allow, two planes share each
-//     load (NI below).
-// The input is read once per output plane i (nq0 times per element); the
-// repeats hit L1/L2.  Staging the element tile in shared memory, TMA and
-// wgmma are later work.  (A stage 2 that read C12T transposed in 16-byte
-// loads, four outputs per load, ran 2.1x slower in f32 on the H100.)
+// 2*nq0*nrq*(nm0 + nkj) FLOP (55,664 at nq=8^3).  Against 3.35 TB/s and
+// FP32's 67 TFLOP/s the bytes bound it at every order (b05 8^3 f32: 0.134
+// ms by bytes, 0.109 by FLOP; b04 32^2: 2.49 and 1.87), but only just, so
+// the design must both read the input once and keep the FMA pipes fed; the
+// tensor cores are not needed to reach the bound.
+//   - A block of 256 threads owns a tile of ET elements and copies the
+//     tile's whole input slab (nm0*nrq rows x ET) into shared memory once,
+//     by 16-byte cp.async along e where every row starts on a 16-byte
+//     boundary (else one element a copy), zero-filling past E.  The first
+//     design gave each element a thread that re-read its input from L2
+//     once per output plane (4 times at 8^3, 16 at b04 32^2): 0.88 ms at
+//     8^3 and 52 ms at 32^2 in f32, 6.6x and 21x its bound.
+//   - Stage 1 forms V = sum_p B0[p, i] * slab[p] for G planes (4 or 8) at
+//     once: a thread owns 4 consecutive elements of one rq row, so each
+//     16-byte shared load of the slab serves 4*G FMAs.
+//   - Stage 2 is the GEMM C12T (nkj x nrq) @ V_i (nrq x ET) for those
+//     planes, with 8 kj x 4 e register micro-tiles: two 16-byte loads of
+//     C12T^T (kept transposed, nkj padded to 8) and one of V per rq feed
+//     32 FMAs; the micro-tiles of the G planes are spread over the block,
+//     e fastest.  G = 8 where 4 planes would leave half the block without
+//     a micro-tile (b04 32^2, nkj = 32).  8 x 8 micro-tiles in f32 ran
+//     slower than 8 x 4 at every order swept (benchmarks/kernel_blocks.py
+//     on that variant, since dropped).
+//   - Each output row segment is written once from registers, 16-byte
+//     stores along e where aligned, masked past E.
+//   - The slab copy is not overlapped with the block's own compute: the
+//     other blocks on the SM hide it.  kernels/bwdtrans3d.qp_config picks
+//     (ET, G): the fastest of benchmarks/kernel_blocks.py's sweep at the
+//     benchmarks' main orders (32 elements and 4 planes at b05 8^3 f32,
+//     two blocks an SM; 16 and 8 at b04 32^2), else the largest tile that
+//     fits two blocks an SM, else one.  Full FP32/FP64 FMA throughout.
+// TMA, a persistent block that copies the next slab while it computes,
+// and warp-uniform C12T loads are later work.
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-template <typename T, int MAXRQ>
-__global__ void qp_fused3d_kernel(const T* __restrict__ in,
-                                  const T* __restrict__ b0,
-                                  const T* __restrict__ c12t,
-                                  T* __restrict__ out, int nm0, int nrq,
-                                  int nq0, int nkj, long long n_elem) {
-    // NI output planes per pass: each input value loaded in stage 1 and
-    // each C12T value loaded in stage 2 then serves NI FMAs.  Two planes in
-    // the f32 17..49 bucket only: on the H100 that cut nq=6^3 and 8^3 by
-    // 30%, while two planes of the 16 bucket ran slower at nq=4^3 and
-    // (3,4,5) in f32, and v of the larger f64 buckets does not fit.
-    constexpr int NI = sizeof(T) == 4 && MAXRQ == 49 ? 2 : 1;
+constexpr int QP_THREADS = 256;
+constexpr int QP_TK = 8;  // kj rows of a stage-2 micro-tile
+constexpr int QP_TE = 4;  // elements of a micro-tile (16 or 32 bytes)
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+    return (n + m - 1) / m * m;
+}
+
+// Dynamic shared memory of one block: the slab, V for G planes, C12T^T
+// (nrq x nkj padded to QP_TK) and B0 (nm0 x nq0 padded to G), each a
+// whole number of 16-byte words.
+template <typename T>
+size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj) {
+    return sizeof(T) *
+           (static_cast<size_t>(nm0) * nrq * et +
+            static_cast<size_t>(g) * nrq * et +
+            static_cast<size_t>(nrq) * round_up(nkj, QP_TK) +
+            static_cast<size_t>(nm0) * round_up(nq0, g));
+}
+
+template <typename T, int ET, int G>
+__global__ void __launch_bounds__(QP_THREADS, 2)
+    qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
+                      const T* __restrict__ c12t, T* __restrict__ out,
+                      int nm0, int nrq, int nq0, int nkj, long long n_elem) {
+    constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
+    constexpr int V16 = 16 / sizeof(T);
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* s_b0 = reinterpret_cast<T*>(smem_raw);  // (nm0, nq0)
-    T* s_c = s_b0 + nm0 * nq0;                 // (nkj, nrq)
-    for (int t = threadIdx.x; t < nm0 * nq0; t += blockDim.x) s_b0[t] = b0[t];
-    for (int t = threadIdx.x; t < nkj * nrq; t += blockDim.x) s_c[t] = c12t[t];
+    const int rows = nm0 * nrq;
+    const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
+    T* s_x = reinterpret_cast<T*>(smem_raw);               // (rows, ET)
+    T* s_v = s_x + static_cast<size_t>(rows) * ET;         // (G, nrq, ET)
+    T* s_ct = s_v + static_cast<size_t>(G) * nrq * ET;     // (nrq, kjp)
+    T* s_b0 = s_ct + static_cast<size_t>(nrq) * kjp;       // (nm0, nq0p)
+    const long long e0 = static_cast<long long>(blockIdx.x) * ET;
+
+    tbt::copy_tile_async<T, ET, QP_THREADS>(
+        s_x, ET, rows, in, n_elem, 0, e0, rows, n_elem,
+        n_elem % V16 == 0 && tbt::aligned16(in));
+    tbt::cp_async_commit();
+    for (int t = threadIdx.x; t < nrq * kjp; t += QP_THREADS) {
+        const int rq = t / kjp, kj = t % kjp;
+        s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : T(0);
+    }
+    for (int t = threadIdx.x; t < nm0 * nq0p; t += QP_THREADS) {
+        const int p = t / nq0p, i = t % nq0p;
+        s_b0[t] = i < nq0 ? b0[p * nq0 + i] : T(0);
+    }
+    tbt::cp_async_wait<0>();
     __syncthreads();
 
-    const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                        threadIdx.x;
-    if (e >= n_elem) return;
-    const T* x = in + e;
-    T* y = out + e;
-    for (int i0 = 0; i0 < nq0; i0 += NI) {
-        T v[NI][MAXRQ];
+    const bool vec_out =
+        (n_elem * sizeof(T)) % 16 == 0 && tbt::aligned16(out);
+    const int kgs = kjp / QP_TK;
+    for (int i0 = 0; i0 < nq0; i0 += G) {
+        // stage 1: V[g][rq][e] = sum_p B0[p, i0+g] * slab[p*nrq + rq][e]
+        for (int q = threadIdx.x; q < nrq * TX; q += QP_THREADS) {
+            const int rq = q / TX, e = (q % TX) * QP_TE;
+            T acc[G][QP_TE];
 #pragma unroll
-        for (int u = 0; u < NI; ++u)
+            for (int g = 0; g < G; ++g)
 #pragma unroll
-            for (int rq = 0; rq < MAXRQ; ++rq) v[u][rq] = T(0);
-        for (int p = 0; p < nm0; ++p) {
-            T w[NI];
+                for (int c = 0; c < QP_TE; ++c) acc[g][c] = T(0);
+            for (int p = 0; p < nm0; ++p) {
+                T xv[QP_TE], w[G];
+                tbt::load4(s_x + (p * nrq + rq) * ET + e, xv);
 #pragma unroll
-            for (int u = 0; u < NI; ++u)
-                w[u] = i0 + u < nq0 ? s_b0[p * nq0 + i0 + u] : T(0);
-            const T* xp = x + static_cast<long long>(p) * nrq * n_elem;
+                for (int g = 0; g < G; g += 4)
+                    tbt::load4(s_b0 + p * nq0p + i0 + g, w + g);
 #pragma unroll
-            for (int rq = 0; rq < MAXRQ; ++rq) {
-                if (rq < nrq) {
-                    const T xv = __ldg(xp + rq * n_elem);
+                for (int g = 0; g < G; ++g)
 #pragma unroll
-                    for (int u = 0; u < NI; ++u)
-                        v[u][rq] = fma(w[u], xv, v[u][rq]);
+                    for (int c = 0; c < QP_TE; ++c)
+                        acc[g][c] = fma(w[g], xv[c], acc[g][c]);
+            }
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+                tbt::store4(s_v + (g * nrq + rq) * ET + e, acc[g]);
+        }
+        __syncthreads();
+        // stage 2: out[i0+g][kj][e] = sum_rq C12T[kj][rq] * V[g][rq][e]
+        for (int q = threadIdx.x; q < G * kgs * TX; q += QP_THREADS) {
+            const int e = (q % TX) * QP_TE;
+            const int kg = (q / TX) % kgs, g = q / (TX * kgs);
+            if (i0 + g >= nq0) continue;
+            const T* v = s_v + g * nrq * ET + e;
+            const T* c = s_ct + kg * QP_TK;
+            T acc[QP_TK][QP_TE];
+#pragma unroll
+            for (int r = 0; r < QP_TK; ++r)
+#pragma unroll
+                for (int cc = 0; cc < QP_TE; ++cc) acc[r][cc] = T(0);
+#pragma unroll 2
+            for (int rq = 0; rq < nrq; ++rq) {
+                T cv[QP_TK], vv[QP_TE];
+#pragma unroll
+                for (int r = 0; r < QP_TK; r += 4)
+                    tbt::load4(c + rq * kjp + r, cv + r);
+                tbt::load4(v + rq * ET, vv);
+#pragma unroll
+                for (int r = 0; r < QP_TK; ++r)
+#pragma unroll
+                    for (int cc = 0; cc < QP_TE; ++cc)
+                        acc[r][cc] = fma(cv[r], vv[cc], acc[r][cc]);
+            }
+            const long long ee = e0 + e;
+#pragma unroll
+            for (int r = 0; r < QP_TK; ++r) {
+                const int kj = kg * QP_TK + r;
+                if (kj >= nkj) break;
+                T* y = out + (static_cast<long long>(i0 + g) * nkj + kj) *
+                                 n_elem + ee;
+                if (vec_out && ee + QP_TE <= n_elem) {
+                    tbt::store4(y, acc[r]);
+                } else {
+#pragma unroll
+                    for (int cc = 0; cc < QP_TE; ++cc)
+                        if (ee + cc < n_elem) y[cc] = acc[r][cc];
                 }
             }
         }
-        for (int kj = 0; kj < nkj; ++kj) {
-            const T* c = s_c + kj * nrq;
-            T acc[NI];
-#pragma unroll
-            for (int u = 0; u < NI; ++u) acc[u] = T(0);
-#pragma unroll
-            for (int rq = 0; rq < MAXRQ; ++rq) {
-                if (rq < nrq) {
-                    const T cv = c[rq];
-#pragma unroll
-                    for (int u = 0; u < NI; ++u)
-                        acc[u] = fma(cv, v[u][rq], acc[u]);
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < NI; ++u) {
-                if (i0 + u < nq0)
-                    y[(static_cast<long long>(i0 + u) * nkj + kj) * n_elem] =
-                        acc[u];
-            }
-        }
+        __syncthreads();
     }
 }
 
-template <typename T, int MAXRQ>
-int launch_bucket(const T* in, const T* b0, const T* c12t, T* out, int nm0,
-                  int nrq, int nq0, int nkj, long long n_elem, int epb,
-                  cudaStream_t stream) {
-    const size_t smem =
-        sizeof(T) * static_cast<size_t>(nm0 * nq0 + nkj * nrq);
-    auto kernel = qp_fused3d_kernel<T, MAXRQ>;
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return err;
-    }
-    const long long blocks = (n_elem + epb - 1) / epb;
-    kernel<<<static_cast<unsigned>(blocks), epb, smem, stream>>>(
+template <typename T, int ET, int G>
+int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
+                int nrq, int nq0, int nkj, long long n_elem,
+                cudaStream_t stream) {
+    const size_t smem = qp_smem_bytes<T>(ET, G, nm0, nrq, nq0, nkj);
+    auto kernel = qp_fused3d_kernel<T, ET, G>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const long long blocks = (n_elem + ET - 1) / ET;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    kernel<<<static_cast<unsigned>(blocks), QP_THREADS, smem, stream>>>(
         in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem);
     return cudaGetLastError();
 }
 
-// Register buckets for v[nrq]: nrq <= 16 covers nq <= 5, <= 49 covers
-// nq 6-8 and <= 81 covers nq 9-10 (isotropic orders).  The Python wrapper
-// refuses nrq > 81 before it gets here.
+template <typename T, int G>
+int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
+                  int nrq, int nq0, int nkj, long long n_elem, int et,
+                  cudaStream_t stream) {
+    switch (et) {
+        case 8:
+            return launch_tile<T, 8, G>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
+                                        n_elem, stream);
+        case 16:
+            return launch_tile<T, 16, G>(in, b0, c12t, out, nm0, nrq, nq0,
+                                         nkj, n_elem, stream);
+        case 32:
+            return launch_tile<T, 32, G>(in, b0, c12t, out, nm0, nrq, nq0,
+                                         nkj, n_elem, stream);
+        case 64:
+            return launch_tile<T, 64, G>(in, b0, c12t, out, nm0, nrq, nq0,
+                                         nkj, n_elem, stream);
+        case 128:
+            return launch_tile<T, 128, G>(in, b0, c12t, out, nm0, nrq, nq0,
+                                          nkj, n_elem, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+// The element tiles et and plane groups g it is built for (qp_config in
+// kernels/bwdtrans3d.py picks them for each shape and dtype).
 template <typename T>
 int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
-           int nq0, int nkj, long long n_elem, int epb, cudaStream_t stream) {
+           int nq0, int nkj, long long n_elem, int et, int g,
+           cudaStream_t stream) {
     if (n_elem <= 0) return cudaSuccess;
-    if (nrq <= 16)
-        return launch_bucket<T, 16>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                    n_elem, epb, stream);
-    if (nrq <= 49)
-        return launch_bucket<T, 49>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                    n_elem, epb, stream);
-    if (nrq <= 81)
-        return launch_bucket<T, 81>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                    n_elem, epb, stream);
+    if (nm0 <= 0 || nrq <= 0 || nq0 <= 0 || nkj <= 0)
+        return cudaErrorInvalidValue;
+    if (g == 4)
+        return launch_planes<T, 4>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
+                                   n_elem, et, stream);
+    if (g == 8)
+        return launch_planes<T, 8>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
+                                   n_elem, et, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -236,22 +331,32 @@ extern "C" int tbt_qp_stage2_3d_f64(const void* w, const void* b0, void* out,
 extern "C" int tbt_qp_fused3d_f32(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,
                                   int nrq, int nq0, int nkj, long long n_elem,
-                                  int epb, void* stream) {
+                                  int et, int g, void* stream) {
     return launch(static_cast<const float*>(in), static_cast<const float*>(b0),
                   static_cast<const float*>(c12t), static_cast<float*>(out),
-                  nm0, nrq, nq0, nkj, n_elem, epb,
+                  nm0, nrq, nq0, nkj, n_elem, et, g,
                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_qp_fused3d_f64(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,
                                   int nrq, int nq0, int nkj, long long n_elem,
-                                  int epb, void* stream) {
+                                  int et, int g, void* stream) {
     return launch(static_cast<const double*>(in),
                   static_cast<const double*>(b0),
                   static_cast<const double*>(c12t), static_cast<double*>(out),
-                  nm0, nrq, nq0, nkj, n_elem, epb,
+                  nm0, nrq, nq0, nkj, n_elem, et, g,
                   static_cast<cudaStream_t>(stream));
+}
+
+// Shared memory of one K1 block of element tile et and g planes a pass.
+extern "C" long long tbt_qp_fused3d_smem(int itemsize, int et, int g,
+                                         int nm0, int nrq, int nq0, int nkj) {
+    return itemsize == 4
+               ? static_cast<long long>(
+                     qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj))
+               : static_cast<long long>(
+                     qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj));
 }
 
 extern "C" const char* tbt_error_string(int err) {

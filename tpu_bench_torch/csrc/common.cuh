@@ -26,6 +26,17 @@ __device__ __forceinline__ void load4(const double* p, double* r) {
     r[3] = b.y;
 }
 
+// Four consecutive values to 16-byte aligned (shared or global) memory in
+// 16-byte stores.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+}
+
 // The 16-byte vector of a type: four floats or two doubles.
 template <typename T>
 struct Vec16;
@@ -127,6 +138,36 @@ __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// rows x COLS values of a row-major global matrix (row stride ld_g), from
+// (r0, c0), into shared memory of row stride ld_s by cp.async, the NTH
+// threads of a block taking every NTH-th copy; zero past n_rows and
+// n_cols.  vec: 16-byte copies, for rows of whole 16-byte words with c0 and
+// COLS multiples of a word (so a word is wholly in or out); else one value
+// a copy.
+template <typename T, int COLS, int NTH>
+__device__ __forceinline__ void copy_tile_async(
+    T* dst, int ld_s, int rows, const T* __restrict__ src, long long ld_g,
+    long long r0, long long c0, long long n_rows, long long n_cols,
+    bool vec) {
+    constexpr int V = 16 / sizeof(T);
+    if (vec) {
+        for (int q = threadIdx.x; q < rows * (COLS / V); q += NTH) {
+            const int r = q / (COLS / V), c = (q % (COLS / V)) * V;
+            const bool ok = r0 + r < n_rows && c0 + c < n_cols;
+            cp_async<16>(dst + r * ld_s + c,
+                         ok ? src + (r0 + r) * ld_g + c0 + c : src, ok);
+        }
+    } else {
+        for (int q = threadIdx.x; q < rows * COLS; q += NTH) {
+            const int r = q / COLS, c = q % COLS;
+            const bool ok = r0 + r < n_rows && c0 + c < n_cols;
+            cp_async<sizeof(T)>(dst + r * ld_s + c,
+                                ok ? src + (r0 + r) * ld_g + c0 + c : src,
+                                ok);
+        }
+    }
+}
+
 // Wait until at most N of this thread's committed groups are in flight.
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -159,6 +200,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a = big + small for 3xTF32: big is a rounded to TF32 (10 stored mantissa
+// bits) to nearest, ties away, by adding half of the 13 dropped bits' range
+// and clearing them; small = a - big exactly, whose low 13 bits the tensor
+// cores ignore, which truncates it to TF32.  Two integer operations and a
+// subtraction: on the H100 a split by cvt.rna.tf32.f32 cost more than the
+// mma it feeds.  A NaN in a stays a NaN in small.
+__device__ __forceinline__ void split_tf32(float a, unsigned& big,
+                                           unsigned& small) {
+    big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
+    small = __float_as_uint(a - __uint_as_float(big));
 }
 
 // d (16x8 f32) += a (16x8 tf32, row) @ b (8x8 tf32, col).

@@ -18,7 +18,7 @@
 // E=131072) for 4*(K0 + N3) bytes of the element stream.  The design puts
 // them on the tensor cores:
 //   - f32: 3xTF32.  Each operand a is split into big (a rounded to TF32)
-//     and small = a - big (split_tf32), and mma.sync.m16n8k8 (tf32, f32
+//     and small = a - big (tbt::split_tf32), and mma.sync.m16n8k8 (tf32, f32
 //     accumulators) adds small*big + big*small + big*big into a partial
 //     sum a BK-deep step long, which is added to the chunk's sum in f32
 //     round-to-nearest (mma_step); the JAX kernel's precision=HIGHEST is a
@@ -129,18 +129,6 @@ struct Acc<double, NT> {
     double v[NT][2];
 };
 
-// a = big + small: big is a rounded to TF32 (10 stored mantissa bits) to
-// nearest, ties away, by adding half of the 13 dropped bits' range and
-// clearing them; small = a - big exactly, whose low 13 bits the tensor
-// cores ignore, which truncates it to TF32.  Two integer operations and a
-// subtraction: on the H100 a split by cvt.rna.tf32.f32 cost more than the
-// mma it feeds.  A NaN in a stays a NaN in small.
-__device__ __forceinline__ void split_tf32(float a, unsigned& big,
-                                           unsigned& small) {
-    big = (__float_as_uint(a) + 0x1000u) & 0xffffe000u;
-    small = __float_as_uint(a - __uint_as_float(big));
-}
-
 // acc += src[rows of this warp][kb : kb+BK] @ s_tile (BK x BN, shared).
 // The tensor cores' f32 sums truncate: over the whole depth in one
 // accumulator that bias put the chain past 1e-5 of its largest output at
@@ -163,16 +151,16 @@ __device__ __forceinline__ void mma_step(Acc<float, NT>& acc, const float* src,
     for (int kk = 0; kk < Tile<float>::BK; kk += 8) {
         const float* a = src + (row0 + g) * ld_src + kb + kk + t;
         unsigned ab[4], as[4];
-        split_tf32(a[0], ab[0], as[0]);
-        split_tf32(a[8 * ld_src], ab[1], as[1]);
-        split_tf32(a[4], ab[2], as[2]);
-        split_tf32(a[8 * ld_src + 4], ab[3], as[3]);
+        tbt::split_tf32(a[0], ab[0], as[0]);
+        tbt::split_tf32(a[8 * ld_src], ab[1], as[1]);
+        tbt::split_tf32(a[4], ab[2], as[2]);
+        tbt::split_tf32(a[8 * ld_src + 4], ab[3], as[3]);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
             const float* b = s_tile + (kk + t) * LDS + col0 + nt * 8 + g;
             unsigned bb[2], bs[2];
-            split_tf32(b[0], bb[0], bs[0]);
-            split_tf32(b[4 * LDS], bb[1], bs[1]);
+            tbt::split_tf32(b[0], bb[0], bs[0]);
+            tbt::split_tf32(b[4 * LDS], bb[1], bs[1]);
             tbt::mma_tf32(part.v[nt], as, bb);
             tbt::mma_tf32(part.v[nt], ab, bs);
             tbt::mma_tf32(part.v[nt], ab, bb);

@@ -49,10 +49,10 @@ _D = ctypes.c_double
 # Every scalar of the kernels' arithmetic (eps) goes as a C double, so one
 # signature serves the _f32 and _f64 entries.
 _SIGNATURES = {
-    # in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, epb, stream
-    "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P],
-    # c, in, out, m_rows, k_depth, n_cols, n_chunks, stream
-    "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, g, stream
+    "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P],
+    # c, in, out, m_rows, k_depth, n_cols, n_chunks, strip, stream
+    "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, s, out, e_rows, k_depth, n_cols, stream
     "tbt_em_gemm": [_P, _P, _P, _I, _I, _I, _P],
     # w, b0, out, nm0, nq0, nkj, n_elem, epb, stream
@@ -159,6 +159,13 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.tbt_qp1d_smem.argtypes = [_I, _I, _I, _I, _I]
     lib.tbt_qp1d_smem.restype = _L
+    # K1's and K2's shared memory and K2's configuration rule
+    lib.tbt_qp_fused3d_smem.argtypes = [_I, _I, _I, _I, _I, _I, _I]
+    lib.tbt_qp_fused3d_smem.restype = _L
+    lib.tbt_kron_resident_smem.argtypes = [_I, _I, _I, _I]
+    lib.tbt_kron_resident_smem.restype = _L
+    lib.tbt_kron_strip.argtypes = [_I, _I, _I, _L]
+    lib.tbt_kron_strip.restype = ctypes.c_int
     # K14 takes bf16 slices and writes an f32 pair, so it has no _f32/_f64
     # pair: c, x, hi, lo, t_c, t_x, m_rows, k_depth, n_cols, w[, u], stream
     ozaki = [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I]

@@ -37,8 +37,15 @@ import torch
 
 from tpu_bench_torch.kernels import build
 
-_GRID_YZ_MAX = 65535  # CUDA's limit on gridDim.y and gridDim.z
-_BN = 128             # output tile width of the kernel (csrc/bwdtrans2d.cu)
+# K2's C-resident configuration (csrc/bwdtrans2d.cu): its strip widths,
+# its ring of strips, its micro-tile and its block; kron_config states
+# which configuration a product runs.  (Chosen on an NVIDIA H100 80GB
+# HBM3, 700.00 W, by benchmarks/kernel_blocks.py; PERF.md section 6.)
+KRON_STRIPS = (64, 128, 256, 512)
+KRON_RING = 3
+KRON_TILE = 4      # rows and columns of a micro-tile
+KRON_THREADS = 256
+SMEM_BLOCK = 232448  # the H100's opt-in shared memory of one block
 EM_TILE = 128         # K3's element rows per block: the tile height BM
 
 
@@ -47,14 +54,43 @@ def kron_blocked_plain(in_blk, c_coa):
     return torch.matmul(c_coa, in_blk)
 
 
-def kron_blocked(in_blk, c_coa):
-    """out (nblk, nqTot, ce) = C (nqTot, nmTot) @ in (nblk, nmTot, ce)."""
+def kron_blocked(in_blk, c_coa, *, strip=None):
+    """out (nblk, nqTot, ce) = C (nqTot, nmTot) @ in (nblk, nmTot, ce).
+    `strip`: None runs kron_config's configuration; 0 the dense one; one
+    of KRON_STRIPS the C-resident one at that strip width."""
     _check(in_blk, c_coa)
+    if strip is not None and strip != 0 and strip not in KRON_STRIPS:
+        raise ValueError(f"kron_blocked: strip={strip} is not 0 or one of "
+                         f"{KRON_STRIPS}")
     if in_blk.device.type == "cpu":
         return kron_blocked_plain(in_blk, c_coa)
     if in_blk.device.type != "cuda":
         raise ValueError(f"kron_blocked: no kernel for device {in_blk.device}")
-    return _launch(in_blk, c_coa)
+    return _launch(in_blk, c_coa, strip)
+
+
+def kron_resident_smem(itemsize, m, k, bn) -> int:
+    """Shared memory of the C-resident configuration (csrc/bwdtrans2d.cu
+    kron_resident_smem): C^T with M padded to KRON_TILE, and KRON_RING
+    strips of k x bn."""
+    return itemsize * (k * (-(-m // KRON_TILE) * KRON_TILE)
+                       + KRON_RING * k * bn)
+
+
+def kron_config(itemsize, m, k, limit=SMEM_BLOCK) -> int:
+    """K2's rule (csrc/bwdtrans2d.cu kron_strip) for C (m x k): the strip
+    width of the C-resident configuration, the narrowest of KRON_STRIPS
+    whose micro-tiles fill the block, narrowed until C^T and the ring fit
+    `limit` bytes; 0, the dense configuration on the tensor cores, if they
+    fit at none."""
+    tiles = -(-m // KRON_TILE)
+    bn = KRON_STRIPS[0]
+    while bn < KRON_STRIPS[-1] and tiles * (bn // KRON_TILE) < KRON_THREADS:
+        bn *= 2
+    for width in reversed(KRON_STRIPS):
+        if width <= bn and kron_resident_smem(itemsize, m, k, width) <= limit:
+            return width
+    return 0
 
 
 def _check(x, c):
@@ -75,21 +111,23 @@ def _check(x, c):
         raise ValueError("kron_blocked: in and C must be contiguous")
 
 
-def _launch(x, c):
+def _launch(x, c, strip):
     nblk, nm_tot, ce = x.shape
     nq_tot = c.shape[0]
-    if nblk > _GRID_YZ_MAX or -(-ce // _BN) > _GRID_YZ_MAX:
-        raise ValueError(f"kron_blocked: {nblk} chunks of {ce} elements "
-                         "exceed the kernel's grid")
+    if max(nblk, nm_tot, nq_tot, ce) >= 2**31:
+        raise ValueError(f"kron_blocked: in {tuple(x.shape)} exceeds the "
+                         "kernel's 32-bit extents")
+    if strip:
+        props = torch.cuda.get_device_properties(x.device)
+        limit = getattr(props, "shared_memory_per_block_optin", SMEM_BLOCK)
+        if kron_resident_smem(x.element_size(), nq_tot, nm_tot,
+                              strip) > limit:
+            raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
+                             f"strips of {strip} do not fit the card's "
+                             f"{limit} B of shared memory")
     out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
-    lib = build.library()
-    fn = (lib.tbt_kron_blocked_f32 if x.dtype == torch.float32
-          else lib.tbt_kron_blocked_f64)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(c.data_ptr(), x.data_ptr(), out.data_ptr(), nq_tot, nm_tot,
-                 ce, nblk, stream)
-    build.launched(err, "kron_blocked")
+    build.run("kron_blocked", x, c.data_ptr(), x.data_ptr(), out.data_ptr(),
+              nq_tot, nm_tot, ce, nblk, -1 if strip is None else strip)
     return out
 
 
@@ -100,9 +138,8 @@ def kron_coalesced_plain(in_coa, c_coa):
 
 def kron_coalesced(in_coa, c_coa, *, epb=None):
     """out (nqTot, E) = C (nqTot, nmTot) @ in (nmTot, E), the flat
-    coalesced layout: K2 on the (1, nmTot, E) view, whose grid takes E up
-    to 65535 output tiles of 128.  `epb`, the TPU kernel's element block,
-    is accepted and ignored."""
+    coalesced layout: K2 on the (1, nmTot, E) view.  `epb`, the TPU
+    kernel's element block, is accepted and ignored."""
     if in_coa.dim() != 2:
         raise ValueError(f"kron_coalesced: in {tuple(in_coa.shape)} is not "
                          "(nmTot, E)")

@@ -36,14 +36,39 @@ import torch
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import build
 
-# Elements (= threads) per block.  A tuning knob only: the kernel masks the
-# ragged edge, so any E works.  On the H100 at E=131072, 128 timed within
-# 1.1% of the best of 32/64/128/256 at nq=8^3 and nq=10^3 in f32 and f64,
-# while 64 lost 35% at nq=10^3 and 32 and 256 lost 15-25% at nq=8^3
-# (NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
-EPB = 128
-# Largest nm2*nm1 the kernel keeps in registers (nq=10 isotropic).
-MAX_NRQ = 81
+# K1 (csrc/bwdtrans3d.cu): its element tiles (the elements a block owns
+# and stages in shared memory) by element size, largest first; its plane
+# groups (output planes of one pass); its block, stage-2 micro-tile (kj
+# rows x elements) and the H100's shared memory: the most one block may
+# opt in to, an SM's total, and what the card reserves of it for each
+# block.  qp_config picks a tile and a group for each shape; the rule rests
+# on benchmarks/kernel_blocks.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6).
+QP_TILES = {4: (128, 64, 32, 16), 8: (64, 32, 16, 8)}
+QP_PLANE_GROUPS = (4, 8)
+QP_THREADS = 256
+QP_TK, QP_TE = 8, 4
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+SMEM_RESERVED = 1024
+# The element tile: None takes qp_config's choice.
+EPB = None
+# K1's (element tile, plane group) at the shapes benchmarks/kernel_blocks.py
+# sweeps, by (itemsize, nm0, nrq, nq0, nkj): its fastest setting in one
+# run (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).  The rule of
+# qp_config gave the same at 4^3, 8^3 and 10^3 in f32 and 10^3, 8^2 and
+# 32^2 in f64, and elsewhere a setting 1.5-32% slower (f64 b04 16^2:
+# 2.0687 ms against 1.5636).
+QP_MEASURED = {
+    (4, 3, 9, 4, 16): (128, 4), (4, 5, 25, 6, 36): (32, 8),
+    (4, 7, 49, 8, 64): (32, 4), (4, 9, 81, 10, 100): (16, 4),
+    (4, 7, 7, 8, 8): (128, 4), (4, 15, 15, 16, 16): (64, 4),
+    (4, 31, 31, 32, 32): (16, 8),
+    (8, 3, 9, 4, 16): (64, 4), (8, 5, 25, 6, 36): (32, 8),
+    (8, 7, 49, 8, 64): (16, 8), (8, 9, 81, 10, 100): (16, 4),
+    (8, 7, 7, 8, 8): (64, 8), (8, 15, 15, 16, 16): (32, 8),
+    (8, 31, 31, 32, 32): (16, 8),
+}
 # K4: elements (= threads) per block; the largest block it is built for
 # and the largest nm0 it keeps in registers (csrc/bwdtrans3d.cu
 # QP2_MAX_THREADS, QP2_MAX_NM0: buckets 16 and 32, the latter for b04
@@ -73,26 +98,28 @@ def qp_shared3d_flat_plain(in_pflat, b0, c12t, *, nrq):
     return out.reshape(-1, e)
 
 
-def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB):
+def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None):
     """out (nq0, nkj, E) from in (nm0, nrq, E), b0 (nm0, nq0),
-    c12t (nkj, nrq)."""
+    c12t (nkj, nrq).  `epb`: K1's element tile, one of QP_TILES for the
+    dtype, and `planes`, one of QP_PLANE_GROUPS; None takes qp_config's
+    choice."""
     if in_pcoa3.dim() != 3:
         raise ValueError(f"in_pcoa3 must be (nm0, nrq, E), got "
                          f"{tuple(in_pcoa3.shape)}")
     nm0, nrq, e = in_pcoa3.shape
     out = qp_shared3d_flat(in_pcoa3.reshape(nm0 * nrq, e), b0, c12t, nrq=nrq,
-                           epb=epb)
+                           epb=epb, planes=planes)
     return out.reshape(-1, c12t.shape[0], e)
 
 
-def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB):
+def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None):
     """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq."""
     _check(in_pflat, b0, c12t, nrq)
     if in_pflat.device.type == "cpu":
         return qp_shared3d_flat_plain(in_pflat, b0, c12t, nrq=nrq)
     if in_pflat.device.type != "cuda":
         raise ValueError(f"qp_shared3d: no kernel for device {in_pflat.device}")
-    return _launch(in_pflat, b0, c12t, nrq, epb)
+    return _launch(in_pflat, b0, c12t, nrq, epb, planes)
 
 
 def _check(x, b0, c12t, nrq):
@@ -116,30 +143,75 @@ def _check(x, b0, c12t, nrq):
         raise ValueError("qp_shared3d: in, b0 and c12t must be contiguous")
 
 
-def _launch(x, b0, c12t, nrq, epb):
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
+def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj) -> int:
+    """Shared memory of one K1 block (csrc/bwdtrans3d.cu qp_smem_bytes):
+    the element tile's input slab, V for g planes, C12T^T with nkj padded
+    to QP_TK, and B0 with nq0 padded to g."""
+    return itemsize * (nm0 * nrq * et + g * nrq * et
+                       + nrq * _round_up(nkj, QP_TK)
+                       + nm0 * _round_up(nq0, g))
+
+
+def qp_planes(et, nkj) -> int:
+    """K1's plane group for tile et: 8 where the stage-2 micro-tiles of 4
+    planes would keep at most half the block busy, else 4."""
+    tiles = 4 * _round_up(nkj, QP_TK) // QP_TK * (et // QP_TE)
+    return 8 if tiles <= QP_THREADS // 2 else 4
+
+
+def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
+              sm_limit=SMEM_SM):
+    """K1's (element tile, plane group) for a shape: QP_MEASURED's where
+    the sweep measured the shape; else the largest tile of
+    QP_TILES[itemsize], with qp_planes' group, whose buffers fit two blocks
+    an SM of `sm_limit` bytes (each block also costs SMEM_RESERVED) while
+    stage 1 keeps at least half the block busy (nrq * et / QP_TE
+    positions), else the largest that fits one block's `block_limit`; None
+    if none fits."""
+    measured = QP_MEASURED.get((itemsize, nm0, nrq, nq0, nkj))
+    if measured and qp_smem(itemsize, *measured, nm0, nrq, nq0,
+                            nkj) <= block_limit:
+        return measured
+    sizes = {}
+    for et in QP_TILES[itemsize]:
+        g = qp_planes(et, nkj)
+        sizes[(et, g)] = qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj)
+    fits = [c for c, b in sizes.items() if b <= block_limit]
+    two = [(et, g) for et, g in fits
+           if 2 * (sizes[(et, g)] + SMEM_RESERVED) <= sm_limit
+           and nrq * et // QP_TE >= QP_THREADS // 2]
+    return (two or fits or [None])[0]
+
+
+def _launch(x, b0, c12t, nrq, epb, planes):
     nm0, nq0 = b0.shape
     nkj = c12t.shape[0]
     e = x.shape[1]
-    if nrq > MAX_NRQ:
-        raise ValueError(f"qp_shared3d: nrq={nrq} exceeds the kernel's "
-                         f"register bucket of {MAX_NRQ}")
-    if not 0 < epb <= 1024:
-        raise ValueError(f"qp_shared3d: epb={epb} is not a CUDA block size")
-    smem = (nm0 * nq0 + nkj * nrq) * x.element_size()
+    size = x.element_size()
+    tiles = QP_TILES[size]
+    if epb is not None and epb not in tiles:
+        raise ValueError(f"qp_shared3d: epb={epb} is not one of the "
+                         f"kernel's element tiles {tiles} for {x.dtype}")
+    if planes is not None and planes not in QP_PLANE_GROUPS:
+        raise ValueError(f"qp_shared3d: planes={planes} is not one of "
+                         f"{QP_PLANE_GROUPS}")
     props = torch.cuda.get_device_properties(x.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
-    if smem > limit:
-        raise ValueError(f"qp_shared3d: operators need {smem} B of shared "
-                         f"memory, the device allows {limit}")
+    block = getattr(props, "shared_memory_per_block_optin", SMEM_BLOCK)
+    sm = getattr(props, "shared_memory_per_multiprocessor", SMEM_SM)
+    et, g = qp_config(size, nm0, nrq, nq0, nkj, block, sm) or (None, None)
+    et = epb or et
+    g = planes or (qp_planes(et, nkj) if epb else g)
+    if et is None or qp_smem(size, et, g, nm0, nrq, nq0, nkj) > block:
+        raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
+                         f" of nm0*nrq = {nm0 * nrq} input rows does not fit "
+                         f"the card's {block} B of shared memory")
     out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
-    lib = build.library()
-    fn = (lib.tbt_qp_fused3d_f32 if x.dtype == torch.float32
-          else lib.tbt_qp_fused3d_f64)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), b0.data_ptr(), c12t.data_ptr(), out.data_ptr(),
-                 nm0, nrq, nq0, nkj, e, epb, stream)
-    build.launched(err, "qp_fused3d")
+    build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
+              out.data_ptr(), nm0, nrq, nq0, nkj, e, et, g)
     return out
 
 
