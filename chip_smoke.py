@@ -19,9 +19,10 @@ five.  Every phase is fatal:
    (stream_read), K11 (stream_fill), K12 (stream_map), K13
    (stream_expand) and K14 (ozaki_slices) with nvcc for sm_90a, one
    process per source; ptxas must report no spills in the tensor-core
-   kernels K14, K5 and K2's dense configuration, nor in K1 and K2's
-   C-resident configuration, and `cuobjdump -sass` must show HMMA in K14
-   and in K5's and K2's dense f32 entries and DMMA in their f64 entries;
+   kernels K14, K5 and the dense GEMM that K2 and K3 share, nor in K1,
+   K2's C-resident and K3's S-resident configurations and K9, and
+   `cuobjdump -sass` must show HMMA in K14 and in the f32 entries of K5
+   and of K2's and K3's dense GEMM, and DMMA in their f64 entries;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -30,8 +31,8 @@ five.  Every phase is fatal:
    and 131072; the benchmark04 uses at nq (2,2), (8,8), (10,12), (16,16)
    and (32,32), E=1000 and 1,048,576; the K6 and K7 uses at n = 1000 (x
    and y placed differently against 16-byte boundaries), 1,048,579 and
-   536,870,912; K8 and K9 at (1000, 777), (4096, 16384), (16384, 4096) and
-   (16384, 16384); the seven ceiling probes of K10-K13 (expand at m = 2, 4
+   536,870,912; K8 and K9 at (1000, 777), (777, 1000), (4096, 16384),
+   (16384, 4096) and (16384, 16384); the seven ceiling probes of K10-K13 (expand at m = 2, 4
    and 8) at n = 128*8 (one chunk), 128*64 and 128*24 in chunks of 8 rows
    (more chunks than the ring's depth, and exactly depth), 128*64 with x
    and y off a 16-byte boundary, and the ceilings' 134,217,728 (copy, fill,
@@ -40,18 +41,21 @@ five.  Every phase is fatal:
    1000 and 1,048,576), b05 nq=8^3 (E = 1000 and 131072), K=729 with
    nqTot=1000, and T_c < T_x and T_c > T_x, the recombined product within
    5e-14 of K2 in double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3
-   in f32 and f64; K14, K5 (f32, and f64 timed apart) and K2's dense
-   configuration at their main shapes with the rate they reach, their
-   units' peak time and the SIMT design's time; K1's and K2's
-   configuration rules (kernels/bwdtrans3d.qp_config,
-   kernels/bwdtrans2d.kron_config) against the library's own
-   shared-memory sizes and rule at every b05 order 2^3 .. 10^3 and (3,4,5)
-   and every b04 order of run04.sh and (10, 12), f32 and f64, then K1 at
-   every (element tile, plane group) that fits at b05 nq=8^3 and b04
-   nq=32^2, K2's QP stage 1 at every strip and dense, and K2 just either
-   side of its C-resident threshold, on E = 1000 and 131071; K1 and K2 in
-   f64 at b05 nq=8^3 timed beside their previous design.  At each path's
-   main shapes (b05
+   in f32 and f64; K14, K5 (f32, and f64 timed apart) and the dense
+   configurations of K2 and K3 at their main shapes with the rate they
+   reach, their units' peak time and the SIMT design's time; K1's, K2's
+   and K3's configuration rules (kernels/bwdtrans3d.qp_config,
+   kernels/bwdtrans2d.kron_config, em_config) against the library's own
+   shared-memory sizes and rules at every b05 order 2^3 .. 10^3 and
+   (3,4,5) and every b04 order of run04.sh and (10, 12), f32 and f64, then
+   K1 at every (element tile, plane group) that fits at b05 nq=8^3 and b04
+   nq=32^2, K2's QP stage 1 at every strip and dense, K3's b04 nq=8^2
+   kron_elem_major at every tile height and dense, and K2 and K3 just
+   either side of their resident thresholds, on E = 1000 and 131071, and
+   K3 dense at b05 nq=8^3 and on X off a 16-byte boundary; K1, K2 and K3
+   in f64 at b05 nq=8^3 timed beside torch.matmul in f64, and K1-K3 and K9
+   beside their previous design where it was timed.  At each path's main
+   shapes (b05
    nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
    and b03 16384^2, f32 and f64; the probes at 134,217,728, f32; K14 at
    b04 nq=8^2, E=1,048,576 and b05 nq=8^3, E=131072, against torch.matmul
@@ -188,7 +192,8 @@ B04_KERNELS = {kernel for _, kernel, *_ in B04_USES}
 # accumulating additions, benchmark03/outfile.log).
 STREAM_N = 536870912
 MATVEC_N = 16384
-MATVEC_SHAPES = ((1000, 777), (4096, 16384), (16384, 4096),
+# (m, n) of A; K9 runs on A_cm (n, m), in scalar loads at (777, 1000)
+MATVEC_SHAPES = ((1000, 777), (777, 1000), (4096, 16384), (16384, 4096),
                  (MATVEC_N, MATVEC_N))
 GOLDEN_B01_1024 = 231.3925755
 GOLDEN_B02_1024 = 5979.883197
@@ -294,26 +299,36 @@ OZAKI_RTOL = 5e-14
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores (NVIDIA's data sheet)
 TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores
 FP64_TC_FLOP_PER_S = 67e12  # FP64 on the tensor cores (DMMA)
-# The tensor-core kernels: name: a tag of their instances' mangled names,
-# and the mma instruction each must hold in the SASS.
+# The tensor-core kernels: name: a pattern (re.search) of their instances'
+# mangled names, and the mma instruction each must hold in the SASS.  K2
+# and K3 share one dense GEMM, told apart by its tile-order argument
+# (MFast: K2, NFast: K3).
 TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
               "K5 qp1d f32 (3xTF32)": "qp1d_tc_kernelIf",
               "K5 qp1d f64 (DMMA)": "qp1d_tc_kernelId",
-              "K2 kron dense f32 (3xTF32)": "kron_dense_kernelIf",
-              "K2 kron dense f64 (DMMA)": "kron_dense_kernelId"}
+              "K2 kron dense f32 (3xTF32)": "dense_gemm_kernelIf.*MFast",
+              "K2 kron dense f64 (DMMA)": "dense_gemm_kernelId.*MFast",
+              "K3 em dense f32 (3xTF32)": "dense_gemm_kernelIf.*NFast",
+              "K3 em dense f64 (DMMA)": "dense_gemm_kernelId.*NFast"}
 TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
           ("K5 qp1d f64 (DMMA)", "DMMA"),
           ("K2 kron dense f32 (3xTF32)", "HMMA"),
-          ("K2 kron dense f64 (DMMA)", "DMMA")]
+          ("K2 kron dense f64 (DMMA)", "DMMA"),
+          ("K3 em dense f32 (3xTF32)", "HMMA"),
+          ("K3 em dense f64 (DMMA)", "DMMA")]
 # The kernels ptxas must build without a spill: the tensor-core kernels,
-# K1 and K2's C-resident configuration.
+# K1, K2's C-resident and K3's S-resident configurations, and K9.
 NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
-            "K2 kron resident": "kron_resident_kernel"}
-# Times of the SIMT FMA designs that K14 and K5 replaced, CUDA events, L2
-# flushed, by (use, shape, units): from this script and, for K5 in f64,
-# benchmarks/kernel_blocks.py (PERF.md section 6; NVIDIA H100 80GB HBM3,
-# 700.00 W).
+            "K2 kron resident": "kron_resident_kernel",
+            "K3 em resident": "em_resident_kernel",
+            "K9 matvec_cm": "matvec_cm"}
+# Times of the SIMT FMA designs that K14, K5, K2 and K3 replaced, CUDA
+# events, L2 flushed, by (use, shape, units): from this script and, for K5
+# and K3 in f64, benchmarks/kernel_blocks.py (PERF.md section 6; NVIDIA
+# H100 80GB HBM3, 700.00 W).
 K5_3D = "K5 qp1d_shared3d (QP-1D/Shared)"
+K3_KRON = "K3 kron_elem_major (Uncoales)"
+K3_STAGES = tuple(f"K3 one_stage_em (QP-1D stage {i})" for i in (1, 2, 3))
 K5_2D = "K5 qp1d_fused (QP-1D/Shared)"
 SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
            ("K14 kron_ozaki_pair", "b04 nq=8^2", "bf16"): 15.4328,
@@ -322,14 +337,19 @@ SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
            (K5_3D, "b05 nq=8^3", "f32 3xTF32"): 6.3326,
            (K5_3D, "b05 nq=8^3", "f64 DMMA"): 21.3871,
            (K5_2D, "b04 nq=8^2", "f32 3xTF32"): 1.5546,
-           # K2's first design (PREV_MS; f64 from the column's host clock)
+           # K2's and K3's first designs (PREV_MS; K2's f64 from the
+           # column's host clock)
            ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f32 3xTF32"): 1.7305,
-           ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f64 DMMA"): 4.8021}
-# Times of K1's and K2's previous designs (the first SIMT designs) by (use,
-# order, dtype), CUDA events, L2 flushed, from this script (PERF.md section
-# 6; NVIDIA H100 80GB HBM3, 700.00 W); in f64 at b05 nq=8^3, the host
-# clock of its columns there (PERF.md section 5: K1 20.4077 GDOF/s, K2
-# 9.3621; 131072 * 343 DOF over each).
+           ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f64 DMMA"): 4.8021,
+           (K3_KRON, "b05 nq=8^3", "f32 3xTF32"): 1.6906,
+           (K3_KRON, "b05 nq=8^3", "f64 DMMA"): 4.6604}
+# Times of K1's, K2's, K3's and K9's previous designs (the first SIMT
+# designs) by (use, order or shape, dtype), CUDA events, L2 flushed, from
+# this script (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W); K1's
+# and K2's in f64 at b05 nq=8^3, the host clock of their columns there
+# (PERF.md section 5: K1 20.4077 GDOF/s, K2 9.3621; 131072 * 343 DOF over
+# each); K3's in f64 from benchmarks/kernel_blocks.py --uses on the
+# previous tree.
 PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            ("K1 qp_shared3d", (8, 8, 8), "float32"): 0.8836,
            ("K2 kron_blocked (Coales)", (8, 8, 8), "float32"): 1.7305,
@@ -344,10 +364,23 @@ PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            ("kron_coalesced", "b05 nq=8^3", "float32"): 1.7319,
            ("kron_coalesced", "b04 nq=8^2", "float32"): 0.8350,
            ("K1 qp_shared3d_flat", (8, 8, 8), "float64"): 2.2030,
-           ("K2 kron_blocked (Coales)", (8, 8, 8), "float64"): 4.8021}
-# K1's and K2's uses also timed in f64 at b05 nq=8^3, E=131072
-K12_F64 = ("K1 qp_shared3d_flat", "K1 qp_shared3d", "K2 kron_blocked (Coales)",
-           "K2 kron_blocked (QP stage 1)")
+           ("K2 kron_blocked (Coales)", (8, 8, 8), "float64"): 4.8021,
+           (K3_KRON, (8, 8, 8), "float32"): 1.6906,
+           (K3_STAGES[0], (8, 8, 8), "float32"): 1.5500,
+           (K3_STAGES[1], (8, 8, 8), "float32"): 1.7053,
+           (K3_STAGES[2], (8, 8, 8), "float32"): 2.0805,
+           (K3_KRON, (8, 8), "float32"): 0.5388,
+           (K3_STAGES[0], (8, 8), "float32"): 0.5803,
+           (K3_STAGES[1], (8, 8), "float32"): 0.5520,
+           (K3_KRON, (8, 8, 8), "float64"): 4.6604,
+           (K3_STAGES[0], (8, 8, 8), "float64"): 4.4437,
+           (K3_STAGES[1], (8, 8, 8), "float64"): 5.0594,
+           (K3_STAGES[2], (8, 8, 8), "float64"): 5.9294,
+           ("K9 matvec_cm", "float32"): 0.4519,
+           ("K9 matvec_cm", "float64"): 0.7676}
+# K1's, K2's and K3's uses also timed in f64 at b05 nq=8^3, E=131072
+F64_USES = ("K1 qp_shared3d_flat", "K1 qp_shared3d", "K2 kron_blocked (Coales)",
+            "K2 kron_blocked (QP stage 1)", K3_KRON, *K3_STAGES)
 # The orders whose K1 and K2 configurations phase 3 holds to the library's
 # own rule and shared-memory sizes: every b05 order 2^3 .. 10^3 and
 # (3,4,5); every order of run04.sh and (10, 12)
@@ -383,9 +416,9 @@ def device_facts(torch) -> None:
 
 def build_kernels() -> None:
     """Phase 2: the build, ptxas's registers and spills (none allowed in
-    NO_SPILL: the tensor-core kernels K14, K5 and K2's dense configuration,
-    K1 and K2's C-resident configuration), and the tensor-core kernels' mma
-    instructions in the library's SASS."""
+    NO_SPILL: the tensor-core kernels K14, K5 and the dense GEMM of K2 and
+    K3, K1, K2's C-resident and K3's S-resident configurations, and K9),
+    and the tensor-core kernels' mma instructions in the library's SASS."""
     from tpu_bench_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -400,7 +433,7 @@ def build_kernels() -> None:
                 print("  ptxas:", line.strip())
             if "Function properties for" in line:
                 function = line.split()[-1]
-            elif "spill" in line and any(k in (function or "")
+            elif "spill" in line and any(re.search(k, function or "")
                                          for k in NO_SPILL.values()):
                 stores, loads = (int(n) for n in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line))
@@ -422,8 +455,8 @@ def mma_counts(library) -> dict:
     for line in _run([tool, "-sass", str(library)]).splitlines():
         if "Function :" in line:
             name = line.split()[-1]
-            kernel = next((k for k, tag in TC_KERNELS.items() if tag in name),
-                          None)
+            kernel = next((k for k, tag in TC_KERNELS.items()
+                           if re.search(tag, name)), None)
         elif kernel:
             for op in ("HMMA", "DMMA"):
                 if re.search(rf"\b{op}\.", line):
@@ -708,10 +741,10 @@ def kernels_vs_plain(torch) -> dict:
     """Phase 3.  Returns {(use, nq): its error, times and bound} in f32 at
     each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
     E=1,048,576) and for the b04 uses of B04_USES at their own order,
-    E=1,048,576, and {(use, nq, "float64"): the same} for K1's and K2's
-    uses in f64 at b05 nq=8^3 (K12_F64; the bound's FLOP at the card's
-    FP64 peak, DMMA).  K1's and K2's lines carry their previous design's
-    time (PREV_MS)."""
+    E=1,048,576, and {(use, nq, "float64"): the same} for K1's, K2's and
+    K3's uses in f64 at b05 nq=8^3 (F64_USES; the bound's FLOP at the
+    card's FP64 peak, DMMA).  K1's, K2's and K3's lines carry their
+    previous design's time where PREV_MS has it."""
     from tpu_bench_torch.core.timing import event_ms
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -738,7 +771,7 @@ def kernels_vs_plain(torch) -> dict:
                 main = e == main_e and (nq == main_nq
                                         or (case.label, nq) in at_order)
                 if dtype == torch.float64 and main and nq == (8, 8, 8) \
-                        and case.label in K12_F64:
+                        and case.label in F64_USES:
                     bound_ms, bound_by = bound(case.inputs, out, case.flops,
                                                FP64_TC_FLOP_PER_S)
                     measured[(case.label, nq, "float64")] = dict(
@@ -813,8 +846,10 @@ def streams_vs_plain(torch) -> dict:
                 del out
             torch.cuda.empty_cache()
     for (label, tag), k in measured.items():
+        prev = PREV_MS.get((label, tag))
         print(f"  {label} at its main shape {tag}: kernel {k['ms']:.4f} ms, "
-              f"plain {k['plain_ms']:.4f} ms, library "
+              + (f"previous design {prev:.4f} ms, " if prev else "")
+              + f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})")
     return measured
@@ -1023,11 +1058,11 @@ def ozaki_vs_plain(torch) -> tuple:
 def tensor_core_times(torch, measured, measured_ozaki) -> None:
     """Phase 3, the tensor-core kernels at their main shapes: K14 (both
     forms; phase 3's times), K5 in f32 (phase 3's times) and in f64
-    (timed here on random inputs) and K2's dense configuration at b05
-    nq=8^3 in f32 and f64 (phase 3's times): each one's time, the rate it reaches in
-    the FLOP of its own arithmetic (the slice products; the chain in stage
-    order), the time of the units it uses at their peak (dense bf16; 3
-    TF32 passes; DMMA), and the SIMT design's time."""
+    (timed here on random inputs) and the dense configurations of K2 and
+    K3 at b05 nq=8^3 in f32 and f64 (phase 3's times): each one's time, the
+    rate it reaches in the FLOP of its own arithmetic (the slice products;
+    the chain in stage order), the time of the units it uses at their peak
+    (dense bf16; 3 TF32 passes; DMMA), and the SIMT design's time."""
     from tpu_bench_torch.core.timing import event_ms
     from tpu_bench_torch.kernels import bwdtrans3d as k1
     from tpu_bench_torch.kernels import ozaki
@@ -1065,6 +1100,13 @@ def tensor_core_times(torch, measured, measured_ozaki) -> None:
                  3 * flops / TF32_FLOP_PER_S * 1e3))
     rows.append((k2_use, "b05 nq=8^3", "f64 DMMA",
                  measured[(k2_use, (8, 8, 8), "float64")]["ms"], flops,
+                 flops / FP64_TC_FLOP_PER_S * 1e3))
+    # K3's dense configuration, the same FLOP: b05 nq=8^3 Pallas(Uncoales)
+    rows.append((K3_KRON, "b05 nq=8^3", "f32 3xTF32",
+                 measured[(K3_KRON, (8, 8, 8))]["ms"], flops,
+                 3 * flops / TF32_FLOP_PER_S * 1e3))
+    rows.append((K3_KRON, "b05 nq=8^3", "f64 DMMA",
+                 measured[(K3_KRON, (8, 8, 8), "float64")]["ms"], flops,
                  flops / FP64_TC_FLOP_PER_S * 1e3))
     for use, label, units, ms, flops, unit_ms in rows:
         simt = SIMT_MS.get((use, label, units))
@@ -1154,17 +1196,33 @@ def k2_threshold(itemsize, k, limit) -> int:
     return m
 
 
-def k1_k2_configs(torch) -> None:
-    """Phase 3, K1's and K2's configurations.  At every order of
-    CONFIG_ORDERS in f32 and f64: K1's qp_config and K2's kron_config
-    (pure Python) fit the card, give whole micro-tiles, and agree with the
-    library's shared-memory sizes (tbt_qp_fused3d_smem at every tile and
-    plane group, tbt_kron_resident_smem at every strip) and with K2's own
-    rule (tbt_kron_strip).  Then every K1 (tile, planes) that fits, at b05
-    nq=8^3 and b04 nq=32^2, and K2's products in both configurations at
-    shapes just either side of the C-resident threshold, and K2's QP stage
-    1 at every strip, on E = 1000 and 131071 (neither a multiple of an
-    element tile or a strip), against their plain versions."""
+def k3_threshold(itemsize, k, limit) -> int:
+    """The largest N, a multiple of 64, at which S (k x N) still runs
+    S-resident under `limit` bytes; N + 64 runs dense."""
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+
+    n = 64
+    while k2.em_config(itemsize, k, n + 64, limit):
+        n += 64
+    return n
+
+
+def configs(torch) -> None:
+    """Phase 3, K1's, K2's and K3's configurations.  At every order of
+    CONFIG_ORDERS in f32 and f64: K1's qp_config, K2's kron_config and
+    K3's em_config (pure Python) fit the card, give whole micro-tiles or
+    warp units, and agree with the library's shared-memory sizes
+    (tbt_qp_fused3d_smem at every tile and plane group,
+    tbt_kron_resident_smem at every strip, tbt_em_resident_smem at every
+    tile height) and with K2's and K3's own rules (tbt_kron_strip,
+    tbt_em_tile) for each of their products.  Then every K1 (tile, planes)
+    that fits, at b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at every
+    strip and dense, K3's b04 nq=8^2 kron_elem_major at every tile height
+    and dense, and K2's and K3's products just either side of their
+    resident thresholds, on E = 1000 and 131071 (neither a multiple of an
+    element tile, strip or tile height), then K3 dense at the b05 nq=8^3
+    kron and QP-1D stages and on X off a 16-byte boundary, against their
+    plain versions."""
     from tpu_bench_torch.kernels import build
     from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
@@ -1196,11 +1254,24 @@ def k1_k2_configs(torch) -> None:
                                    k2.kron_resident_smem(size, m, k, bn)
                                    <= block)
                 strips.append(bn)
-            chosen[(size, nq)] = ((et, g), strips)
-    for (size, nq), (k1_cfg, strips) in chosen.items():
+            widths = stage_widths(nq)
+            heights = []
+            for k, n in [(widths[0], widths[-1]), *zip(widths, widths[1:])]:
+                be = k2.em_config(size, k, n, block)
+                assert be == lib.tbt_em_tile(size, k, n, block), (k, n)
+                for h in k2.EM_TILES:
+                    assert k2.em_resident_smem(size, k, n, h) == \
+                        lib.tbt_em_resident_smem(size, k, n, h), (k, n, h)
+                assert be == 0 or (be in k2.EM_TILES and
+                                   k2.em_resident_smem(size, k, n, be)
+                                   <= block)
+                heights.append(be)
+            chosen[(size, nq)] = ((et, g), strips, heights)
+    for (size, nq), (k1_cfg, strips, heights) in chosen.items():
         print(f"  configs f{8 * size} nq={nq}: K1 (tile, planes) {k1_cfg};"
               f" K2 strip (0: dense) QP stage 1 {strips[0]}, kron "
-              f"{strips[1]}")
+              f"{strips[1]}; K3 tile (0: dense) kron {heights[0]}, QP-1D "
+              f"stages {heights[1:]}")
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     for dtype in (torch.float32, torch.float64):
@@ -1240,11 +1311,40 @@ def k1_k2_configs(torch) -> None:
                         f"({'resident' if bn else 'dense'})",
                         k2.kron_blocked(x, c), k2.kron_blocked_plain(x, c),
                         dtype)
+            x, s = rnd(e, 49), rnd(49, 64)
+            ref = k2.kron_elem_major_plain(x, s)
+            for h in (0, *k2.EM_TILES):
+                if h and k2.em_resident_smem(size, 49, 64, h) > block:
+                    continue
+                compare(torch, f"K3 {tag} b04 nq=8^2 kron_elem_major (49 x "
+                        f"64) E={e} tile {h}", k2.kron_elem_major(x, s,
+                                                                 tile=h),
+                        ref, dtype)
+            for n in (k3_threshold(size, 128, block),
+                      k3_threshold(size, 128, block) + 64):
+                x, s = rnd(e, 128), rnd(128, n)
+                be = k2.em_config(size, 128, n, block)
+                compare(torch, f"K3 {tag} (128 x {n}) E={e} tile {be} "
+                        f"({'resident' if be else 'dense'})",
+                        k2.one_stage_em(x, s),
+                        k2.kron_elem_major_plain(x, s), dtype)
         x, c = rnd(16, 343, 8192), rnd(512, 343)
         assert k2.kron_config(size, 512, 343, block) == 0
         compare(torch, f"K2 {tag} b05 nq=8^3 Coales (dense)",
                 k2.kron_blocked(x, c), k2.kron_blocked_plain(x, c), dtype)
-        del x, c
+        widths = stage_widths((8, 8, 8))
+        for k, n in [(widths[0], widths[-1]), *zip(widths, widths[1:])]:
+            x, s = rnd(8191, k), rnd(k, n)
+            assert k2.em_config(size, k, n, block) == 0
+            compare(torch, f"K3 {tag} b05 nq=8^3 ({k} x {n}) E=8191 (dense)",
+                    k2.one_stage_em(x, s), k2.kron_elem_major_plain(x, s),
+                    dtype)
+        x, s = rnd(8191 * 49 + 1)[1:].view(8191, 49), rnd(49, 64)
+        for h in (None, 0):
+            compare(torch, f"K3 {tag} X off a 16-byte boundary (49 x 64) "
+                    f"tile {h}", k2.one_stage_em(x, s, tile=h),
+                    k2.kron_elem_major_plain(x, s), dtype)
+        del x, c, s
         torch.cuda.empty_cache()
 
 
@@ -1600,7 +1700,7 @@ def main() -> int:
     measured_ozaki, band_launches = ozaki_vs_plain(torch)
     tensor_core_times(torch, measured, measured_ozaki)
     measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)
-    k1_k2_configs(torch)
+    configs(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03

@@ -376,3 +376,114 @@ def test_kron_blocked_both_configs_on_card(itemsize):
             torch.cuda.synchronize()
             err = float((out - ref).abs().max() / ref.abs().max())
             assert err <= tol, (tuple(c.shape), e, w, err)
+
+
+# ---- K3's configurations (kernels/bwdtrans2d.em_config) --------------------
+
+def _em_products():
+    """K3's products (K, N) at every benchmark05 order 2^3 .. 10^3 and
+    (3,4,5), and every benchmark04 order of scripts/run04.sh and (10, 12):
+    kron_elem_major (nmTot x nqTot) and each QP-1D stage."""
+    products = []
+    for nq in [(n, n, n) for n in range(2, 11)] + [(3, 4, 5)]:
+        nm = [n - 1 for n in nq]
+        widths = [nm[0] * nm[1] * nm[2], nm[2] * nm[1] * nq[0],
+                  nm[2] * nq[1] * nq[0], nq[0] * nq[1] * nq[2]]
+        products.append((f"b05 nq={nq} kron", (widths[0], widths[-1])))
+        products += [(f"b05 nq={nq} QP-1D stage {i + 1}", kn)
+                     for i, kn in enumerate(zip(widths, widths[1:]))]
+    for nq in [(n, n) for n in (2, 4, 6, 8, 10, 12, 14, 16, 32)] + [(10, 12)]:
+        nm = [n - 1 for n in nq]
+        widths = [nm[0] * nm[1], nm[1] * nq[0], nq[0] * nq[1]]
+        products.append((f"b04 nq={nq} kron", (widths[0], widths[-1])))
+        products += [(f"b04 nq={nq} QP-1D stage {i + 1}", kn)
+                     for i, kn in enumerate(zip(widths, widths[1:]))]
+    return products
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("label,shape", _em_products())
+def test_em_config_fits_the_card(label, shape, itemsize):
+    """em_config gives 0 (dense) or a tile height of EM_TILES whose S and
+    ring fit 232,448 B, whole warp units of rows; S is resident wherever
+    some tile height fits."""
+    k, n = shape
+    be = k2.em_config(itemsize, k, n)
+    fits = [h for h in k2.EM_TILES
+            if k2.em_resident_smem(itemsize, k, n, h) <= 232448]
+    assert bool(be) == bool(fits)
+    if be:
+        assert be in fits and be % k2.EM_UNIT[0] == 0
+
+
+def test_em_config_rule():
+    """The narrowest tile height whose 32 x 64 warp units fill the 8 warps
+    (256 rows for N <= 64, 32 from N = 193), narrowed until S and a ring
+    of two tiles fit; b04 nq=8^2 and b05 to 6^3 keep S resident in f32,
+    b05 nq=8^3 runs dense."""
+    assert k2.em_config(4, 49, 64) == 256
+    assert k2.em_config(8, 49, 64) == 256
+    assert k2.em_config(4, 49, 56) == 256
+    assert k2.em_config(4, 56, 64) == 256
+    assert k2.em_config(8, 56, 64) == 128
+    assert k2.em_config(4, 125, 216) == 64
+    assert k2.em_config(4, 27, 100) == 128
+    assert k2.em_resident_smem(4, 49, 64, 256) == 4 * (49 * 64
+                                                      + 2 * 256 * 49)
+    assert k2.em_resident_smem(8, 49, 56, 32) == 8 * (49 * 64 + 2 * 32 * 49)
+    for k, n in ((343, 512), (343, 392), (392, 448), (448, 512)):
+        assert k2.em_config(4, k, n) == 0
+    # a tile that does not fit is narrowed: 128 rows of K = 200 with S
+    # (200 x 64) pass 232,448 B in f32; 64 fit
+    assert k2.em_resident_smem(4, 200, 64, 128) > 232448
+    assert k2.em_config(4, 200, 64) == 64
+
+
+def test_em_gemm_rejects_unknown_tile():
+    x, s = torch.zeros(CE, 27), torch.zeros(27, 64)
+    with pytest.raises(ValueError, match="tile=96"):
+        k2.kron_elem_major(x, s, tile=96)
+    assert torch.equal(k2.one_stage_em(x, s, tile=0),
+                       k2.kron_elem_major_plain(x, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_em_gemm_both_configs_on_card(itemsize):
+    """K3 in both configurations against its plain version on E = 1000 and
+    131071 rows (neither a multiple of a tile): b04 nq=8^2 kron_elem_major
+    (49 x 64) at every tile height and dense, and its QP-1D stages; the b05
+    nq=8^3 kron and QP-1D stages (dense; K = 343 rows are not whole
+    16-byte words); S (128 x N) just either side of the resident
+    threshold; X off a 16-byte boundary; 1e-5 (f32), 1e-12 (f64),
+    relative to the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype = torch.float32 if itemsize == 4 else torch.float64
+    tol = 1e-5 if itemsize == 4 else 1e-12
+    gen = torch.Generator(device="cuda").manual_seed(itemsize + 2)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    threshold = 64
+    while k2.em_config(itemsize, 128, threshold + 64):
+        threshold += 64
+    for e in (1000, 131071):
+        cases = [(rnd(e, 49), rnd(49, 64), h)
+                 for h in (None, 0, *k2.EM_TILES)
+                 if not h or k2.em_resident_smem(itemsize, 49, 64, h)
+                 <= 232448]
+        cases += [(rnd(e, k), rnd(k, n), None)
+                  for k, n in ((49, 56), (56, 64), (343, 512), (343, 392),
+                               (392, 448), (448, 512))]
+        cases += [(rnd(e, 128), rnd(128, n), None)
+                  for n in (threshold, threshold + 64)]
+        cases += [(rnd(e * 49 + 1)[1:].view(e, 49), rnd(49, 64), h)
+                  for h in (None, 0)]
+        for x, s, h in cases:
+            out = k2.one_stage_em(x, s, tile=h)
+            ref = k2.kron_elem_major_plain(x, s)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max() / ref.abs().max())
+            assert err <= tol, (tuple(s.shape), e, h, err)

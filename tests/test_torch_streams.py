@@ -237,3 +237,68 @@ def test_wrappers_reject_bad_input():
         kmv.matvec_rm(torch.zeros(4, 8), torch.zeros(4))
     with pytest.raises(ValueError, match="do not multiply"):
         kmv.matvec_cm(torch.zeros(4, 8), torch.zeros(8))
+
+
+# ---- K9's row shares (kernels/matvec.cm_splits, cm_rows) -------------------
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n,m", [(1000, 777), (4096, 16384), (16384, 4096),
+                                 (16384, 16384), (7, 3), (65, 128)])
+@pytest.mark.parametrize("blocks", [528, 1056, 132])
+def test_cm_splits_cover_every_row_once_in_one_wave(n, m, itemsize, blocks):
+    """Every row of A_cm falls in exactly one share, the shares differ by
+    at most one row, and the column blocks times the shares fit the
+    blocks the card holds at once (one wave) wherever the column blocks
+    alone do."""
+    splits = kmv.cm_splits(n, m, itemsize, blocks)
+    bounds = kmv.cm_rows(n, splits)
+    covered = np.zeros(n, int)
+    for start, end in bounds:
+        covered[start:end] += 1
+    assert (covered == 1).all()
+    sizes = [end - start for start, end in bounds]
+    assert max(sizes) - min(sizes) <= 1
+    col_blocks = -(-m // kmv.cm_columns(itemsize))
+    assert splits == 1 or col_blocks * splits <= blocks
+    assert splits == 1 or min(sizes) >= kmv.CM_WARPS * kmv.CM_UNROLL
+
+
+def test_matvec_cm_rejects_bad_knobs():
+    a_cm, x = torch.zeros(8, 4), torch.zeros(8)
+    with pytest.raises(ValueError, match="unroll=5"):
+        kmv.matvec_cm(a_cm, x, unroll=5)
+    with pytest.raises(ValueError, match="splits=0"):
+        kmv.matvec_cm(a_cm, x, splits=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_matvec_cm_on_card(dtype):
+    """K9 against its plain version at the smoke's shapes (1000, 777) ..
+    16384^2 (A's (m, n); scalar loads where m * itemsize is not a multiple
+    of 16, and on an A_cm one element off a 16-byte boundary), at every
+    rows-in-flight setting; two calls give the same bits; on all-ones
+    operands every column sums to N exactly whatever the shares (each row
+    counted once); 1e-5 (f32), 1e-12 (f64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for m, n, off in ((1000, 777, 0), (777, 1000, 0), (1000, 777, 1),
+                      (4096, 16384, 0), (16384, 4096, 0),
+                      (16384, 16384, 0)):
+        a_cm = torch.randn(n * m + off, generator=gen, device="cuda",
+                           dtype=dt)[off:].view(n, m)
+        x = torch.randn(n, generator=gen, device="cuda", dtype=dt)
+        ref = kmv.matvec_cm_plain(a_cm, x)
+        for unroll in kmv.CM_UNROLLS:
+            out = kmv.matvec_cm(a_cm, x, unroll=unroll)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max() / ref.abs().max())
+            assert err <= tol, (m, n, unroll, err)
+        assert torch.equal(kmv.matvec_cm(a_cm, x), kmv.matvec_cm(a_cm, x))
+        ones, xo = torch.ones_like(a_cm), torch.ones_like(x)
+        for splits in (None, 1, 3, 7):
+            y = kmv.matvec_cm(ones, xo, splits=splits)
+            assert torch.equal(y, torch.full_like(y, n)), (m, n, splits)

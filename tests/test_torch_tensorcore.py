@@ -279,15 +279,20 @@ def test_qp1d_tiles_are_whole_mma_tiles(size):
 K2_PART = 32
 
 
-@pytest.mark.parametrize("label,m,k", [("b05 nq=8^3", 512, 343),
-                                       ("b04 nq=16^2", 256, 225),
-                                       ("b04 nq=32^2", 1024, 961)])
+@pytest.mark.parametrize("label,m,k", [
+    ("b05 nq=8^3", 512, 343), ("b04 nq=16^2", 256, 225),
+    ("b04 nq=32^2", 1024, 961),
+    ("K3 b05 nq=8^3 QP-1D stage 2", 448, 392),
+    ("K3 b05 nq=8^3 QP-1D stage 3", 512, 448),
+    ("K3 b04 nq=32^2 QP-1D stage 2", 1024, 992)])
 def test_k2_3xtf32_within_1e5_at_its_depths(label, m, k):
-    """K2's dense f32 product C (M x K) @ X (K x E) at the depths it runs
-    (b05 nq=8^3 K = 343; b04 nq=16^2 225, nq=32^2 961), emulated with the
-    tensor cores' truncating f32 sums: within 1e-5 of the f64 product,
-    relative to its largest output, on random dense operands (a slice of
-    C's rows: the error of an output depends on its own row only)."""
+    """The dense f32 product that K2 and K3 share, C (M x K) @ X (K x E),
+    at the depths it runs (K2: b05 nq=8^3 K = 343; b04 nq=16^2 225, nq=32^2
+    961; K3, X @ S with S's N columns as M: 392 and 448 at b05 nq=8^3, 992
+    at b04 nq=32^2), emulated with the tensor cores' truncating f32 sums:
+    within 1e-5 of the f64 product, relative to its largest output, on
+    random dense operands (a slice of C's rows: the error of an output
+    depends on its own row only)."""
     rng = np.random.default_rng(k)
     c = rng.standard_normal((min(m, 64), k)).astype(np.float32)
     x = rng.standard_normal((k, 32)).astype(np.float32)

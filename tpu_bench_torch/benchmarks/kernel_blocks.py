@@ -1,6 +1,7 @@
 """Block-size sweep of the hand kernels on one CUDA card.
 
-    python -m tpu_bench_torch.benchmarks.kernel_blocks
+    python -m tpu_bench_torch.benchmarks.kernel_blocks [--only k1,k2,...]
+    python -m tpu_bench_torch.benchmarks.kernel_blocks --uses
 
 For each kernel with a block-size knob, on random inputs in f32 and f64:
 the least device time of one call by CUDA events (20 calls, L2 flushed
@@ -14,17 +15,36 @@ setting twice, in the order a b .. b a).  The sweeps:
   that fits, and 0, the dense one, at benchmark05's Pallas(QP) stage 1
   (64 x 49, nq=8^3), benchmark04's at nq=8^2 (8 x 7) and benchmark04's
   kron_wide4 at nq=8^2 (64 x 49); `*` marks kron_config's choice;
+- K3 (em_gemm): every tile height of the S-resident configuration that
+  fits, and 0, the dense one, at benchmark04's nq=8^2 kron_elem_major and
+  QP-1D stages (E=1,048,576), benchmark05's nq=6^3 kron_elem_major and
+  nq=8^3 kron_elem_major and QP-1D stages (E=131072); `*` marks
+  em_config's choice;
 - K4 (qp_stage2_3d) elements per block and K5 (qp1d_fused3d) element
-  tiles at benchmark05's nq=4^3 .. 10^3.
+  tiles at benchmark05's nq=4^3 .. 10^3;
+- K9 (matvec_cm): rows in flight (CM_UNROLLS) by row shares (half, once
+  and twice cm_splits' one wave) at benchmark03's 16384^2 and A (4096,
+  16384); `*` marks the default.
 
 After each K1 shape, a `best` line gives the fastest setting.  The
-constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_EPB, QP1D_TILES)
-and kernels/bwdtrans2d.py (KRON_STRIPS) rest on its output.  Prints the
-card's name and power limit first; needs a CUDA device.
+constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_EPB, QP1D_TILES),
+kernels/bwdtrans2d.py (KRON_STRIPS, EM_TILES) and kernels/matvec.py
+(CM_UNROLL) rest on its output.  `--only` runs the named sweeps (k1, k2,
+k3, k4k5, k9).
+
+`--uses` times instead each K3 use (b04 nq=8^2 kron_elem_major and QP-1D
+stages, E=1,048,576; b05 nq=8^3 kron_elem_major and QP-1D stages,
+E=131072), K2's dense b05 nq=8^3 product, whose GEMM body K3 shares, and
+K9 at 16384^2, f32 and f64, through the calls the columns
+make with no knob, so it also times an earlier tree of the port: run this
+file with that tree's root as the working directory and on PYTHONPATH.
+
+Prints the card's name and power limit first; needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import torch
@@ -32,6 +52,7 @@ import torch
 from tpu_bench_torch.core.timing import event_ms
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
+from tpu_bench_torch.kernels import matvec as kmv
 
 NELMT = 131072
 B04_NELMT = 1048576
@@ -44,6 +65,18 @@ K1_SHAPES += [(f"b04 nq={n}^2", n - 1, n - 1, n, n, B04_NELMT)
 K2_SHAPES = [("b05 nq=8^3 QP stage 1", 64, 49, 7, NELMT),
              ("b04 nq=8^2 QP stage 1", 8, 7, 7, B04_NELMT),
              ("b04 nq=8^2 kron_wide4", 64, 49, B04_NELMT // 8192, 8192)]
+# K3's products: (label, E, K, N)
+K3_SHAPES = [("b04 nq=8^2 kron_elem_major", B04_NELMT, 49, 64),
+             ("b04 nq=8^2 QP-1D stage 1", B04_NELMT, 49, 56),
+             ("b04 nq=8^2 QP-1D stage 2", B04_NELMT, 56, 64),
+             ("b05 nq=6^3 kron_elem_major", NELMT, 125, 216),
+             ("b05 nq=8^3 kron_elem_major", NELMT, 343, 512),
+             ("b05 nq=8^3 QP-1D stage 1", NELMT, 343, 392),
+             ("b05 nq=8^3 QP-1D stage 2", NELMT, 392, 448),
+             ("b05 nq=8^3 QP-1D stage 3", NELMT, 448, 512)]
+K3_USES = [shape for shape in K3_SHAPES if "6^3" not in shape[0]]
+# K9's matrices A_cm: (label, rows N, columns M)
+K9_SHAPES = [("b03 16384^2", 16384, 16384), ("A (4096, 16384)", 16384, 4096)]
 
 
 def in_turns(fn, settings) -> dict:
@@ -92,6 +125,57 @@ def k2_sweep(rnd, tag, itemsize) -> None:
         torch.cuda.empty_cache()
 
 
+def k3_sweep(rnd, tag, itemsize) -> None:
+    for label, e, k, n in K3_SHAPES:
+        x, s = rnd(e, k), rnd(k, n)
+        settings = [0] + [h for h in k2.EM_TILES
+                          if k2.em_resident_smem(itemsize, k, n, h)
+                          <= k2.SMEM_BLOCK]
+        times = in_turns(lambda v: k2.one_stage_em(x, s, tile=v), settings)
+        report(f"{tag} {label} E={e}", "K3 tile", times,
+               k2.em_config(itemsize, k, n))
+        del x
+        torch.cuda.empty_cache()
+
+
+def k9_sweep(rnd, tag, itemsize) -> None:
+    for label, n, m in K9_SHAPES:
+        a_cm, x = rnd(n, m), rnd(n)
+        blocks = kmv.cm_blocks(a_cm.device, itemsize, kmv.CM_UNROLL)
+        rule = kmv.cm_splits(n, m, itemsize, blocks)
+        splits = sorted({max(1, rule // 2), rule, 2 * rule})
+        settings = [(u, sp) for u in kmv.CM_UNROLLS for sp in splits]
+        times = in_turns(lambda v: kmv.matvec_cm(a_cm, x, unroll=v[0],
+                                                 splits=v[1]), settings)
+        report(f"{tag} {label} ({blocks} blocks in a wave)",
+               "K9 (rows in flight, shares)", times, (kmv.CM_UNROLL, rule))
+        del a_cm
+        torch.cuda.empty_cache()
+
+
+def uses(rnd, tag) -> None:
+    """K3's uses, K2's dense product (the GEMM body K3 shares) and K9 at
+    their main shapes, through the columns' calls."""
+    x, c = rnd(16, 343, 8192), rnd(512, 343)
+    print(f"{tag} K2 b05 nq=8^3 Coales (dense) E=131072: "
+          f"{event_ms(lambda: k2.kron_blocked(x, c)):.4f} ms; "
+          f"torch.matmul {event_ms(lambda: torch.matmul(c, x)):.4f} ms",
+          flush=True)
+    del x, c
+    for label, e, k, n in K3_USES:
+        x, s = rnd(e, k), rnd(k, n)
+        print(f"{tag} K3 {label} E={e}: "
+              f"{event_ms(lambda: k2.one_stage_em(x, s)):.4f} ms; "
+              f"torch.matmul {event_ms(lambda: torch.matmul(x, s)):.4f} ms",
+              flush=True)
+        del x, s
+        torch.cuda.empty_cache()
+    a_cm, x = rnd(16384, 16384), rnd(16384)
+    print(f"{tag} K9 16384^2: {event_ms(lambda: kmv.matvec_cm(a_cm, x)):.4f}"
+          f" ms; torch.mv {event_ms(lambda: torch.mv(a_cm.t(), x)):.4f} ms",
+          flush=True)
+
+
 def knobs(rnd, nq: int, e: int) -> dict:
     """{kernel: (settings, fn(setting))} of K4 and K5 at isotropic order
     nq."""
@@ -110,7 +194,19 @@ def knobs(rnd, nq: int, e: int) -> dict:
     }
 
 
-def main() -> None:
+SWEEPS = ("k1", "k2", "k3", "k4k5", "k9")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only", default=",".join(SWEEPS),
+                        help=f"comma-separated sweeps of {SWEEPS}")
+    parser.add_argument("--uses", action="store_true",
+                        help="time K3's uses and K9 instead of sweeping")
+    args = parser.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(SWEEPS):
+        parser.error(f"--only: {sorted(only - set(SWEEPS))} not in {SWEEPS}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_blocks: needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -123,12 +219,22 @@ def main() -> None:
                                dtype=dtype)
 
         tag = str(dtype)[6:]
-        k1_sweep(rnd, tag, dtype.itemsize)
-        k2_sweep(rnd, tag, dtype.itemsize)
-        for nq in (4, 6, 8, 10):
-            for name, (settings, fn) in knobs(rnd, nq, NELMT).items():
-                report(f"{tag} nq={nq}^3 E={NELMT}", name,
-                       in_turns(fn, settings))
+        if args.uses:
+            uses(rnd, tag)
+            continue
+        if "k1" in only:
+            k1_sweep(rnd, tag, dtype.itemsize)
+        if "k2" in only:
+            k2_sweep(rnd, tag, dtype.itemsize)
+        if "k3" in only:
+            k3_sweep(rnd, tag, dtype.itemsize)
+        if "k4k5" in only:
+            for nq in (4, 6, 8, 10):
+                for name, (settings, fn) in knobs(rnd, nq, NELMT).items():
+                    report(f"{tag} nq={nq}^3 E={NELMT}", name,
+                           in_turns(fn, settings))
+        if "k9" in only:
+            k9_sweep(rnd, tag, dtype.itemsize)
 
 
 if __name__ == "__main__":

@@ -64,8 +64,10 @@
 //     tile (128 x BK) and the in tile (BK x the tile's width) go through a
 //     ring of RING slots filled by cp.async; rows padded so the fragment
 //     loads hit distinct banks;
-//   - tile order on a 1D grid, M tiles fastest: the blocks that share an
-//     in[b] tile run together and find it in L2, as C does.
+//   - tile order on a 1D grid, M tiles fastest (MFast): the blocks that
+//     share an in[b] tile run together and find it in L2, as C does.
+//   The body is one templated GEMM, dense_gemm_kernel, which K3's dense
+//   configuration launches too, with its own tile order (NFast below).
 //   It stays short of cuBLAS at b05 nq=8^3 (PERF.md section 6): the
 //   operand splits and fragment loads of mma.sync cost about as many
 //   instructions as the mma, and C's 343-wide rows are not whole 16-byte
@@ -75,121 +77,48 @@
 // M, N, K and E edges are masked in both: zero-filled copies, masked
 // stores.
 //
-// K3 is still the first SIMT design: 128 x 128 output tiles, K in steps of
-// 8, both operand tiles staged in shared memory, the A tile transposed to
-// [k][m], an 8 x 8 register micro-tile per thread (256 threads) fed by
-// 16-byte shared loads, full FP32/FP64 FMA; the N tiles of one element
-// strip are neighbours in a 1D grid, so S stays in L2.  The element-major
-// read of X runs along K: eight threads read the eight consecutive k of one
-// row (one 32-byte sector), four rows per warp.  Tensor cores and deeper
-// pipelining for it are later work.
+// K3's products are of the same two kinds, and one kernel entry runs each
+// on its own configuration, by one rule (em_tile below, em_config in
+// kernels/bwdtrans2d.py): S resident when S (K x N, N padded to 64) and a
+// ring of RING element tiles fit the card's opt-in shared memory at some
+// tile height, else dense.
+//
+// (a) S resident: the skinny products (b04 nq=8^2 kron_elem_major 49 x 64
+// and QP-1D stages 49 x 56, 56 x 64; b05 to nq=6^3 in f32; b04 to nq=14^2
+// in f32), bound by bytes like K2's.  A persistent block (as many as fit
+// an SM, times the SMs) stages S once and walks tiles of BE element rows
+// in a grid-stride loop.  An element-major tile is one contiguous span of
+// BE*K values (BE a multiple of 32, so each tile starts on a 16-byte
+// boundary), so it comes through a ring of RING slots by flat 16-byte
+// cp.async, the ragged end of X zero-filled, whatever K is.  Each warp
+// computes units of 32 rows x 64 columns: lane = 8 * eg + j, micro-tile
+// 8 rows (eg, eg + 4, .., eg + 28) x 8 columns (16-byte pieces at j * 16
+// B + a multiple of 128 B).  Per k a thread loads 8 values of X (the four
+// row groups of a warp sit K apart: distinct banks in f32 unless K is a
+// multiple of 16) and two (f32) or four (f64) 16-byte pieces of S, shared
+// by the warp's four row groups, for 64 FMAs; each warp store writes 128
+// contiguous bytes of each of four output rows.  A 16-byte load of S
+// takes four quarter-warp passes of shared memory whatever the broadcast,
+// so 8 rows a thread rather than 4 halve those passes per FMA, and a ring
+// of 2 rather than 3 lets two blocks share an SM at b04 nq=8^2 (f32: 127
+// registers): 3-10% faster there in f32, 5-7% in f64, 16% at b05 nq=6^3.
+// BE is the narrowest of 32..256 whose units fill the block's 8 warps
+// (256 at N <= 64), narrowed until S and the ring fit
+// (benchmarks/kernel_blocks.py).
+//
+// (b) Dense: S does not fit (b05 nq=8^3: 343 x 512 and the QP-1D stages
+// 343 x 392, 392 x 448, 448 x 512; b04 from nq=16^2 in f32).  K2's dense
+// body with A = X (E x K) and B = S, one chunk, and the tile order NFast:
+// the N tiles of one element strip are neighbours on the grid, so X, the
+// streamed operand (180 MB at b05 f32), is read from HBM once and S (under
+// 1 MB) stays in L2.  At K = 343 X's rows are not whole 16-byte words, so
+// its tiles come in 4-byte copies; at 392 and 448 in 16-byte ones.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
 namespace {
-
-// ---- K3 em_gemm: the SIMT tile GEMM ---------------------------------------
-
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 8;
-constexpr int TM = 8;
-constexpr int TN = 8;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int PAD = 4;  // keeps rows 16-byte aligned and spreads the stores
-
-// c[m0:m0+BM, n0:n0+BN] = a (m_rows x k_depth) @ b (k_depth x n_cols), all
-// row-major, by one block of THREADS threads.
-template <typename T>
-__device__ __forceinline__ void gemm_tile(const T* __restrict__ a,
-                                          const T* __restrict__ b,
-                                          T* __restrict__ c, int m_rows,
-                                          int k_depth, int n_cols, int m0,
-                                          int n0) {
-    __shared__ __align__(16) T a_tile[BK][BM + PAD];  // A tile as [k][m]
-    __shared__ __align__(16) T b_tile[BK][BN + PAD];
-    const int tx = threadIdx.x % (BN / TN);
-    const int ty = threadIdx.x / (BN / TN);
-
-    T acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-
-    for (int k0 = 0; k0 < k_depth; k0 += BK) {
-#pragma unroll
-        for (int r = 0; r < BM * BK / THREADS; ++r) {
-            const int t = threadIdx.x + r * THREADS;
-            const int m = t / BK, k = t % BK;
-            a_tile[k][m] = (m0 + m < m_rows && k0 + k < k_depth)
-                               ? a[static_cast<size_t>(m0 + m) * k_depth +
-                                   k0 + k]
-                               : T(0);
-        }
-#pragma unroll
-        for (int r = 0; r < BK * BN / THREADS; ++r) {
-            const int t = threadIdx.x + r * THREADS;
-            const int k = t / BN, n = t % BN;
-            b_tile[k][n] = (k0 + k < k_depth && n0 + n < n_cols)
-                               ? b[static_cast<size_t>(k0 + k) * n_cols +
-                                   n0 + n]
-                               : T(0);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < BK; ++k) {
-            T av[TM], bv[TN];
-#pragma unroll
-            for (int q = 0; q < TM; q += 4)
-                tbt::load4(&a_tile[k][ty * TM + q], av + q);
-#pragma unroll
-            for (int q = 0; q < TN; q += 4)
-                tbt::load4(&b_tile[k][tx * TN + q], bv + q);
-#pragma unroll
-            for (int i = 0; i < TM; ++i)
-#pragma unroll
-                for (int j = 0; j < TN; ++j)
-                    acc[i][j] = fma(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-        const int m = m0 + ty * TM + i;
-        if (m >= m_rows) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-            const int n = n0 + tx * TN + j;
-            if (n < n_cols) c[static_cast<size_t>(m) * n_cols + n] = acc[i][j];
-        }
-    }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    em_gemm_kernel(const T* __restrict__ x, const T* __restrict__ s,
-                   T* __restrict__ out, int e_rows, int k_depth, int n_cols) {
-    const int n_tiles = (n_cols + BN - 1) / BN;
-    const int m0 = static_cast<int>(blockIdx.x / n_tiles) * BM;
-    const int n0 = static_cast<int>(blockIdx.x % n_tiles) * BN;
-    gemm_tile(x, s, out, e_rows, k_depth, n_cols, m0, n0);
-}
-
-template <typename T>
-int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
-                   int n_cols, cudaStream_t stream) {
-    if (e_rows <= 0 || n_cols <= 0) return cudaSuccess;
-    const long long tiles = static_cast<long long>((e_rows + BM - 1) / BM) *
-                            ((n_cols + BN - 1) / BN);
-    if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    em_gemm_kernel<T><<<static_cast<unsigned>(tiles), THREADS, 0, stream>>>(
-        x, s, out, e_rows, k_depth, n_cols);
-    return cudaGetLastError();
-}
 
 // ---- K2 kron_blocked --------------------------------------------------------
 
@@ -334,9 +263,32 @@ constexpr size_t kron_dense_smem() {
             static_cast<size_t>(D::BK) * (BN + D::B_PAD));
 }
 
-template <typename T, int WM, int WN, int WMT, int WNT, int MINB>
+// Tile orders of the dense GEMM on a 1D grid: block b's chunk, M tile
+// and N tile.  MFast (K2): M tiles fastest, then N tiles, then chunks.
+// NFast (K3): N tiles fastest, so the blocks that read one strip of the
+// A operand run together.
+struct MFast {
+    __device__ static void tile(unsigned b, int m_tiles, int n_tiles,
+                                int& mt, int& nt) {
+        mt = static_cast<int>(b % m_tiles);
+        nt = static_cast<int>((b / m_tiles) % n_tiles);
+    }
+};
+struct NFast {
+    __device__ static void tile(unsigned b, int m_tiles, int n_tiles,
+                                int& mt, int& nt) {
+        nt = static_cast<int>(b % n_tiles);
+        mt = static_cast<int>((b / n_tiles) % m_tiles);
+    }
+};
+
+// out[b] (M x N) = c (M x K) @ in[b] (K x N) for every chunk b, all
+// row-major: K2's dense configuration (c = C), and K3's (c = X, in = S,
+// one chunk).
+template <typename T, int WM, int WN, int WMT, int WNT, int MINB,
+          typename Order>
 __global__ void __launch_bounds__(32 * WM * WN, MINB)
-    kron_dense_kernel(const T* __restrict__ c, const T* __restrict__ in,
+    dense_gemm_kernel(const T* __restrict__ c, const T* __restrict__ in,
                       T* __restrict__ out, int m_rows, int k_depth,
                       int n_cols) {
     using D = Dense<T>;
@@ -351,8 +303,9 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
 
     const int m_tiles = (m_rows + KD_BM - 1) / KD_BM;
     const int n_tiles = (n_cols + KD_BN - 1) / KD_BN;
-    const int m0 = static_cast<int>(blockIdx.x % m_tiles) * KD_BM;
-    const int n0 = static_cast<int>((blockIdx.x / m_tiles) % n_tiles) * KD_BN;
+    int mt, nt;
+    Order::tile(blockIdx.x, m_tiles, n_tiles, mt, nt);
+    const int m0 = mt * KD_BM, n0 = nt * KD_BN;
     const long long chunk = blockIdx.x / (static_cast<long long>(m_tiles) *
                                           n_tiles);
     const T* b = in + chunk * k_depth * n_cols;
@@ -502,12 +455,13 @@ int launch_resident(const T* c, const T* in, T* out, int m_rows, int k_depth,
     return cudaGetLastError();
 }
 
-template <typename T, int WM, int WN, int WMT, int WNT, int MINB>
+template <typename T, int WM, int WN, int WMT, int WNT, int MINB,
+          typename Order>
 int launch_dense(const T* c, const T* in, T* out, int m_rows, int k_depth,
                  int n_cols, int n_chunks, cudaStream_t stream) {
     constexpr int BM = WM * WMT * Dense<T>::MMA_M, BN = WN * WNT * 8;
     constexpr size_t smem = kron_dense_smem<T, BM, BN>();
-    auto kernel = kron_dense_kernel<T, WM, WN, WMT, WNT, MINB>;
+    auto kernel = dense_gemm_kernel<T, WM, WN, WMT, WNT, MINB, Order>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -521,6 +475,36 @@ int launch_dense(const T* c, const T* in, T* out, int m_rows, int k_depth,
     return cudaGetLastError();
 }
 
+// The dense GEMM's tile shapes.  f32: 128 x 128 tiles of 8 warps of 64 x
+// 32, one block an SM (237 registers); f64: 128 x 64 tiles of 4 warps of
+// 64 x 32, two blocks an SM (234).  The fastest of the tile shapes tried on the
+// H100; 128 x 64 tiles of 8 warps of 32 x 32 spilled under the 128
+// registers of two blocks an SM in both types.
+template <typename T, typename Order>
+int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
+                       int k_depth, int n_cols, int n_chunks,
+                       cudaStream_t stream) {
+    if constexpr (sizeof(T) == 4)
+        return launch_dense<T, 2, 4, 4, 4, 1, Order>(
+            c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
+    else
+        return launch_dense<T, 2, 2, 8, 4, 2, Order>(
+            c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
+}
+
+// The card's opt-in shared memory of a block and its SM count.
+inline cudaError_t card_limits(int& limit, int& sms) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    return err;
+}
+
 // strip < 0: the rule (kron_strip); 0: the dense configuration; else C
 // resident with that strip width.
 template <typename T>
@@ -529,29 +513,14 @@ int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
                         cudaStream_t stream) {
     if (m_rows <= 0 || n_cols <= 0 || n_chunks <= 0) return cudaSuccess;
     if (k_depth <= 0) return cudaErrorInvalidValue;
-    int dev = 0, limit = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(
-            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
+    int limit = 0, sms = 0;
+    const cudaError_t err = card_limits(limit, sms);
     if (err != cudaSuccess) return err;
     const int bn = strip < 0 ? kron_strip<T>(m_rows, k_depth, limit) : strip;
     switch (bn) {
         case 0:
-            // f32: 128 x 128 tiles of 8 warps of 64 x 32, one block an SM
-            // (168 registers); f64: 128 x 64 tiles of 4 warps of 64 x 32,
-            // two blocks an SM.  The fastest of the tile shapes tried on
-            // the H100; 128 x 64 tiles of 8 warps of 32 x 32 spilled under
-            // the 128 registers of two blocks an SM in both types.
-            if constexpr (sizeof(T) == 4)
-                return launch_dense<T, 2, 4, 4, 4, 1>(
-                    c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
-            else
-                return launch_dense<T, 2, 2, 8, 4, 2>(
-                    c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
+            return launch_dense_tiles<T, MFast>(c, in, out, m_rows, k_depth,
+                                                n_cols, n_chunks, stream);
         case 64:
             return launch_resident<T, 64>(c, in, out, m_rows, k_depth, n_cols,
                                           n_chunks, sms, stream);
@@ -564,6 +533,205 @@ int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
         case 512:
             return launch_resident<T, 512>(c, in, out, m_rows, k_depth,
                                            n_cols, n_chunks, sms, stream);
+        default:
+            return cudaErrorInvalidValue;
+    }
+}
+
+// ---- K3 em_gemm -------------------------------------------------------------
+
+// (a) S resident: 8 warps; a warp's unit is EM_ROWS x EM_COLS outputs, a
+// thread's micro-tile EM_TE rows x EM_TN columns; tile heights 32..256.
+constexpr int EM_THREADS = 256;
+constexpr int EM_WARPS = EM_THREADS / 32;
+constexpr int EM_RING = 2;
+constexpr int EM_TE = 8, EM_TN = 8;
+constexpr int EM_ROWS = 4 * EM_TE, EM_COLS = 8 * EM_TN;
+constexpr int EM_MIN_BE = 32, EM_MAX_BE = 256;
+
+template <typename T>
+size_t em_resident_smem(int k_depth, int n_cols, int be) {
+    return sizeof(T) *
+           (static_cast<size_t>(k_depth) * round_up(n_cols, EM_COLS) +
+            static_cast<size_t>(EM_RING) * be * k_depth);
+}
+
+// The rule: the narrowest tile height whose units fill the block's warps,
+// narrowed further (down to EM_MIN_BE) until S and the ring fit `limit`
+// bytes; 0, the dense configuration, if they fit at none.
+template <typename T>
+int em_tile(int k_depth, int n_cols, long long limit) {
+    const int chunks = (n_cols + EM_COLS - 1) / EM_COLS;
+    int be = EM_MIN_BE;
+    while (be < EM_MAX_BE && (be / EM_ROWS) * chunks < EM_WARPS) be *= 2;
+    for (; be >= EM_MIN_BE; be /= 2)
+        if (static_cast<long long>(em_resident_smem<T>(k_depth, n_cols, be)) <=
+            limit)
+            return be;
+    return 0;
+}
+
+template <typename T, int BE>
+__global__ void __launch_bounds__(EM_THREADS)
+    em_resident_kernel(const T* __restrict__ x, const T* __restrict__ s,
+                       T* __restrict__ out, int e_rows, int k_depth,
+                       int n_cols) {
+    constexpr int V = 16 / sizeof(T);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int np = round_up(n_cols, EM_COLS), chunks = np / EM_COLS;
+    T* s_s = reinterpret_cast<T*>(smem_raw);            // (K, np): S
+    T* ring = s_s + static_cast<size_t>(k_depth) * np;  // RING x (BE, K)
+    const int slot = BE * k_depth;
+    const long long tiles = (static_cast<long long>(e_rows) + BE - 1) / BE;
+    const long long total = static_cast<long long>(e_rows) * k_depth;
+    // BE * K * sizeof(T) is a multiple of 16: every tile of an aligned X
+    // starts on a 16-byte boundary
+    const bool vec_x = tbt::aligned16(x);
+    const bool vec_out =
+        (static_cast<long long>(n_cols) * sizeof(T)) % 16 == 0 &&
+        tbt::aligned16(out);
+
+    // tile t (rows t*BE ..) into slot r, as one flat span
+    auto load = [&](long long t, int r) {
+        T* dst = ring + r * slot;
+        const long long first = t * slot;
+        const long long avail = total - first;  // values left in X
+        if (vec_x) {
+            for (int q = threadIdx.x; q < slot / V; q += EM_THREADS) {
+                const long long left =
+                    (avail - static_cast<long long>(q) * V) *
+                    static_cast<long long>(sizeof(T));
+                const int bytes =
+                    left <= 0 ? 0 : (left >= 16 ? 16 : static_cast<int>(left));
+                tbt::cp_async16_bytes(dst + q * V,
+                                      bytes ? x + first + q * V : x, bytes);
+            }
+        } else {
+            for (int q = threadIdx.x; q < slot; q += EM_THREADS) {
+                const bool ok = q < avail;
+                tbt::cp_async<sizeof(T)>(dst + q, ok ? x + first + q : x, ok);
+            }
+        }
+    };
+    // the ring's first tiles are in flight while S is staged
+#pragma unroll
+    for (int i = 0; i < EM_RING - 1; ++i) {
+        const long long t = blockIdx.x + static_cast<long long>(i) * gridDim.x;
+        if (t < tiles) load(t, i);
+        tbt::cp_async_commit();
+    }
+    for (int q = threadIdx.x; q < k_depth * np; q += EM_THREADS) {
+        const int k = q / np, n = q % np;
+        s_s[q] = n < n_cols ? s[static_cast<size_t>(k) * n_cols + n] : T(0);
+    }
+
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int j = lane % 8, eg = lane / 8;
+    int i = 0;
+    for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+        tbt::cp_async_wait<EM_RING - 2>();
+        __syncthreads();  // tile i landed; slot (i - 1) % RING is free
+        const long long next =
+            t + static_cast<long long>(EM_RING - 1) * gridDim.x;
+        if (next < tiles) load(next, (i + EM_RING - 1) % EM_RING);
+        tbt::cp_async_commit();
+
+        const T* xt = ring + (i % EM_RING) * slot;
+        for (int u = warp; u < (BE / EM_ROWS) * chunks; u += EM_WARPS) {
+            // rows r0 + 4r of the tile, columns c0 + p * 8V + (0 .. V-1)
+            const int r0 = (u / chunks) * EM_ROWS + eg;
+            const int c0 = (u % chunks) * EM_COLS + j * V;
+            const T* xr = xt + r0 * k_depth;
+            const T* sc = s_s + c0;
+            T acc[EM_TE][EM_TN];
+#pragma unroll
+            for (int r = 0; r < EM_TE; ++r)
+#pragma unroll
+                for (int c = 0; c < EM_TN; ++c) acc[r][c] = T(0);
+#pragma unroll 4
+            for (int k = 0; k < k_depth; ++k) {
+                T xv[EM_TE], sv[EM_TN];
+#pragma unroll
+                for (int r = 0; r < EM_TE; ++r)
+                    xv[r] = xr[4 * r * k_depth + k];
+#pragma unroll
+                for (int p = 0; p < EM_TN / V; ++p)
+                    tbt::load16(sc + k * np + p * 8 * V, sv + p * V);
+#pragma unroll
+                for (int r = 0; r < EM_TE; ++r)
+#pragma unroll
+                    for (int c = 0; c < EM_TN; ++c)
+                        acc[r][c] = fma(xv[r], sv[c], acc[r][c]);
+            }
+#pragma unroll
+            for (int r = 0; r < EM_TE; ++r) {
+                const long long e = t * BE + r0 + 4 * r;
+                if (e >= e_rows) break;
+                T* dst = out + e * n_cols;
+#pragma unroll
+                for (int p = 0; p < EM_TN / V; ++p) {
+                    const int n = c0 + p * 8 * V;
+                    if (vec_out && n + V <= n_cols) {
+                        tbt::store16(dst + n, acc[r] + p * V);
+                    } else {
+#pragma unroll
+                        for (int v = 0; v < V; ++v)
+                            if (n + v < n_cols) dst[n + v] = acc[r][p * V + v];
+                    }
+                }
+            }
+        }
+    }
+}
+
+template <typename T, int BE>
+int launch_em_resident(const T* x, const T* s, T* out, int e_rows,
+                       int k_depth, int n_cols, int sms,
+                       cudaStream_t stream) {
+    const size_t smem = em_resident_smem<T>(k_depth, n_cols, BE);
+    auto kernel = em_resident_kernel<T, BE>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        EM_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long tiles = (static_cast<long long>(e_rows) + BE - 1) / BE;
+    const long long full = static_cast<long long>(per_sm) * sms;
+    kernel<<<static_cast<unsigned>(tiles < full ? tiles : full), EM_THREADS,
+             smem, stream>>>(x, s, out, e_rows, k_depth, n_cols);
+    return cudaGetLastError();
+}
+
+// tile < 0: the rule (em_tile); 0: the dense configuration; else S
+// resident with that tile height.
+template <typename T>
+int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
+                   int n_cols, int tile, cudaStream_t stream) {
+    if (e_rows <= 0 || n_cols <= 0) return cudaSuccess;
+    if (k_depth < 0) return cudaErrorInvalidValue;
+    int limit = 0, sms = 0;
+    const cudaError_t err = card_limits(limit, sms);
+    if (err != cudaSuccess) return err;
+    switch (tile < 0 ? em_tile<T>(k_depth, n_cols, limit) : tile) {
+        case 0:
+            return launch_dense_tiles<T, NFast>(x, s, out, e_rows, k_depth,
+                                                n_cols, 1, stream);
+        case 32:
+            return launch_em_resident<T, 32>(x, s, out, e_rows, k_depth,
+                                             n_cols, sms, stream);
+        case 64:
+            return launch_em_resident<T, 64>(x, s, out, e_rows, k_depth,
+                                             n_cols, sms, stream);
+        case 128:
+            return launch_em_resident<T, 128>(x, s, out, e_rows, k_depth,
+                                              n_cols, sms, stream);
+        case 256:
+            return launch_em_resident<T, 256>(x, s, out, e_rows, k_depth,
+                                              n_cols, sms, stream);
         default:
             return cudaErrorInvalidValue;
     }
@@ -606,20 +774,37 @@ extern "C" int tbt_kron_blocked_f64(const void* c, const void* in, void* out,
         static_cast<cudaStream_t>(stream));
 }
 
+// K3's rule: the tile height of the S-resident configuration for an S of
+// K x N itemsize-byte values under `limit` bytes of shared memory, 0 for
+// the dense configuration; and the resident configuration's shared memory
+// at tile height be.
+extern "C" int tbt_em_tile(int itemsize, int k_depth, int n_cols,
+                           long long limit) {
+    return itemsize == 4 ? em_tile<float>(k_depth, n_cols, limit)
+                         : em_tile<double>(k_depth, n_cols, limit);
+}
+
+extern "C" long long tbt_em_resident_smem(int itemsize, int k_depth,
+                                          int n_cols, int be) {
+    return static_cast<long long>(
+        itemsize == 4 ? em_resident_smem<float>(k_depth, n_cols, be)
+                      : em_resident_smem<double>(k_depth, n_cols, be));
+}
+
 extern "C" int tbt_em_gemm_f32(const void* x, const void* s, void* out,
-                               int e_rows, int k_depth, int n_cols,
+                               int e_rows, int k_depth, int n_cols, int tile,
                                void* stream) {
     return launch_em_gemm(static_cast<const float*>(x),
                           static_cast<const float*>(s),
                           static_cast<float*>(out), e_rows, k_depth, n_cols,
-                          static_cast<cudaStream_t>(stream));
+                          tile, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_em_gemm_f64(const void* x, const void* s, void* out,
-                               int e_rows, int k_depth, int n_cols,
+                               int e_rows, int k_depth, int n_cols, int tile,
                                void* stream) {
     return launch_em_gemm(static_cast<const double*>(x),
                           static_cast<const double*>(s),
                           static_cast<double*>(out), e_rows, k_depth, n_cols,
-                          static_cast<cudaStream_t>(stream));
+                          tile, static_cast<cudaStream_t>(stream));
 }

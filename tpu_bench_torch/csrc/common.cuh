@@ -51,6 +51,26 @@ struct Vec16<double> {
     static constexpr int width = 2;
 };
 
+// One 16-byte vector (Vec16<T>::width values) from or to 16-byte aligned
+// memory.
+__device__ __forceinline__ void load16(const float* p, float* r) {
+    load4(p, r);
+}
+
+__device__ __forceinline__ void load16(const double* p, double* r) {
+    const double2 a = *reinterpret_cast<const double2*>(p);
+    r[0] = a.x;
+    r[1] = a.y;
+}
+
+__device__ __forceinline__ void store16(float* p, const float* v) {
+    store4(p, v);
+}
+
+__device__ __forceinline__ void store16(double* p, const double* v) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+
 // Elements of p[0:n] before the first 16-byte boundary at or after p: the
 // scalar head of a vector loop (0 when p is aligned).  Tensors are aligned
 // to their element size, so the count is exact.
@@ -102,6 +122,19 @@ __device__ __forceinline__ double dot_lanes(double2 a, double2 b,
     return fma(a.y, b.y, acc);
 }
 
+// acc[v] += lane v of a times c.
+__device__ __forceinline__ void fma_lanes(float4 a, float c, float* acc) {
+    acc[0] = fma(a.x, c, acc[0]);
+    acc[1] = fma(a.y, c, acc[1]);
+    acc[2] = fma(a.z, c, acc[2]);
+    acc[3] = fma(a.w, c, acc[3]);
+}
+
+__device__ __forceinline__ void fma_lanes(double2 a, double c, double* acc) {
+    acc[0] = fma(a.x, c, acc[0]);
+    acc[1] = fma(a.y, c, acc[1]);
+}
+
 // Sum of v over the 32 lanes of a warp, in lane 0.
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -132,6 +165,15 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
         asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
                          smem_addr(dst)),
                      "l"(src), "n"(BYTES), "r"(src_bytes));
+}
+
+// The first `bytes` (0..16) of 16 bytes from global src to shared dst, the
+// rest zero-filled: the ragged end of a flat span.  Both 16-byte aligned.
+__device__ __forceinline__ void cp_async16_bytes(void* dst, const void* src,
+                                                 int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -53,8 +53,8 @@ _SIGNATURES = {
     "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P],
     # c, in, out, m_rows, k_depth, n_cols, n_chunks, strip, stream
     "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, s, out, e_rows, k_depth, n_cols, stream
-    "tbt_em_gemm": [_P, _P, _P, _I, _I, _I, _P],
+    # x, s, out, e_rows, k_depth, n_cols, tile, stream
+    "tbt_em_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
     # w, b0, out, nm0, nq0, nkj, n_elem, epb, stream
     "tbt_qp_stage2_3d": [_P, _P, _P, _I, _I, _I, _L, _I, _P],
     # x, s1, s2, s3, out, n_elem, k0, n1, n2, n3, et, stream
@@ -67,8 +67,8 @@ _SIGNATURES = {
     "tbt_map2_inplace": [_P, _P, _L, _I, _P],
     # a, x, y, m, n, stream
     "tbt_matvec_rm": [_P, _P, _P, _I, _I, _P],
-    # a_cm, x, y, n_rows, m_cols, stream
-    "tbt_matvec_cm": [_P, _P, _P, _I, _I, _P],
+    # a_cm, x, y, ws, n_rows, m_cols, splits, unroll, stream
+    "tbt_matvec_cm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, n, bias, tok, tok0, sink, stream
     "tbt_stream_read": [_P, _L, _P, _P, _L, _P, _P],
     # out, n, seed, vector, stream
@@ -166,6 +166,13 @@ def library() -> ctypes.CDLL:
     lib.tbt_kron_resident_smem.restype = _L
     lib.tbt_kron_strip.argtypes = [_I, _I, _I, _L]
     lib.tbt_kron_strip.restype = ctypes.c_int
+    # K3's shared memory and configuration rule; K9's blocks in one wave
+    lib.tbt_em_resident_smem.argtypes = [_I, _I, _I, _I]
+    lib.tbt_em_resident_smem.restype = _L
+    lib.tbt_em_tile.argtypes = [_I, _I, _I, _L]
+    lib.tbt_em_tile.restype = ctypes.c_int
+    lib.tbt_matvec_cm_blocks.argtypes = [_I, _I]
+    lib.tbt_matvec_cm_blocks.restype = ctypes.c_int
     # K14 takes bf16 slices and writes an f32 pair, so it has no _f32/_f64
     # pair: c, x, hi, lo, t_c, t_x, m_rows, k_depth, n_cols, w[, u], stream
     ozaki = [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I]

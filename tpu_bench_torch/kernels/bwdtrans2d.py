@@ -12,6 +12,10 @@ element-major product with elements on rows:
 
     out (E, N) = in (E, K) @ S (K, N)
 
+Both run one of two configurations by a rule mirrored here in pure Python
+(kron_config, em_config): the small operator resident in shared memory for
+the skinny products, else dense on the tensor cores.
+
 The rest of tpu_bench/kernels/bwdtrans2d.py, benchmark04's 2D kernels, is
 served by kernels that already compute each function on the same bytes;
 the TPU kernels' differences were DMA, sublane or MXU-tile geometry:
@@ -46,7 +50,16 @@ KRON_RING = 3
 KRON_TILE = 4      # rows and columns of a micro-tile
 KRON_THREADS = 256
 SMEM_BLOCK = 232448  # the H100's opt-in shared memory of one block
-EM_TILE = 128         # K3's element rows per block: the tile height BM
+# K3's S-resident configuration (csrc/bwdtrans2d.cu): its element-tile
+# heights, its ring of tiles, a warp's unit of rows x columns and the
+# block's warps; em_config states which configuration a product runs.
+# (Chosen on an NVIDIA H100 80GB HBM3, 700.00 W, by
+# benchmarks/kernel_blocks.py; PERF.md section 6.)
+EM_TILES = (32, 64, 128, 256)
+EM_RING = 2
+EM_UNIT = (32, 64)
+EM_WARPS = 8
+EM_EPB = 128  # the element block the JAX kernels take (`epb`)
 
 
 def kron_blocked_plain(in_blk, c_coa):
@@ -153,25 +166,56 @@ def kron_elem_major_plain(in_em2, c_em):
     return torch.matmul(in_em2, c_em)
 
 
-def kron_elem_major(in_em2, c_em, *, epb=None):
-    """out (E, nqTot) = in (E, nmTot) @ C_em (nmTot, nqTot).  `epb`, the
-    elements per block, is the kernel's tile height: None or EM_TILE."""
-    return _em_gemm("kron_elem_major", in_em2, c_em, epb)
+def kron_elem_major(in_em2, c_em, *, epb=None, tile=None):
+    """out (E, nqTot) = in (E, nmTot) @ C_em (nmTot, nqTot): K3, `epb` and
+    `tile` as one_stage_em's."""
+    return _em_gemm("kron_elem_major", in_em2, c_em, epb, tile)
 
 
-def one_stage_em(x, s, *, epb=None):
-    """One element-major stage, out (E, N) = x (E, K) @ s (K, N)."""
-    return _em_gemm("one_stage_em", x, s, epb)
+def one_stage_em(x, s, *, epb=None, tile=None):
+    """One element-major stage, out (E, N) = x (E, K) @ s (K, N): K3.
+    `epb`, the JAX kernel's element block, is None or EM_EPB and is
+    ignored; `tile`: None runs em_config's configuration, 0 the dense one,
+    one of EM_TILES the S-resident one at that tile height."""
+    return _em_gemm("one_stage_em", x, s, epb, tile)
 
 
-def _em_gemm(name, x, s, epb):
+def em_resident_smem(itemsize, k, n, be) -> int:
+    """Shared memory of K3's S-resident configuration (csrc/bwdtrans2d.cu
+    em_resident_smem): S with N padded to a warp unit's columns, and
+    EM_RING element tiles of be x k."""
+    cols = EM_UNIT[1]
+    return itemsize * (k * (-(-n // cols) * cols) + EM_RING * be * k)
+
+
+def em_config(itemsize, k, n, limit=SMEM_BLOCK) -> int:
+    """K3's rule (csrc/bwdtrans2d.cu em_tile) for S (k x n): the tile
+    height of the S-resident configuration, the narrowest of EM_TILES
+    whose warp units fill the block, narrowed until S and the ring fit
+    `limit` bytes; 0, the dense configuration on the tensor cores, if they
+    fit at none."""
+    rows, cols = EM_UNIT
+    chunks = -(-n // cols)
+    be = EM_TILES[0]
+    while be < EM_TILES[-1] and (be // rows) * chunks < EM_WARPS:
+        be *= 2
+    for height in reversed(EM_TILES):
+        if height <= be and em_resident_smem(itemsize, k, n, height) <= limit:
+            return height
+    return 0
+
+
+def _em_gemm(name, x, s, epb, tile):
     build.check_operands(name, (x, s))
     if x.dim() != 2 or s.dim() != 2 or s.shape[0] != x.shape[1]:
         raise ValueError(f"{name}: in {tuple(x.shape)} and S "
                          f"{tuple(s.shape)} are not (E, K) and (K, N)")
-    if epb not in (None, EM_TILE):
-        raise ValueError(f"{name}: the kernel tiles {EM_TILE} elements per "
-                         f"block, not epb={epb}")
+    if epb not in (None, EM_EPB):
+        raise ValueError(f"{name}: the kernel takes {EM_EPB} elements per "
+                         f"block or None, not epb={epb}")
+    if tile is not None and tile != 0 and tile not in EM_TILES:
+        raise ValueError(f"{name}: tile={tile} is not 0 or one of "
+                         f"{EM_TILES}")
     if x.device.type == "cpu":
         return kron_elem_major_plain(x, s)
     e, k = x.shape
@@ -179,9 +223,16 @@ def _em_gemm(name, x, s, epb):
     if max(e, k, n) >= 2**31:
         raise ValueError(f"{name}: {tuple(x.shape)} @ {tuple(s.shape)} "
                          "exceeds the kernel's 32-bit extents")
+    if tile:
+        props = torch.cuda.get_device_properties(x.device)
+        limit = getattr(props, "shared_memory_per_block_optin", SMEM_BLOCK)
+        if em_resident_smem(x.element_size(), k, n, tile) > limit:
+            raise ValueError(f"{name}: S ({k} x {n}) and tiles of {tile} "
+                             f"do not fit the card's {limit} B of shared "
+                             "memory")
     out = torch.empty((e, n), dtype=x.dtype, device=x.device)
     build.run("em_gemm", x, x.data_ptr(), s.data_ptr(), out.data_ptr(), e, k,
-              n)
+              n, -1 if tile is None else tile)
     return out
 
 
