@@ -20,7 +20,8 @@ five.  Every phase is fatal:
    (stream_expand) and K14 (ozaki_slices) with nvcc for sm_90a, one
    process per source; ptxas must report no spills in the tensor-core
    kernels K14, K5 and the dense GEMM that K2 and K3 share, nor in K1,
-   K2's C-resident and K3's S-resident configurations and K9, and
+   K2's C-resident and K3's S-resident configurations, K4 (every nm0
+   instance), K8 and K9, and
    `cuobjdump -sass` must show HMMA in K14 and in the f32 entries of K5
    and of K2's and K3's dense GEMM, and DMMA in their f64 entries;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
@@ -52,9 +53,13 @@ five.  Every phase is fatal:
    nq=32^2, K2's QP stage 1 at every strip and dense, K3's b04 nq=8^2
    kron_elem_major at every tile height and dense, and K2 and K3 just
    either side of their resident thresholds, on E = 1000 and 131071, and
-   K3 dense at b05 nq=8^3 and on X off a 16-byte boundary; K1, K2 and K3
-   in f64 at b05 nq=8^3 timed beside torch.matmul in f64, and K1-K3 and K9
-   beside their previous design where it was timed.  At each path's main
+   K3 dense at b05 nq=8^3 and on X off a 16-byte boundary; K4 on w and on
+   out off a 16-byte boundary, on F = 3 x 1001 and on nkj = 70000 at every
+   unroll, and K8 at N = 777 and 1001 and on x off a 16-byte boundary at
+   every (rows, unroll), two calls bit-identical; K1-K4 in f64 at b05
+   nq=8^3 timed beside torch.matmul in f64, K1-K4, K8 and K9 beside their
+   previous design where it was timed, and K8 at every matvec shape beside
+   torch.mv.  At each path's main
    shapes (b05
    nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
    and b03 16384^2, f32 and f64; the probes at 134,217,728, f32; K14 at
@@ -317,10 +322,13 @@ TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
           ("K3 em dense f32 (3xTF32)", "HMMA"),
           ("K3 em dense f64 (DMMA)", "DMMA")]
 # The kernels ptxas must build without a spill: the tensor-core kernels,
-# K1, K2's C-resident and K3's S-resident configurations, and K9.
+# K1, K2's C-resident and K3's S-resident configurations, K4 (every nm0
+# instance, f32 and f64), K8 and K9.
 NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
             "K2 kron resident": "kron_resident_kernel",
             "K3 em resident": "em_resident_kernel",
+            "K4 qp_stage2_3d": "qp_stage2_3d_kernel",
+            "K8 matvec_rm": "matvec_rm_kernel",
             "K9 matvec_cm": "matvec_cm"}
 # Times of the SIMT FMA designs that K14, K5, K2 and K3 replaced, CUDA
 # events, L2 flushed, by (use, shape, units): from this script and, for K5
@@ -343,13 +351,15 @@ SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
            ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f64 DMMA"): 4.8021,
            (K3_KRON, "b05 nq=8^3", "f32 3xTF32"): 1.6906,
            (K3_KRON, "b05 nq=8^3", "f64 DMMA"): 4.6604}
-# Times of K1's, K2's, K3's and K9's previous designs (the first SIMT
-# designs) by (use, order or shape, dtype), CUDA events, L2 flushed, from
-# this script (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W); K1's
-# and K2's in f64 at b05 nq=8^3, the host clock of their columns there
-# (PERF.md section 5: K1 20.4077 GDOF/s, K2 9.3621; 131072 * 343 DOF over
-# each); K3's in f64 from benchmarks/kernel_blocks.py --uses on the
+# Times of K1's, K2's, K3's, K4's, K8's and K9's previous designs (the
+# first SIMT designs) by (use, order or shape, dtype), CUDA events, L2
+# flushed, from this script (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700.00 W); K1's and K2's in f64 at b05 nq=8^3, the host clock of their
+# columns there (PERF.md section 5: K1 20.4077 GDOF/s, K2 9.3621; 131072 *
+# 343 DOF over each); K3's in f64, and K4's f64 and K8's at the shapes
+# other than 16384^2, from benchmarks/kernel_blocks.py --uses on the
 # previous tree.
+K4_3D, K4_2D = "K4 qp_stage2_3d (QP stage 2)", "K4 qp_stage2 (QP stage 2)"
 PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            ("K1 qp_shared3d", (8, 8, 8), "float32"): 0.8836,
            ("K2 kron_blocked (Coales)", (8, 8, 8), "float32"): 1.7305,
@@ -377,10 +387,24 @@ PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            (K3_STAGES[1], (8, 8, 8), "float64"): 5.0594,
            (K3_STAGES[2], (8, 8, 8), "float64"): 5.9294,
            ("K9 matvec_cm", "float32"): 0.4519,
-           ("K9 matvec_cm", "float64"): 0.7676}
-# K1's, K2's and K3's uses also timed in f64 at b05 nq=8^3, E=131072
+           ("K9 matvec_cm", "float64"): 0.7676,
+           (K4_3D, (8, 8, 8), "float32"): 0.3996,
+           (K4_2D, (8, 8), "float32"): 0.4057,
+           (K4_3D, (8, 8, 8), "float64"): 0.4407,
+           ("K8 matvec_rm", "float32"): 0.3731,
+           ("K8 matvec_rm", "float64"): 0.7191,
+           ("K8 matvec_rm", (1000, 777), "float32"): 0.0091,
+           ("K8 matvec_rm", (777, 1000), "float32"): 0.0093,
+           ("K8 matvec_rm", (4096, 16384), "float32"): 0.1062,
+           ("K8 matvec_rm", (16384, 4096), "float32"): 0.1041,
+           ("K8 matvec_rm", (1000, 777), "float64"): 0.0130,
+           ("K8 matvec_rm", (777, 1000), "float64"): 0.0139,
+           ("K8 matvec_rm", (4096, 16384), "float64"): 0.1941,
+           ("K8 matvec_rm", (16384, 4096), "float64"): 0.1913}
+# K1's, K2's, K3's and K4's uses also timed in f64 at b05 nq=8^3,
+# E=131072
 F64_USES = ("K1 qp_shared3d_flat", "K1 qp_shared3d", "K2 kron_blocked (Coales)",
-            "K2 kron_blocked (QP stage 1)", K3_KRON, *K3_STAGES)
+            "K2 kron_blocked (QP stage 1)", K3_KRON, *K3_STAGES, K4_3D)
 # The orders whose K1 and K2 configurations phase 3 holds to the library's
 # own rule and shared-memory sizes: every b05 order 2^3 .. 10^3 and
 # (3,4,5); every order of run04.sh and (10, 12)
@@ -558,7 +582,7 @@ def shape_cases(torch, rnd, nq, e) -> list:
         Case("K2 kron_blocked (QP stage 1)", lambda: k2.kron_blocked(x, c12t),
              lambda: k2.kron_blocked_plain(x, c12t), lambda: mm(c12t, x),
              (x, c12t), 2 * nkj * nrq * nm0 * e),
-        Case("K4 qp_stage2_3d (QP stage 2)", lambda: k1.qp_stage2_3d(w, b0),
+        Case(K4_3D, lambda: k1.qp_stage2_3d(w, b0),
              lambda: k1.qp_stage2_3d_plain(w, b0),
              lambda: mm(b0.T, w.reshape(nm0, -1)), (w, b0),
              2 * nm0 * nq0 * nkj * e),
@@ -633,7 +657,7 @@ def shape_cases_2d(torch, rnd, nq, e) -> list:
         Case("K2 kron_blocked (QP stage 1)", lambda: k2.kron_blocked(x, b1t),
              lambda: k2.kron_blocked_plain(x, b1t), lambda: mm(b1t, x),
              (x, b1t), 2 * nq1 * nm1 * nm0 * e),
-        Case("K4 qp_stage2 (QP stage 2)", lambda: k1.qp_stage2_3d(w, b0),
+        Case(K4_2D, lambda: k1.qp_stage2_3d(w, b0),
              lambda: k1.qp_stage2_3d_plain(w, b0),
              lambda: mm(b0.T, w.reshape(nm0, -1)), (w, b0),
              2 * nm0 * nq0 * nq1 * e),
@@ -741,10 +765,10 @@ def kernels_vs_plain(torch) -> dict:
     """Phase 3.  Returns {(use, nq): its error, times and bound} in f32 at
     each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
     E=1,048,576) and for the b04 uses of B04_USES at their own order,
-    E=1,048,576, and {(use, nq, "float64"): the same} for K1's, K2's and
-    K3's uses in f64 at b05 nq=8^3 (F64_USES; the bound's FLOP at the
-    card's FP64 peak, DMMA).  K1's, K2's and K3's lines carry their
-    previous design's time where PREV_MS has it."""
+    E=1,048,576, and {(use, nq, "float64"): the same} for K1's, K2's,
+    K3's and K4's uses in f64 at b05 nq=8^3 (F64_USES; the bound's FLOP at
+    the card's FP64 peak, DMMA).  K1's-K4's lines carry their previous
+    design's time where PREV_MS has it."""
     from tpu_bench_torch.core.timing import event_ms
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -813,7 +837,8 @@ def streams_vs_plain(torch) -> dict:
     y placed differently against 16-byte boundaries), 1,048,579 (both one
     element off) and 536,870,912; K8 and K9 at MATVEC_SHAPES.  At
     536,870,912 and 16384^2 each use is timed beside its plain version, one
-    library call and its bound; returns {(use, dtype): those}."""
+    library call and its bound, and K8 at the other MATVEC_SHAPES beside
+    its first design and torch.mv; returns {(use, dtype): those}."""
     from tpu_bench_torch.core.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -843,6 +868,13 @@ def streams_vs_plain(torch) -> dict:
                         plain_ms=event_ms(case.plain),
                         library_ms=event_ms(case.library),
                         bound_ms=bound_ms, bound_by=bound_by)
+                elif case.label == "K8 matvec_rm":
+                    prev = PREV_MS[(case.label, args, tag)]
+                    print(f"  K8 matvec_rm at {args} {tag}: kernel "
+                          f"{event_ms(case.run):.4f} ms, previous design "
+                          f"{prev:.4f} ms, torch.mv "
+                          f"{event_ms(case.library):.4f} ms, bound "
+                          f"{bound(case.inputs, out, case.flops)[0]:.4f} ms")
                 del out
             torch.cuda.empty_cache()
     for (label, tag), k in measured.items():
@@ -1348,6 +1380,55 @@ def configs(torch) -> None:
         torch.cuda.empty_cache()
 
 
+def edges(torch) -> None:
+    """Phase 3, K4's and K8's scalar forms and grids: K4 on w and on out
+    one element off a 16-byte boundary, on F = nkj*E = 3 x 1001 values
+    (not whole 16-byte vectors) and on nkj = 70000 (above the first
+    design's grid limit), at every unroll; K8 at N = 777 and 1001 and on
+    an x one element off a 16-byte boundary, at every (rows, unroll), and
+    two calls of each use bit-identical; against their plain versions, f32
+    and f64."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+    from tpu_bench_torch.kernels import matvec as kmv
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in (torch.float32, torch.float64):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        tag = str(dtype)[6:]
+        b0 = rnd(7, 8)
+        cases = [("w off a 16-byte boundary",
+                  rnd(7 * 64 * 1000 + 1)[1:].view(7, 64, 1000), None),
+                 ("out off a 16-byte boundary", rnd(7, 64, 1000),
+                  torch.empty(8 * 64 * 1000 + 1, dtype=dtype,
+                              device="cuda")[1:].view(8, 64, 1000)),
+                 ("F = 3 x 1001", rnd(7, 3, 1001), None),
+                 ("nkj = 70000", rnd(7, 70000, 8), None)]
+        for label, w, out in cases:
+            ref = k1.qp_stage2_3d_plain(w, b0)
+            for unroll in k1.QP2_UNROLLS:
+                compare(torch, f"K4 {tag} {label} unroll {unroll}",
+                        k1.qp_stage2_3d(w, b0, unroll=unroll, out=out), ref,
+                        dtype)
+        for m, n, off in ((1000, 777, 0), (1001, 1001, 0), (4096, 4096, 1),
+                          (777, 1000, 1)):
+            a, x = rnd(m, n), rnd(n + 1)[off:off + n]
+            ref = kmv.matvec_rm_plain(a, x)
+            for rows in kmv.RM_ROWS:
+                for unroll in kmv.RM_UNROLLS:
+                    y = kmv.matvec_rm(a, x, rows=rows, unroll=unroll)
+                    compare(torch, f"K8 {tag} ({m}, {n}), x {off} element"
+                            f"(s) off, rows {rows} unroll {unroll}", y, ref,
+                            dtype)
+                    assert torch.equal(
+                        y, kmv.matvec_rm(a, x, rows=rows, unroll=unroll)), \
+                        ("K8 not bit-identical on two calls", m, n, rows,
+                         unroll)
+        torch.cuda.empty_cache()
+
+
 def initdata_on_card(torch) -> None:
     """Phase 3, benchmark data: device_x and device_y built on the card
     equal utils/native.py's f64 bytes, and the CPU's f32 bytes, at a size
@@ -1701,6 +1782,7 @@ def main() -> int:
     tensor_core_times(torch, measured, measured_ozaki)
     measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)
     configs(torch)
+    edges(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03

@@ -17,6 +17,7 @@ import torch
 
 from tpu_bench.kernels import bwdtrans2d as pl_bt2d
 from tpu_bench.utils import native
+from tpu_bench_torch.kernels import build
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -487,3 +488,73 @@ def test_em_gemm_both_configs_on_card(itemsize):
             torch.cuda.synchronize()
             err = float((out - ref).abs().max() / ref.abs().max())
             assert err <= tol, (tuple(s.shape), e, h, err)
+
+
+# ---- K4 at benchmark04's orders (kernels/bwdtrans3d.qp2_*) -----------------
+
+B04_ORDERS = [(n, n) for n in (2, 4, 6, 8, 10, 12, 14, 16, 32)] + [(10, 12)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("e", [1000, 1048576])
+@pytest.mark.parametrize("nq", B04_ORDERS)
+def test_qp2_deals_every_vector_once_at_b04_orders(nq, e, itemsize):
+    """K4 as benchmark04's Pallas(QP) stage 2, w (nm0, nq1, E): at every
+    unroll it takes there (at most QP2_CHUNKED_UNROLL above nm0 =
+    QP2_EXACT) and at 1, 3 and 8 blocks an SM of 132, one wave, the units
+    dealt in order, each once, shares equal to within one."""
+    nm0, nkj = nq[0] - 1, nq[1]
+    f = nkj * e
+    for vector in {False, build.vector16(f, itemsize, 0, 0)}:
+        nv = k1.qp2_units(f, itemsize, vector)
+        unrolls = [u for u in (k1.QP2_UNROLLS if vector else (1,))
+                   if nm0 <= k1.QP2_EXACT or u <= k1.QP2_CHUNKED_UNROLL]
+        assert unrolls
+        for unroll in unrolls:
+            for wave in (132, 396, 1056):
+                blocks = k1.qp2_grid(nv, unroll, wave)
+                shares = k1.qp2_shares(nv, blocks)
+                assert 1 <= blocks <= wave
+                assert [s for s, _ in shares[1:]] == [t for _, t in
+                                                      shares[:-1]]
+                assert shares[0][0] == 0 and shares[-1][1] == nv
+                sizes = [t - s for s, t in shares]
+                assert max(sizes) - min(sizes) <= 1
+
+
+def test_qp_global_default_unroll_serves_every_b04_order():
+    """The default unroll is one the kernel takes at every benchmark04
+    order, the chunked ones (nm0 > QP2_EXACT) included."""
+    for nq0, nq1 in B04_ORDERS:
+        x = torch.zeros(nq0 - 1, nq1 - 1, 8)
+        out = k1.qp_global3d(x, torch.zeros(nq0 - 1, nq0),
+                             torch.zeros(nq1, nq1 - 1))
+        assert out.shape == (nq0, nq1, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [(2, 2), (8, 8), (10, 12), (16, 16),
+                                (32, 32)])
+def test_qp_stage2_every_b04_order_on_card(nq):
+    """K4 as benchmark04's stage 2 at an order of chip_smoke.py's phase 3,
+    on E = 1000 and 1,048,576, at every unroll it takes there, against
+    its plain version: 1e-5 (f32), 1e-12 (f64), relative to the largest
+    output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(sum(nq) + 50)
+    nm0, nq0, nkj = nq[0] - 1, nq[0], nq[1]
+    unrolls = [u for u in k1.QP2_UNROLLS
+               if nm0 <= k1.QP2_EXACT or u <= k1.QP2_CHUNKED_UNROLL]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        b0 = torch.randn(nm0, nq0, generator=gen, device="cuda",
+                         dtype=dtype)
+        for e in (1000, 1048576):
+            w = torch.randn(nm0, nkj, e, generator=gen, device="cuda",
+                            dtype=dtype)
+            ref = k1.qp_stage2_3d_plain(w, b0)
+            for unroll in unrolls:
+                out = k1.qp_stage2_3d(w, b0, unroll=unroll)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max() / ref.abs().max())
+                assert err <= tol, (dtype, e, unroll, err)

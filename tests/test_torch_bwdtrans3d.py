@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tpu_bench.kernels import bwdtrans3d as pl_bt
+from tpu_bench_torch.kernels import build
 from tpu_bench_torch.kernels import bwdtrans3d as k1
 
 E, EPB = 256, 128
@@ -261,3 +262,122 @@ def test_qp_fused3d_every_config_on_card(nq):
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max() / ref.abs().max())
                 assert err <= tol, (dtype, e, et, g, err)
+
+
+# ---- K4's work dealing (kernels/bwdtrans3d.qp2_grid, qp2_shares) -----------
+
+# the blocks an H100 holds at once for K4's instances: 132 SMs times 1, 3
+# and 8 blocks an SM
+WAVES = [132, 396, 1056]
+
+
+def k4_deal_holds(nm0, nkj, e, itemsize):
+    """For the vector form (where F = nkj*E values are whole 16-byte
+    vectors) and the scalar form, at every unroll and wave: one wave, the
+    units dealt to the blocks in order, each exactly once, shares equal
+    to within one unit, and a grid below a wave only where every block
+    holds at most one tile."""
+    f = nkj * e
+    forms = [False] + ([True] if build.vector16(f, itemsize, 0, 0) else [])
+    for vector in forms:
+        nv = k1.qp2_units(f, itemsize, vector)
+        assert nv * (16 // itemsize if vector else 1) == f
+        for unroll in (k1.QP2_UNROLLS if vector else (1,)):
+            if nm0 > k1.QP2_EXACT and unroll > k1.QP2_CHUNKED_UNROLL:
+                continue
+            for wave in WAVES:
+                blocks = k1.qp2_grid(nv, unroll, wave)
+                shares = k1.qp2_shares(nv, blocks)
+                assert 1 <= blocks <= wave
+                assert shares[0][0] == 0 and shares[-1][1] == nv
+                assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+                sizes = [end - start for start, end in shares]
+                assert max(sizes) - min(sizes) <= 1
+                assert blocks == wave or \
+                    max(sizes) <= k1.QP2_THREADS * unroll
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("e", [1000, 131072])
+@pytest.mark.parametrize("nq", [(n, n, n) for n in B05_ORDERS] + [(3, 4, 5)])
+def test_qp2_deals_every_vector_once_in_one_wave(nq, e, itemsize):
+    """K4 at every benchmark05 order: w (nm0, nq2*nq1, E)."""
+    k4_deal_holds(nq[0] - 1, nq[1] * nq[2], e, itemsize)
+
+
+def test_qp2_vector_form_needs_whole_aligned_vectors():
+    assert build.vector16(64 * 131072, 4, 0, 256)
+    assert not build.vector16(3 * 1001, 4, 0, 0)  # F not whole vectors
+    assert not build.vector16(3 * 1002, 4, 0, 0)  # 3006 floats
+    assert build.vector16(3 * 1002, 8, 0, 0)      # 3006 doubles
+    assert not build.vector16(1024, 4, 4, 0)      # w off a boundary
+    assert not build.vector16(1024, 8, 0, 8)      # out off a boundary
+    assert k1.qp2_units(1024, 4, True) == 256
+    assert k1.qp2_units(1024, 8, True) == 512
+    assert k1.qp2_units(1001, 4, False) == 1001
+
+
+def test_qp2_smem_pads_only_the_chunked_form():
+    assert k1.qp2_smem(4, 7, 8) == 4 * 7 * 8
+    assert k1.qp2_smem(8, 9, 10) == 8 * 9 * 10
+    assert k1.qp2_smem(4, 15, 16) == 4 * 16 * 16
+    assert k1.qp2_smem(8, 31, 32) == 8 * 32 * 32
+
+
+@pytest.mark.parametrize("label,kwargs,nm0,error", [
+    ("unroll 3", dict(unroll=3), 3, "unroll=3"),
+    ("unroll 4 chunked", dict(unroll=4), 15, "at most 2"),
+    ("out shape", dict(out=torch.zeros(4, 15, E)), 3, "is not"),
+    ("out strided", dict(out=torch.zeros(4, 16, 2 * E)[:, :, ::2]), 3,
+     "contiguous"),
+    ("out dtype", dict(out=torch.zeros(5, 16, E, dtype=torch.float64)), 4,
+     "one dtype")])
+def test_qp_stage2_3d_rejects_bad_knobs(label, kwargs, nm0, error):
+    w, b0 = torch.zeros(nm0, 16, E), torch.zeros(nm0, nm0 + 1)
+    with pytest.raises((ValueError, TypeError), match=error):
+        k1.qp_stage2_3d(w, b0, **kwargs)
+
+
+def test_qp_stage2_3d_takes_any_nkj_and_writes_out():
+    """kj no longer runs on the grid's y axis, so nkj above 65535 is taken;
+    `out` receives the result."""
+    rng = np.random.default_rng(9)
+    w = torch.from_numpy(rng.standard_normal((2, 70000, 3)))
+    b0 = torch.from_numpy(rng.standard_normal((2, 3)))
+    out = torch.empty(3, 70000, 3, dtype=torch.float64)
+    assert k1.qp_stage2_3d(w, b0, out=out) is out
+    np.testing.assert_allclose(out.numpy(),
+                               k1.qp_stage2_3d_plain(w, b0).numpy(),
+                               rtol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [(n, n, n) for n in B05_ORDERS] + [(3, 4, 5)])
+def test_qp_stage2_3d_every_b05_order_on_card(nq):
+    """K4 at a benchmark05 order on E = 1000 and 131072, at every unroll,
+    against its plain version; also on w and out one element off a
+    16-byte boundary, and on F = 3 x 1001 (not whole vectors): 1e-5 (f32),
+    1e-12 (f64), relative to the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    gen = torch.Generator(device="cuda").manual_seed(sum(nq) + 40)
+    nm0, nq0, nkj = nq[0] - 1, nq[0], nq[1] * nq[2]
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda",
+                               dtype=dtype)
+
+        b0 = rnd(nm0, nq0)
+        cases = [(rnd(nm0, nkj, e), None, u) for e in (1000, 131072)
+                 for u in k1.QP2_UNROLLS]
+        w = rnd(nm0 * nkj * 1000 + 1)[1:].view(nm0, nkj, 1000)
+        cases += [(w, None, None), (rnd(nm0, 3, 1001), None, None),
+                  (rnd(nm0, nkj, 1000), torch.empty(
+                      nq0 * nkj * 1000 + 1, device="cuda",
+                      dtype=dtype)[1:].view(nq0, nkj, 1000), None)]
+        for w, out, unroll in cases:
+            got = k1.qp_stage2_3d(w, b0, unroll=unroll, out=out)
+            ref = k1.qp_stage2_3d_plain(w, b0)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max() / ref.abs().max())
+            assert err <= tol, (dtype, tuple(w.shape), unroll, err)

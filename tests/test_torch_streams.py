@@ -302,3 +302,88 @@ def test_matvec_cm_on_card(dtype):
         for splits in (None, 1, 3, 7):
             y = kmv.matvec_cm(ones, xo, splits=splits)
             assert torch.equal(y, torch.full_like(y, n)), (m, n, splits)
+
+
+# ---- K8's row groups (kernels/matvec.rm_lanes, rm_grid, rm_groups) ---------
+
+MATVEC_SHAPES = [(1000, 777), (777, 1000), (4096, 16384), (16384, 4096),
+                 (16384, 16384)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rows", [2, 4])
+@pytest.mark.parametrize("m,n", MATVEC_SHAPES)
+def test_rm_groups_cover_every_row_once_in_one_wave(m, n, rows, itemsize):
+    """At every unroll, in the vector form where the rows are whole
+    16-byte vectors and in the scalar form, and at 1, 3 and 8 blocks an
+    SM of 132: every row of A falls to exactly one team, the teams' row
+    groups differ in number by at most one (so their rows by at most
+    `rows`), and the grid is one wave."""
+    assert rows in kmv.RM_ROWS
+    forms = [n] + ([n * itemsize // 16] if n * itemsize % 16 == 0 else [])
+    for units in forms:
+        for unroll in kmv.RM_UNROLLS:
+            lanes = kmv.rm_lanes(units, unroll)
+            for wave in (132, 396, 1056):
+                blocks = kmv.rm_grid(m, rows, lanes, wave)
+                teams = kmv.rm_groups(m, rows, lanes, blocks)
+                assert 1 <= blocks <= wave
+                assert len(teams) == blocks * kmv.RM_THREADS // lanes
+                assert sorted(r for t in teams for r in t) == list(range(m))
+                counts = [-(-len(t) // rows) for t in teams]
+                assert max(counts) - min(counts) <= 1
+                sizes = [len(t) for t in teams]
+                assert max(sizes) - min(sizes) <= rows
+
+
+@pytest.mark.parametrize("units,unroll,lanes", [
+    (4096, 2, 256), (1024, 2, 256), (511, 2, 128), (250, 2, 64),
+    (777, 1, 256), (32, 2, 16), (31, 2, 8), (1, 1, 8), (20, 1, 16),
+    (8192, 4, 256)])
+def test_rm_lanes_fit_the_team_to_the_row(units, unroll, lanes):
+    """The largest power of two from 8 to a block's 256 lanes that leaves
+    each lane at least `unroll` units of a row."""
+    assert kmv.rm_lanes(units, unroll) == lanes
+
+
+def test_rm_grid_balances_rounds_within_one_wave():
+    """16384 rows in groups of 2, a team a block, on 792 blocks a wave:
+    11 rounds, so 745 blocks, each team 10 or 11 row groups."""
+    assert kmv.rm_grid(16384, 2, 256, 792) == 745
+    assert kmv.rm_grid(1000, 2, 256, 792) == 500
+    assert kmv.rm_grid(1000, 2, 16, 792) == 32
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(rows=3), "rows=3"), (dict(unroll=3), "unroll=3"),
+    (dict(rows=1), "rows=1"), (dict(unroll=8), "unroll=8")])
+def test_matvec_rm_rejects_bad_knobs(kwargs, error):
+    a, x = torch.zeros(4, 8), torch.zeros(8)
+    with pytest.raises(ValueError, match=error):
+        kmv.matvec_rm(a, x, **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_matvec_rm_on_card(dtype):
+    """K8 against its plain version at the smoke's shapes (1000, 777) ..
+    16384^2 and at N = 1001, at every (rows, unroll), also on an x one
+    element off a 16-byte boundary (the scalar form); two calls give the
+    same bits; 1e-5 (f32), 1e-12 (f64), relative to the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    tol = 1e-5 if dt == torch.float32 else 1e-12
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for m, n in MATVEC_SHAPES + [(1001, 1001)]:
+        a = torch.randn(m, n, generator=gen, device="cuda", dtype=dt)
+        x = torch.randn(n + 1, generator=gen, device="cuda", dtype=dt)
+        for xv in (x[:n], x[1:]):
+            ref = kmv.matvec_rm_plain(a, xv)
+            for rows in kmv.RM_ROWS:
+                for unroll in kmv.RM_UNROLLS:
+                    out = kmv.matvec_rm(a, xv, rows=rows, unroll=unroll)
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max() / ref.abs().max())
+                    assert err <= tol, (m, n, rows, unroll, err)
+            assert torch.equal(kmv.matvec_rm(a, xv), kmv.matvec_rm(a, xv))

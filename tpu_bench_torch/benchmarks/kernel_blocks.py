@@ -20,24 +20,37 @@ setting twice, in the order a b .. b a).  The sweeps:
   QP-1D stages (E=1,048,576), benchmark05's nq=6^3 kron_elem_major and
   nq=8^3 kron_elem_major and QP-1D stages (E=131072); `*` marks
   em_config's choice;
-- K4 (qp_stage2_3d) elements per block and K5 (qp1d_fused3d) element
-  tiles at benchmark05's nq=4^3 .. 10^3;
+- K4 (qp_stage2_3d): the 16-byte vectors a thread takes a step
+  (QP2_UNROLLS; at most QP2_CHUNKED_UNROLL above nm0 = QP2_EXACT) at
+  benchmark05's Pallas(QP) stage 2 at nq=8^3 (E=131072) and benchmark04's
+  at nq=8^2, 16^2 and 32^2 (E=1,048,576); `*` marks the default;
+- k4diag, what sets K4's pace at its two main shapes: K4 and torch.matmul
+  on its layout beside a read-only pass over w (K10), a write-only fill
+  of out's bytes (K11), K12's copy of as many bytes, and torch.matmul on
+  views whose rows lie 4 KiB further apart than the 2^25 bytes of the
+  main shapes, with the GB/s each reaches;
+- K5 (qp1d_fused3d): element tiles at benchmark05's nq=4^3 .. 10^3;
+- K8 (matvec_rm): rows a team of lanes owns (RM_ROWS) by vectors a lane
+  takes a step (RM_UNROLLS) at benchmark03's 16384^2, A (4096, 16384) and A
+  (16384, 4096); `*` marks the default;
 - K9 (matvec_cm): rows in flight (CM_UNROLLS) by row shares (half, once
   and twice cm_splits' one wave) at benchmark03's 16384^2 and A (4096,
   16384); `*` marks the default.
 
 After each K1 shape, a `best` line gives the fastest setting.  The
-constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_EPB, QP1D_TILES),
+constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_UNROLL, QP1D_TILES),
 kernels/bwdtrans2d.py (KRON_STRIPS, EM_TILES) and kernels/matvec.py
-(CM_UNROLL) rest on its output.  `--only` runs the named sweeps (k1, k2,
-k3, k4k5, k9).
+(RM_ROW, RM_UNROLL, CM_UNROLL) rest on its output.  `--only` runs the
+named sweeps (k1, k2, k3, k4, k4diag, k5, k8, k9).
 
 `--uses` times instead each K3 use (b04 nq=8^2 kron_elem_major and QP-1D
 stages, E=1,048,576; b05 nq=8^3 kron_elem_major and QP-1D stages,
-E=131072), K2's dense b05 nq=8^3 product, whose GEMM body K3 shares, and
-K9 at 16384^2, f32 and f64, through the calls the columns
-make with no knob, so it also times an earlier tree of the port: run this
-file with that tree's root as the working directory and on PYTHONPATH.
+E=131072), K2's dense b05 nq=8^3 product, whose GEMM body K3 shares, K4
+at its two main shapes beside torch.matmul, K9 at 16384^2 and K8 at
+benchmark03's five shapes beside torch.mv, f32 and f64, through the calls
+the columns make with no knob, so it (and k4diag) also times an earlier
+tree of the port: run this file with that tree's root as the working
+directory and on PYTHONPATH.
 
 Prints the card's name and power limit first; needs a CUDA device.
 """
@@ -53,6 +66,7 @@ from tpu_bench_torch.core.timing import event_ms
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
 from tpu_bench_torch.kernels import matvec as kmv
+from tpu_bench_torch.kernels import stream
 
 NELMT = 131072
 B04_NELMT = 1048576
@@ -77,6 +91,18 @@ K3_SHAPES = [("b04 nq=8^2 kron_elem_major", B04_NELMT, 49, 64),
 K3_USES = [shape for shape in K3_SHAPES if "6^3" not in shape[0]]
 # K9's matrices A_cm: (label, rows N, columns M)
 K9_SHAPES = [("b03 16384^2", 16384, 16384), ("A (4096, 16384)", 16384, 4096)]
+# K4's main shapes: (label, nm0, nq0, nkj, E); w is (nm0, nkj, E)
+K4_MAIN = [("b05 nq=8^3", 7, 8, 64, NELMT), ("b04 nq=8^2", 7, 8, 8, B04_NELMT)]
+# K4's swept shapes: the main ones and benchmark04's nq=16^2 and 32^2
+K4_SHAPES = K4_MAIN + [(f"b04 nq={n}^2", n - 1, n, n, B04_NELMT)
+                       for n in (16, 32)]
+# K8's matrices A (M, N): benchmark03's shapes that chip_smoke.py checks,
+# and those its sweep takes
+K8_SHAPES = [(1000, 777), (777, 1000), (4096, 16384), (16384, 4096),
+             (16384, 16384)]
+K8_SWEPT = [(16384, 16384), (4096, 16384), (16384, 4096)]
+# k4diag: the extra row pitch of the padded views, in bytes
+PAD_BYTES = 4096
 
 
 def in_turns(fn, settings) -> dict:
@@ -153,9 +179,50 @@ def k9_sweep(rnd, tag, itemsize) -> None:
         torch.cuda.empty_cache()
 
 
+def k4diag(rnd, tag, itemsize) -> None:
+    """What sets K4's pace at its main shapes: K4 and torch.matmul on the
+    (nm0, F = nkj*E) @ layout, a read-only pass over w (K10), a write-only
+    fill of out's bytes (K11), K12's copy of as many bytes as K4 moves,
+    and torch.matmul on views of w and out whose rows are PAD_BYTES
+    further apart (at the main shapes they are 2^25 bytes apart).  Only
+    calls without knobs, so it also times an earlier tree."""
+    for label, nm0, nq0, nkj, e in K4_MAIN:
+        f = nkj * e
+        w, b0 = rnd(nm0, nkj, e), rnd(nm0, nq0)
+        pad = PAD_BYTES // itemsize
+        w_pad = rnd(nm0, f + pad)[:, :f]
+        out_pad = torch.empty(nq0, f + pad, dtype=w.dtype,
+                              device=w.device)[:, :f]
+        n_copy = (nm0 + nq0) * f // 2 // stream.LANES * stream.LANES
+        src, seed = rnd(n_copy), rnd(1, 1)
+        dst = torch.empty_like(src)
+        moved = (nm0 + nq0) * f * itemsize
+        probes = [
+            ("K4 qp_stage2_3d", moved, lambda: k1.qp_stage2_3d(w, b0)),
+            ("torch.matmul", moved,
+             lambda: torch.matmul(b0.T, w.view(nm0, f))),
+            ("K10 read of w", nm0 * f * itemsize,
+             lambda: stream.read_manual(w.view(-1))),
+            ("K11 fill of out's bytes", nq0 * f * itemsize,
+             lambda: stream.fill_manual(nq0 * f // stream.LANES, seed,
+                                        dtype=w.dtype)),
+            ("K12 copy of as many bytes", 2 * n_copy * itemsize,
+             lambda: stream.copy_manual(src, out=dst)),
+            (f"torch.matmul, rows {PAD_BYTES} B further apart", moved,
+             lambda: torch.mm(b0.T, w_pad, out=out_pad)),
+        ]
+        for name, nbytes, fn in probes:
+            ms = event_ms(fn)
+            print(f"{tag} {label} E={e} k4diag {name}: {ms:.4f} ms, "
+                  f"{nbytes / ms * 1e-6:.1f} GB/s", flush=True)
+        del w, w_pad, out_pad, src, dst
+        torch.cuda.empty_cache()
+
+
 def uses(rnd, tag) -> None:
-    """K3's uses, K2's dense product (the GEMM body K3 shares) and K9 at
-    their main shapes, through the columns' calls."""
+    """K3's uses, K2's dense product (the GEMM body K3 shares), K4 at its
+    main shapes and K8 and K9 at benchmark03's shapes, through the
+    columns' calls."""
     x, c = rnd(16, 343, 8192), rnd(512, 343)
     print(f"{tag} K2 b05 nq=8^3 Coales (dense) E=131072: "
           f"{event_ms(lambda: k2.kron_blocked(x, c)):.4f} ms; "
@@ -174,27 +241,61 @@ def uses(rnd, tag) -> None:
     print(f"{tag} K9 16384^2: {event_ms(lambda: kmv.matvec_cm(a_cm, x)):.4f}"
           f" ms; torch.mv {event_ms(lambda: torch.mv(a_cm.t(), x)):.4f} ms",
           flush=True)
+    del a_cm
+    for label, nm0, nq0, nkj, e in K4_MAIN:
+        w, b0 = rnd(nm0, nkj, e), rnd(nm0, nq0)
+        wf = w.view(nm0, -1)
+        print(f"{tag} K4 {label} E={e}: "
+              f"{event_ms(lambda: k1.qp_stage2_3d(w, b0)):.4f} ms; "
+              f"torch.matmul {event_ms(lambda: torch.matmul(b0.T, wf)):.4f}"
+              " ms", flush=True)
+        del w, wf
+        torch.cuda.empty_cache()
+    for m, n in K8_SHAPES:
+        a, x = rnd(m, n), rnd(n)
+        print(f"{tag} K8 ({m}, {n}): "
+              f"{event_ms(lambda: kmv.matvec_rm(a, x)):.4f} ms; torch.mv "
+              f"{event_ms(lambda: torch.mv(a, x)):.4f} ms", flush=True)
 
 
-def knobs(rnd, nq: int, e: int) -> dict:
-    """{kernel: (settings, fn(setting))} of K4 and K5 at isotropic order
-    nq."""
-    nm = nq - 1
-    w, b0 = rnd(nm, nq * nq, e), rnd(nm, nq)
-    widths = (nm ** 3, nm * nm * nq, nm * nq * nq, nq ** 3)
-    em = rnd(e, widths[0])
-    s = [rnd(k, n) for k, n in zip(widths, widths[1:])]
-    return {
-        "K4 qp_stage2_3d epb": (
-            (64, 128, 256, 512),
-            lambda v: k1.qp_stage2_3d(w, b0, epb=v)),
-        "K5 qp1d_fused3d element tile": (
-            k1.qp1d_tiles(em, *s),
-            lambda v: k1.qp1d_shared3d(em, *s, epb=v)),
-    }
+def k4_sweep(rnd, tag, itemsize) -> None:
+    for label, nm0, nq0, nkj, e in K4_SHAPES:
+        w, b0 = rnd(nm0, nkj, e), rnd(nm0, nq0)
+        settings = [u for u in k1.QP2_UNROLLS
+                    if nm0 <= k1.QP2_EXACT or u <= k1.QP2_CHUNKED_UNROLL]
+        times = in_turns(lambda v: k1.qp_stage2_3d(w, b0, unroll=v),
+                         settings)
+        report(f"{tag} {label} E={e}", "K4 unroll", times, k1.QP2_UNROLL)
+        del w
+        torch.cuda.empty_cache()
 
 
-SWEEPS = ("k1", "k2", "k3", "k4k5", "k9")
+def k5_sweep(rnd, tag) -> None:
+    for nq in (4, 6, 8, 10):
+        nm = nq - 1
+        widths = (nm ** 3, nm * nm * nq, nm * nq * nq, nq ** 3)
+        em = rnd(NELMT, widths[0])
+        s = [rnd(k, n) for k, n in zip(widths, widths[1:])]
+        report(f"{tag} nq={nq}^3 E={NELMT}", "K5 qp1d_fused3d element tile",
+               in_turns(lambda v: k1.qp1d_shared3d(em, *s, epb=v),
+                        k1.qp1d_tiles(em, *s)))
+        del em
+        torch.cuda.empty_cache()
+
+
+def k8_sweep(rnd, tag, itemsize) -> None:
+    for m, n in K8_SWEPT:
+        a, x = rnd(m, n), rnd(n)
+        settings = [(r, u) for r in kmv.RM_ROWS for u in kmv.RM_UNROLLS]
+        times = in_turns(lambda v: kmv.matvec_rm(a, x, rows=v[0],
+                                                 unroll=v[1]), settings)
+        report(f"{tag} A ({m}, {n})", "K8 (rows, unroll)", times,
+               (kmv.RM_ROW, kmv.RM_UNROLL))
+        del a
+        torch.cuda.empty_cache()
+
+
+SWEEPS = ("k1", "k2", "k3", "k4", "k4diag", "k5", "k8", "k9")
 
 
 def main(argv=None) -> None:
@@ -228,11 +329,14 @@ def main(argv=None) -> None:
             k2_sweep(rnd, tag, dtype.itemsize)
         if "k3" in only:
             k3_sweep(rnd, tag, dtype.itemsize)
-        if "k4k5" in only:
-            for nq in (4, 6, 8, 10):
-                for name, (settings, fn) in knobs(rnd, nq, NELMT).items():
-                    report(f"{tag} nq={nq}^3 E={NELMT}", name,
-                           in_turns(fn, settings))
+        if "k4" in only:
+            k4_sweep(rnd, tag, dtype.itemsize)
+        if "k4diag" in only:
+            k4diag(rnd, tag, dtype.itemsize)
+        if "k5" in only:
+            k5_sweep(rnd, tag)
+        if "k8" in only:
+            k8_sweep(rnd, tag, dtype.itemsize)
         if "k9" in only:
             k9_sweep(rnd, tag, dtype.itemsize)
 

@@ -254,78 +254,302 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
 //   out[i*nkj + kj, e] = sum_p B0[p, i] * w[p*nkj + kj, e]
 //
 // with w (nm0, nkj, E) and out (nq0, nkj, E), element index fastest;
-// nkj = nq2*nq1 in 3D and nq1 in 2D.
+// nkj = nq2*nq1 in 3D and nq1 in 2D.  The contraction ignores kj, so the
+// kernel reads w as (nm0, F) and out as (nq0, F), F = nkj*E.
 //
-// What bounds it on an H100: memory.  Each (kj, e) reads nm0 values and
+// What bounds it on an H100: memory.  Each column of F reads nm0 values and
 // writes nq0 (7 and 8 at nq=8^3) for 2*nm0*nq0 FLOP, under 2 FLOP per byte.
-// So one thread owns one (kj, e): elements along threadIdx.x (coalesced,
-// ragged edge masked), kj on blockIdx.y; its nm0 workspace values are read
-// once into registers (unrolled to a compile-time bucket MAXP with a
-// run-time guard: 16 covers nm0 <= 16, 32 the 2D nq=32 order) and B0 sits
-// in shared memory, where every thread reads the same address (broadcast).
-constexpr int QP2_MAX_NM0 = 32;
-constexpr int QP2_MAX_THREADS = 512;
+// The first design gave each thread one column and scalar accesses: 0.41
+// ms at b05 nq=8^3 and b04 nq=8^2 in f32, 1.24 TB/s, while in f64 the same
+// design moved twice the bytes in 0.44 ms (benchmarks/kernel_blocks.py
+// --only k4diag), and neither padding the rows apart nor a pure read or
+// write pass was the limit: it was the count of 4-byte accesses.  So:
+//   - A thread owns U 16-byte vectors of F (U = 1, 2 or 4; 4 floats or 2
+//     doubles each), 32 vectors apart so each load instruction of a warp
+//     covers 512 contiguous bytes.  It issues all nm0*U loads before its
+//     first FMA, then writes nq0*U vectors by 16-byte stores with the
+//     streaming hint (st.global.cs), which keeps out of L2's way the lines
+//     nothing reads again (plain stores, or the hint on the loads as well,
+//     ran slower).  Where F*itemsize is not a multiple of 16 or w or out
+//     is off a 16-byte boundary, it takes one value a step (W = 1, U = 1)
+//     instead.
+//   - The grid is one wave (the occupancy API's blocks an SM times the
+//     SMs, kernels/bwdtrans3d.qp2_wave), capped at one tile of
+//     QP2_THREADS*U vectors a block.  Block b owns vectors [b*nv/blocks,
+//     (b+1)*nv/blocks) of the nv = F/W and walks them a tile a step, so
+//     B0 (nm0 x nq0) is copied into shared memory once a block; every
+//     thread of a warp reads the same B0 value (a broadcast).
+//     kernels/bwdtrans3d.qp2_shares mirrors the rule.
+//   - nm0 <= QP2_EXACT (every 3D order to 10^3) is a template argument, so
+//     the nm0*U vectors stay in registers with no run-time guard; a larger
+//     nm0 (2D orders to 32) takes p and i in chunks of QP2_CHUNK from
+//     zero-padded B0, U = 1 or 2, w read once a chunk of 8 outputs (the
+//     later chunks from L2).  No instance spills.
+constexpr int QP2_THREADS = 256;
+constexpr int QP2_EXACT = 9;
+constexpr int QP2_CHUNK = 8;
 
-template <typename T, int MAXP>
-__global__ void __launch_bounds__(QP2_MAX_THREADS) qp_stage2_3d_kernel(const T* __restrict__ w,
-                                    const T* __restrict__ b0,
-                                    T* __restrict__ out, int nm0, int nq0,
-                                    int nkj, long long n_elem) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* s_b0 = reinterpret_cast<T*>(smem_raw);  // (nm0, nq0)
-    for (int t = threadIdx.x; t < nm0 * nq0; t += blockDim.x) s_b0[t] = b0[t];
-    __syncthreads();
+// B0's shared-memory layout: (nm0, nq0) for an exact nm0, else padded with
+// zeros to whole chunks.
+__host__ __device__ constexpr int qp2_rows(int p, int nm0) {
+    return p ? nm0 : round_up(nm0, QP2_CHUNK);
+}
 
-    const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                        threadIdx.x;
-    if (e >= n_elem) return;
-    const long long kj = blockIdx.y;
-    T v[MAXP];
+__host__ __device__ constexpr int qp2_cols(int p, int nq0) {
+    return p ? nq0 : round_up(nq0, QP2_CHUNK);
+}
+
+// One step of a thread: vectors t + 32u (u < U) of F, those below v1
+// unless FULL.  P = nm0 (exact), all of w's values in registers.
+template <typename T, int W, int P, int U, bool FULL>
+__device__ __forceinline__ void qp2_exact(const T* __restrict__ w,
+                                          const T* s_b0, T* __restrict__ out,
+                                          int nq0, long long f, long long t,
+                                          long long v1) {
+    T x[P][U][W];
 #pragma unroll
-    for (int p = 0; p < MAXP; ++p)
-        v[p] = p < nm0 ? __ldg(w + (p * nkj + kj) * n_elem + e) : T(0);
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const long long v = t + 32 * u;
+            if (FULL || v < v1) {
+                tbt::load_w(w + p * f + v * W, x[p][u]);
+            } else {
+#pragma unroll
+                for (int c = 0; c < W; ++c) x[p][u][c] = T(0);
+            }
+        }
     for (int i = 0; i < nq0; ++i) {
-        T acc = T(0);
+        T acc[U][W];
 #pragma unroll
-        for (int p = 0; p < MAXP; ++p)
-            if (p < nm0) acc = fma(s_b0[p * nq0 + i], v[p], acc);
-        out[(i * nkj + kj) * n_elem + e] = acc;
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int c = 0; c < W; ++c) acc[u][c] = T(0);
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            const T b = s_b0[p * nq0 + i];
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+#pragma unroll
+                for (int c = 0; c < W; ++c)
+                    acc[u][c] = fma(b, x[p][u][c], acc[u][c]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const long long v = t + 32 * u;
+            if (FULL || v < v1) tbt::store_cs(out + i * f + v * W, acc[u]);
+        }
     }
 }
 
+// The same step for a larger nm0: outputs in chunks of QP2_CHUNK, each
+// summing p in chunks of QP2_CHUNK (B0 zero-padded, so only the loads of
+// w past nm0 need a guard).  A later output chunk reads w again, from L2.
+template <typename T, int W, int U, bool FULL>
+__device__ __forceinline__ void qp2_chunked(const T* __restrict__ w,
+                                            const T* s_b0,
+                                            T* __restrict__ out, int nm0,
+                                            int nq0, long long f, long long t,
+                                            long long v1) {
+    constexpr int C = QP2_CHUNK;
+    const int nq0p = round_up(nq0, C);
+    for (int i0 = 0; i0 < nq0; i0 += C) {
+        T acc[C][U][W];
+#pragma unroll
+        for (int ii = 0; ii < C; ++ii)
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+#pragma unroll
+                for (int c = 0; c < W; ++c) acc[ii][u][c] = T(0);
+        for (int p0 = 0; p0 < nm0; p0 += C) {
+            T x[C][U][W];
+#pragma unroll
+            for (int pp = 0; pp < C; ++pp)
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const long long v = t + 32 * u;
+                    if (p0 + pp < nm0 && (FULL || v < v1)) {
+                        tbt::load_w(w + (p0 + pp) * f + v * W, x[pp][u]);
+                    } else {
+#pragma unroll
+                        for (int c = 0; c < W; ++c) x[pp][u][c] = T(0);
+                    }
+                }
+#pragma unroll
+            for (int pp = 0; pp < C; ++pp)
+#pragma unroll
+                for (int ii = 0; ii < C; ++ii) {
+                    const T b = s_b0[(p0 + pp) * nq0p + i0 + ii];
+#pragma unroll
+                    for (int u = 0; u < U; ++u)
+#pragma unroll
+                        for (int c = 0; c < W; ++c)
+                            acc[ii][u][c] = fma(b, x[pp][u][c], acc[ii][u][c]);
+                }
+        }
+#pragma unroll
+        for (int ii = 0; ii < C; ++ii) {
+            if (i0 + ii >= nq0) break;
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const long long v = t + 32 * u;
+                if (FULL || v < v1)
+                    tbt::store_cs(out + (i0 + ii) * f + v * W, acc[ii][u]);
+            }
+        }
+    }
+}
+
+// Block b: vectors [b*nv/gridDim.x, (b+1)*nv/gridDim.x) of F in W-value
+// units, a tile of QP2_THREADS*U vectors a step, warp k taking the tile's
+// k-th run of 32*U vectors and lane l its vectors l + 32u.  P: nm0, or 0
+// for the chunked form.
+template <typename T, int W, int P, int U>
+__global__ void __launch_bounds__(QP2_THREADS)
+    qp_stage2_3d_kernel(const T* __restrict__ w, const T* __restrict__ b0,
+                        T* __restrict__ out, int nm0, int nq0, long long f,
+                        long long nv) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* s_b0 = reinterpret_cast<T*>(smem_raw);
+    const int rows = qp2_rows(P, nm0), cols = qp2_cols(P, nq0);
+    for (int q = threadIdx.x; q < rows * cols; q += QP2_THREADS) {
+        const int p = q / cols, i = q % cols;
+        s_b0[q] = p < nm0 && i < nq0 ? b0[p * nq0 + i] : T(0);
+    }
+    __syncthreads();
+    const long long v0 = blockIdx.x * nv / gridDim.x;
+    const long long v1 = (blockIdx.x + 1LL) * nv / gridDim.x;
+    for (long long t = v0 + threadIdx.x / 32 * (32 * U) + threadIdx.x % 32;
+         t < v1; t += QP2_THREADS * U) {
+        const bool full = t + 32 * (U - 1) < v1;
+        if constexpr (P > 0) {
+            if (full)
+                qp2_exact<T, W, P, U, true>(w, s_b0, out, nq0, f, t, v1);
+            else
+                qp2_exact<T, W, P, U, false>(w, s_b0, out, nq0, f, t, v1);
+        } else {
+            if (full)
+                qp2_chunked<T, W, U, true>(w, s_b0, out, nm0, nq0, f, t, v1);
+            else
+                qp2_chunked<T, W, U, false>(w, s_b0, out, nm0, nq0, f, t, v1);
+        }
+    }
+}
+
+// f(kernel, smem bytes) for the instance that serves (vector form, nm0,
+// unroll); cudaErrorInvalidValue where none does.  The scalar form takes
+// U = 1 whatever `unroll` says; the chunked form (nm0 > QP2_EXACT) has U =
+// 1 or 2.
+template <typename T, int W, int P, typename F>
+int qp2_with_unroll(int nm0, int nq0, int unroll, F&& f) {
+    const size_t smem = sizeof(T) * static_cast<size_t>(qp2_rows(P, nm0)) *
+                        qp2_cols(P, nq0);
+    if constexpr (W == 1) {
+        return f(qp_stage2_3d_kernel<T, W, P, 1>, smem);
+    } else {
+        switch (unroll) {
+            case 1:
+                return f(qp_stage2_3d_kernel<T, W, P, 1>, smem);
+            case 2:
+                return f(qp_stage2_3d_kernel<T, W, P, 2>, smem);
+            case 4:
+                if constexpr (P > 0)
+                    return f(qp_stage2_3d_kernel<T, W, P, 4>, smem);
+                return cudaErrorInvalidValue;
+            default:
+                return cudaErrorInvalidValue;
+        }
+    }
+}
+
+template <typename T, int W, typename F>
+int qp2_with_order(int nm0, int nq0, int unroll, F&& f) {
+    switch (nm0) {
+        case 1: return qp2_with_unroll<T, W, 1>(nm0, nq0, unroll, f);
+        case 2: return qp2_with_unroll<T, W, 2>(nm0, nq0, unroll, f);
+        case 3: return qp2_with_unroll<T, W, 3>(nm0, nq0, unroll, f);
+        case 4: return qp2_with_unroll<T, W, 4>(nm0, nq0, unroll, f);
+        case 5: return qp2_with_unroll<T, W, 5>(nm0, nq0, unroll, f);
+        case 6: return qp2_with_unroll<T, W, 6>(nm0, nq0, unroll, f);
+        case 7: return qp2_with_unroll<T, W, 7>(nm0, nq0, unroll, f);
+        case 8: return qp2_with_unroll<T, W, 8>(nm0, nq0, unroll, f);
+        case 9: return qp2_with_unroll<T, W, 9>(nm0, nq0, unroll, f);
+        default: return qp2_with_unroll<T, W, 0>(nm0, nq0, unroll, f);
+    }
+}
+
+template <typename T, typename F>
+int qp2_with_kernel(int vector, int nm0, int nq0, int unroll, F&& f) {
+    if (nm0 < 1 || nq0 < 1) return cudaErrorInvalidValue;
+    if (vector)
+        return qp2_with_order<T, tbt::Vec16<T>::width>(nm0, nq0, unroll, f);
+    return qp2_with_order<T, 1>(nm0, nq0, unroll, f);
+}
+
+// vector: F*itemsize a multiple of 16 and w and out on 16-byte boundaries
+// (refused otherwise); blocks: the grid (kernels/bwdtrans3d.qp2_grid).
 template <typename T>
 int launch_qp_stage2(const T* w, const T* b0, T* out, int nm0, int nq0,
-                     int nkj, long long n_elem, int epb,
+                     long long f, int unroll, int vector, int blocks,
                      cudaStream_t stream) {
-    if (n_elem <= 0 || nkj <= 0) return cudaSuccess;
-    if (nm0 > QP2_MAX_NM0 || nkj > 65535 || epb > QP2_MAX_THREADS)
+    if (f <= 0) return cudaSuccess;
+    constexpr int W = tbt::Vec16<T>::width;
+    if (blocks < 1 || (vector && (f % W != 0 || !tbt::aligned16(w) ||
+                                  !tbt::aligned16(out))))
         return cudaErrorInvalidValue;
-    const size_t smem = sizeof(T) * static_cast<size_t>(nm0 * nq0);
-    const dim3 grid(static_cast<unsigned>((n_elem + epb - 1) / epb), nkj);
-    auto kernel = nm0 <= 16 ? &qp_stage2_3d_kernel<T, 16>
-                            : &qp_stage2_3d_kernel<T, QP2_MAX_NM0>;
-    kernel<<<grid, epb, smem, stream>>>(w, b0, out, nm0, nq0, nkj, n_elem);
-    return cudaGetLastError();
+    const long long nv = vector ? f / W : f;
+    return qp2_with_kernel<T>(
+        vector, nm0, nq0, unroll, [&](auto kernel, size_t smem) {
+            kernel<<<blocks, QP2_THREADS, smem, stream>>>(w, b0, out, nm0,
+                                                         nq0, f, nv);
+            return static_cast<int>(cudaGetLastError());
+        });
+}
+
+// Blocks of the instance for (vector, nm0, nq0, unroll) the card holds at
+// once: the occupancy API's blocks an SM times the SMs; -1 on an error.
+template <typename T>
+int qp2_wave(int vector, int nm0, int nq0, int unroll) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+        return -1;
+    int per_sm = -1;
+    const int err = qp2_with_kernel<T>(
+        vector, nm0, nq0, unroll, [&](auto kernel, size_t smem) {
+            return static_cast<int>(
+                cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &per_sm, kernel, QP2_THREADS, smem));
+        });
+    return err == cudaSuccess ? per_sm * sms : -1;
 }
 
 }  // namespace
 
 extern "C" int tbt_qp_stage2_3d_f32(const void* w, const void* b0, void* out,
-                                    int nm0, int nq0, int nkj,
-                                    long long n_elem, int epb, void* stream) {
+                                    int nm0, int nq0, long long f, int unroll,
+                                    int vector, int blocks, void* stream) {
     return launch_qp_stage2(static_cast<const float*>(w),
                             static_cast<const float*>(b0),
-                            static_cast<float*>(out), nm0, nq0, nkj, n_elem,
-                            epb, static_cast<cudaStream_t>(stream));
+                            static_cast<float*>(out), nm0, nq0, f, unroll,
+                            vector, blocks, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_qp_stage2_3d_f64(const void* w, const void* b0, void* out,
-                                    int nm0, int nq0, int nkj,
-                                    long long n_elem, int epb, void* stream) {
+                                    int nm0, int nq0, long long f, int unroll,
+                                    int vector, int blocks, void* stream) {
     return launch_qp_stage2(static_cast<const double*>(w),
                             static_cast<const double*>(b0),
-                            static_cast<double*>(out), nm0, nq0, nkj, n_elem,
-                            epb, static_cast<cudaStream_t>(stream));
+                            static_cast<double*>(out), nm0, nq0, f, unroll,
+                            vector, blocks, static_cast<cudaStream_t>(stream));
+}
+
+// K4's blocks in one wave for (itemsize, vector form, nm0, nq0, unroll).
+extern "C" int tbt_qp_stage2_wave(int itemsize, int vector, int nm0, int nq0,
+                                  int unroll) {
+    return itemsize == 4 ? qp2_wave<float>(vector, nm0, nq0, unroll)
+                         : qp2_wave<double>(vector, nm0, nq0, unroll);
 }
 
 extern "C" int tbt_qp_fused3d_f32(const void* in, const void* b0,

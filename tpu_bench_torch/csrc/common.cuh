@@ -71,6 +71,39 @@ __device__ __forceinline__ void store16(double* p, const double* v) {
     *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
+// W consecutive values (one 16-byte vector: W = 16 / sizeof(T); or W = 1,
+// one value) from global memory by a plain load.
+__device__ __forceinline__ void load_w(const float* p, float (&r)[4]) {
+    load4(p, r);
+}
+
+__device__ __forceinline__ void load_w(const double* p, double (&r)[2]) {
+    const double2 q = *reinterpret_cast<const double2*>(p);
+    r[0] = q.x;
+    r[1] = q.y;
+}
+
+template <typename T>
+__device__ __forceinline__ void load_w(const T* p, T (&r)[1]) {
+    r[0] = *p;
+}
+
+// The same W values to global memory that nothing reads again, with the
+// streaming hint (st.global.cs: evict first), so they do not push out of
+// L2 the lines that are read again.
+__device__ __forceinline__ void store_cs(float* p, const float (&v)[4]) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+__device__ __forceinline__ void store_cs(double* p, const double (&v)[2]) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_cs(T* p, const T (&v)[1]) {
+    __stcs(p, v[0]);
+}
+
 // Elements of p[0:n] before the first 16-byte boundary at or after p: the
 // scalar head of a vector loop (0 when p is aligned).  Tensors are aligned
 // to their element size, so the count is exact.

@@ -16,12 +16,21 @@
 // What bounds them on an H100: bytes.  Two FLOP per element of A against 4
 // (f32) or 8 (f64) bytes; reading A once at 3.35 TB/s is the least time
 // (x and y are 1/N and 1/M of it).  The designs:
-//   - K8: one warp per row, eight rows per block.  The lanes walk the row
-//     in 16-byte vectors (float4 / double2) of A and of x, UNROLL vectors
-//     in flight, and a shuffle tree sums the lanes.  x is read by every
-//     warp and stays in L1/L2.  When a row is not a whole number of
+//   - K8: a team of lanes owns R = 2 or 4 rows at a time and walks them
+//     in 16-byte vectors (float4 / double2), U a lane a step.  The first
+//     design gave each warp one row, so every warp read all of x and half
+//     of its loads were x's (0.3720 ms at 16384^2 f32 against a bound of
+//     0.3206): here each vector of x is loaded once for the R rows, R*U
+//     vectors of A in flight a lane.  A team has as many lanes as give
+//     each at least U vectors of a row, from 8 up to the block's 256: 256
+//     at benchmark03's large shapes, so the row groups are many small
+//     jobs on a one-wave grid (the occupancy API, tbt_matvec_rm_wave) and
+//     every block takes the same number of them to within one
+//     (kernels/matvec.rm_grid, rm_groups); 8 or 16 lanes, several teams a
+//     warp, where a row is short.  A fixed shuffle tree and a fixed order
+//     over the team's warps sum the lanes.  When a row is not a whole number of
 //     16-byte vectors (N * itemsize % 16 != 0) or A or x is not 16-byte
-//     aligned, the kernel takes scalar loads;
+//     aligned, the kernel takes one value a lane a step;
 //   - K9: a block owns 32 * V consecutive output columns (V = 4 floats or
 //     2 doubles: 512 bytes of each row of A_cm) and a share of the rows;
 //     each lane takes one 16-byte vector of columns, and the block's eight
@@ -47,56 +56,118 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ROWS_PER_BLOCK = THREADS / 32;  // K8: one warp per row
-constexpr int UNROLL = 4;
 constexpr int CM_WARPS = THREADS / 32;  // K9: warps sharing a column block
 
-template <typename T, bool VECTOR>
-__global__ void __launch_bounds__(THREADS)
+// K8: a team of `lanes` lanes (8 .. 256, a power of two; kernels/matvec.
+// rm_lanes) owns R consecutive rows at a time.  Each lane loads each
+// 16-byte vector of x it takes once and uses it for all R rows: R*U
+// vectors of A in flight.  A is read by plain loads, as K9 reads A_cm: with
+// the streaming hint (ld.global.cs) or L1::no_allocate the kernel ran
+// slower on the H100.  Team slot s of the grid (block b, team t: s = b *
+// THREADS / lanes + t) takes row groups s, s + slots, ...; the loop
+// runs by block, so teams past the last row group compute on the last row
+// and store nothing, and every lane reaches the shuffles and barriers.
+// Rows past m in the last group read row m - 1 and store nothing.  A lane
+// sums its U partial sums in order, a fixed shuffle tree sums a warp's
+// lanes (or a sub-warp team's), and a team of several warps adds its warps'
+// sums in order through shared memory, so y is the same bits on every run.
+//
+// ptxas, given only the block size, held some instances to 80 registers
+// and spilled; with one block an SM as the floor the vector form takes the
+// registers it needs (up to about 150, no spill) and ran faster at
+// benchmark03's large shapes, while the scalar form, which serves small
+// shapes where the latency of a few loads is the time, keeps four blocks
+// an SM (at most 64 registers) so one wave holds their row groups.
+template <typename T, int W, int R, int U>
+__global__ void __launch_bounds__(THREADS, W == 1 ? 4 : 1)
     matvec_rm_kernel(const T* __restrict__ a, const T* __restrict__ x,
-                     T* __restrict__ y, int m, int n) {
-    const int lane = threadIdx.x % 32;
-    const long long row =
-        static_cast<long long>(blockIdx.x) * ROWS_PER_BLOCK + threadIdx.x / 32;
-    if (row >= m) return;  // whole warps leave together
-    const T* __restrict__ ar = a + row * n;
-    T acc[UNROLL];
+                     T* __restrict__ y, int m, int n, int lanes) {
+    __shared__ T red[THREADS / 32][R];
+    const int nv = n / W;  // W-value units of a row
+    const int per_block = THREADS / lanes, width = lanes < 32 ? lanes : 32;
+    const int lane = threadIdx.x % lanes, team = threadIdx.x / lanes;
+    const long long groups = (m + R - 1) / R;
+    const long long slots = static_cast<long long>(gridDim.x) * per_block;
+    for (long long base = static_cast<long long>(blockIdx.x) * per_block;
+         base < groups; base += slots) {
+        const long long rg = base + team;
+        const T* __restrict__ rows[R];
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) acc[u] = T(0);
-    if constexpr (VECTOR) {
-        using V = typename tbt::Vec16<T>::type;
-        const V* __restrict__ av = reinterpret_cast<const V*>(ar);
-        const V* __restrict__ xv = reinterpret_cast<const V*>(x);
-        const int nv = n / tbt::Vec16<T>::width;
-        int j = lane;
-        for (; j + (UNROLL - 1) * 32 < nv; j += UNROLL * 32) {
-            V va[UNROLL], vx[UNROLL];
-#pragma unroll
-            for (int u = 0; u < UNROLL; ++u) {
-                va[u] = av[j + u * 32];
-                vx[u] = xv[j + u * 32];
-            }
-#pragma unroll
-            for (int u = 0; u < UNROLL; ++u)
-                acc[u] = tbt::dot_lanes(va[u], vx[u], acc[u]);
+        for (int r = 0; r < R; ++r) {
+            const long long row = rg * R + r;
+            rows[r] = a + (row < m ? row : m - 1) * static_cast<long long>(n);
         }
-        for (; j < nv; j += 32) acc[0] = tbt::dot_lanes(av[j], xv[j], acc[0]);
-    } else {
-        int j = lane;
-        for (; j + (UNROLL - 1) * 32 < n; j += UNROLL * 32) {
-            T va[UNROLL], vx[UNROLL];
+        T acc[R][U];
 #pragma unroll
-            for (int u = 0; u < UNROLL; ++u) {
-                va[u] = ar[j + u * 32];
-                vx[u] = x[j + u * 32];
-            }
+        for (int r = 0; r < R; ++r)
 #pragma unroll
-            for (int u = 0; u < UNROLL; ++u) acc[u] = fma(va[u], vx[u], acc[u]);
+            for (int u = 0; u < U; ++u) acc[r][u] = T(0);
+        // Full steps of U * lanes units, then the ragged tail.
+        const int step = U * lanes, full = nv / step * step;
+        for (int j = lane; j < full; j += step) {
+            T xv[U][W], av[R][U][W];
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+                tbt::load_w(x + static_cast<long long>(j + u * lanes) * W,
+                            xv[u]);
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+                for (int u = 0; u < U; ++u)
+                    tbt::load_w(
+                        rows[r] + static_cast<long long>(j + u * lanes) * W,
+                        av[r][u]);
+#pragma unroll
+            for (int r = 0; r < R; ++r)
+#pragma unroll
+                for (int u = 0; u < U; ++u)
+#pragma unroll
+                    for (int c = 0; c < W; ++c)
+                        acc[r][u] = fma(av[r][u][c], xv[u][c], acc[r][u]);
         }
-        for (; j < n; j += 32) acc[0] = fma(ar[j], x[j], acc[0]);
+        for (int j = full + lane; j < nv; j += lanes) {
+            T xv[W];
+            tbt::load_w(x + static_cast<long long>(j) * W, xv);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                T av[W];
+                tbt::load_w(rows[r] + static_cast<long long>(j) * W, av);
+#pragma unroll
+                for (int c = 0; c < W; ++c)
+                    acc[r][0] = fma(av[c], xv[c], acc[r][0]);
+            }
+        }
+        T sum[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            sum[r] = acc[r][0];
+#pragma unroll
+            for (int u = 1; u < U; ++u) sum[r] += acc[r][u];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                if (off < width)
+                    sum[r] += __shfl_down_sync(0xffffffffu, sum[r], off, width);
+        }
+        if (lanes <= 32) {
+            if (lane == 0 && rg < groups)
+#pragma unroll
+                for (int r = 0; r < R; ++r)
+                    if (rg * R + r < m) y[rg * R + r] = sum[r];
+        } else {
+            const int warp = threadIdx.x / 32, team_warps = lanes / 32;
+            if (threadIdx.x % 32 == 0)
+#pragma unroll
+                for (int r = 0; r < R; ++r) red[warp][r] = sum[r];
+            __syncthreads();
+            if (lane < R && rg < groups && rg * R + lane < m) {
+                const int w0 = team * team_warps;
+                T total = red[w0][lane];
+                for (int k = 1; k < team_warps; ++k) total += red[w0 + k][lane];
+                y[rg * R + lane] = total;
+            }
+            __syncthreads();
+        }
     }
-    const T s = tbt::warp_sum((acc[0] + acc[1]) + (acc[2] + acc[3]));
-    if (lane == 0) y[row] = s;
 }
 
 // Block b: column block b % col_blocks (32 * V columns from c0), rows of
@@ -199,21 +270,64 @@ __global__ void __launch_bounds__(THREADS)
     y[i] = sum;
 }
 
+// f(kernel) for K8's instance of (vector form, rows, unroll);
+// cudaErrorInvalidValue where none serves.
+template <typename T, int W, int R, typename F>
+int rm_with_unroll(int unroll, F&& f) {
+    switch (unroll) {
+        case 1: return f(matvec_rm_kernel<T, W, R, 1>);
+        case 2: return f(matvec_rm_kernel<T, W, R, 2>);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <typename T, int W, typename F>
+int rm_with_rows(int rows, int unroll, F&& f) {
+    switch (rows) {
+        case 2: return rm_with_unroll<T, W, 2>(unroll, f);
+        case 4: return rm_with_unroll<T, W, 4>(unroll, f);
+        default: return cudaErrorInvalidValue;
+    }
+}
+
+template <typename T, typename F>
+int rm_with_kernel(int vector, int rows, int unroll, F&& f) {
+    if (vector) return rm_with_rows<T, tbt::Vec16<T>::width>(rows, unroll, f);
+    return rm_with_rows<T, 1>(rows, unroll, f);
+}
+
+// vector: n a whole number of 16-byte vectors and A and x on 16-byte
+// boundaries (refused otherwise); lanes a power of two from 8 to THREADS;
+// blocks: the grid (kernels/matvec.rm_grid).
 template <typename T>
-int launch_matvec_rm(const T* a, const T* x, T* y, int m, int n,
+int launch_matvec_rm(const T* a, const T* x, T* y, int m, int n, int rows,
+                     int unroll, int lanes, int vector, int blocks,
                      cudaStream_t stream) {
     if (m < 0 || n < 0) return cudaErrorInvalidValue;
     if (m == 0) return cudaSuccess;
-    const unsigned blocks = (m + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-    const bool vector = n % tbt::Vec16<T>::width == 0 && tbt::aligned16(a) &&
-                        tbt::aligned16(x);
-    if (vector)
-        matvec_rm_kernel<T, true><<<blocks, THREADS, 0, stream>>>(a, x, y, m,
-                                                                  n);
-    else
-        matvec_rm_kernel<T, false><<<blocks, THREADS, 0, stream>>>(a, x, y, m,
-                                                                   n);
-    return cudaGetLastError();
+    if (blocks < 1 || lanes < 8 || lanes > THREADS || (lanes & (lanes - 1)) ||
+        (vector && (n % tbt::Vec16<T>::width != 0 || !tbt::aligned16(a) ||
+                    !tbt::aligned16(x))))
+        return cudaErrorInvalidValue;
+    return rm_with_kernel<T>(vector, rows, unroll, [&](auto kernel) {
+        kernel<<<blocks, THREADS, 0, stream>>>(a, x, y, m, n, lanes);
+        return static_cast<int>(cudaGetLastError());
+    });
+}
+
+// Blocks of K8's instance the card holds at once; -1 on an error.
+template <typename T>
+int rm_wave(int vector, int rows, int unroll) {
+    int dev = 0, sms = 0, per_sm = -1;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+        return -1;
+    const int err = rm_with_kernel<T>(vector, rows, unroll, [&](auto kernel) {
+        return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, THREADS, 0));
+    });
+    return err == cudaSuccess ? per_sm * sms : -1;
 }
 
 template <typename T, bool VECTOR, int ROWS>
@@ -284,19 +398,27 @@ int cm_blocks() {
 }  // namespace
 
 extern "C" int tbt_matvec_rm_f32(const void* a, const void* x, void* y, int m,
-                                 int n, void* stream) {
+                                 int n, int rows, int unroll, int lanes,
+                                 int vector, int blocks, void* stream) {
     return launch_matvec_rm(static_cast<const float*>(a),
                             static_cast<const float*>(x),
-                            static_cast<float*>(y), m, n,
-                            static_cast<cudaStream_t>(stream));
+                            static_cast<float*>(y), m, n, rows, unroll, lanes,
+                            vector, blocks, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_matvec_rm_f64(const void* a, const void* x, void* y, int m,
-                                 int n, void* stream) {
+                                 int n, int rows, int unroll, int lanes,
+                                 int vector, int blocks, void* stream) {
     return launch_matvec_rm(static_cast<const double*>(a),
                             static_cast<const double*>(x),
-                            static_cast<double*>(y), m, n,
-                            static_cast<cudaStream_t>(stream));
+                            static_cast<double*>(y), m, n, rows, unroll, lanes,
+                            vector, blocks, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_matvec_rm_wave(int itemsize, int vector, int rows,
+                                  int unroll) {
+    return itemsize == 4 ? rm_wave<float>(vector, rows, unroll)
+                         : rm_wave<double>(vector, rows, unroll);
 }
 
 extern "C" int tbt_matvec_cm_blocks(int itemsize, int rows) {

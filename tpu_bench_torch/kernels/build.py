@@ -55,8 +55,8 @@ _SIGNATURES = {
     "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, s, out, e_rows, k_depth, n_cols, tile, stream
     "tbt_em_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # w, b0, out, nm0, nq0, nkj, n_elem, epb, stream
-    "tbt_qp_stage2_3d": [_P, _P, _P, _I, _I, _I, _L, _I, _P],
+    # w, b0, out, nm0, nq0, f, unroll, vector, blocks, stream
+    "tbt_qp_stage2_3d": [_P, _P, _P, _I, _I, _L, _I, _I, _I, _P],
     # x, s1, s2, s3, out, n_elem, k0, n1, n2, n3, et, stream
     "tbt_qp1d_fused3d": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
     # x, s1, s2, out, n_elem, k0, n1, n2, et, stream
@@ -65,8 +65,8 @@ _SIGNATURES = {
     "tbt_sumsq": [_P, _L, _D, _P, _P, _I, _I, _P],
     # x, y, n, vector, stream
     "tbt_map2_inplace": [_P, _P, _L, _I, _P],
-    # a, x, y, m, n, stream
-    "tbt_matvec_rm": [_P, _P, _P, _I, _I, _P],
+    # a, x, y, m, n, rows, unroll, lanes, vector, blocks, stream
+    "tbt_matvec_rm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # a_cm, x, y, ws, n_rows, m_cols, splits, unroll, stream
     "tbt_matvec_cm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, n, bias, tok, tok0, sink, stream
@@ -173,6 +173,11 @@ def library() -> ctypes.CDLL:
     lib.tbt_em_tile.restype = ctypes.c_int
     lib.tbt_matvec_cm_blocks.argtypes = [_I, _I]
     lib.tbt_matvec_cm_blocks.restype = ctypes.c_int
+    # K4's and K8's blocks in one wave
+    lib.tbt_qp_stage2_wave.argtypes = [_I, _I, _I, _I, _I]
+    lib.tbt_qp_stage2_wave.restype = ctypes.c_int
+    lib.tbt_matvec_rm_wave.argtypes = [_I, _I, _I, _I]
+    lib.tbt_matvec_rm_wave.restype = ctypes.c_int
     # K14 takes bf16 slices and writes an f32 pair, so it has no _f32/_f64
     # pair: c, x, hi, lo, t_c, t_x, m_rows, k_depth, n_cols, w[, u], stream
     ozaki = [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I]
@@ -212,6 +217,13 @@ def check_operands(name: str, tensors) -> None:
         raise ValueError(f"{name}: operands must be contiguous")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
+
+
+def vector16(n: int, itemsize: int, *ptrs: int) -> bool:
+    """Whether rows of n values of `itemsize` bytes are whole 16-byte
+    vectors and every pointer lies on a 16-byte boundary: the condition
+    for a kernel's 16-byte vector form (K4, K8)."""
+    return n * itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
 
 
 def run(name: str, x: torch.Tensor, *args) -> None:

@@ -31,6 +31,8 @@ back when it cannot run.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpu_bench_torch.kernels import bwdtrans2d as k2
@@ -69,14 +71,19 @@ QP_MEASURED = {
     (8, 7, 7, 8, 8): (64, 8), (8, 15, 15, 16, 16): (32, 8),
     (8, 31, 31, 32, 32): (16, 8),
 }
-# K4: elements (= threads) per block; the largest block it is built for
-# and the largest nm0 it keeps in registers (csrc/bwdtrans3d.cu
-# QP2_MAX_THREADS, QP2_MAX_NM0: buckets 16 and 32, the latter for b04
-# nq=32).  On the H100 at E=131072, 128 timed within 2% of the best of
-# 64..512 at nq 4^3-10^3 in f32 and f64 (PERF.md).
-QP2_EPB = 128
-QP2_MAX_EPB = 512
-QP2_MAX_NM0 = 32
+# K4 (csrc/bwdtrans3d.cu): threads a block; the 16-byte vectors a thread
+# takes a step (its U), and the default, from benchmarks/kernel_blocks.py
+# --only k4 (PERF.md section 6); the largest nm0 kept whole in registers
+# (every 3D order to 10^3), and the chunks of p and i above it, where U is
+# at most QP2_CHUNKED_UNROLL.
+QP2_THREADS = 256
+QP2_UNROLLS = (1, 2, 4)
+QP2_UNROLL = 4
+QP2_EXACT = 9
+QP2_CHUNK = 8
+QP2_CHUNKED_UNROLL = 2
+# B0 in shared memory: the most K4 takes without opting in to more
+QP2_MAX_B0_BYTES = 48 * 1024
 # K5: element tiles it is built for, by element size, in order of
 # preference; it takes the first whose workspaces fit the card's opt-in
 # shared memory.  Multiples of the mma tile's M side (16 rows for TF32, 8
@@ -223,31 +230,91 @@ def qp_stage2_3d_plain(w, b0):
     return torch.einsum("pi,pke->ike", b0, w)
 
 
-def qp_stage2_3d(w, b0, *, epb=None):
+def qp_stage2_3d(w, b0, *, unroll=None, out=None):
     """out (nq0, nkj, E) = sum_p B0[p, i] * w[p] from w (nm0, nkj, E) and
-    b0 (nm0, nq0).  `epb`: elements (threads) per block, default QP2_EPB."""
+    b0 (nm0, nq0).  `unroll`: K4's 16-byte vectors a thread a step, one of
+    QP2_UNROLLS (default QP2_UNROLL; at most QP2_CHUNKED_UNROLL where nm0 >
+    QP2_EXACT); `out`: a contiguous (nq0, nkj, E) tensor to write into,
+    None allocates one."""
     build.check_operands("qp_stage2_3d", (w, b0))
     if w.dim() != 3 or b0.dim() != 2 or b0.shape[0] != w.shape[0]:
         raise ValueError(f"qp_stage2_3d: w {tuple(w.shape)} and b0 "
                          f"{tuple(b0.shape)} are not (nm0, nkj, E) and "
                          "(nm0, nq0)")
-    epb = QP2_EPB if epb is None else epb
-    if not 0 < epb <= QP2_MAX_EPB:
-        raise ValueError(f"qp_stage2_3d: epb={epb} is not in 1.."
-                         f"{QP2_MAX_EPB}")
-    if w.device.type == "cpu":
-        return qp_stage2_3d_plain(w, b0)
     nm0, nkj, e = w.shape
     nq0 = b0.shape[1]
-    if nm0 > QP2_MAX_NM0 or nkj > 65535:  # kj runs on gridDim.y
-        raise ValueError(f"qp_stage2_3d: nm0={nm0} or nkj={nkj} exceeds the "
-                         f"kernel's limits ({QP2_MAX_NM0}, 65535)")
-    if b0.numel() * b0.element_size() > 48 * 1024:
-        raise ValueError("qp_stage2_3d: b0 exceeds 48 KB of shared memory")
-    out = torch.empty((nq0, nkj, e), dtype=w.dtype, device=w.device)
+    if unroll is None:
+        unroll = min(QP2_UNROLL, QP2_CHUNKED_UNROLL) if nm0 > QP2_EXACT \
+            else QP2_UNROLL
+    if unroll not in QP2_UNROLLS:
+        raise ValueError(f"qp_stage2_3d: unroll={unroll} is not one of "
+                         f"{QP2_UNROLLS}")
+    if nm0 > QP2_EXACT and unroll > QP2_CHUNKED_UNROLL:
+        raise ValueError(f"qp_stage2_3d: unroll={unroll} with nm0={nm0}: "
+                         f"above nm0={QP2_EXACT} the kernel takes at most "
+                         f"{QP2_CHUNKED_UNROLL}")
+    if out is not None:
+        build.check_operands("qp_stage2_3d", (w, out))
+        if out.shape != (nq0, nkj, e):
+            raise ValueError(f"qp_stage2_3d: out {tuple(out.shape)} is not "
+                             f"{(nq0, nkj, e)}")
+    if w.device.type == "cpu":
+        ref = qp_stage2_3d_plain(w, b0)
+        return ref if out is None else out.copy_(ref)
+    size = w.element_size()
+    if qp2_smem(size, nm0, nq0) > QP2_MAX_B0_BYTES:
+        raise ValueError(f"qp_stage2_3d: b0 {tuple(b0.shape)} exceeds "
+                         f"{QP2_MAX_B0_BYTES} B of shared memory")
+    if out is None:
+        out = torch.empty((nq0, nkj, e), dtype=w.dtype, device=w.device)
+    f = nkj * e
+    vector = build.vector16(f, size, w.data_ptr(), out.data_ptr())
+    u = unroll if vector else 1
+    blocks = qp2_grid(qp2_units(f, size, vector), u,
+                      qp2_wave(w.device, size, vector, nm0, nq0, u))
     build.run("qp_stage2_3d", w, w.data_ptr(), b0.data_ptr(), out.data_ptr(),
-              nm0, nq0, nkj, e, epb)
+              nm0, nq0, f, u, int(vector), blocks)
     return out
+
+
+def qp2_smem(itemsize, nm0, nq0) -> int:
+    """K4's shared memory, B0: (nm0, nq0), or for nm0 > QP2_EXACT both
+    padded with zeros to whole chunks of QP2_CHUNK."""
+    if nm0 > QP2_EXACT:
+        nm0, nq0 = _round_up(nm0, QP2_CHUNK), _round_up(nq0, QP2_CHUNK)
+    return itemsize * nm0 * nq0
+
+
+def qp2_units(f, itemsize, vector) -> int:
+    """The units K4 deals out to blocks: F's 16-byte vectors, or its
+    values in the scalar form."""
+    return f * itemsize // 16 if vector else f
+
+
+def qp2_grid(nv, unroll, wave) -> int:
+    """K4's blocks for nv units at `unroll` a thread: one wave (`wave`,
+    the blocks the card holds at once), but no more than give each block
+    one tile of QP2_THREADS * unroll units; at least one."""
+    return max(1, min(wave, -(-nv // (QP2_THREADS * unroll))))
+
+
+def qp2_shares(nv, blocks) -> list:
+    """[start, end) of each block's units, as csrc/bwdtrans3d.cu deals
+    them: block b owns [b * nv // blocks, (b + 1) * nv // blocks)."""
+    return [(b * nv // blocks, (b + 1) * nv // blocks) for b in range(blocks)]
+
+
+@functools.cache
+def qp2_wave(device, itemsize, vector, nm0, nq0, unroll) -> int:
+    """Blocks of K4's instance for (vector form, nm0, nq0, unroll) the card
+    holds at once (the occupancy API's blocks an SM times the SMs)."""
+    with torch.cuda.device(device):
+        blocks = build.library().tbt_qp_stage2_wave(
+            itemsize, int(vector), nm0, nq0, unroll)
+    if blocks < 1:
+        raise RuntimeError(f"qp_stage2_3d: no occupancy for nm0={nm0}, "
+                           f"unroll={unroll}")
+    return blocks
 
 
 def qp_global3d_plain(in_pcoa3, b0, c12t):
@@ -255,11 +322,11 @@ def qp_global3d_plain(in_pcoa3, b0, c12t):
     return qp_stage2_3d_plain(torch.matmul(c12t, in_pcoa3), b0)
 
 
-def qp_global3d(in_pcoa3, b0, c12t, *, epb=None):
+def qp_global3d(in_pcoa3, b0, c12t, *, unroll=None):
     """out (nq0, nkj, E) from in (nm0, nrq, E), b0 (nm0, nq0) and c12t
     (nkj, nrq), through the workspace w (nm0, nkj, E) = C12T @ in[p].
-    `epb`: K4's elements per block."""
-    return qp_stage2_3d(k2.kron_blocked(in_pcoa3, c12t), b0, epb=epb)
+    `unroll`: K4's vectors a thread a step."""
+    return qp_stage2_3d(k2.kron_blocked(in_pcoa3, c12t), b0, unroll=unroll)
 
 
 # ---- Pallas(QP-1D) and Pallas(QP-1D/Shared): element-major chain ---------
