@@ -21,9 +21,11 @@ five.  Every phase is fatal:
    process per source; ptxas must report no spills in the tensor-core
    kernels K14, K5 and the dense GEMM that K2 and K3 share, nor in K1,
    K2's C-resident and K3's S-resident configurations, K4 (every nm0
-   instance), K8 and K9, and
+   instance), K8, K9 and the cp.async.bulk rings of K12 and K7 (f32 and
+   f64), and
    `cuobjdump -sass` must show HMMA in K14 and in the f32 entries of K5
-   and of K2's and K3's dense GEMM, and DMMA in their f64 entries;
+   and of K2's and K3's dense GEMM, DMMA in their f64 entries, and the
+   bulk copy (UBLKCP) in the rings;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -32,14 +34,20 @@ five.  Every phase is fatal:
    and 131072; the benchmark04 uses at nq (2,2), (8,8), (10,12), (16,16)
    and (32,32), E=1000 and 1,048,576; the K6 and K7 uses at n = 1000 (x
    and y placed differently against 16-byte boundaries), 1,048,579 and
-   536,870,912; K8 and K9 at (1000, 777), (777, 1000), (4096, 16384),
-   (16384, 4096) and (16384, 16384); the seven ceiling probes of K10-K13 (expand at m = 2, 4
-   and 8) at n = 128*8 (one chunk), 128*64 and 128*24 in chunks of 8 rows
-   (more chunks than the ring's depth, and exactly depth), 128*64 with x
-   and y off a 16-byte boundary, and the ceilings' 134,217,728 (copy, fill,
-   expand and the token bit for bit); K14's pair and band forms bit for
-   bit in hi and lo on slices of random f64 operands at b04 nq=8^2 (E =
-   1000 and 1,048,576), b05 nq=8^3 (E = 1000 and 131072), K=729 with
+   536,870,912 (K7 bit for bit); K8 and K9 at (1000, 777), (777, 1000),
+   (4096, 16384), (16384, 4096) and (16384, 16384); the rings of K12
+   (copy, scale, triad) and K7's 16-byte form at one chunk, a partial
+   last chunk, more chunks than blocks x depth, n = 1000 and 1,048,579,
+   operands off a 16-byte boundary placed alike and placed apart, on a
+   second stream, and the main sizes, f32 and f64 (copy, scale and add
+   bit for bit, triad to RTOL); the seven ceiling probes of K10-K13
+   (expand at m = 2, 4 and 8) at n = 128*8 (one chunk), 128*64 and 128*24
+   in chunks of 8 rows (more chunks than the ring's depth, and exactly
+   depth), 128*64 with x and y off a 16-byte boundary, and the ceilings'
+   134,217,728 (copy, scale, fill, expand and the token bit for bit);
+   K14's pair and band forms bit for bit in hi and lo on slices of random
+   f64 operands at b04 nq=8^2 (E = 1000 and 1,048,576), b05 nq=8^3 (E =
+   1000 and 131072), K=729 with
    nqTot=1000, and T_c < T_x and T_c > T_x, the recombined product within
    5e-14 of K2 in double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3
    in f32 and f64; K14, K5 (f32, and f64 timed apart) and the dense
@@ -66,7 +74,10 @@ five.  Every phase is fatal:
    b04 nq=8^2, E=1,048,576 and b05 nq=8^3, E=131072, against torch.matmul
    in f64; kron_coalesced at the same shapes, f32), and for the b04 uses
    of B04_USES at their own order, each use is timed beside its plain
-   version, one library call and its bound; then
+   version, one library call and its bound, with what one call costs the
+   host beside the library call's (the µs to enqueue it, and the host
+   clock's time minus the events'; printed, not held), and K1-K4, K7-K9
+   and K12 beside their previous design's time; then
    every column's f64 golden norm of the benchmark data (b05 nq=8^3 and b04
    nq=8^2, nelmt=128; b01 and b02 at 1024, b02 after 40 accumulating
    calls; b03 at 128), device_x and device_y built on the card against
@@ -321,15 +332,22 @@ TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
           ("K2 kron dense f64 (DMMA)", "DMMA"),
           ("K3 em dense f32 (3xTF32)", "HMMA"),
           ("K3 em dense f64 (DMMA)", "DMMA")]
+# The cp.async.bulk rings (csrc/ring.cuh) of K12 (copy, scale, triad) and
+# K7's 16-byte form (add), whose SASS must hold the bulk copy (UBLKCP).
+RING_KERNELS = {"K12 ring f32": "ring_kernelIfN.*(Copy|Scale|Triad)",
+                "K12 ring f64": "ring_kernelIdN.*(Copy|Scale|Triad)",
+                "K7 ring f32": "ring_kernelIfN.*Add",
+                "K7 ring f64": "ring_kernelIdN.*Add"}
+RING_BULK = [(name, "UBLKCP") for name in RING_KERNELS]
 # The kernels ptxas must build without a spill: the tensor-core kernels,
 # K1, K2's C-resident and K3's S-resident configurations, K4 (every nm0
-# instance, f32 and f64), K8 and K9.
+# instance, f32 and f64), K8, K9 and the rings of K12 and K7.
 NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
             "K2 kron resident": "kron_resident_kernel",
             "K3 em resident": "em_resident_kernel",
             "K4 qp_stage2_3d": "qp_stage2_3d_kernel",
             "K8 matvec_rm": "matvec_rm_kernel",
-            "K9 matvec_cm": "matvec_cm"}
+            "K9 matvec_cm": "matvec_cm", **RING_KERNELS}
 # Times of the SIMT FMA designs that K14, K5, K2 and K3 replaced, CUDA
 # events, L2 flushed, by (use, shape, units): from this script and, for K5
 # and K3 in f64, benchmarks/kernel_blocks.py (PERF.md section 6; NVIDIA
@@ -351,8 +369,9 @@ SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
            ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f64 DMMA"): 4.8021,
            (K3_KRON, "b05 nq=8^3", "f32 3xTF32"): 1.6906,
            (K3_KRON, "b05 nq=8^3", "f64 DMMA"): 4.6604}
-# Times of K1's, K2's, K3's, K4's, K8's and K9's previous designs (the
-# first SIMT designs) by (use, order or shape, dtype), CUDA events, L2
+# Times of K1's, K2's, K3's, K4's, K8's, K9's, K12's and K7's 16-byte
+# form's previous designs (the first SIMT designs) by (use, order or
+# shape, dtype), CUDA events, L2
 # flushed, from this script (PERF.md section 6; NVIDIA H100 80GB HBM3,
 # 700.00 W); K1's and K2's in f64 at b05 nq=8^3, the host clock of their
 # columns there (PERF.md section 5: K1 20.4077 GDOF/s, K2 9.3621; 131072 *
@@ -400,7 +419,17 @@ PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            ("K8 matvec_rm", (1000, 777), "float64"): 0.0130,
            ("K8 matvec_rm", (777, 1000), "float64"): 0.0139,
            ("K8 matvec_rm", (4096, 16384), "float64"): 0.1941,
-           ("K8 matvec_rm", (16384, 4096), "float64"): 0.1913}
+           ("K8 matvec_rm", (16384, 4096), "float64"): 0.1913,
+           # K12's and K7's 16-byte form's first designs, 16-byte vectors
+           # through registers (this script, before the ring; PERF.md
+           # section 6)
+           ("K12 copy_manual", "float32"): 0.3595,
+           ("K12 scale_manual", "float32"): 0.3606,
+           ("K12 triad_manual", "float32"): 0.5260,
+           ("K7 add_inplace_manual", "float32"): 2.0870,
+           ("K7 add_inplace_wide", "float32"): 2.0872,
+           ("K7 add_inplace_manual", "float64"): 4.1630,
+           ("K7 add_inplace_wide", "float64"): 4.1625}
 # K1's, K2's, K3's and K4's uses also timed in f64 at b05 nq=8^3,
 # E=131072
 F64_USES = ("K1 qp_shared3d_flat", "K1 qp_shared3d", "K2 kron_blocked (Coales)",
@@ -441,8 +470,9 @@ def device_facts(torch) -> None:
 def build_kernels() -> None:
     """Phase 2: the build, ptxas's registers and spills (none allowed in
     NO_SPILL: the tensor-core kernels K14, K5 and the dense GEMM of K2 and
-    K3, K1, K2's C-resident and K3's S-resident configurations, and K9),
-    and the tensor-core kernels' mma instructions in the library's SASS."""
+    K3, K1, K2's C-resident and K3's S-resident configurations, K4, K8,
+    K9 and the rings of K12 and K7), the tensor-core kernels' mma
+    instructions and the rings' bulk copies in the library's SASS."""
     from tpu_bench_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -462,27 +492,32 @@ def build_kernels() -> None:
                 stores, loads = (int(n) for n in re.findall(
                     r"(\d+) bytes spill (?:stores|loads)", line))
                 assert stores == loads == 0, (function, line)
-    counts = mma_counts(build.library_path())
+    counts = sass_counts(build.library_path())
     for (kernel, op), n in sorted(counts.items()):
         print(f"  SASS: {n} {op} in {kernel}")
-    for kernel, op in TC_MMA:
+    for kernel, op in TC_MMA + RING_BULK:
         assert counts.get((kernel, op), 0) > 0, (kernel, op, counts)
 
 
-def mma_counts(library) -> dict:
-    """{(tensor-core kernel, HMMA or DMMA): instructions over its
-    instances} in `cuobjdump -sass` of the built library."""
+def sass_counts(library) -> dict:
+    """{(kernel, op): instructions over its instances} in `cuobjdump
+    -sass` of the built library: HMMA and DMMA in the tensor-core kernels
+    (TC_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
+    (SYNCS) in the rings (RING_KERNELS)."""
     from tpu_bench_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    counts, kernel = {}, None
+    groups = [(TC_KERNELS, ("HMMA", "DMMA")),
+              (RING_KERNELS, ("UBLKCP", "SYNCS"))]
+    counts, kernel, ops = {}, None, ()
     for line in _run([tool, "-sass", str(library)]).splitlines():
         if "Function :" in line:
             name = line.split()[-1]
-            kernel = next((k for k, tag in TC_KERNELS.items()
-                           if re.search(tag, name)), None)
+            kernel, ops = next(((k, o) for kernels, o in groups
+                                for k, tag in kernels.items()
+                                if re.search(tag, name)), (None, ()))
         elif kernel:
-            for op in ("HMMA", "DMMA"):
+            for op in ops:
                 if re.search(rf"\b{op}\.", line):
                     counts[(kernel, op)] = counts.get((kernel, op), 0) + 1
     return counts
@@ -715,10 +750,10 @@ def stream_cases(torch, rnd, n, offsets) -> list:
                     lambda: k6.sumsq_plain(x, eps), lambda: torch.dot(x, x),
                     (x,), 3 * n, rtol=sum_tol)
 
-    def k7_case(label, fn):
+    def k7_case(label, fn):  # one rounded add each side: bit for bit
         return Case(label, lambda: fn(xs, y),
                     lambda: k7.map2_inplace_plain(xp, y),
-                    lambda: xs.add_(y), (x, y), n, reset=reset)
+                    lambda: xs.add_(y), (x, y), n, reset=reset, rtol=0.0)
 
     return [
         k6_case("K6 sumsq_two_pass", k6.sumsq_two_pass),
@@ -761,6 +796,34 @@ def bound(inputs, out, flops, flop_rate=FP32_FLOP_PER_S) -> tuple:
             else (by_ops, "operations"))
 
 
+def host_cost(torch, run, library) -> dict:
+    """What one call costs the host, for a hand use (`run`) and its
+    library call: the µs to enqueue it while the card is busy
+    (benchmarks/kernel_blocks.enqueue_us), and the host clock's time of a
+    synchronized call as the benchmarks take it (core/timing.time_variant,
+    L2 flushed) minus its CUDA-event time (event_ms), each the least of
+    two taken in turns."""
+    from tpu_bench_torch.benchmarks.kernel_blocks import enqueue_us
+    from tpu_bench_torch.core.timing import L2Flush, event_ms, time_variant
+
+    device = torch.device("cuda")
+    flush = L2Flush(device)
+    cost = {}
+    for key, fn in (("kernel", run), ("library", library)):
+        host = [time_variant(fn, 10, device, flush)]
+        events = [event_ms(fn), event_ms(fn)]
+        host.append(time_variant(fn, 10, device, flush))
+        cost[key] = (enqueue_us(fn), min(host) * 1e6 - min(events) * 1e3)
+    return cost
+
+
+def host_text(cost) -> str:
+    """host_cost's figures, for a line of phase 3."""
+    (enq, over), (lib_enq, lib_over) = cost["kernel"], cost["library"]
+    return (f"; host: enqueue {enq:.2f} us, host clock - events "
+            f"{over:.2f} us; library {lib_enq:.2f} us, {lib_over:.2f} us")
+
+
 def kernels_vs_plain(torch) -> dict:
     """Phase 3.  Returns {(use, nq): its error, times and bound} in f32 at
     each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
@@ -773,7 +836,7 @@ def kernels_vs_plain(torch) -> dict:
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    measured = {}
+    measured, hosts = {}, {}
     sets = [(shape_cases, nq, e, (8, 8, 8), HEADLINE_NELMT)
             for nq in ((4, 4, 4), (8, 8, 8), (10, 10, 10), (3, 4, 5))
             for e in (1000, HEADLINE_NELMT)]
@@ -803,6 +866,8 @@ def kernels_vs_plain(torch) -> dict:
                         plain_ms=event_ms(case.plain),
                         library_ms=event_ms(case.library),
                         bound_ms=bound_ms, bound_by=bound_by)
+                    hosts[(case.label, nq, "float64")] = host_cost(
+                        torch, case.run, case.library)
                 elif dtype == torch.float32 and main:
                     bound_ms, bound_by = bound(case.inputs, out, case.flops)
                     measured[(case.label, nq)] = dict(
@@ -810,6 +875,8 @@ def kernels_vs_plain(torch) -> dict:
                         plain_ms=event_ms(case.plain),
                         library_ms=event_ms(case.library),
                         bound_ms=bound_ms, bound_by=bound_by)
+                    hosts[(case.label, nq)] = host_cost(torch, case.run,
+                                                        case.library)
                 del out
             torch.cuda.empty_cache()
         # K5's element tiles at b04 nq=32 (widths 961, 992): only 16 fits
@@ -818,7 +885,8 @@ def kernels_vs_plain(torch) -> dict:
                       for n in ((1, 961), (961, 992), (992, 1024)))
         print(f"  K5 tiles that fit at b04 nq=32 {str(dtype)[6:]}: "
               f"{k1.qp1d_tiles(em, s1, s2)}")
-    for (label, nq, *f64), k in measured.items():
+    for key, k in measured.items():
+        label, nq, *f64 = key
         e = HEADLINE_NELMT if len(nq) == 3 else B04_NELMT
         dtype = f64[0] if f64 else "float32"
         prev = PREV_MS.get((label, nq, dtype))
@@ -827,7 +895,7 @@ def kernels_vs_plain(torch) -> dict:
               + (f"previous design {prev:.4f} ms, " if prev else "")
               + f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})")
+              f"({k['bound_by']})" + host_text(hosts[key]))
     return measured
 
 
@@ -842,7 +910,7 @@ def streams_vs_plain(torch) -> dict:
     from tpu_bench_torch.core.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    measured = {}
+    measured, hosts = {}, {}
     for dtype in (torch.float32, torch.float64):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",
@@ -868,6 +936,8 @@ def streams_vs_plain(torch) -> dict:
                         plain_ms=event_ms(case.plain),
                         library_ms=event_ms(case.library),
                         bound_ms=bound_ms, bound_by=bound_by)
+                    hosts[(case.label, tag)] = host_cost(torch, case.run,
+                                                         case.library)
                 elif case.label == "K8 matvec_rm":
                     prev = PREV_MS[(case.label, args, tag)]
                     print(f"  K8 matvec_rm at {args} {tag}: kernel "
@@ -883,7 +953,7 @@ def streams_vs_plain(torch) -> dict:
               + (f"previous design {prev:.4f} ms, " if prev else "")
               + f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})")
+              f"({k['bound_by']})" + host_text(hosts[(label, tag)]))
     return measured
 
 
@@ -933,7 +1003,8 @@ def probe_cases(torch, rnd, n, chunk_bytes, offsets) -> list:
              (x,), 0, rtol=0.0),
         Case("K12 scale_manual", lambda: stream.scale_manual(xs, c),
              lambda: stream.scale_plain(xp, c),
-             lambda: xs.mul_(c.reshape(())), (x, c), n, reset=reset),
+             lambda: xs.mul_(c.reshape(())), (x, c), n, reset=reset,
+             rtol=0.0),
         Case("K12 triad_manual", lambda: stream.triad_manual(xs, y, c),
              lambda: stream.triad_plain(xp, y, c),
              lambda: xs.add_(y, alpha=alpha), (x, y, c), 2 * n,
@@ -962,7 +1033,7 @@ def probes_vs_plain(torch) -> dict:
     from tpu_bench_torch.core.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(7)
-    measured = {}
+    measured, hosts = {}, {}
     for dtype in (torch.float32, torch.float64):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",
@@ -988,14 +1059,118 @@ def probes_vs_plain(torch) -> dict:
                         plain_ms=event_ms(case.plain),
                         library_ms=event_ms(case.library),
                         bound_ms=bound_ms, bound_by=bound_by)
+                    hosts[case.label] = host_cost(torch, case.run,
+                                                  case.library)
                 del out
             torch.cuda.empty_cache()
     for label, k in measured.items():
+        prev = PREV_MS.get((label, "float32"))
         print(f"  {label} at n={CEILING_N} f32: kernel {k['ms']:.4f} ms, "
-              f"plain {k['plain_ms']:.4f} ms, library "
+              + (f"previous design {prev:.4f} ms, " if prev else "")
+              + f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-              f"({k['bound_by']})")
+              f"({k['bound_by']})" + host_text(hosts[label]))
     return measured
+
+
+# The cases the rings of K12 and K7's 16-byte form are held to their plain
+# versions at: (label, x's and y's offsets in elements into their
+# buffers); the sizes come from ring_case_n
+RING_CASES = [("one chunk", (0, 0)), ("partial last chunk", (0, 0)),
+              ("more chunks than blocks x depth", (0, 0)),
+              ("n=1000", (0, 0)), ("n=1048579", (0, 0)),
+              ("off 16 B, alike", (1, 1)), ("placed apart", (1, 2)),
+              ("on a second stream", (0, 0)), ("main size", (0, 0))]
+
+
+def ring_case_n(case, use, itemsize, wave) -> int:
+    """Elements of a ring case for `use` (kernels/ring.py RING's chunk and
+    depth; `wave` its blocks in one wave)."""
+    from tpu_bench_torch.kernels import ring
+
+    chunk, depth = ring.RING[use]
+    per_chunk = chunk // itemsize
+    return {"one chunk": per_chunk,
+            "partial last chunk": 5 * per_chunk + 128,
+            "more chunks than blocks x depth":
+                (wave * depth + 3) * per_chunk + 640,
+            "n=1000": 1000, "main size": STREAM_N if use == "add"
+            else CEILING_N}.get(case, 1048579)
+
+
+def rings_vs_plain(torch) -> None:
+    """Phase 3, the cp.async.bulk rings (csrc/ring.cuh): K12's copy, scale
+    and triad and K7's 16-byte form (add) at RING_CASES in f32 and f64
+    against their plain versions, copy, scale and add bit for bit, triad
+    to RTOL (the kernel may fuse its multiply and add).  K12 runs through
+    its C entry at the ring's chunk and depth, so n need not be a
+    multiple of the wrappers' 128-wide rows; K7 through add_inplace_wide.
+    Each use launches its kernel once a case, on the current stream but
+    in one case on a second one (each stream has its ring's counter)."""
+    from tpu_bench_torch.kernels import build, ring
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for dtype in (torch.float32, torch.float64):
+        size, tag = dtype.itemsize, str(dtype)[6:]
+        for use in ("copy", "scale", "triad", "add"):
+            chunk, depth = ring.RING[use]
+            wave = ring.ring_wave(0, size, use, chunk, depth)
+            for case, (ox, oy) in RING_CASES:
+                n = ring_case_n(case, use, size, wave)
+
+                def placed(offset, source=None):
+                    buf = torch.empty(n + 4, dtype=dtype, device="cuda")
+                    view = buf[offset:offset + n]
+                    if source is None:
+                        return view.normal_(generator=gen)
+                    return view.copy_(source)
+
+                x, y = placed(ox), placed(oy)
+                c = torch.randn(1, 1, generator=gen, device="cuda",
+                                dtype=dtype)
+                # the case is what its label says, by the ring's plan
+                plan = ring.ring_plan(n, size, x.data_ptr(), chunk, wave)
+                assert {"one chunk": plan.chunks == 1,
+                        "partial last chunk": plan.nbytes % chunk != 0,
+                        "more chunks than blocks x depth":
+                            plan.chunks > plan.blocks * depth}.get(
+                                case, True), (use, case, plan)
+                kernel = "map2_inplace" if use == "add" else "stream_map"
+                before = build.launches[kernel]
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with (torch.cuda.stream(side) if case == "on a second stream"
+                      else contextlib.nullcontext()):
+                    got, ref = ring_case_run(use, x, y, c, placed, ox, oy, n,
+                                             chunk, depth)
+                torch.cuda.synchronize()
+                assert build.launches[kernel] == before + 1, (use, case)
+                compare(torch, f"ring {use} {tag} {case} n={n} at "
+                        f"({ox}, {oy})", got, ref, dtype,
+                        None if use == "triad" else 0.0)
+                del x, y, got, ref
+            torch.cuda.empty_cache()
+
+
+def ring_case_run(use, x, y, c, placed, ox, oy, n, chunk, depth) -> tuple:
+    """One case of rings_vs_plain: (the kernel's output, the plain
+    version's), copy into a buffer placed as y, the others in place."""
+    from tpu_bench_torch.kernels import axpy as k7
+    from tpu_bench_torch.kernels import build, ring
+    from tpu_bench_torch.kernels import stream
+
+    if use == "add":
+        xs = placed(ox, x)
+        return k7.add_inplace_wide(xs, y), k7.map2_inplace_plain(x.clone(),
+                                                                 y)
+    src = x if use == "copy" else placed(ox, x)
+    got = placed(oy) if use == "copy" else src
+    build.run("stream_map", x, got.data_ptr(), src.data_ptr(), y.data_ptr(),
+              c.data_ptr(), n, ring.MAP_OPS[use], chunk, depth)
+    ref = {"copy": lambda: x.clone(),
+           "scale": lambda: stream.scale_plain(x.clone(), c),
+           "triad": lambda: stream.triad_plain(x.clone(), y, c)}[use]()
+    return got, ref
 
 
 def ozaki_operands(torch, rng, k, nq_tot, e, t_c=None, t_x=None):
@@ -1033,7 +1208,7 @@ def ozaki_vs_plain(torch) -> tuple:
     from tpu_bench_torch.kernels import bwdtrans2d as k2
 
     rng = np.random.default_rng(8)
-    measured, band_launches = {}, None
+    measured, hosts, band_launches = {}, {}, None
     forms = (("K14 kron_ozaki_pair", ozaki.kron_ozaki_pair),
              ("K14 kron_ozaki_band", ozaki.kron_ozaki_band))
     for label, k, nq_tot, e, t_c, t_x in OZAKI_SHAPES:
@@ -1066,6 +1241,9 @@ def ozaki_vs_plain(torch) -> tuple:
                 measured[(use, label)] = dict(
                     max_abs_err=err, ms=event_ms(lambda: fn(x_sl, c_sl)),
                     **shared)
+                hosts[(use, label)] = host_cost(
+                    torch, lambda: fn(x_sl, c_sl),
+                    lambda: torch.matmul(c64, x64))
         if t_c is None and t_x is None:
             ref = k2.kron_coalesced(x64, c64)
             out = scale * (hi_p.double() + lo_p.double())
@@ -1079,11 +1257,11 @@ def ozaki_vs_plain(torch) -> tuple:
             band_launches = build.launches["ozaki_slices"]
         del x_sl, c_sl, x64, c64, hi_p, lo_p
         torch.cuda.empty_cache()
-    for (use, label), m in measured.items():
-        print(f"  {use} at {label}: kernel {m['ms']:.4f} ms, plain "
+    for key, m in measured.items():
+        print(f"  {key[0]} at {key[1]}: kernel {m['ms']:.4f} ms, plain "
               f"{m['plain_ms']:.4f} ms, torch.matmul f64 "
               f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-              f"({m['bound_by']})")
+              f"({m['bound_by']})" + host_text(hosts[key]))
     return measured, band_launches
 
 
@@ -1168,7 +1346,7 @@ def coalesced_vs_plain(torch) -> tuple:
     from tpu_bench_torch.kernels import bwdtrans2d as k2
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    measured, launches = {}, None
+    measured, hosts, launches = {}, {}, None
     for dtype in (torch.float32, torch.float64):
         for label, nm_tot, nq_tot, e in COALESCED_SHAPES:
             x = torch.randn(nm_tot, e, generator=gen, device="cuda",
@@ -1188,6 +1366,9 @@ def coalesced_vs_plain(torch) -> tuple:
                     plain_ms=event_ms(lambda: k2.kron_coalesced_plain(x, c)),
                     library_ms=event_ms(lambda: torch.matmul(c, x)),
                     bound_ms=bound_ms, bound_by=bound_by)
+                hosts[label] = host_cost(
+                    torch, lambda: k2.kron_coalesced(x, c),
+                    lambda: torch.matmul(c, x))
                 if label == COALESCED_SHAPES[-1][0]:
                     build.launches.clear()
                     k2.kron_coalesced(x, c)
@@ -1201,7 +1382,7 @@ def coalesced_vs_plain(torch) -> tuple:
               f"previous design {prev:.4f} ms, "
               f"plain {m['plain_ms']:.4f} ms, torch.matmul "
               f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-              f"({m['bound_by']})")
+              f"({m['bound_by']})" + host_text(hosts[label]))
     return measured, launches
 
 
@@ -1778,6 +1959,7 @@ def main() -> int:
     measured = kernels_vs_plain(torch)
     measured_streams = streams_vs_plain(torch)
     measured_probes = probes_vs_plain(torch)
+    rings_vs_plain(torch)
     measured_ozaki, band_launches = ozaki_vs_plain(torch)
     tensor_core_times(torch, measured, measured_ozaki)
     measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)

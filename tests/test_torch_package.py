@@ -261,3 +261,190 @@ def test_qp1d_tensor_core_tiles_on_card(nq):
             out = k1.qp1d_fused(em, *ops, epb=et)
             torch.cuda.synchronize()
             assert float((out - ref).abs().max() / ref.abs().max()) <= tol
+
+
+# ---- the launch path: what a kernel launch costs the host --------------
+
+
+class _FakeLibrary:
+    """Stands in for the kernels' library: counts the lookups of each
+    entry, records each call and reports success."""
+
+    def __init__(self):
+        self.lookups, self.calls, self.code = {}, [], 0
+
+    def __getattr__(self, name):
+        if name == "tbt_error_string":
+            return lambda err: b"invalid configuration"
+        self.lookups[name] = self.lookups.get(name, 0) + 1
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.code
+
+        return entry
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """build.library() as a _FakeLibrary, the CPU tensors' device index
+    (-1) as the current device and 77 as its stream; the entry cache and
+    launch counts are restored afterwards."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "library", lambda: fake)
+    monkeypatch.setattr(build, "current_device", lambda: -1)
+    monkeypatch.setattr(build, "raw_stream", lambda index: 77)
+    counts = build.launches.copy()
+    build.entry.cache_clear()
+    yield fake
+    build.entry.cache_clear()
+    build.launches.clear()
+    build.launches.update(counts)
+
+
+@pytest.mark.parametrize("name", ["map2_inplace", "stream_map", "matvec_rm"])
+def test_build_resolves_each_entry_once(fake_library, name):
+    """build.run looks each C entry up once per (name, dtype), passes the
+    current stream last and counts every launch."""
+    x32, x64 = torch.zeros(4), torch.zeros(4, dtype=torch.float64)
+    before = build.launches[name]
+    for _ in range(3):
+        build.run(name, x32, 1, 2)
+        build.run(name, x64, 3)
+    assert fake_library.lookups == {f"tbt_{name}_f32": 1,
+                                    f"tbt_{name}_f64": 1}
+    assert fake_library.calls[-2:] == [(f"tbt_{name}_f32", (1, 2, 77)),
+                                       (f"tbt_{name}_f64", (3, 77))]
+    assert build.launches[name] == before + 6
+
+
+def test_build_enters_device_context_only_off_current(fake_library,
+                                                      monkeypatch):
+    """On the current device build.run takes the stream without a device
+    context; on another device it enters that device's context."""
+    entered = []
+
+    class Context:
+        def __init__(self, index):
+            self.index = index
+
+        def __enter__(self):
+            entered.append(self.index)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "device", Context)
+    x = torch.zeros(4)
+    build.run("sumsq", x, 5)
+    assert entered == []
+    monkeypatch.setattr(build, "current_device", lambda: 3)
+    build.run("sumsq", x, 5)
+    assert entered == [-1]
+    assert fake_library.lookups == {"tbt_sumsq_f32": 1}
+
+
+def test_build_raises_on_a_launch_error(fake_library):
+    """A non-zero CUDA code from an entry raises with its message and is
+    not counted as a launch."""
+    fake_library.code = 9
+    before = build.launches["sumsq"]
+    with pytest.raises(RuntimeError, match="sumsq: CUDA error 9: invalid"):
+        build.run("sumsq", torch.zeros(4), 1)
+    assert build.launches["sumsq"] == before
+
+
+# The orders of benchmarks 05 and 04 whose configurations are cached: b05
+# 2^3 .. 10^3 and (3, 4, 5); run04.sh's orders and (10, 12)
+B05_ORDERS = [(n, n, n) for n in range(2, 11)] + [(3, 4, 5)]
+B04_ORDERS = [(n, n) for n in (2, 4, 6, 8, 10, 12, 14, 16, 32)] + [(10, 12)]
+MATVEC_SHAPES = [(1000, 777), (777, 1000), (4096, 16384), (16384, 4096),
+                 (16384, 16384)]
+
+
+def _order_products(nq):
+    """K1's (nm0, nrq, nq0, nkj), K2's products (M, K) and K3's (K, N) at
+    order nq (chip_smoke.config_operands' shapes)."""
+    nm = [n - 1 for n in nq]
+    if len(nq) == 2:
+        k1_shape = (nm[0], nm[1], nq[0], nq[1])
+        kron = [(nq[1], nm[1]), (nq[0] * nq[1], nm[0] * nm[1])]
+        widths = [nm[0] * nm[1], nm[1] * nq[0], nq[0] * nq[1]]
+    else:
+        k1_shape = (nm[0], nm[1] * nm[2], nq[0], nq[1] * nq[2])
+        kron = [(nq[1] * nq[2], nm[1] * nm[2]),
+                (nq[0] * nq[1] * nq[2], nm[0] * nm[1] * nm[2])]
+        widths = [nm[0] * nm[1] * nm[2], nm[1] * nm[2] * nq[0],
+                  nm[2] * nq[0] * nq[1], nq[0] * nq[1] * nq[2]]
+    em = [(widths[0], widths[-1]), *zip(widths, widths[1:])]
+    return k1_shape, kron, em
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("nq", B05_ORDERS + B04_ORDERS,
+                         ids=lambda nq: "x".join(map(str, nq)))
+def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):
+    """K1's launch configuration and K1's, K2's, K3's and K4's rules, each
+    computed once per key, equal the rules computed afresh at every b05
+    and b04 order."""
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    (nm0, nrq, nq0, nkj), kron, em = _order_products(nq)
+    rule = k1.qp_config.__wrapped__(itemsize, nm0, nrq, nq0, nkj)
+    for _ in range(2):
+        assert k1.qp_config(itemsize, nm0, nrq, nq0, nkj) == rule
+    if rule is not None:
+        assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, None,
+                                   None) == rule
+        tile = k1.QP_TILES[itemsize][-1]
+        assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, tile,
+                                   None) == (tile, k1.qp_planes(tile, nkj))
+    for m, k in kron:
+        assert k2.kron_config(itemsize, m, k) == \
+            k2.kron_config.__wrapped__(itemsize, m, k)
+    for k, n in em:
+        assert k2.em_config(itemsize, k, n) == \
+            k2.em_config.__wrapped__(itemsize, k, n)
+    f = nkj * 131072
+    for vector in (True, False):
+        units = k1.qp2_units(f, itemsize, vector)
+        for wave in (132, 264, 1056):
+            assert k1.qp2_grid(units, k1.QP2_UNROLL, wave) == \
+                k1.qp2_grid.__wrapped__(units, k1.QP2_UNROLL, wave)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", MATVEC_SHAPES)
+def test_cached_matvec_configs_equal_their_rules(m, n, itemsize):
+    """K8's team and grid and K9's row shares, each computed once per key,
+    equal the rules computed afresh at every matvec shape."""
+    from tpu_bench_torch.kernels import matvec as kmv
+
+    for vector in (True, False):
+        units = n * itemsize // 16 if vector else n
+        for rows in kmv.RM_ROWS:
+            for unroll in kmv.RM_UNROLLS:
+                lanes = kmv.rm_lanes(units, unroll)
+                assert lanes == kmv.rm_lanes.__wrapped__(units, unroll)
+                for wave in (132, 264):
+                    assert kmv.rm_grid(m, rows, lanes, wave) == \
+                        kmv.rm_grid.__wrapped__(m, rows, lanes, wave)
+    for blocks in (132, 1056):
+        for unroll in kmv.CM_UNROLLS:
+            assert kmv.cm_splits(n, m, itemsize, blocks, unroll) == \
+                kmv.cm_splits.__wrapped__(n, m, itemsize, blocks, unroll)
+
+
+def test_qp_launch_config_refuses_bad_knobs():
+    """K1's cached launch configuration keeps the wrapper's refusals."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    with pytest.raises(ValueError, match="epb=3"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 3, None)
+    with pytest.raises(ValueError, match="planes=5"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, None, 5)
+    with pytest.raises(ValueError, match="does not fit"):
+        k1.qp_launch_config(4, 31, 961, 32, 1024, None, None)
+    with pytest.raises(ValueError, match="does not fit"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 128, None, 1024)

@@ -2,6 +2,8 @@
 
     python -m tpu_bench_torch.benchmarks.kernel_blocks [--only k1,k2,...]
     python -m tpu_bench_torch.benchmarks.kernel_blocks --uses
+    python -m tpu_bench_torch.benchmarks.kernel_blocks --only host
+    python -m tpu_bench_torch.benchmarks.kernel_blocks --only ring
 
 For each kernel with a block-size knob, on random inputs in f32 and f64:
 the least device time of one call by CUDA events (20 calls, L2 flushed
@@ -35,13 +37,29 @@ setting twice, in the order a b .. b a).  The sweeps:
   (16384, 4096); `*` marks the default;
 - K9 (matvec_cm): rows in flight (CM_UNROLLS) by row shares (half, once
   and twice cm_splits' one wave) at benchmark03's 16384^2 and A (4096,
-  16384); `*` marks the default.
+  16384); `*` marks the default;
+- ring: K12's copy, scale and triad at the ceilings' 134,217,728 elements
+  and K7's 16-byte form (add_inplace_manual) at 536,870,912, each beside
+  the library call computing the same function, at every (chunk, depth)
+  of kernels/ring.py's sweep that fits; `*` marks ring.RING's.  Run on a
+  tree without the ring, it times the first design (the default call);
+- host, what a column's call costs the host (host_sweep): at b05 nq=8^3
+  and b04 nq=8^2 (f32, f64), b04 nq=2^2, b01/b02 at 2^20 and 536,870,912
+  and b03 at 1024^2 and 16384^2 (f32), each column's enqueue µs, its
+  host-clock time as the benchmarks take it, its CUDA-event time, the
+  difference of the two as a median over calls taken in turns (with the
+  part before the kernel ends and the part after), and for the hand
+  columns the enqueue in parts, beside the library column's (`--rows b02`
+  runs the rows whose label holds b02).
 
 After each K1 shape, a `best` line gives the fastest setting.  The
 constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_UNROLL, QP1D_TILES),
-kernels/bwdtrans2d.py (KRON_STRIPS, EM_TILES) and kernels/matvec.py
-(RM_ROW, RM_UNROLL, CM_UNROLL) rest on its output.  `--only` runs the
-named sweeps (k1, k2, k3, k4, k4diag, k5, k8, k9).
+kernels/bwdtrans2d.py (KRON_STRIPS, EM_TILES), kernels/matvec.py
+(RM_ROW, RM_UNROLL, CM_UNROLL) and kernels/ring.py (RING) rest on its
+output.  `--only` runs the named sweeps (k1, k2, k3, k4, k4diag, k5, k8,
+k9, ring, host).  The host and ring sweeps use only calls every tree of
+the port has (the ring sweep times the ring where the tree has it), so
+they also time an earlier tree, as `--uses` does.
 
 `--uses` times instead each K3 use (b04 nq=8^2 kron_elem_major and QP-1D
 stages, E=1,048,576; b05 nq=8^3 kron_elem_major and QP-1D stages,
@@ -58,11 +76,15 @@ Prints the card's name and power limit first; needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import statistics
 import subprocess
+import time
 
 import torch
 
-from tpu_bench_torch.core.timing import event_ms
+from tpu_bench_torch.core.timing import (ENQUEUE_CYCLES, L2Flush, event_ms,
+                                         time_variant)
+from tpu_bench_torch.kernels import build
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
 from tpu_bench_torch.kernels import matvec as kmv
@@ -295,7 +317,314 @@ def k8_sweep(rnd, tag, itemsize) -> None:
         torch.cuda.empty_cache()
 
 
-SWEEPS = ("k1", "k2", "k3", "k4", "k4diag", "k5", "k8", "k9")
+# The host sweep's rows: (label, benchmark, prepare's arguments, dtypes),
+# and each benchmark's library column that its hand columns are set
+# beside (b03: by column).
+HOST_ROWS = [
+    ("b05 nq=8^3 E=131072", "benchmark05", (8, 8, 8, NELMT), ("f32", "f64")),
+    ("b04 nq=8^2 E=1048576", "benchmark04", (8, 8, B04_NELMT),
+     ("f32", "f64")),
+    ("b04 nq=2^2 E=1048576", "benchmark04", (2, 2, B04_NELMT), ("f32",)),
+    ("b01 n=2^20", "benchmark01", (2**20,), ("f32",)),
+    ("b01 n=536870912", "benchmark01", (536870912,), ("f32",)),
+    ("b02 n=2^20", "benchmark02", (2**20,), ("f32",)),
+    ("b02 n=536870912", "benchmark02", (536870912,), ("f32",)),
+    ("b03 1024^2", "benchmark03", (1024,), ("f32",)),
+    ("b03 16384^2", "benchmark03", (16384,), ("f32",)),
+]
+HOST_LIBRARY = {"benchmark05": "XLA(GEMM)", "benchmark04": "XLA(GEMM)",
+                "benchmark01": "XLA(dot)", "benchmark02": "XLA(donate)",
+                "benchmark03": {"Pallas(vpu)": "XLA(gemv-rm)",
+                                "Pallas(mxu)": "XLA(gemv-cm)"}}
+# Calls of one enqueue measurement, in batches, each batch enqueued while
+# the card spins for SLEEP_CYCLES (about 10 ms), so no call waits on it
+# and the launch queue never fills; reps of each measurement (the least
+# is kept) and of the host-clock column time.
+ENQUEUE_CALLS = 200
+ENQUEUE_BATCH = 50
+SLEEP_CYCLES = 20_000_000
+HOST_REPS = 2
+HOST_TESTS = 20
+# rounds of paired_us, whose medians it reports
+HOST_PAIRED = 60
+
+
+def enqueue_us(fn) -> float:
+    """Least host µs to enqueue one fn(), over HOST_REPS runs of
+    ENQUEUE_CALLS calls made while the card is busy (time.perf_counter_ns
+    around each batch, the card spinning ahead of it)."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(HOST_REPS):
+        total = 0
+        for _ in range(ENQUEUE_CALLS // ENQUEUE_BATCH):
+            torch.cuda._sleep(SLEEP_CYCLES)
+            t0 = time.perf_counter_ns()
+            for _ in range(ENQUEUE_BATCH):
+                fn()
+            total += time.perf_counter_ns() - t0
+        torch.cuda.synchronize()
+        best = min(best, total / ENQUEUE_CALLS / 1e3)
+    return best
+
+
+def captured_launches(fn) -> tuple:
+    """(fn()'s output, the (name, x, args) of every build.run it made):
+    one call with build.run recording its arguments as it launches."""
+    calls, run = [], build.run
+
+    def recording(name, x, *args):
+        calls.append((name, x, args))
+        run(name, x, *args)
+
+    build.run = recording
+    try:
+        out = fn()
+    finally:
+        build.run = run
+    torch.cuda.synchronize()
+    return out, calls
+
+
+def launch_parts(fn) -> dict:
+    """A hand column's enqueue µs in parts, each timed as enqueue_us: the
+    wrapper's Python (checks, rules, allocations) with build.run made a
+    no-op; build.run alone, replaying the arguments one call gave it
+    (entry lookup, device context, stream and the ctypes call); and the
+    ctypes call alone with the stream fetched once (the C launcher and its
+    CUDA runtime calls).  The replays write where the captured call did,
+    whose output is kept alive meanwhile."""
+    out, calls = captured_launches(fn)
+    run = build.run
+    build.run = lambda name, x, *args: None
+    try:
+        wrapper = enqueue_us(fn)
+    finally:
+        build.run = run
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    entries = [(getattr(lib, f"tbt_{name}_"
+                        f"{'f32' if x.dtype == torch.float32 else 'f64'}"),
+                args) for name, x, args in calls]
+
+    def replay():
+        for name, x, args in calls:
+            build.run(name, x, *args)
+
+    def ctypes_only():
+        for entry, args in entries:
+            entry(*args, stream)
+
+    parts = dict(wrapper=wrapper, run=enqueue_us(replay),
+                 ctypes=enqueue_us(ctypes_only), launches=len(calls))
+    del out
+    return parts
+
+
+def paired_us(fn, flush) -> tuple:
+    """Medians in µs over HOST_PAIRED rounds, each of three calls of fn()
+    with the L2 flushed before each: (host clock - events, idle events -
+    events, host clock - idle events).  The host clock is time_variant's
+    window (the card idle, synchronized before and after); the events are
+    event_ms's (the card spinning while fn is enqueued, so they hold the
+    device time alone); the idle events are recorded around fn with the
+    card idle, so they also hold fn's enqueue and its launch.  Taking the
+    three in each round and the median keeps the spread of the device
+    time from call to call out of the differences, which the least of each
+    protocol over separate calls keeps in."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def window(spin):
+        flush()
+        if spin:
+            torch.cuda._sleep(ENQUEUE_CYCLES)
+        else:
+            torch.cuda.synchronize()
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop) * 1e3
+
+    over, launch, tail = [], [], []
+    for _ in range(HOST_PAIRED):
+        flush()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter_ns() - t0) / 1e3
+        events, idle = window(True), window(False)
+        over.append(host - events)
+        launch.append(idle - events)
+        tail.append(host - idle)
+    return tuple(statistics.median(v) for v in (over, launch, tail))
+
+
+def host_sweep(only_rows=None) -> None:
+    """What each column costs the host: at every row of HOST_ROWS, each
+    column's enqueue µs (enqueue_us), its time as the benchmarks take it
+    (time_variant, L2 flushed, least of HOST_TESTS) and its device time by
+    CUDA events (event_ms), each twice in turns and the least kept, whose
+    difference is the host's share of the column's time, and the same
+    share as paired_us's median with its parts; for each hand column its
+    enqueue in parts (launch_parts) and its library column's figures
+    beside it.  `only_rows`: parts of the labels of the rows to run.  Only
+    the benchmarks' own prepare and variant_specs and build.run are used,
+    so it runs on any tree of the port."""
+    import importlib
+
+    from tpu_bench_torch.core.config import Config
+
+    lib = build.library()
+    device = torch.device("cuda")
+    x = torch.empty(1024, device=device)
+
+    def in_context():
+        with torch.cuda.device(x.device):
+            pass
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    primitives = [
+        ("ctypes call of tbt_error_string(0)",
+         lambda: lib.tbt_error_string(0)),
+        ("torch.cuda.device(x.device) entered and left", in_context),
+        ("torch.cuda.current_stream().cuda_stream",
+         lambda: torch.cuda.current_stream().cuda_stream),
+        ("torch.cuda.current_device()", torch.cuda.current_device),
+        ("torch.cuda.get_device_properties(x.device)",
+         lambda: torch.cuda.get_device_properties(x.device)),
+        ("x.device", lambda: x.device),
+        ("x.get_device()", x.get_device),
+        ("x.data_ptr()", x.data_ptr),
+        ("torch.empty(1024, device=x.device)",
+         lambda: torch.empty(1024, device=x.device)),
+        ("torch.empty_like(x)", lambda: torch.empty_like(x)),
+    ]
+    if raw is not None:
+        primitives.append(("torch._C._cuda_getCurrentRawStream(0)",
+                           lambda: raw(0)))
+    for name, fn in primitives:
+        print(f"host primitive {name}: {enqueue_us(fn):.3f} us", flush=True)
+    flush = L2Flush(device)
+    for label, module, prep, dtypes in HOST_ROWS:
+        if only_rows and not any(r in label for r in only_rows):
+            continue
+        bench = importlib.import_module(
+            f"tpu_bench_torch.benchmarks.{module}")
+        for tag in dtypes:
+            cfg = Config(dtype=getattr(torch, {"f32": "float32",
+                                               "f64": "float64"}[tag]))
+            data = bench.prepare(*prep, cfg)
+            rows = {}
+            with cfg.library_precision():
+                for name, fn, keys, *_ in bench.variant_specs(data, cfg):
+                    args = tuple(data[k] for k in keys)
+
+                    def call(fn=fn, args=args):
+                        return fn(*args)
+
+                    # host clock and events in turns: b c c b
+                    host = [time_variant(call, HOST_TESTS, device, flush)]
+                    events = [event_ms(call), event_ms(call)]
+                    host.append(time_variant(call, HOST_TESTS, device,
+                                             flush))
+                    rows[name] = dict(enqueue=enqueue_us(call),
+                                      host_ms=min(host) * 1e3,
+                                      events_ms=min(events),
+                                      paired=paired_us(call, flush))
+                    if name.startswith("Pallas"):
+                        rows[name].update(launch_parts(call))
+                    del args
+                    torch.cuda.empty_cache()
+            for name, r in rows.items():
+                over = (r["host_ms"] - r["events_ms"]) * 1e3
+                line = (f"host {tag} {label} {name}: enqueue "
+                        f"{r['enqueue']:.2f} us, host clock "
+                        f"{r['host_ms']:.4f} ms, events {r['events_ms']:.4f}"
+                        f" ms, overhead {over:.2f} us; paired medians: "
+                        "overhead {:.2f}, idle events - events {:.2f}, "
+                        "host - idle events {:.2f} us".format(*r["paired"]))
+                if "wrapper" in r:
+                    lib_name = HOST_LIBRARY[module]
+                    if isinstance(lib_name, dict):
+                        lib_name = lib_name[name]
+                    ref = rows[lib_name]
+                    ref_over = (ref["host_ms"] - ref["events_ms"]) * 1e3
+                    line += (f" (wrapper {r['wrapper']:.2f}, build.run "
+                             f"{r['run'] - r['ctypes']:.2f}, ctypes and C "
+                             f"{r['ctypes']:.2f} us over {r['launches']} "
+                             f"launches); {lib_name} enqueue "
+                             f"{ref['enqueue']:.2f} us, overhead "
+                             f"{ref_over:.2f} us; hand - library: enqueue "
+                             f"{r['enqueue'] - ref['enqueue']:+.2f} us, "
+                             f"overhead {over - ref_over:+.2f} us, paired "
+                             f"{r['paired'][0] - ref['paired'][0]:+.2f} us")
+                print(line, flush=True)
+            del data
+            torch.cuda.empty_cache()
+
+
+# The ring sweep's uses: (label, ring use, elements) at their main sizes,
+# the ceilings' buffer for K12 and benchmark02's top size for K7.
+RING_SHAPES = [("K12 copy_manual", "copy", 128 * 2**20),
+               ("K12 scale_manual", "scale", 128 * 2**20),
+               ("K12 triad_manual", "triad", 128 * 2**20),
+               ("K7 add_inplace_manual", "add", 536870912)]
+
+
+def ring_sweep(rnd, tag) -> None:
+    """K12's and K7's 16-byte form at their main sizes: the library call
+    computing the same function, the use's default call, and where the
+    tree has the cp.async.bulk ring (kernels/ring.py) every (chunk, depth)
+    of ring.settings through the kernel's C entry, in turns; `*` marks
+    ring.RING's.  On a tree without the ring only the first two run, so
+    the first design is timed by running this sweep on that tree."""
+    try:
+        from tpu_bench_torch.kernels import ring
+    except ImportError:
+        ring = None
+    for label, use, n in RING_SHAPES:
+        x, y, c = rnd(n), rnd(n), rnd(1, 1)
+        out = torch.empty_like(x)
+        alpha = float(c)
+        default = {"copy": lambda: stream.copy_manual(x, out=out),
+                   "scale": lambda: stream.scale_manual(x, c),
+                   "triad": lambda: stream.triad_manual(x, y, c),
+                   "add": lambda: stream.add_inplace_manual(x, y)}[use]
+        library = {"copy": lambda: out.copy_(x),
+                   "scale": lambda: x.mul_(c.reshape(())),
+                   "triad": lambda: x.add_(y, alpha=alpha),
+                   "add": lambda: x.add_(y)}[use]
+        settings = ["library", "default"]
+        if ring is not None:
+            settings += ring.settings(use)
+
+        def fn(v):
+            if v == "library":
+                return library()
+            if v == "default":
+                return default()
+            if use == "add":
+                return build.run("map2_inplace", x, x.data_ptr(),
+                                 y.data_ptr(), n, 1, *v)
+            src = out if use == "copy" else x
+            return build.run("stream_map", x, src.data_ptr(), x.data_ptr(),
+                             y.data_ptr(), c.data_ptr(), n,
+                             ring.MAP_OPS[use], *v)
+
+        chosen = ring.RING[use] if ring is not None else None
+        report(f"{tag} {label} n={n}", "ring (chunk, depth)",
+               in_turns(fn, settings), chosen)
+        del x, y, out
+        torch.cuda.empty_cache()
+
+
+SWEEPS = ("k1", "k2", "k3", "k4", "k4diag", "k5", "k8", "k9", "host", "ring")
 
 
 def main(argv=None) -> None:
@@ -304,6 +633,9 @@ def main(argv=None) -> None:
                         help=f"comma-separated sweeps of {SWEEPS}")
     parser.add_argument("--uses", action="store_true",
                         help="time K3's uses and K9 instead of sweeping")
+    parser.add_argument("--rows", default="",
+                        help="host sweep: comma-separated parts of the "
+                        "row labels to run (e.g. b02), all by default")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
     if not only <= set(SWEEPS):
@@ -313,6 +645,8 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    if "host" in only and not args.uses:
+        host_sweep([r for r in args.rows.split(",") if r])
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.float64):
         def rnd(*shape):
@@ -339,6 +673,8 @@ def main(argv=None) -> None:
             k8_sweep(rnd, tag, dtype.itemsize)
         if "k9" in only:
             k9_sweep(rnd, tag, dtype.itemsize)
+        if "ring" in only:
+            ring_sweep(rnd, tag)
 
 
 if __name__ == "__main__":

@@ -431,23 +431,21 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
             }
 }
 
+// The shared-memory opt-in and the occupancy at each size are asked of the
+// runtime once per device (tbt::DeviceCache), not at every launch.
 template <typename T, int BN>
 int launch_resident(const T* c, const T* in, T* out, int m_rows, int k_depth,
-                    int n_cols, int n_chunks, int sms, cudaStream_t stream) {
+                    int n_cols, int n_chunks, cudaStream_t stream) {
+    static tbt::DeviceCache<> optin, waves;
     const size_t smem = kron_resident_smem<T>(m_rows, k_depth, BN);
     auto kernel = kron_resident_kernel<T, BN>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        KB_THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long full = tbt::wave_blocks(waves, kernel, KB_THREADS, smem);
+    if (full < 0) return static_cast<int>(-full);
+    if (full == 0) return cudaErrorInvalidConfiguration;
     const long long strips =
         static_cast<long long>(n_chunks) * ((n_cols + BN - 1) / BN);
-    const long long full = static_cast<long long>(per_sm) * sms;
     const unsigned blocks =
         static_cast<unsigned>(strips < full ? strips : full);
     kernel<<<blocks, KB_THREADS, smem, stream>>>(c, in, out, m_rows, k_depth,
@@ -461,10 +459,9 @@ int launch_dense(const T* c, const T* in, T* out, int m_rows, int k_depth,
                  int n_cols, int n_chunks, cudaStream_t stream) {
     constexpr int BM = WM * WMT * Dense<T>::MMA_M, BN = WN * WNT * 8;
     constexpr size_t smem = kron_dense_smem<T, BM, BN>();
+    static tbt::DeviceCache<> optin;
     auto kernel = dense_gemm_kernel<T, WM, WN, WMT, WNT, MINB, Order>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
     const long long tiles = static_cast<long long>(n_chunks) *
                             ((m_rows + BM - 1) / BM) *
@@ -492,17 +489,16 @@ int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
             c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
 }
 
-// The card's opt-in shared memory of a block and its SM count.
-inline cudaError_t card_limits(int& limit, int& sms) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(
+// The card's opt-in shared memory of a block, read once per device; or
+// minus a CUDA error code.
+inline long long card_smem_limit() {
+    static tbt::DeviceCache<> limits;
+    return limits.get(0, [](int dev) -> long long {
+        int limit = 0;
+        const cudaError_t err = cudaDeviceGetAttribute(
             &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    return err;
+        return err == cudaSuccess ? limit : -static_cast<long long>(err);
+    });
 }
 
 // strip < 0: the rule (kron_strip); 0: the dense configuration; else C
@@ -513,9 +509,8 @@ int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
                         cudaStream_t stream) {
     if (m_rows <= 0 || n_cols <= 0 || n_chunks <= 0) return cudaSuccess;
     if (k_depth <= 0) return cudaErrorInvalidValue;
-    int limit = 0, sms = 0;
-    const cudaError_t err = card_limits(limit, sms);
-    if (err != cudaSuccess) return err;
+    const long long limit = card_smem_limit();
+    if (limit < 0) return static_cast<int>(-limit);
     const int bn = strip < 0 ? kron_strip<T>(m_rows, k_depth, limit) : strip;
     switch (bn) {
         case 0:
@@ -523,16 +518,16 @@ int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
                                                 n_cols, n_chunks, stream);
         case 64:
             return launch_resident<T, 64>(c, in, out, m_rows, k_depth, n_cols,
-                                          n_chunks, sms, stream);
+                                          n_chunks, stream);
         case 128:
             return launch_resident<T, 128>(c, in, out, m_rows, k_depth,
-                                           n_cols, n_chunks, sms, stream);
+                                           n_cols, n_chunks, stream);
         case 256:
             return launch_resident<T, 256>(c, in, out, m_rows, k_depth,
-                                           n_cols, n_chunks, sms, stream);
+                                           n_cols, n_chunks, stream);
         case 512:
             return launch_resident<T, 512>(c, in, out, m_rows, k_depth,
-                                           n_cols, n_chunks, sms, stream);
+                                           n_cols, n_chunks, stream);
         default:
             return cudaErrorInvalidValue;
     }
@@ -686,21 +681,16 @@ __global__ void __launch_bounds__(EM_THREADS)
 
 template <typename T, int BE>
 int launch_em_resident(const T* x, const T* s, T* out, int e_rows,
-                       int k_depth, int n_cols, int sms,
-                       cudaStream_t stream) {
+                       int k_depth, int n_cols, cudaStream_t stream) {
+    static tbt::DeviceCache<> optin, waves;
     const size_t smem = em_resident_smem<T>(k_depth, n_cols, BE);
     auto kernel = em_resident_kernel<T, BE>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        EM_THREADS, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long full = tbt::wave_blocks(waves, kernel, EM_THREADS, smem);
+    if (full < 0) return static_cast<int>(-full);
+    if (full == 0) return cudaErrorInvalidConfiguration;
     const long long tiles = (static_cast<long long>(e_rows) + BE - 1) / BE;
-    const long long full = static_cast<long long>(per_sm) * sms;
     kernel<<<static_cast<unsigned>(tiles < full ? tiles : full), EM_THREADS,
              smem, stream>>>(x, s, out, e_rows, k_depth, n_cols);
     return cudaGetLastError();
@@ -713,25 +703,24 @@ int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
                    int n_cols, int tile, cudaStream_t stream) {
     if (e_rows <= 0 || n_cols <= 0) return cudaSuccess;
     if (k_depth < 0) return cudaErrorInvalidValue;
-    int limit = 0, sms = 0;
-    const cudaError_t err = card_limits(limit, sms);
-    if (err != cudaSuccess) return err;
+    const long long limit = card_smem_limit();
+    if (limit < 0) return static_cast<int>(-limit);
     switch (tile < 0 ? em_tile<T>(k_depth, n_cols, limit) : tile) {
         case 0:
             return launch_dense_tiles<T, NFast>(x, s, out, e_rows, k_depth,
                                                 n_cols, 1, stream);
         case 32:
             return launch_em_resident<T, 32>(x, s, out, e_rows, k_depth,
-                                             n_cols, sms, stream);
+                                             n_cols, stream);
         case 64:
             return launch_em_resident<T, 64>(x, s, out, e_rows, k_depth,
-                                             n_cols, sms, stream);
+                                             n_cols, stream);
         case 128:
             return launch_em_resident<T, 128>(x, s, out, e_rows, k_depth,
-                                              n_cols, sms, stream);
+                                              n_cols, stream);
         case 256:
             return launch_em_resident<T, 256>(x, s, out, e_rows, k_depth,
-                                              n_cols, sms, stream);
+                                              n_cols, stream);
         default:
             return cudaErrorInvalidValue;
     }

@@ -188,10 +188,9 @@ int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                 int nrq, int nq0, int nkj, long long n_elem,
                 cudaStream_t stream) {
     const size_t smem = qp_smem_bytes<T>(ET, G, nm0, nrq, nq0, nkj);
+    static tbt::DeviceCache<> optin;  // the opt-in, once per device
     auto kernel = qp_fused3d_kernel<T, ET, G>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
     const long long blocks = (n_elem + ET - 1) / ET;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;

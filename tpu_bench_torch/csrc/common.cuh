@@ -4,6 +4,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace tbt {
 
@@ -177,6 +178,101 @@ __device__ __forceinline__ T warp_sum(T v) {
     return v;
 }
 
+// f(a, b, c) lane by lane on one or two 16-byte vectors; c is one scalar.
+template <typename F>
+__device__ __forceinline__ float4 map_lanes(F f, float4 a, float4 b,
+                                            float c) {
+    return make_float4(f(a.x, b.x, c), f(a.y, b.y, c), f(a.z, b.z, c),
+                       f(a.w, b.w, c));
+}
+
+template <typename F>
+__device__ __forceinline__ double2 map_lanes(F f, double2 a, double2 b,
+                                             double c) {
+    return make_double2(f(a.x, b.x, c), f(a.y, b.y, c));
+}
+
+// ---- Values a launcher computes once per device ----
+
+// Up to SLOTS (device, key) -> value entries a launcher site fills on
+// first use: a kernel instance's occupancy at a shared-memory size, or
+// whether its shared-memory opt-in is set.  compute() returns the value,
+// or a negative number that is not kept (an error, asked again next time);
+// past SLOTS keys a value is computed on every call.
+template <int SLOTS = 64>
+class DeviceCache {
+   public:
+    template <typename F>
+    long long get(long long key, F compute) {
+        int dev = -1;
+        if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+        {
+            std::lock_guard<std::mutex> lock(mutex_);
+            for (int i = 0; i < used_; ++i)
+                if (dev_[i] == dev && key_[i] == key) return value_[i];
+        }
+        const long long value = compute(dev);
+        if (value >= 0) {
+            std::lock_guard<std::mutex> lock(mutex_);
+            if (used_ < SLOTS) {
+                dev_[used_] = dev;
+                key_[used_] = key;
+                value_[used_] = value;
+                ++used_;
+            }
+        }
+        return value;
+    }
+
+   private:
+    std::mutex mutex_;
+    int used_ = 0;
+    int dev_[SLOTS] = {};
+    long long key_[SLOTS] = {};
+    long long value_[SLOTS] = {};
+};
+
+// Set `kernel`'s dynamic shared-memory opt-in to the most the device
+// allows beside the kernel's static shared memory, once per device (cache:
+// the launcher site's own); later launches of any size up to it need no
+// call.
+template <typename K>
+inline cudaError_t optin_smem(DeviceCache<>& cache, K kernel) {
+    const long long r = cache.get(0, [&](int dev) -> long long {
+        int limit = 0;
+        cudaFuncAttributes attr{};
+        cudaError_t err = cudaDeviceGetAttribute(
+            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+        if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                limit - static_cast<int>(attr.sharedSizeBytes));
+        return err == cudaSuccess ? 0 : -static_cast<long long>(err);
+    });
+    return r < 0 ? static_cast<cudaError_t>(-r) : cudaSuccess;
+}
+
+// Blocks of `kernel` the device holds at once with `threads` threads and
+// `smem` bytes of dynamic shared memory (the occupancy API's blocks an SM
+// times the SMs), once per device and size; 0 if none fits, or minus a
+// CUDA error code.
+template <typename K>
+inline long long wave_blocks(DeviceCache<>& cache, K kernel, int threads,
+                             size_t smem) {
+    return cache.get(static_cast<long long>(smem) * 4096 + threads,
+                     [&](int dev) -> long long {
+        int sms = 0, per_sm = 0;
+        cudaError_t err = cudaDeviceGetAttribute(
+            &sms, cudaDevAttrMultiProcessorCount, dev);
+        if (err == cudaSuccess)
+            err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, threads, smem);
+        return err == cudaSuccess ? static_cast<long long>(per_sm) * sms
+                                  : -static_cast<long long>(err);
+    });
+}
+
 // ---- Asynchronous copies and tensor-core fragments (sm_80 and later) ----
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -305,6 +401,91 @@ __device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
         "{%3}, {%0, %1};\n"
         : "+d"(d[0]), "+d"(d[1])
         : "d"(a), "d"(b));
+}
+
+// ---- Bulk copies and mbarriers (sm_90) ----
+
+// An mbarrier in shared memory expecting `count` arrivals a phase.
+__device__ __forceinline__ void mbar_init(void* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(count)
+                 : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy.
+__device__ __forceinline__ void mbar_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival on bar that also expects `bytes` more of bulk copies to
+// complete in this phase.
+__device__ __forceinline__ void mbar_expect_tx(void* bar, unsigned bytes) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+            smem_addr(bar)),
+        "r"(bytes)
+        : "memory");
+}
+
+// Wait until the phase of bar with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(void* bar, unsigned parity) {
+    const unsigned addr = smem_addr(bar);
+    unsigned done = 0;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(addr), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// src to shared dst by the copy engine; completes bytes on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, void* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
+// `bytes` from shared src to global dst by the copy engine, in the
+// thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           unsigned bytes) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            dst),
+        "r"(smem_addr(src)), "r"(bytes)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the thread's bulk groups have not yet read
+// their shared memory (the slots may then be refilled).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of the thread's bulk groups are not yet complete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Order this thread's writes to shared memory before later bulk copies
+// (the async proxy) read it.
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace tbt

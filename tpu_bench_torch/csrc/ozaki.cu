@@ -289,11 +289,10 @@ int launch_tile(const bf16* c, const bf16* x, float* hi, float* lo, int t_c,
     const long long blocks =
         (n_cols + BN - 1) / BN * ((m_rows + BM - 1) / BM);
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    static tbt::DeviceCache<> optin;  // the opt-in, once per device
     auto kernel = ozaki_mma_kernel<BM, BN, FUSED>;
     constexpr size_t smem = smem_bytes<BM, BN>();
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
     const bool vec_x = n_cols % 8 == 0 && tbt::aligned16(x);
     kernel<<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(

@@ -297,10 +297,9 @@ int launch_tile(const T* x, const T* s1, const T* s2, const T* s3, T* out,
                 long long n_elem, int k0, int n1, int n2, int n3,
                 cudaStream_t stream) {
     const size_t smem = smem_bytes<T>(ET, k0, n1, STAGES == 3 ? n2 : 0);
+    static tbt::DeviceCache<> optin;  // the opt-in, once per device
     auto kernel = qp1d_tc_kernel<T, ET, STAGES>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
     const long long blocks = (n_elem + ET - 1) / ET;
     if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;

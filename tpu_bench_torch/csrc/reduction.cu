@@ -146,7 +146,8 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // one_pass = 0: two-pass, scalar loads, partials[0:blocks] then out[0];
-// one_pass = 1: 16-byte loads, atomics into out[0], zeroed by the caller.
+// one_pass = 1: 16-byte loads, atomics into out[0], zeroed here first (a
+// memset on the stream costs the host less than a zeros tensor).
 template <typename T>
 int launch_sumsq(const T* x, long long n, double eps, T* out, T* partials,
                  int max_blocks, int one_pass, cudaStream_t stream) {
@@ -159,6 +160,8 @@ int launch_sumsq(const T* x, long long n, double eps, T* out, T* partials,
     if (blocks < 1) blocks = 1;
     const T e = static_cast<T>(eps);
     if (one_pass) {
+        const cudaError_t err = cudaMemsetAsync(out, 0, sizeof(T), stream);
+        if (err != cudaSuccess) return err;
         transform_reduce<T, SquareEps, true, true>
             <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
                 x, n, e, SquareEps{}, out);

@@ -13,23 +13,24 @@
 // and one write, 12 B (f32) or 24 B (f64); the least time is those bytes at
 // 3.35 TB/s.  The design:
 //   - the scalar form (add_inplace, map2_inplace) loads one element per
-//     thread and item, the vector form (add_inplace_wide,
-//     add_inplace_manual) one 16-byte float4 / double2; each thread handles
-//     UNROLL items a block apart, all loads issued before the stores, and
-//     the grid covers the array once;
-//   - the vector form needs x and y equally placed against 16-byte
-//     boundaries: the elements before the first boundary and after the
-//     last whole vector go to scalar loads in block 0.  Where x and y are
-//     placed differently, the launcher runs the scalar form;
-//   - the TPU ring's purpose, keeping DMA in flight while the VPU adds, is
-//     served by the card's many resident warps.  Its real analog, a
-//     cp.async.bulk / TMA ring through shared memory, is later work.
+//     thread and item, UNROLL items a block apart, all loads issued before
+//     the stores, on a grid that covers the array once;
+//   - the 16-byte form (add_inplace_wide, add_inplace_manual) streams
+//     through the cp.async.bulk ring of csrc/ring.cuh, the TPU ring's
+//     analog (a ring of slots per operand in shared memory, filled and
+//     drained by the copy engine, the add done in place in x's slot, on a
+//     one-wave grid), with the wrapper's chunk and depth (kernels/ring.py
+//     RING).  It needs x and y placed alike against 16-byte boundaries:
+//     the elements before the first boundary and after the last whole
+//     vector go to plain accesses of block 0.  Where x and y are placed
+//     differently, the launcher runs the scalar form.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 
 #include "common.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -65,77 +66,48 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-template <typename T, typename F>
-__global__ void __launch_bounds__(THREADS)
-    map2_vector(T* __restrict__ x, const T* __restrict__ y, long long n,
-                F f) {
-    using V = typename tbt::Vec16<T>::type;
-    constexpr int W = tbt::Vec16<T>::width;
-    const long long head = tbt::head_elems(x, n);
-    const long long nvec = (n - head) / W;
-    V* __restrict__ xv = reinterpret_cast<V*>(x + head);
-    const V* __restrict__ yv = reinterpret_cast<const V*>(y + head);
-    const long long base =
-        static_cast<long long>(blockIdx.x) * (THREADS * UNROLL) + threadIdx.x;
-    V a[UNROLL], b[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-        const long long i = base + u * THREADS;
-        if (i < nvec) {
-            a[u] = xv[i];
-            b[u] = yv[i];
-        }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-        const long long i = base + u * THREADS;
-        if (i < nvec) xv[i] = tbt::map_lanes(f, a[u], b[u]);
-    }
-    if (blockIdx.x == 0) {
-        const long long t = threadIdx.x;
-        const long long tail0 = head + nvec * W;
-        if (t < head) x[t] = f(x[t], y[t]);
-        if (t < n - tail0) x[tail0 + t] = f(x[tail0 + t], y[tail0 + t]);
-    }
-}
-
 template <typename T>
 int launch_map2_inplace(T* x, const T* y, long long n, int vector,
-                        cudaStream_t stream) {
+                        int chunk, int depth, cudaStream_t stream) {
     if (n < 0) return cudaErrorInvalidValue;
     if (n == 0) return cudaSuccess;
     constexpr long long per_block = static_cast<long long>(THREADS) * UNROLL;
     const bool alike = ((reinterpret_cast<uintptr_t>(x) ^
                          reinterpret_cast<uintptr_t>(y)) & 15u) == 0;
-    if (vector && alike) {
-        const long long nvec =
-            (n - tbt::head_elems(x, n)) / tbt::Vec16<T>::width;
-        long long blocks = (nvec + per_block - 1) / per_block;
-        if (blocks < 1) blocks = 1;  // block 0 does the head and the tail
-        if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-        map2_vector<T, Add><<<static_cast<unsigned>(blocks), THREADS, 0,
-                              stream>>>(x, y, n, Add{});
-    } else {
-        const long long blocks = (n + per_block - 1) / per_block;
-        if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-        map2_scalar<T, Add><<<static_cast<unsigned>(blocks), THREADS, 0,
-                              stream>>>(x, y, n, Add{});
-    }
+    if (vector && alike)
+        return tbt::ring::launch(x, x, y, static_cast<const T*>(nullptr), n,
+                                 chunk, depth, tbt::ring::Add{}, stream);
+    const long long blocks = (n + per_block - 1) / per_block;
+    if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+    map2_scalar<T, Add><<<static_cast<unsigned>(blocks), THREADS, 0,
+                          stream>>>(x, y, n, Add{});
     return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int tbt_map2_inplace_f32(void* x, const void* y, long long n,
-                                    int vector, void* stream) {
+                                    int vector, int chunk, int depth,
+                                    void* stream) {
     return launch_map2_inplace(static_cast<float*>(x),
                                static_cast<const float*>(y), n, vector,
+                               chunk, depth,
                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_map2_inplace_f64(void* x, const void* y, long long n,
-                                    int vector, void* stream) {
+                                    int vector, int chunk, int depth,
+                                    void* stream) {
     return launch_map2_inplace(static_cast<double*>(x),
                                static_cast<const double*>(y), n, vector,
+                               chunk, depth,
                                static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of K7's ring the card holds at once, by element size.
+extern "C" long long tbt_map2_inplace_wave(int itemsize, int chunk,
+                                           int depth) {
+    return itemsize == 4 ? tbt::ring::wave<float, tbt::ring::Add>(chunk, depth)
+                         : tbt::ring::wave<double, tbt::ring::Add>(chunk,
+                                                                   depth);
 }

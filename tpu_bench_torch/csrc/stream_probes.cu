@@ -26,19 +26,23 @@
 //     the other blocks' loop carries no per-item test);
 //   - copy goes out of place: a self-copy stores what it just loaded, which
 //     a compiler that sees the alias may drop;
-//   - loads and stores are 16 bytes a thread (float4 / double2) where the
-//     operands sit alike against 16-byte boundaries, UNROLL items a thread
-//     in flight, all loads before the stores, and the grid covers the
-//     array once.  The elements before the first boundary and after the
-//     last whole vector go to scalar accesses of block 0, as in K7
-//     (csrc/stream.cu).  Operands placed differently take the scalar form;
-//     fill's scalar form is fill's own.  K10 keeps READ_UNROLL = 8 loads a
-//     thread in flight, the others UNROLL = 4 as K7: on an H100 the read
-//     sustained more at 8 than as a grid-stride loop at 4 (K10's first
-//     form), and the others sustained no more at 8.
-// The TPU kernels keep rings of 16 MB VMEM slots in flight with manual DMA;
-// here the resident warps keep the loads in flight.  The ring's real
-// analog, a cp.async.bulk / TMA ring through shared memory, is later work.
+//   - K12 streams operands that sit alike against 16-byte boundaries
+//     through the cp.async.bulk ring of csrc/ring.cuh, the analog of the
+//     TPU's _ring_kernel: a one-wave grid, a ring of slots per operand in
+//     shared memory filled and drained by the copy engine, the compute in
+//     place in the slot.  Its chunk and depth come from the wrapper
+//     (kernels/ring.py RING).  Operands placed differently take a scalar
+//     form;
+//   - K10, K11 and K13 load and store 16 bytes a thread (float4 / double2)
+//     where the operands sit alike against 16-byte boundaries, UNROLL
+//     items a thread in flight, all loads before the stores, and the grid
+//     covers the array once.  The elements before the first boundary and
+//     after the last whole vector go to scalar accesses of block 0.
+//     Operands placed differently take the scalar form; fill's scalar form
+//     is fill's own.  K10 keeps READ_UNROLL = 8 loads a thread in flight,
+//     the others UNROLL = 4: on an H100 the read sustained more at 8 than
+//     as a grid-stride loop at 4 (K10's first form), and the others
+//     sustained no more at 8.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +50,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -260,110 +265,88 @@ int launch_fill(T* out, long long n, const T* seed, int vector,
 // K12 stream_map: out = f(x, y, c), out == x for the in-place forms
 // ---------------------------------------------------------------------------
 
-struct Copy {
-    static constexpr bool uses_y = false, uses_c = false;
-    template <typename T>
-    __device__ __forceinline__ T operator()(T a, T, T) const {
-        return a;
-    }
-};
-
-struct Scale {
-    static constexpr bool uses_y = false, uses_c = true;
-    template <typename T>
-    __device__ __forceinline__ T operator()(T a, T, T c) const {
-        return a * c;
-    }
-};
-
-struct Triad {
-    static constexpr bool uses_y = true, uses_c = true;
-    template <typename T>
-    __device__ __forceinline__ T operator()(T a, T b, T c) const {
-        return a + c * b;
-    }
-};
-
-// out and x may be one array (scale, triad), so neither is __restrict__.
-template <typename T, bool VEC, typename F>
+// Operands placed differently against 16 bytes: one element an item,
+// UNROLL items a thread, all loads before the stores, a grid that covers
+// the array once.  out and x may be one array (scale, triad), so neither
+// is __restrict__.
+template <typename T, typename F>
 __global__ void __launch_bounds__(THREADS)
-    stream_map(T* out, const T* x, const T* __restrict__ y,
-               const T* __restrict__ c, long long n, F f) {
-    using V = typename Item<T, VEC>::type;
-    constexpr int W = Item<T, VEC>::width;
-    const long long head = VEC ? tbt::head_elems(x, n) : 0;
-    const long long items = (n - head) / W;
-    V* ov = reinterpret_cast<V*>(out + head);
-    const V* xv = reinterpret_cast<const V*>(x + head);
+    stream_map_scalar(T* out, const T* x, const T* __restrict__ y,
+                      const T* __restrict__ c, long long n, F f) {
     const T k = F::uses_c ? *c : T(0);
     const long long base =
         static_cast<long long>(blockIdx.x) * (THREADS * UNROLL) + threadIdx.x;
-    V a[UNROLL], b[UNROLL];
+    T a[UNROLL], b[UNROLL];
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
         const long long i = base + u * THREADS;
-        if (i < items) {
-            a[u] = xv[i];
-            if constexpr (F::uses_y)
-                b[u] = reinterpret_cast<const V*>(y + head)[i];
-            else
-                b[u] = a[u];
+        if (i < n) {
+            a[u] = x[i];
+            b[u] = F::uses_y ? y[i] : a[u];
         }
     }
 #pragma unroll
     for (int u = 0; u < UNROLL; ++u) {
         const long long i = base + u * THREADS;
-        if (i < items) ov[i] = apply(f, a[u], b[u], k);
-    }
-    if (VEC && blockIdx.x == 0) {
-        const long long t = threadIdx.x;
-        const long long tail0 = head + items * W;
-        if (t < head) out[t] = f(x[t], F::uses_y ? y[t] : x[t], k);
-        if (t < n - tail0) {
-            const long long e = tail0 + t;
-            out[e] = f(x[e], F::uses_y ? y[e] : x[e], k);
-        }
+        if (i < n) out[i] = f(a[u], b[u], k);
     }
 }
 
+// Operands alike against 16 bytes take the ring (tbt::ring, csrc/ring.cuh)
+// of `chunk` bytes and `depth` slots; operands placed differently take
+// the scalar form.
 template <typename T, typename F>
-int launch_map(T* out, const T* x, const T* y, const T* c, long long n, F f,
-               cudaStream_t stream) {
+int launch_map(T* out, const T* x, const T* y, const T* c, long long n,
+               int chunk, int depth, F f, cudaStream_t stream) {
     uintptr_t apart = reinterpret_cast<uintptr_t>(out) ^
                       reinterpret_cast<uintptr_t>(x);
     if (F::uses_y)
         apart |= reinterpret_cast<uintptr_t>(x) ^
                  reinterpret_cast<uintptr_t>(y);
-    const bool vector = (apart & 15u) == 0;
-    const long long items =
-        vector ? (n - tbt::head_elems(x, n)) / tbt::Vec16<T>::width : n;
-    long long blocks = (items + THREADS * UNROLL - 1) / (THREADS * UNROLL);
-    if (blocks < 1) blocks = 1;  // block 0 does the head and the tail
+    if ((apart & 15u) == 0)
+        return tbt::ring::launch(out, x, y, c, n, chunk, depth, f, stream);
+    const long long blocks = (n + THREADS * UNROLL - 1) / (THREADS * UNROLL);
     if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
-    const unsigned grid = static_cast<unsigned>(blocks);
-    if (vector)
-        stream_map<T, true><<<grid, THREADS, 0, stream>>>(out, x, y, c, n, f);
-    else
-        stream_map<T, false><<<grid, THREADS, 0, stream>>>(out, x, y, c, n,
-                                                           f);
+    stream_map_scalar<T><<<static_cast<unsigned>(blocks), THREADS, 0,
+                           stream>>>(out, x, y, c, n, f);
     return cudaGetLastError();
 }
 
 // op 0: out = x; 1: out = x * c[0]; 2: out = x + c[0] * y.
 template <typename T>
 int launch_stream_map(T* out, const T* x, const T* y, const T* c,
-                      long long n, int op, cudaStream_t stream) {
+                      long long n, int op, int chunk, int depth,
+                      cudaStream_t stream) {
     if (n < 0) return cudaErrorInvalidValue;
     if (n == 0) return cudaSuccess;
     switch (op) {
         case 0:
-            return launch_map(out, x, y, c, n, Copy{}, stream);
+            return launch_map(out, x, y, c, n, chunk, depth,
+                              tbt::ring::Copy{}, stream);
         case 1:
-            return launch_map(out, x, y, c, n, Scale{}, stream);
+            return launch_map(out, x, y, c, n, chunk, depth,
+                              tbt::ring::Scale{}, stream);
         case 2:
-            return launch_map(out, x, y, c, n, Triad{}, stream);
+            return launch_map(out, x, y, c, n, chunk, depth,
+                              tbt::ring::Triad{}, stream);
         default:
             return cudaErrorInvalidValue;
+    }
+}
+
+// The wave of op's ring for T (blocks the card holds at once), or minus a
+// CUDA error code.
+template <typename T>
+long long stream_map_wave(int op, int chunk, int depth) {
+    switch (op) {
+        case 0:
+            return tbt::ring::wave<T, tbt::ring::Copy>(chunk, depth);
+        case 1:
+            return tbt::ring::wave<T, tbt::ring::Scale>(chunk, depth);
+        case 2:
+            return tbt::ring::wave<T, tbt::ring::Triad>(chunk, depth);
+        default:
+            return -static_cast<long long>(cudaErrorInvalidValue);
     }
 }
 
@@ -475,22 +458,29 @@ extern "C" int tbt_stream_fill_f64(void* out, long long n, const void* seed,
 
 extern "C" int tbt_stream_map_f32(void* out, const void* x, const void* y,
                                   const void* c, long long n, int op,
-                                  void* stream) {
+                                  int chunk, int depth, void* stream) {
     return launch_stream_map(static_cast<float*>(out),
                              static_cast<const float*>(x),
                              static_cast<const float*>(y),
-                             static_cast<const float*>(c), n, op,
-                             static_cast<cudaStream_t>(stream));
+                             static_cast<const float*>(c), n, op, chunk,
+                             depth, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_stream_map_f64(void* out, const void* x, const void* y,
                                   const void* c, long long n, int op,
-                                  void* stream) {
+                                  int chunk, int depth, void* stream) {
     return launch_stream_map(static_cast<double*>(out),
                              static_cast<const double*>(x),
                              static_cast<const double*>(y),
-                             static_cast<const double*>(c), n, op,
-                             static_cast<cudaStream_t>(stream));
+                             static_cast<const double*>(c), n, op, chunk,
+                             depth, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of K12's ring for op the card holds at once, by element size.
+extern "C" long long tbt_stream_map_wave(int itemsize, int op, int chunk,
+                                         int depth) {
+    return itemsize == 4 ? stream_map_wave<float>(op, chunk, depth)
+                         : stream_map_wave<double>(op, chunk, depth);
 }
 
 extern "C" int tbt_stream_expand_f32(const void* x, long long n,

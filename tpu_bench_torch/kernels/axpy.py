@@ -5,8 +5,9 @@ tpu_bench/kernels/axpy.py).
 
 The kernel's functor is add, the benchmark's.  One CUDA kernel
 (csrc/stream.cu) serves the TPU kernels of _tiled_map2
-with scalar loads (add_inplace, map2_inplace) or 16-byte loads
-(add_inplace_wide, and stream.add_inplace_manual).  The JAX package
+with scalar loads (add_inplace, map2_inplace) or, in its 16-byte form,
+through the cp.async.bulk ring of kernels/ring.py (add_inplace_wide, and
+stream.add_inplace_manual).  The JAX package
 aliases its output to x by donation; here x is updated in place.  The f64
 columns, which the JAX package runs on (hi, lo) f32 pairs
 (df2stream.add_pair, add_pair_wide, map2_pair), are the same kernel built
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_bench_torch.kernels import build
+from tpu_bench_torch.kernels import build, ring
 
 
 def map2_inplace_plain(x, y):
@@ -46,13 +47,14 @@ def map2_inplace(x, y):
 
 
 def map2(x, y, *, vector, name):
-    """x += y in place by the kernel's scalar or 16-byte form."""
+    """x += y in place by the kernel's scalar or 16-byte form; the latter
+    through the ring at ring.RING's (chunk, depth)."""
     build.check_operands(name, (x, y))
     if x.shape != y.shape:
         raise ValueError(f"{name}: x {tuple(x.shape)} and y "
                          f"{tuple(y.shape)} differ in shape")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return map2_inplace_plain(x, y)
     build.run("map2_inplace", x, x.data_ptr(), y.data_ptr(), x.numel(),
-              int(vector))
+              int(vector), *ring.RING["add"])
     return x

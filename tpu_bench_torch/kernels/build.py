@@ -10,6 +10,13 @@ loaded at import: `library()` does both on the first kernel launch.
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launched` turns a non-zero code into an exception
 and otherwise counts the launch in `launches`, keyed by kernel name.
+
+A launch costs the host as little as the library calls it is timed
+beside: `entry` looks each C entry up once per (name, dtype), `run` takes
+the current stream of x's device as a raw handle and enters that device's
+context only when it is not the current one, and the C launchers ask the
+CUDA runtime for occupancy and shared-memory opt-ins once per device
+(csrc/common.cuh DeviceCache).
 """
 
 from __future__ import annotations
@@ -63,8 +70,8 @@ _SIGNATURES = {
     "tbt_qp1d_fused2d": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # x, n, eps, out, partials, max_blocks, one_pass, stream
     "tbt_sumsq": [_P, _L, _D, _P, _P, _I, _I, _P],
-    # x, y, n, vector, stream
-    "tbt_map2_inplace": [_P, _P, _L, _I, _P],
+    # x, y, n, vector, chunk, depth, stream
+    "tbt_map2_inplace": [_P, _P, _L, _I, _I, _I, _P],
     # a, x, y, m, n, rows, unroll, lanes, vector, blocks, stream
     "tbt_matvec_rm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # a_cm, x, y, ws, n_rows, m_cols, splits, unroll, stream
@@ -73,8 +80,8 @@ _SIGNATURES = {
     "tbt_stream_read": [_P, _L, _P, _P, _L, _P, _P],
     # out, n, seed, vector, stream
     "tbt_stream_fill": [_P, _L, _P, _I, _P],
-    # out, x, y, c, n, op, stream
-    "tbt_stream_map": [_P, _P, _P, _P, _L, _I, _P],
+    # out, x, y, c, n, op, chunk, depth, stream
+    "tbt_stream_map": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     # x, n, bias, out, m, shift, stream
     "tbt_stream_expand": [_P, _L, _P, _P, _I, _I, _P],
 }
@@ -178,6 +185,11 @@ def library() -> ctypes.CDLL:
     lib.tbt_qp_stage2_wave.restype = ctypes.c_int
     lib.tbt_matvec_rm_wave.argtypes = [_I, _I, _I, _I]
     lib.tbt_matvec_rm_wave.restype = ctypes.c_int
+    # K12's and K7's rings: blocks in one wave (or minus a CUDA error)
+    lib.tbt_stream_map_wave.argtypes = [_I, _I, _I, _I]
+    lib.tbt_stream_map_wave.restype = _L
+    lib.tbt_map2_inplace_wave.argtypes = [_I, _I, _I]
+    lib.tbt_map2_inplace_wave.restype = _L
     # K14 takes bf16 slices and writes an f32 pair, so it has no _f32/_f64
     # pair: c, x, hi, lo, t_c, t_x, m_rows, k_depth, n_cols, w[, u], stream
     ozaki = [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I]
@@ -200,38 +212,104 @@ def launched(err: int, name: str) -> None:
     launches[name] += 1
 
 
+_FLOATS = (torch.float32, torch.float64)
+
+
 def check_operands(name: str, tensors) -> None:
     """Raise unless the tensors share one float32 or float64 dtype and one
     CPU or CUDA device and are contiguous, as every kernel entry needs."""
     x = tensors[0]
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(f"{name}: bf16 is not ported yet "
-                                  "(ROADMAP Queue 1 item 2)")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{name}: dtype {x.dtype} is not supported")
-    if any(t.dtype != x.dtype for t in tensors):
-        raise TypeError(f"{name}: operands must share one dtype")
-    if any(t.device != x.device for t in tensors):
-        raise ValueError(f"{name}: operands must share one device")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name}: operands must be contiguous")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {x.device}")
+    dtype = x.dtype
+    if dtype not in _FLOATS:
+        if dtype == torch.bfloat16:
+            raise NotImplementedError(f"{name}: bf16 is not ported yet "
+                                      "(ROADMAP Queue 1 item 2)")
+        raise TypeError(f"{name}: dtype {dtype} is not supported")
+    if x.is_cuda:  # the launch path: device indices, not device objects
+        index = x.get_device()
+        for t in tensors:
+            if t.dtype is not dtype:
+                raise TypeError(f"{name}: operands must share one dtype")
+            if not t.is_cuda or t.get_device() != index:
+                raise ValueError(f"{name}: operands must share one device")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: operands must be contiguous")
+        return
+    device = x.device
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: operands must share one dtype")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: operands must share one device")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if device.type != "cpu" and device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+
+
+@functools.cache
+def smem_limits(index: int) -> tuple:
+    """(shared memory one block may opt in to, an SM's shared memory) of
+    CUDA device `index`, read once per device; the H100's where torch does
+    not report them."""
+    props = torch.cuda.get_device_properties(index)
+    return (getattr(props, "shared_memory_per_block_optin", 232448),
+            getattr(props, "shared_memory_per_multiprocessor", 233472))
 
 
 def vector16(n: int, itemsize: int, *ptrs: int) -> bool:
     """Whether rows of n values of `itemsize` bytes are whole 16-byte
     vectors and every pointer lies on a 16-byte boundary: the condition
     for a kernel's 16-byte vector form (K4, K8)."""
-    return n * itemsize % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    aligned = n * itemsize % 16 == 0
+    for p in ptrs:
+        aligned = aligned and p % 16 == 0
+    return aligned
+
+
+@functools.cache
+def entry(name: str, dtype: torch.dtype):
+    """The C entry tbt_<name>_f32 or tbt_<name>_f64 for dtype, looked up
+    in the library once per (name, dtype)."""
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    return getattr(library(), f"tbt_{name}_{suffix}")
+
+
+def _current_raw_stream(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# The current stream of a device as a raw cudaStream_t, without building a
+# torch.cuda.Stream object where torch offers that.
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream",
+                     _current_raw_stream)
+
+
+def _current_device() -> int:
+    return torch.cuda.current_device()
+
+
+# The current CUDA device's index, without torch.cuda.current_device()'s
+# lazy-init check where torch offers that (a tensor on the card exists,
+# so CUDA is initialized).
+current_device = getattr(torch._C, "_cuda_getDevice", _current_device)
+
+
+def call(fn, x: torch.Tensor, *args) -> int:
+    """fn(*args, stream) on the current stream of x's CUDA device, inside
+    that device's context only when it is not the current device; returns
+    fn's CUDA error code."""
+    index = x.get_device()
+    if index == current_device():
+        return fn(*args, raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, raw_stream(index))
 
 
 def run(name: str, x: torch.Tensor, *args) -> None:
     """Launch kernel `name` for x's dtype on x's device and stream:
     tbt_<name>_f32/_f64(*args, stream); raise on a CUDA error, else count
     the launch."""
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    fn = getattr(library(), f"tbt_{name}_{suffix}")
-    with torch.cuda.device(x.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    launched(err, name)
+    launched(call(entry(name, x.dtype), x, *args), name)

@@ -37,6 +37,8 @@ it cannot run.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpu_bench_torch.kernels import build
@@ -75,9 +77,9 @@ def kron_blocked(in_blk, c_coa, *, strip=None):
     if strip is not None and strip != 0 and strip not in KRON_STRIPS:
         raise ValueError(f"kron_blocked: strip={strip} is not 0 or one of "
                          f"{KRON_STRIPS}")
-    if in_blk.device.type == "cpu":
+    if in_blk.is_cpu:
         return kron_blocked_plain(in_blk, c_coa)
-    if in_blk.device.type != "cuda":
+    if not in_blk.is_cuda:
         raise ValueError(f"kron_blocked: no kernel for device {in_blk.device}")
     return _launch(in_blk, c_coa, strip)
 
@@ -90,6 +92,7 @@ def kron_resident_smem(itemsize, m, k, bn) -> int:
                        + KRON_RING * k * bn)
 
 
+@functools.cache
 def kron_config(itemsize, m, k, limit=SMEM_BLOCK) -> int:
     """K2's rule (csrc/bwdtrans2d.cu kron_strip) for C (m x k): the strip
     width of the C-resident configuration, the narrowest of KRON_STRIPS
@@ -131,8 +134,7 @@ def _launch(x, c, strip):
         raise ValueError(f"kron_blocked: in {tuple(x.shape)} exceeds the "
                          "kernel's 32-bit extents")
     if strip:
-        props = torch.cuda.get_device_properties(x.device)
-        limit = getattr(props, "shared_memory_per_block_optin", SMEM_BLOCK)
+        limit = build.smem_limits(x.get_device())[0]
         if kron_resident_smem(x.element_size(), nq_tot, nm_tot,
                               strip) > limit:
             raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
@@ -188,6 +190,7 @@ def em_resident_smem(itemsize, k, n, be) -> int:
     return itemsize * (k * (-(-n // cols) * cols) + EM_RING * be * k)
 
 
+@functools.cache
 def em_config(itemsize, k, n, limit=SMEM_BLOCK) -> int:
     """K3's rule (csrc/bwdtrans2d.cu em_tile) for S (k x n): the tile
     height of the S-resident configuration, the narrowest of EM_TILES
@@ -216,7 +219,7 @@ def _em_gemm(name, x, s, epb, tile):
     if tile is not None and tile != 0 and tile not in EM_TILES:
         raise ValueError(f"{name}: tile={tile} is not 0 or one of "
                          f"{EM_TILES}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return kron_elem_major_plain(x, s)
     e, k = x.shape
     n = s.shape[1]
@@ -224,8 +227,7 @@ def _em_gemm(name, x, s, epb, tile):
         raise ValueError(f"{name}: {tuple(x.shape)} @ {tuple(s.shape)} "
                          "exceeds the kernel's 32-bit extents")
     if tile:
-        props = torch.cuda.get_device_properties(x.device)
-        limit = getattr(props, "shared_memory_per_block_optin", SMEM_BLOCK)
+        limit = build.smem_limits(x.get_device())[0]
         if em_resident_smem(x.element_size(), k, n, tile) > limit:
             raise ValueError(f"{name}: S ({k} x {n}) and tiles of {tile} "
                              f"do not fit the card's {limit} B of shared "

@@ -122,32 +122,23 @@ def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None):
 def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None):
     """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq."""
     _check(in_pflat, b0, c12t, nrq)
-    if in_pflat.device.type == "cpu":
+    if in_pflat.is_cpu:
         return qp_shared3d_flat_plain(in_pflat, b0, c12t, nrq=nrq)
-    if in_pflat.device.type != "cuda":
+    if not in_pflat.is_cuda:
         raise ValueError(f"qp_shared3d: no kernel for device {in_pflat.device}")
     return _launch(in_pflat, b0, c12t, nrq, epb, planes)
 
 
 def _check(x, b0, c12t, nrq):
-    tensors = (x, b0, c12t)
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError("qp_shared3d: bf16 is not ported yet "
-                                  "(ROADMAP Queue 1 item 2)")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"qp_shared3d: dtype {x.dtype} is not supported")
-    if any(t.dtype != x.dtype for t in tensors):
-        raise TypeError("qp_shared3d: in, b0 and c12t must share one dtype")
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("qp_shared3d: in, b0 and c12t must share one device")
-    if any(t.dim() != 2 for t in tensors):
+    """in, b0 and c12t: one dtype and device, contiguous (check_operands),
+    2D, and of shapes that agree with nrq."""
+    build.check_operands("qp_shared3d", (x, b0, c12t))
+    if x.dim() != 2 or b0.dim() != 2 or c12t.dim() != 2:
         raise ValueError("qp_shared3d: in, b0 and c12t must be 2D")
     if x.shape[0] != b0.shape[0] * nrq or c12t.shape[1] != nrq:
         raise ValueError(f"qp_shared3d: shapes in {tuple(x.shape)}, b0 "
                          f"{tuple(b0.shape)}, c12t {tuple(c12t.shape)} do not "
                          f"agree with nrq={nrq}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("qp_shared3d: in, b0 and c12t must be contiguous")
 
 
 def _round_up(n, m):
@@ -170,6 +161,7 @@ def qp_planes(et, nkj) -> int:
     return 8 if tiles <= QP_THREADS // 2 else 4
 
 
+@functools.cache
 def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
               sm_limit=SMEM_SM):
     """K1's (element tile, plane group) for a shape: QP_MEASURED's where
@@ -194,28 +186,37 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
     return (two or fits or [None])[0]
 
 
+@functools.cache
+def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
+                     block=SMEM_BLOCK, sm=SMEM_SM) -> tuple:
+    """K1's (element tile, plane group) for a launch: `epb` and `planes`
+    where given (qp_planes' group for a given tile), else qp_config's,
+    under the card's `block` and `sm` bytes of shared memory; raises if
+    the knobs are not the kernel's or the tile does not fit."""
+    tiles = QP_TILES[itemsize]
+    if epb is not None and epb not in tiles:
+        raise ValueError(f"qp_shared3d: epb={epb} is not one of the "
+                         f"kernel's element tiles {tiles} for itemsize "
+                         f"{itemsize}")
+    if planes is not None and planes not in QP_PLANE_GROUPS:
+        raise ValueError(f"qp_shared3d: planes={planes} is not one of "
+                         f"{QP_PLANE_GROUPS}")
+    et, g = qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm) or (None, None)
+    et = epb or et
+    g = planes or (qp_planes(et, nkj) if epb else g)
+    if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj) > block:
+        raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
+                         f" of nm0*nrq = {nm0 * nrq} input rows does not fit "
+                         f"the card's {block} B of shared memory")
+    return et, g
+
+
 def _launch(x, b0, c12t, nrq, epb, planes):
     nm0, nq0 = b0.shape
     nkj = c12t.shape[0]
     e = x.shape[1]
-    size = x.element_size()
-    tiles = QP_TILES[size]
-    if epb is not None and epb not in tiles:
-        raise ValueError(f"qp_shared3d: epb={epb} is not one of the "
-                         f"kernel's element tiles {tiles} for {x.dtype}")
-    if planes is not None and planes not in QP_PLANE_GROUPS:
-        raise ValueError(f"qp_shared3d: planes={planes} is not one of "
-                         f"{QP_PLANE_GROUPS}")
-    props = torch.cuda.get_device_properties(x.device)
-    block = getattr(props, "shared_memory_per_block_optin", SMEM_BLOCK)
-    sm = getattr(props, "shared_memory_per_multiprocessor", SMEM_SM)
-    et, g = qp_config(size, nm0, nrq, nq0, nkj, block, sm) or (None, None)
-    et = epb or et
-    g = planes or (qp_planes(et, nkj) if epb else g)
-    if et is None or qp_smem(size, et, g, nm0, nrq, nq0, nkj) > block:
-        raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
-                         f" of nm0*nrq = {nm0 * nrq} input rows does not fit "
-                         f"the card's {block} B of shared memory")
+    et, g = qp_launch_config(x.element_size(), nm0, nrq, nq0, nkj, epb,
+                             planes, *build.smem_limits(x.get_device()))
     out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
     build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
               out.data_ptr(), nm0, nrq, nq0, nkj, e, et, g)
@@ -258,7 +259,7 @@ def qp_stage2_3d(w, b0, *, unroll=None, out=None):
         if out.shape != (nq0, nkj, e):
             raise ValueError(f"qp_stage2_3d: out {tuple(out.shape)} is not "
                              f"{(nq0, nkj, e)}")
-    if w.device.type == "cpu":
+    if w.is_cpu:
         ref = qp_stage2_3d_plain(w, b0)
         return ref if out is None else out.copy_(ref)
     size = w.element_size()
@@ -271,7 +272,7 @@ def qp_stage2_3d(w, b0, *, unroll=None, out=None):
     vector = build.vector16(f, size, w.data_ptr(), out.data_ptr())
     u = unroll if vector else 1
     blocks = qp2_grid(qp2_units(f, size, vector), u,
-                      qp2_wave(w.device, size, vector, nm0, nq0, u))
+                      qp2_wave(w.get_device(), size, vector, nm0, nq0, u))
     build.run("qp_stage2_3d", w, w.data_ptr(), b0.data_ptr(), out.data_ptr(),
               nm0, nq0, f, u, int(vector), blocks)
     return out
@@ -291,6 +292,7 @@ def qp2_units(f, itemsize, vector) -> int:
     return f * itemsize // 16 if vector else f
 
 
+@functools.cache
 def qp2_grid(nv, unroll, wave) -> int:
     """K4's blocks for nv units at `unroll` a thread: one wave (`wave`,
     the blocks the card holds at once), but no more than give each block
@@ -350,14 +352,19 @@ def qp1d_tiles(in_em2, *ops) -> list:
     """The element tiles of QP1D_TILES for in_em2's dtype whose workspaces
     fit the card's opt-in shared memory for the chain in_em2 @ ops[0] @ ...
     (two or three stages), in order of preference."""
-    k0, n1 = in_em2.shape[1], ops[0].shape[1]
     n2 = ops[1].shape[1] if len(ops) == 3 else 0  # second workspace
-    props = torch.cuda.get_device_properties(in_em2.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    return qp1d_fits(in_em2.get_device(), in_em2.element_size(),
+                     in_em2.shape[1], ops[0].shape[1], n2)
+
+
+@functools.cache
+def qp1d_fits(index, itemsize, k0, n1, n2) -> list:
+    """qp1d_tiles on CUDA device `index` for a chain of input width k0 and
+    workspaces n1 and n2 (0: two stages), asked of the library once."""
     smem = build.library().tbt_qp1d_smem
-    size = in_em2.element_size()
-    return [et for et in QP1D_TILES[size]
-            if smem(size, et, k0, n1, n2) <= limit]
+    limit = build.smem_limits(index)[0]
+    return [et for et in QP1D_TILES[itemsize]
+            if smem(itemsize, et, k0, n1, n2) <= limit]
 
 
 def qp1d_fused(in_em2, *ops, epb=None):
@@ -377,7 +384,7 @@ def qp1d_fused(in_em2, *ops, epb=None):
     if epb is not None and epb not in tiles:
         raise ValueError(f"qp1d_fused: epb={epb} is not one of the "
                          f"kernel's element tiles {tiles} for {in_em2.dtype}")
-    if in_em2.device.type == "cpu":
+    if in_em2.is_cpu:
         out = in_em2
         for s in ops[1:]:
             out = torch.matmul(out, s)

@@ -69,19 +69,20 @@ def matvec_rm(a, x, *, rows=None, unroll=None):
     if unroll not in RM_UNROLLS:
         raise ValueError(f"matvec_rm: unroll={unroll} is not one of "
                          f"{RM_UNROLLS}")
-    if a.device.type == "cpu":
+    if a.is_cpu:
         return matvec_rm_plain(a, x)
     y = torch.empty(m, dtype=a.dtype, device=a.device)
     size = a.element_size()
     vector = build.vector16(n, size, a.data_ptr(), x.data_ptr())
     lanes = rm_lanes(n * size // 16 if vector else n, unroll)
     blocks = rm_grid(m, rows, lanes,
-                     rm_wave(a.device, size, vector, rows, unroll))
+                     rm_wave(a.get_device(), size, vector, rows, unroll))
     build.run("matvec_rm", a, a.data_ptr(), x.data_ptr(), y.data_ptr(), m, n,
               rows, unroll, lanes, int(vector), blocks)
     return y
 
 
+@functools.cache
 def rm_lanes(units, unroll) -> int:
     """Lanes of a K8 team for rows of `units` vectors (or values, in the
     scalar form): the largest power of two from 8 to RM_THREADS that
@@ -92,6 +93,7 @@ def rm_lanes(units, unroll) -> int:
     return lanes
 
 
+@functools.cache
 def rm_grid(m, rows, lanes, wave) -> int:
     """K8's blocks: the fewest rounds of row groups of `rows` rows that a
     wave (`wave`, the blocks the card holds at once) of teams of `lanes`
@@ -139,12 +141,12 @@ def matvec_cm(a_cm, x, *, unroll=None, splits=None):
                          f"{CM_UNROLLS}")
     if splits is not None and splits < 1:
         raise ValueError(f"matvec_cm: splits={splits} is below 1")
-    if a_cm.device.type == "cpu":
+    if a_cm.is_cpu:
         return matvec_cm_plain(a_cm, x)
     size = a_cm.element_size()
     if splits is None:
-        splits = cm_splits(n, m, size, cm_blocks(a_cm.device, size, unroll),
-                           unroll)
+        blocks = cm_blocks(a_cm.get_device(), size, unroll)
+        splits = cm_splits(n, m, size, blocks, unroll)
     y = torch.empty(m, dtype=a_cm.dtype, device=a_cm.device)
     ws = (torch.empty(splits * m, dtype=a_cm.dtype, device=a_cm.device)
           if splits > 1 else y)
@@ -158,6 +160,7 @@ def cm_columns(itemsize) -> int:
     return 32 * 16 // itemsize
 
 
+@functools.cache
 def cm_splits(n, m, itemsize, blocks, unroll=CM_UNROLL) -> int:
     """K9's row shares for A_cm (n, m): as many as the `blocks` the card
     holds at once leave room for beside the column blocks (one wave), but

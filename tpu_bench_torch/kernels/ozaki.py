@@ -138,9 +138,9 @@ def _ozaki(name, x, c, band_form):
         raise ValueError(f"{name}: in and C must share one device")
     if not (x.is_contiguous() and c.is_contiguous()):
         raise ValueError(f"{name}: in and C must be contiguous")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return kron_ozaki_pair_plain(x, c)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     t_c, nq_tot, nm_tot = c.shape
     t_x, _, e = x.shape
@@ -153,19 +153,26 @@ def _ozaki(name, x, c, band_form):
     lib = build.library()
     # K14 copies C's rows in 16-byte pieces: they are padded with zeros to
     # a multiple of its k step (nmTot = 343 is 686 bytes), in the call
-    k_pad = -(-nm_tot // lib.tbt_ozaki_k_pad()) * lib.tbt_ozaki_k_pad()
+    step = _k_step()
+    k_pad = -(-nm_tot // step) * step
     c = torch.nn.functional.pad(c, (0, k_pad - nm_tot))
     args = (c.data_ptr(), x.data_ptr(), hi.data_ptr(), lo.data_ptr(), t_c,
             t_x, nq_tot, nm_tot, e, w)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if band_form:
-            for u in range(max(t_c, t_x)):
-                build.launched(lib.tbt_ozaki_band(*args, u, stream),
-                               "ozaki_slices")
-        else:
-            build.launched(lib.tbt_ozaki_pair(*args, stream), "ozaki_slices")
+    if band_form:
+        for u in range(max(t_c, t_x)):
+            build.launched(build.call(lib.tbt_ozaki_band, x, *args, u),
+                           "ozaki_slices")
+    else:
+        build.launched(build.call(lib.tbt_ozaki_pair, x, *args),
+                       "ozaki_slices")
     return hi, lo
+
+
+@functools.cache
+def _k_step() -> int:
+    """K14's k step, to which C's rows are padded (asked of the library
+    once)."""
+    return build.library().tbt_ozaki_k_pad()
 
 
 def kron_ozaki(in_slices, c_slices, scale_in, scale_c, *, epb=None):

@@ -64,16 +64,14 @@ def sumsq_functor(x, eps=0.0):
 
 def _sumsq(name, x, eps, *, one_pass):
     build.check_operands(name, (x,))
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return sumsq_plain(x, eps)
-    if one_pass:
-        out = torch.zeros((), dtype=x.dtype, device=x.device)
-        partials = None
-    else:
-        out = torch.empty((), dtype=x.dtype, device=x.device)
-        partials = torch.empty(MAX_BLOCKS, dtype=x.dtype, device=x.device)
-    build.run("sumsq", x, x.data_ptr(), x.numel(), float(eps),
-              out.data_ptr(),
-              None if partials is None else partials.data_ptr(), MAX_BLOCKS,
+    # the sum, and after it the two-pass form's block partials, in one
+    # allocation; the one-pass launcher zeroes the sum on the stream
+    buf = torch.empty(1 if one_pass else 1 + MAX_BLOCKS, dtype=x.dtype,
+                      device=x.device)
+    ptr = buf.data_ptr()
+    build.run("sumsq", x, x.data_ptr(), x.numel(), float(eps), ptr,
+              None if one_pass else ptr + x.element_size(), MAX_BLOCKS,
               int(one_pass))
-    return out
+    return buf[0]

@@ -3,9 +3,10 @@ of tpu_bench/kernels/stream.py).
 
 On the TPU these functions stream through rings of 16 MB VMEM slots with
 manual DMA (fill through Mosaic's block pipeline), so the copies overlap
-the compute.  On the card the same bytes go through kernels whose resident
-warps keep the loads in flight; a cp.async.bulk / TMA ring through shared
-memory, the ring's real analog, is later work.
+the compute.  On the card K12 and K7's 16-byte form stream through its
+analog, a ring of shared-memory slots filled and drained by
+cp.async.bulk (kernels/ring.py, csrc/ring.cuh); the other probes'
+resident warps keep the loads in flight.
 
     add_inplace_manual(x, y)     x += y              K7, 16-byte form
     copy_manual(x, out=)         out = x             K12 stream_map
@@ -40,7 +41,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_bench_torch.kernels import axpy, build
+from tpu_bench_torch.kernels import axpy, build, ring
 
 LANES = 128  # the TPU's lane width: x is viewed as (rows, LANES)
 TOKEN_ROWS = 8  # rows of read_manual's token
@@ -125,10 +126,10 @@ def copy_manual(x, *, out=None):
     if out.shape != x.shape:
         raise ValueError(f"copy_manual: out {tuple(out.shape)} and x "
                          f"{tuple(x.shape)} differ in shape")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return copy_plain(x, out)
     build.run("stream_map", x, out.data_ptr(), x.data_ptr(), None, None,
-              x.numel(), _COPY)
+              x.numel(), _COPY, *ring.RING["copy"])
     return out
 
 
@@ -137,10 +138,10 @@ def scale_manual(x, c):
     x."""
     as_2d(x)
     _check_scalar("scale_manual", x, c)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return scale_plain(x, c)
     build.run("stream_map", x, x.data_ptr(), x.data_ptr(), None,
-              c.data_ptr(), x.numel(), _SCALE)
+              c.data_ptr(), x.numel(), _SCALE, *ring.RING["scale"])
     return x
 
 
@@ -154,10 +155,10 @@ def triad_manual(x, y, c):
         raise ValueError(f"triad_manual: x {tuple(x.shape)} and y "
                          f"{tuple(y.shape)} differ in shape")
     _check_scalar("triad_manual", x, c)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return triad_plain(x, y, c)
     build.run("stream_map", x, x.data_ptr(), x.data_ptr(), y.data_ptr(),
-              c.data_ptr(), x.numel(), _TRIAD)
+              c.data_ptr(), x.numel(), _TRIAD, *ring.RING["triad"])
     return x
 
 
@@ -187,7 +188,7 @@ def fill_manual(rows: int, seed, *, dtype=torch.float32):
 def _fill(name, rows, seed, dtype, *, vector):
     out = torch.empty((rows, LANES), dtype=dtype, device=seed.device)
     _check_scalar(name, out, seed)
-    if out.device.type == "cpu":
+    if out.is_cpu:
         return fill_plain(rows, seed, dtype=dtype)
     build.run("stream_fill", out, out.data_ptr(), out.numel(),
               seed.data_ptr(), int(vector))
@@ -219,7 +220,7 @@ def expand_manual(x, m: int, bias=None, *, chunk_bytes: int = CHUNK_BYTES):
     if bias is None:
         bias = _zeros_like_scalar(x)
     _check_scalar("expand_manual", x, bias)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return expand_plain(x, m, bias, chunk_bytes=chunk_bytes)
     cr = chunk_rows(x2.shape[0], x.element_size(), chunk_bytes)
     out = torch.empty((m * x2.shape[0], LANES), dtype=x.dtype,
@@ -269,7 +270,7 @@ def read_manual(x, bias=None, *, chunk_bytes: int = CHUNK_BYTES,
     if bias is None:
         bias = _zeros_like_scalar(x)
     _check_scalar("read_manual", x, bias)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return read_plain(x, bias, chunk_bytes=chunk_bytes, depth=depth)
     tok = torch.empty((TOKEN_ROWS, LANES), dtype=x.dtype, device=x.device)
     # one word the kernel XORs every loaded bit pattern into
