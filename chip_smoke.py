@@ -22,10 +22,10 @@ five.  Every phase is fatal:
    kernels K14, K5 and the dense GEMM that K2 and K3 share, nor in K1,
    K2's C-resident and K3's S-resident configurations, K4 (every nm0
    instance), K8, K9 and the cp.async.bulk rings of K12 and K7 (f32 and
-   f64), and
-   `cuobjdump -sass` must show HMMA in K14 and in the f32 entries of K5
-   and of K2's and K3's dense GEMM, DMMA in their f64 entries, and the
-   bulk copy (UBLKCP) in the rings;
+   f64; K1-K5 in bf16 too), and
+   `cuobjdump -sass` must show HMMA in K14 and in the f32 and bf16
+   entries of K5 and of K2's and K3's dense GEMM, DMMA in their f64
+   entries, and the bulk copy (UBLKCP) in the rings;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -82,7 +82,14 @@ five.  Every phase is fatal:
    nq=8^2, nelmt=128; b01 and b02 at 1024, b02 after 40 accumulating
    calls; b03 at 128), device_x and device_y built on the card against
    utils/native.py bit for bit, and every b04 column in f32 at (10, 12)
-   and (12, 10) against the f64 oracle;
+   and (12, 10) against the f64 oracle; and every K1-K5 use in bf16
+   against its plain version (the same cast points, computed in f32) at
+   the b05 and b04 orders above, E = 1000, 131071 and the main size:
+   elementwise within 2^-7 of the largest output, norms within 1e-4;
+   timed at the main shapes beside its plain version, the library call in
+   bf16 and its bound (bytes at 2 a value, FLOP at the bf16 tensor
+   cores' rate); K1's, K2's, K3's and K5's rules and K4's unrolls in
+   bf16 as in f32 and f64 above;
 4. the headline (`python -m tpu_bench_torch.bench`): K1's and K2's launch
    counts must rise during it, and the three columns' norms must agree
    with each other and with the f64 oracle to 5e-4;
@@ -100,11 +107,19 @@ five.  Every phase is fatal:
 9. benchmark04 at nelmt 1,048,576 at every order of scripts/run04.sh
    (2 .. 32) and at (10, 12), f32 and f64;
 10. the benchmark01, 02 and 03 CLIs, f32 over the reference's sweeps (to
-   536,870,912 and 16384) and f64 over every 32nd size to the same tops.
+   536,870,912 and 16384) and f64 over every 32nd size to the same tops;
+11. the benchmark05 (8 8 8) and benchmark04 (8 8) CLIs with `--dtype
+   bf16`, nelmt 128 to 131072 and 1,048,576 in steps of x2: only the
+   bf16 instances of K1-K5 launch, the rows agree to 5e-2, and at nelmt
+   128 every hand column is within 1e-4 of the JAX package's committed
+   bf16 log (artifacts/bf16), but b04 Pallas(QP/Shared), whose JAX kernel
+   rounds elsewhere (ROADMAP Queue 3); then K1 in bf16 at nq=6^3,
+   nelmt 256 within 5e-4 of the f64 oracle.
 
 In phases 6-10 the kernels of the sweep's own set must each launch, and no
 other; the logs must parse with postprocess/common.py with every column
-> 0, and the norms of each row must agree to 5e-4 (f32) and 1e-10 (f64).
+> 0, and the norms of each row must agree to 5e-4 (f32), 1e-10 (f64) and
+5e-2 (bf16, phase 11).
 Once a row's operands exceed twice the L2, at an isotropic order, no
 column may read above the honesty cap of phase 5's ceilings for its
 traffic mix (core/roofline.honesty_cap_mix, honesty_cap_bwdtrans; +5%),
@@ -112,8 +127,9 @@ nor, in phase 10, above the HBM rate (+5%).
 
 The line before the last is a JSON object with each kernel use's launches
 in its path's run (the ceilings run of phase 5, the b05 or b04 sweep of
-phase 6, 7 or 8, phase 9's run at the use's order, or the b01-b03 sweep of
-phase 10 in the use's dtype; K14's band form and kron_coalesced, which no
+phase 6, 7 or 8, phase 9's run at the use's order, the b01-b03 sweep of
+phase 10 in the use's dtype, or the bf16 sweep of phase 11 for the bf16
+uses, listed apart; K14's band form and kron_coalesced, which no
 CLI runs, in one call of each at b05 nq=8^3 in phase 3), its error, its
 time beside its plain version's and a library call's, and its bound; the
 last line is
@@ -140,7 +156,18 @@ from typing import Callable, NamedTuple
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_NQ8_NELMT128 = 189.3141665  # reference benchmark05/nq8x8x8.log
 GOLDEN_B04_NQ8_NELMT128 = 29.12205853  # reference benchmark04/nq8x8.log
-RTOL = {"float32": 1e-5, "float64": 1e-12}
+RTOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2**-7}
+# bf16 against its plain version: a bf16 rounding that falls the other
+# side of a tie on f32 sums taken in another order moves a value by one
+# bf16 ulp (2^-8 of it: RTOL's 2^-7 of the largest output); the norm
+# averages those out (a wrong cast point moves it by 3e-4 to 7e-4)
+BF16_NORM_RTOL = 1e-4
+# the JAX package's committed bf16 logs (TPU), whose nelmt 128 row phase 11
+# holds the hand columns to, and the one column whose JAX kernel rounds
+# elsewhere (b04 qp_shared; ROADMAP Queue 3)
+BF16_LOGS = {"benchmark05": "artifacts/bf16/b05/nq8x8x8.log",
+             "benchmark04": "artifacts/bf16/b04/nq8x8.log"}
+BF16_EXEMPT = {"benchmark04": {"Pallas(QP/Shared)"}}
 HEADLINE_NELMT = 131072
 B04_NELMT = 1048576  # the reference sweep's largest size
 RUN04_ORDERS = (2, 4, 6, 8, 10, 12, 14, 16, 32)  # scripts/run04.sh
@@ -325,13 +352,17 @@ TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
               "K2 kron dense f32 (3xTF32)": "dense_gemm_kernelIf.*MFast",
               "K2 kron dense f64 (DMMA)": "dense_gemm_kernelId.*MFast",
               "K3 em dense f32 (3xTF32)": "dense_gemm_kernelIf.*NFast",
-              "K3 em dense f64 (DMMA)": "dense_gemm_kernelId.*NFast"}
+              "K3 em dense f64 (DMMA)": "dense_gemm_kernelId.*NFast",
+              "K5 qp1d bf16": "qp1d_tc_kernelI13__nv_bfloat16",
+              "K2 kron dense bf16": "dense_gemm_kernelI13__nv_bfloat16.*MFast",
+              "K3 em dense bf16": "dense_gemm_kernelI13__nv_bfloat16.*NFast"}
 TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
           ("K5 qp1d f64 (DMMA)", "DMMA"),
           ("K2 kron dense f32 (3xTF32)", "HMMA"),
           ("K2 kron dense f64 (DMMA)", "DMMA"),
           ("K3 em dense f32 (3xTF32)", "HMMA"),
-          ("K3 em dense f64 (DMMA)", "DMMA")]
+          ("K3 em dense f64 (DMMA)", "DMMA"), ("K5 qp1d bf16", "HMMA"),
+          ("K2 kron dense bf16", "HMMA"), ("K3 em dense bf16", "HMMA")]
 # The cp.async.bulk rings (csrc/ring.cuh) of K12 (copy, scale, triad) and
 # K7's 16-byte form (add), whose SASS must hold the bulk copy (UBLKCP).
 RING_KERNELS = {"K12 ring f32": "ring_kernelIfN.*(Copy|Scale|Triad)",
@@ -341,7 +372,7 @@ RING_KERNELS = {"K12 ring f32": "ring_kernelIfN.*(Copy|Scale|Triad)",
 RING_BULK = [(name, "UBLKCP") for name in RING_KERNELS]
 # The kernels ptxas must build without a spill: the tensor-core kernels,
 # K1, K2's C-resident and K3's S-resident configurations, K4 (every nm0
-# instance, f32 and f64), K8, K9 and the rings of K12 and K7.
+# instance, f32, f64 and bf16), K8, K9 and the rings of K12 and K7.
 NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
             "K2 kron resident": "kron_resident_kernel",
             "K3 em resident": "em_resident_kernel",
@@ -443,6 +474,43 @@ CONFIG_ORDERS = ([(n, n, n) for n in range(2, 11)] + [(3, 4, 5)]
 # one's launches counted
 COALESCED_SHAPES = [("b04 nq=8^2", 49, 64, B04_NELMT),
                     ("b05 nq=8^3", 343, 512, HEADLINE_NELMT)]
+# The bf16 uses of the kernels line: (entry of the line, kernel launched
+# (its bf16 instance counts as <kernel>_bf16), its source, the TPU kernel
+# it replaces, the use timed in phase 3, its order); launches from phase
+# 11's sweep of the use's benchmark
+PL3D = "tpu_bench/kernels/bwdtrans3d.py"
+BF16_USES = [
+    ("qp_fused3d bf16 (qp_shared3d_flat)", "qp_fused3d", BT3D_CU,
+     f"{PL3D}:137", "K1 qp_shared3d_flat", (8, 8, 8)),
+    ("qp_fused3d bf16 (qp_shared3d)", "qp_fused3d", BT3D_CU, f"{PL3D}:94",
+     "K1 qp_shared3d", (8, 8, 8)),
+    ("kron_blocked bf16 (kron_blocked)", "kron_blocked", BT2D_CU,
+     f"{PL2D}:113", "K2 kron_blocked (Coales)", (8, 8, 8)),
+    ("kron_blocked bf16 (qp_global3d stage 1)", "kron_blocked", BT2D_CU,
+     f"{PL3D}:198", "K2 kron_blocked (QP stage 1)", (8, 8, 8)),
+    ("qp_stage2_3d bf16 (qp_global3d stage 2)", "qp_stage2_3d", BT3D_CU,
+     f"{PL3D}:198", K4_3D, (8, 8, 8)),
+    ("em_gemm bf16 (kron_elem_major)", "em_gemm", BT2D_CU, f"{PL2D}:551",
+     K3_KRON, (8, 8, 8)),
+    *[(f"em_gemm bf16 (qp1d_global3d stage {i + 1})", "em_gemm", BT2D_CU,
+       f"{PL3D}:285", use, (8, 8, 8)) for i, use in enumerate(K3_STAGES)],
+    ("qp1d_fused3d bf16 (qp1d_shared3d)", "qp1d_fused3d", QP1D_CU,
+     f"{PL3D}:250", K5_3D, (8, 8, 8)),
+    ("kron_blocked bf16 (b04 kron_wide4)", "kron_blocked", BT2D_CU,
+     f"{PL2D}:164", K2_COALES, B04_MAIN),
+    ("qp_fused3d bf16 (b04 qp_shared)", "qp_fused3d", BT3D_CU, f"{PL2D}:265",
+     K1_2D, B04_MAIN),
+    ("kron_blocked bf16 (b04 qp_global stage 1)", "kron_blocked", BT2D_CU,
+     f"{PL2D}:441", "K2 kron_blocked (QP stage 1)", B04_MAIN),
+    ("qp_stage2_3d bf16 (b04 qp_global stage 2)", "qp_stage2_3d", BT3D_CU,
+     f"{PL2D}:441", K4_2D, B04_MAIN),
+    ("em_gemm bf16 (b04 kron_elem_major)", "em_gemm", BT2D_CU,
+     f"{PL2D}:551", K3_KRON, B04_MAIN),
+    *[(f"em_gemm bf16 (b04 _one_stage_em stage {i + 1})", "em_gemm", BT2D_CU,
+       f"{PL2D}:614", use, B04_MAIN) for i, use in enumerate(K3_STAGES[:2])],
+    ("qp1d_fused2d bf16 (b04 qp1d_shared)", "qp1d_fused2d", QP1D_CU,
+     f"{PL2D}:580", K5_2D, B04_MAIN),
+]
 
 
 def _run(cmd) -> str:
@@ -524,14 +592,25 @@ def sass_counts(library) -> dict:
 
 
 def compare(torch, name, out, ref, dtype, tol=None) -> float:
+    """The largest |out - ref|, held to `tol` (RTOL's by default) relative
+    to the largest |ref|; in bf16 taken in f64, and the norms also held to
+    BF16_NORM_RTOL."""
     torch.cuda.synchronize()
     assert out.shape == ref.shape, (name, out.shape, ref.shape)
     assert bool(torch.isfinite(out).all()), f"{name}: non-finite output"
+    if dtype == torch.bfloat16:  # a bf16 instance, not a widened one
+        assert out.dtype == ref.dtype == dtype, (name, out.dtype, ref.dtype)
+        out, ref = out.double(), ref.double()
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
     if tol is None:
         tol = RTOL[str(dtype).split(".")[-1]]
-    print(f"  {name}: max rel err {rel:.3e} (tol {tol:g})")
+    norm = ""
+    if dtype == torch.bfloat16:
+        norm_rel = abs(float(out.norm()) / float(ref.norm()) - 1)
+        norm = f", norm rel err {norm_rel:.2e} (tol {BF16_NORM_RTOL:g})"
+        assert norm_rel <= BF16_NORM_RTOL, f"{name}: norm {norm_rel}"
+    print(f"  {name}: max rel err {rel:.3e} (tol {tol:g}){norm}")
     assert rel <= tol, f"{name}: {rel} > {tol}"
     return err
 
@@ -665,7 +744,8 @@ def shape_cases_2d(torch, rnd, nq, e) -> list:
     b0, b1t = rnd(nm0, nq0), rnd(nq1, nm1)
     # p-major; its bytes also serve the 4D chunk and element-major layouts
     x = rnd(nm0, nm1, e)
-    ce, lanes = (8192, 128) if e % 8192 == 0 else (e, 8)
+    ce, lanes = (8192, 128) if e % 8192 == 0 else (e, 8 if e % 8 == 0
+                                                        else 1)
     xb4 = x.view(e // ce, nm_tot, ce // lanes, lanes)
     em = x.view(e, nm_tot)
     c_coa, c_em = rnd(nq_tot, nm_tot), rnd(nm_tot, nq_tot)
@@ -896,6 +976,63 @@ def kernels_vs_plain(torch) -> dict:
               + f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})" + host_text(hosts[key]))
+    return measured
+
+
+def bf16_vs_plain(torch) -> dict:
+    """Phase 3, bf16: every K1-K5 use and the Pallas(QP) and Pallas(QP-1D)
+    compositions against their plain versions (the same cast points, in
+    f32) on random bf16 inputs at the b05 orders 4^3, 8^3, 10^3 and
+    (3,4,5), E = 1000, 131071 and 131072, and the b04 orders (2,2), (8,8),
+    (10,12), (16,16) and (32,32), E = 1000, 131071 and 1,048,576 (compare:
+    2^-7 elementwise, norms to 1e-4).  At the main shapes (b05 nq=8^3,
+    E=131072; b04 nq=8^2, E=1,048,576) each use is timed beside its plain
+    version, the library call in bf16 (summing in f32, as Config's
+    "highest" sets cuBLAS) and its bound: bytes at 2 a value, FLOP at
+    BF16_FLOP_PER_S, the least time of bf16 operands on the card.  Returns
+    {(use, nq): those}."""
+    from tpu_bench_torch.core.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    dtype = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    sets = [(shape_cases, nq, e, nq == (8, 8, 8) and e == HEADLINE_NELMT)
+            for nq in ((4, 4, 4), (8, 8, 8), (10, 10, 10), (3, 4, 5))
+            for e in (1000, 131071, HEADLINE_NELMT)]
+    sets += [(shape_cases_2d, nq, e, nq == B04_MAIN and e == B04_NELMT)
+             for nq in ((2, 2), (8, 8), (10, 12), (16, 16), (32, 32))
+             for e in (1000, 131071, B04_NELMT)]
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    measured = {}
+    try:
+        for cases, nq, e, main in sets:
+            for case in cases(torch, rnd, nq, e):
+                out = case.run()
+                err = compare(torch, f"{case.label} bfloat16 nq={nq} E={e}",
+                              out, case.plain(), dtype)
+                if main:
+                    bound_ms, bound_by = bound(case.inputs, out, case.flops,
+                                               BF16_FLOP_PER_S)
+                    measured[(case.label, nq)] = dict(
+                        max_abs_err=err, ms=event_ms(case.run),
+                        plain_ms=event_ms(case.plain),
+                        library_ms=event_ms(case.library),
+                        bound_ms=bound_ms, bound_by=bound_by)
+                del out
+            torch.cuda.empty_cache()
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = saved
+    for (label, nq), k in measured.items():
+        e = HEADLINE_NELMT if len(nq) == 3 else B04_NELMT
+        print(f"  {label} at nq={nq} E={e} bfloat16: kernel {k['ms']:.4f} "
+              f"ms, plain {k['plain_ms']:.4f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']})")
     return measured
 
 
@@ -1421,14 +1558,15 @@ def k3_threshold(itemsize, k, limit) -> int:
 
 
 def configs(torch) -> None:
-    """Phase 3, K1's, K2's and K3's configurations.  At every order of
-    CONFIG_ORDERS in f32 and f64: K1's qp_config, K2's kron_config and
-    K3's em_config (pure Python) fit the card, give whole micro-tiles or
-    warp units, and agree with the library's shared-memory sizes
-    (tbt_qp_fused3d_smem at every tile and plane group,
-    tbt_kron_resident_smem at every strip, tbt_em_resident_smem at every
-    tile height) and with K2's and K3's own rules (tbt_kron_strip,
-    tbt_em_tile) for each of their products.  Then every K1 (tile, planes)
+    """Phase 3, K1's, K2's, K3's and K5's configurations.  At every order
+    of CONFIG_ORDERS in bf16, f32 and f64: K1's qp_config, K2's
+    kron_config, K3's em_config and K5's qp1d_fits (pure Python) fit the
+    card, give whole micro-tiles or warp units, and agree with the
+    library's shared-memory sizes (tbt_qp_fused3d_smem at every tile and
+    plane group, tbt_kron_resident_smem at every strip,
+    tbt_em_resident_smem at every tile height, tbt_qp1d_smem at every K5
+    tile) and with K2's and K3's own rules (tbt_kron_strip, tbt_em_tile)
+    for each of their products.  Then every K1 (tile, planes)
     that fits, at b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at every
     strip and dense, K3's b04 nq=8^2 kron_elem_major at every tile height
     and dense, and K2's and K3's products just either side of their
@@ -1445,7 +1583,7 @@ def configs(torch) -> None:
     block = props.shared_memory_per_block_optin
     sm = getattr(props, "shared_memory_per_multiprocessor", k1.SMEM_SM)
     chosen = {}
-    for size in (4, 8):
+    for size in (2, 4, 8):
         for nq in CONFIG_ORDERS:
             (nm0, nrq, nq0, nkj), products = config_operands(nq)
             et, g = k1.qp_config(size, nm0, nrq, nq0, nkj, block, sm)
@@ -1468,6 +1606,12 @@ def configs(torch) -> None:
                                    <= block)
                 strips.append(bn)
             widths = stage_widths(nq)
+            n2 = widths[2] if len(widths) == 4 else 0
+            for tile in k1.QP1D_TILES[size]:
+                assert k1.qp1d_smem(size, tile, widths[0], widths[1], n2) \
+                    == lib.tbt_qp1d_smem(size, tile, widths[0], widths[1],
+                                         n2), (nq, tile)
+            assert k1.qp1d_fits(size, widths[0], widths[1], n2, block), nq
             heights = []
             for k, n in [(widths[0], widths[-1]), *zip(widths, widths[1:])]:
                 be = k2.em_config(size, k, n, block)
@@ -1481,13 +1625,14 @@ def configs(torch) -> None:
                 heights.append(be)
             chosen[(size, nq)] = ((et, g), strips, heights)
     for (size, nq), (k1_cfg, strips, heights) in chosen.items():
-        print(f"  configs f{8 * size} nq={nq}: K1 (tile, planes) {k1_cfg};"
+        tag = "bf16" if size == 2 else f"f{8 * size}"
+        print(f"  configs {tag} nq={nq}: K1 (tile, planes) {k1_cfg};"
               f" K2 strip (0: dense) QP stage 1 {strips[0]}, kron "
               f"{strips[1]}; K3 tile (0: dense) kron {heights[0]}, QP-1D "
               f"stages {heights[1:]}")
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         size = dtype.itemsize
 
         def rnd(*shape):
@@ -1568,12 +1713,12 @@ def edges(torch) -> None:
     design's grid limit), at every unroll; K8 at N = 777 and 1001 and on
     an x one element off a 16-byte boundary, at every (rows, unroll), and
     two calls of each use bit-identical; against their plain versions, f32
-    and f64."""
+    and f64 (K4 in bf16 too)."""
     from tpu_bench_torch.kernels import bwdtrans3d as k1
     from tpu_bench_torch.kernels import matvec as kmv
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64, torch.bfloat16):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",
                                dtype=dtype)
@@ -1589,10 +1734,12 @@ def edges(torch) -> None:
                  ("nkj = 70000", rnd(7, 70000, 8), None)]
         for label, w, out in cases:
             ref = k1.qp_stage2_3d_plain(w, b0)
-            for unroll in k1.QP2_UNROLLS:
+            for unroll in k1.qp2_unrolls(dtype.itemsize, 7):
                 compare(torch, f"K4 {tag} {label} unroll {unroll}",
                         k1.qp_stage2_3d(w, b0, unroll=unroll, out=out), ref,
                         dtype)
+        if dtype == torch.bfloat16:  # K8 is built in f32 and f64
+            continue
         for m, n, off in ((1000, 777, 0), (1001, 1001, 0), (4096, 4096, 1),
                           (777, 1000, 1)):
             a, x = rnd(m, n), rnd(n + 1)[off:off + n]
@@ -1731,7 +1878,7 @@ def parse_log_fn():
 def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
               kernels: set, last_size: int, key: str = "nelmt",
               unit: str = "DOF/s", operand_bytes=None, caps=None,
-              golden=None) -> tuple:
+              golden=None, reference=None) -> tuple:
     """Phases 6-10: `python -m tpu_bench_torch.benchmarks.<bench>
     <positionals> --dtype <dtype> <size_args>`, run in this process so the
     kernels' launch counts can be read; its log is parsed as postprocess
@@ -1740,8 +1887,10 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
     ({name: cap in `unit`}), no column of a row whose operands exceed twice
     the L2 may read above any cap (+5%), which holds the timing and the
     byte counts.  With `golden`, every column's norm in the first row must
-    be within 1e-8 of it.  Returns the launches of each kernel during the
-    sweep and the last row's throughput by column."""
+    be within 1e-8 of it.  With `reference` ({label: norm}), each of those
+    columns' norms in the first row must be within BF16_NORM_RTOL of it.
+    Returns the launches of each kernel during the sweep and the last
+    row's throughput by column."""
     from tpu_bench_torch.core.validate import default_rtol
     from tpu_bench_torch.kernels import build
 
@@ -1769,7 +1918,8 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
     for row in series:
         for label, v in zip(labels, row):
             assert v > 0, (dtype, label, v)
-    torch_dtype = getattr(torch, {"f32": "float32", "f64": "float64"}[dtype])
+    torch_dtype = getattr(torch, {"f32": "float32", "f64": "float64",
+                                  "bf16": "bfloat16"}[dtype])
     rtol = default_rtol(torch_dtype)
     for size, norms in zip(sizes, norm_rows):
         worst = max(abs(n - norms[0]) / norms[0] for n in norms)
@@ -1779,6 +1929,13 @@ def cli_sweep(torch, bench, positionals: list, dtype: str, size_args: list,
         print(f"  {dtype} {name} {key} {int(sizes[0])}: every column's norm "
               f"within {worst:.2e} of the golden {golden}")
         assert worst <= 1e-8, (norm_rows[0], golden)
+    if reference is not None:
+        first = dict(zip(labels, norm_rows[0]))
+        for label, ref in reference.items():
+            rel = abs(first[label] - ref) / ref
+            print(f"  {dtype} {name} {key} {int(sizes[0])} {label}: "
+                  f"{first[label]!r}, reference {ref!r} (rel {rel:.2e})")
+            assert rel <= BF16_NORM_RTOL, (label, first[label], ref)
     if operand_bytes is not None:
         l2 = torch.cuda.get_device_properties(0).L2_cache_size
         limits = caps(torch_dtype.itemsize)
@@ -1935,6 +2092,64 @@ def b04_orders(torch, bw) -> dict:
     return launches
 
 
+def log_norms(path, nelmt=128) -> dict:
+    """{label: norm} of a committed benchmark log's row at nelmt."""
+    labels = None
+    with open(os.path.join(ROOT, path)) as f:
+        for line in f:
+            if line.startswith(f"nelmt {nelmt} Case:"):
+                labels = line.split()[3:]
+            elif labels and line.startswith(f"nelmt {nelmt} norm:"):
+                return dict(zip(labels, map(float, line.split()[3:])))
+    raise ValueError(f"no nelmt {nelmt} row in {path}")
+
+
+def bf16_sweeps(torch, bw) -> dict:
+    """Phase 11: the benchmark05 (8 8 8) and benchmark04 (8 8) CLIs with
+    `--dtype bf16`, nelmt 128 to 131072 and 1,048,576 in the reference's
+    steps of x2, 5 reps: exactly the bf16 instances of
+    K1-K5 launch, each row's norms agree to 5e-2, every column stays under
+    phase 5's caps at 2 bytes a value, and at nelmt 128 every hand column
+    is within 1e-4 of the JAX package's committed bf16 log (BF16_LOGS) but
+    BF16_EXEMPT's.  Then K1 in bf16 at nq=6^3, nelmt 256 (benchmark05's
+    data) within 5e-4 of the f64 oracle.  Returns each sweep's launches,
+    by benchmark."""
+    import numpy as np
+
+    from tpu_bench_torch.benchmarks import benchmark04 as b04
+    from tpu_bench_torch.benchmarks import benchmark05 as b05
+    from tpu_bench_torch.core.config import Config
+    from tpu_bench_torch.core.validate import l2norm
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+    from tpu_bench_torch.ops import bwdtrans
+
+    launches = {}
+    for bench, nq, top, kernels in ((b05, 8, HEADLINE_NELMT, set(KERNELS)),
+                                    (b04, 8, B04_NELMT, B04_KERNELS)):
+        name = bench.__name__.split(".")[-1]
+        dim = 3 if bench is b05 else 2
+        logged = log_norms(BF16_LOGS[name])
+        reference = {label: v for label, v in logged.items()
+                     if label.startswith("Pallas")
+                     and label not in BF16_EXEMPT.get(name, ())}
+        counts, _ = cli_sweep(
+            torch, bench, [nq] * dim, "bf16",
+            ["--min-size", "128", "--max-size", str(top), "--ntests", "5"],
+            {f"{k}_bf16" for k in kernels}, top,
+            operand_bytes=bwdtrans_bytes(nq, dim),
+            caps=bwdtrans_caps(bw, nq, dim), reference=reference)
+        launches[bench] = counts
+    cfg = Config(dtype=torch.bfloat16, device="cuda")
+    data = b05.prepare(6, 6, 6, 256, cfg)
+    oracle = float(np.linalg.norm(bwdtrans.reference3d(data["basis"], 256)))
+    norm = l2norm(k1.qp_shared3d(data["in_pcoa3"], data["b0"], data["c12t"]))
+    rel = abs(norm - oracle) / oracle
+    print(f"  K1 bf16 at nq=6^3, nelmt 256: {norm!r} (oracle {oracle!r}, rel "
+          f"{rel:.2e}, tol 5e-4)")
+    assert rel <= 5e-4, (norm, oracle)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1957,6 +2172,7 @@ def main() -> int:
     build_kernels()
     print("== 3. kernels against their plain versions", flush=True)
     measured = kernels_vs_plain(torch)
+    measured_bf16 = bf16_vs_plain(torch)
     measured_streams = streams_vs_plain(torch)
     measured_probes = probes_vs_plain(torch)
     rings_vs_plain(torch)
@@ -2011,6 +2227,8 @@ def main() -> int:
     launches_by_order[B04_MAIN] = launches_b04  # the full f32 sweep
     print("== 10. benchmark01, 02 and 03 CLI sweeps", flush=True)
     launches_streams = stream_sweeps(torch, bw)
+    print("== 11. benchmark05 and benchmark04 CLIs, bf16", flush=True)
+    launches_bf16 = bf16_sweeps(torch, bw)
 
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
@@ -2042,7 +2260,11 @@ def main() -> int:
         dict(name="kron_blocked (kron_coalesced)", route="cuda",
              source=BT2D_CU, replaces=f"{PL2D}:86",
              launches=coalesced_launches,
-             **measured_coalesced["b05 nq=8^3"])]}))
+             **measured_coalesced["b05 nq=8^3"])] + [
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches_bf16[b05 if len(order) == 3 else b04][
+                 f"{kernel}_bf16"], **measured_bf16[(use, order)])
+        for name, kernel, source, replaces, use, order in BF16_USES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -103,9 +103,30 @@ def test_main_log_parses_with_postprocess(tmp_path):
         assert len(row) == 11 and all(v > 0 for v in row), row
 
 
-def test_main_refuses_bf16():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b04.main(["4", "4", "--dtype", "bf16", "--device", "cpu"])
+def test_main_refuses_bf16(tmp_path):
+    """bf16 runs: the CLI's log parses with postprocess/common.py, every
+    column > 0 and the norms of each row within bf16's 5e-2."""
+    buf, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        b04.main(["8", "8", "--dtype", "bf16", "--device", "cpu",
+                  "--max-size", "256", "--ntests", "2"])
+    assert "WARNING" not in err.getvalue(), err.getvalue()
+    log = tmp_path / "nq8x8.log"
+    log.write_text(buf.getvalue())
+    sys.path.insert(0, os.path.join(REPO, "postprocess"))
+    try:
+        import common
+    finally:
+        sys.path.pop(0)
+    sizes, series, labels, _ = common.parse_log(str(log), "nelmt", "DOF/s")
+    assert labels == b04.LABELS and sizes == [128.0, 256.0]
+    for row in series:
+        assert len(row) == 11 and all(v > 0 for v in row), row
+    for line in buf.getvalue().splitlines():
+        if " norm: " in line:
+            norms = [float(v) for v in line.split()[3:]]
+            assert len(norms) == 11
+            assert max(norms) <= min(norms) * (1 + 5e-2), norms
 
 
 def test_ozaki_route_golden_norm():

@@ -95,8 +95,8 @@ def test_kron_coalesced_matches_jax(op, dtype, rtol):
 
 def test_em_gemm_rejects_bad_input():
     x, s = torch.zeros(CE, 27), torch.zeros(27, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k2.kron_elem_major(x.bfloat16(), s.bfloat16())
+    out = k2.kron_elem_major(x.bfloat16(), s.bfloat16())  # bf16 runs
+    assert out.dtype == torch.bfloat16 and out.shape == (CE, 64)
     with pytest.raises(ValueError, match="are not"):
         k2.one_stage_em(x, s.T.contiguous())
     with pytest.raises(TypeError):
@@ -110,8 +110,9 @@ def test_em_gemm_rejects_bad_input():
 def test_kron_blocked_rejects_bad_input():
     c = torch.from_numpy(_kron_operator(4, np.float32))
     x = torch.zeros(NBLK, c.shape[1], CE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k2.kron_blocked(x.bfloat16(), c.bfloat16())
+    out = k2.kron_blocked(x.bfloat16(), c.bfloat16())  # bf16 runs
+    assert out.dtype == torch.bfloat16
+    assert out.shape == (NBLK, c.shape[0], CE)
     with pytest.raises(ValueError):
         k2.kron_blocked(x[:, 1:], c)
     with pytest.raises(TypeError):
@@ -273,8 +274,8 @@ def test_2d_wrappers_reject_bad_input():
         k2.kron_wide4(torch.zeros(9, 256), torch.zeros(16, 9))
     with pytest.raises(ValueError):
         k1.qp_shared3d(x, b0, b1t[:, :-1].contiguous())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        k1.qp_global3d(x.bfloat16(), b0.bfloat16(), b1t.bfloat16())
+    out = k1.qp_global3d(x.bfloat16(), b0.bfloat16(), b1t.bfloat16())
+    assert out.dtype == torch.bfloat16  # bf16 runs
     em, s = torch.zeros(CE, 9), torch.zeros(9, 12)
     with pytest.raises(ValueError, match="do not chain"):
         k1.qp1d_fused(em, s, s)
@@ -299,7 +300,7 @@ K2_PRODUCTS = ([(f"b05 nq={n}^3 {use}", shape) for n in range(2, 11)
                                      ("kron", (n * n, (n - 1) ** 2)))])
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 @pytest.mark.parametrize("label,shape", K2_PRODUCTS)
 def test_kron_config_fits_the_card(label, shape, itemsize):
     """kron_config gives 0 (dense) or a strip width of KRON_STRIPS whose
@@ -344,17 +345,18 @@ def test_kron_blocked_rejects_unknown_strip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_kron_blocked_both_configs_on_card(itemsize):
     """K2 in both configurations against its plain version on E = 1000 and
     131071 columns (neither a multiple of a strip or a tile): Pallas(QP)
     stage 1 at b05 nq=8^3 at every strip and dense, the b05 nq=8^3 kron
     (dense), and C (M x 128) just either side of the C-resident
-    threshold; 1e-5 (f32), 1e-12 (f64), relative to the largest output."""
+    threshold; 1e-5 (f32), 1e-12 (f64), 2^-7 (bf16), relative to the
+    largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    dtype = torch.float32 if itemsize == 4 else torch.float64
-    tol = 1e-5 if itemsize == 4 else 1e-12
+    dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
+    tol = {2: 2**-7, 4: 1e-5, 8: 1e-12}[itemsize]
     gen = torch.Generator(device="cuda").manual_seed(itemsize)
 
     def rnd(*shape):
@@ -375,7 +377,8 @@ def test_kron_blocked_both_configs_on_card(itemsize):
             out = k2.kron_blocked(x, c, strip=w)
             ref = k2.kron_blocked_plain(x, c)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max() / ref.abs().max())
+            err = float((out.double() - ref.double()).abs().max()
+                        / ref.double().abs().max())
             assert err <= tol, (tuple(c.shape), e, w, err)
 
 
@@ -402,7 +405,7 @@ def _em_products():
     return products
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 @pytest.mark.parametrize("label,shape", _em_products())
 def test_em_config_fits_the_card(label, shape, itemsize):
     """em_config gives 0 (dense) or a tile height of EM_TILES whose S and
@@ -449,19 +452,19 @@ def test_em_gemm_rejects_unknown_tile():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_em_gemm_both_configs_on_card(itemsize):
     """K3 in both configurations against its plain version on E = 1000 and
     131071 rows (neither a multiple of a tile): b04 nq=8^2 kron_elem_major
     (49 x 64) at every tile height and dense, and its QP-1D stages; the b05
     nq=8^3 kron and QP-1D stages (dense; K = 343 rows are not whole
     16-byte words); S (128 x N) just either side of the resident
-    threshold; X off a 16-byte boundary; 1e-5 (f32), 1e-12 (f64),
-    relative to the largest output."""
+    threshold; X off a 16-byte boundary; 1e-5 (f32), 1e-12 (f64), 2^-7
+    (bf16), relative to the largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    dtype = torch.float32 if itemsize == 4 else torch.float64
-    tol = 1e-5 if itemsize == 4 else 1e-12
+    dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
+    tol = {2: 2**-7, 4: 1e-5, 8: 1e-12}[itemsize]
     gen = torch.Generator(device="cuda").manual_seed(itemsize + 2)
 
     def rnd(*shape):
@@ -486,7 +489,8 @@ def test_em_gemm_both_configs_on_card(itemsize):
             out = k2.one_stage_em(x, s, tile=h)
             ref = k2.kron_elem_major_plain(x, s)
             torch.cuda.synchronize()
-            err = float((out - ref).abs().max() / ref.abs().max())
+            err = float((out.double() - ref.double()).abs().max()
+                        / ref.double().abs().max())
             assert err <= tol, (tuple(s.shape), e, h, err)
 
 
@@ -495,20 +499,19 @@ def test_em_gemm_both_configs_on_card(itemsize):
 B04_ORDERS = [(n, n) for n in (2, 4, 6, 8, 10, 12, 14, 16, 32)] + [(10, 12)]
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 @pytest.mark.parametrize("e", [1000, 1048576])
 @pytest.mark.parametrize("nq", B04_ORDERS)
 def test_qp2_deals_every_vector_once_at_b04_orders(nq, e, itemsize):
     """K4 as benchmark04's Pallas(QP) stage 2, w (nm0, nq1, E): at every
-    unroll it takes there (at most QP2_CHUNKED_UNROLL above nm0 =
-    QP2_EXACT) and at 1, 3 and 8 blocks an SM of 132, one wave, the units
+    unroll it takes there (qp2_unrolls: at most QP2_CHUNKED_UNROLL above
+    nm0 = QP2_EXACT, half of each in bf16) and at 1, 3 and 8 blocks an SM of 132, one wave, the units
     dealt in order, each once, shares equal to within one."""
     nm0, nkj = nq[0] - 1, nq[1]
     f = nkj * e
     for vector in {False, build.vector16(f, itemsize, 0, 0)}:
         nv = k1.qp2_units(f, itemsize, vector)
-        unrolls = [u for u in (k1.QP2_UNROLLS if vector else (1,))
-                   if nm0 <= k1.QP2_EXACT or u <= k1.QP2_CHUNKED_UNROLL]
+        unrolls = k1.qp2_unrolls(itemsize, nm0) if vector else (1,)
         assert unrolls
         for unroll in unrolls:
             for wave in (132, 396, 1056):
@@ -538,15 +541,15 @@ def test_qp_global_default_unroll_serves_every_b04_order():
 def test_qp_stage2_every_b04_order_on_card(nq):
     """K4 as benchmark04's stage 2 at an order of chip_smoke.py's phase 3,
     on E = 1000 and 1,048,576, at every unroll it takes there, against
-    its plain version: 1e-5 (f32), 1e-12 (f64), relative to the largest
-    output."""
+    its plain version: 1e-5 (f32), 1e-12 (f64), 2^-7 (bf16), relative to
+    the largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     gen = torch.Generator(device="cuda").manual_seed(sum(nq) + 50)
     nm0, nq0, nkj = nq[0] - 1, nq[0], nq[1]
-    unrolls = [u for u in k1.QP2_UNROLLS
-               if nm0 <= k1.QP2_EXACT or u <= k1.QP2_CHUNKED_UNROLL]
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12),
+                       (torch.bfloat16, 2**-7)):
+        unrolls = k1.qp2_unrolls(dtype.itemsize, nm0)
         b0 = torch.randn(nm0, nq0, generator=gen, device="cuda",
                          dtype=dtype)
         for e in (1000, 1048576):
@@ -556,5 +559,6 @@ def test_qp_stage2_every_b04_order_on_card(nq):
             for unroll in unrolls:
                 out = k1.qp_stage2_3d(w, b0, unroll=unroll)
                 torch.cuda.synchronize()
-                err = float((out - ref).abs().max() / ref.abs().max())
+                err = float((out.double() - ref.double()).abs().max()
+                            / ref.double().abs().max())
                 assert err <= tol, (dtype, e, unroll, err)

@@ -58,8 +58,16 @@ def test_cuda_config_without_cuda_raises(monkeypatch):
 
 
 def test_bf16_config_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        Config(dtype=torch.bfloat16, device="cpu")
+    """Config takes bf16; benchmarks 01-03 refuse it, naming ROADMAP Queue
+    1 item 2c (their kernels, K6-K9, are built in f32 and f64 only)."""
+    from tpu_bench_torch.benchmarks import benchmark01, benchmark02
+    from tpu_bench_torch.benchmarks import benchmark03
+
+    assert Config(dtype=torch.bfloat16, device="cpu").itemsize == 2
+    for bench in (benchmark01, benchmark02, benchmark03):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 2c"):
+            bench.main(["--dtype", "bf16", "--device", "cpu"])
 
 
 def test_nvcc_command_builds_package_sources_for_sm90a():
@@ -235,12 +243,14 @@ def test_ozaki_tensor_core_tile_edges_on_card(k, m, e, t_c, t_x):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq", [(10, 10, 10), (32, 32)])
 def test_qp1d_tensor_core_tiles_on_card(nq):
-    """K5 (3xTF32 in f32, DMMA in f64) at every element tile that fits, at
-    b05 nq=10^3 (an S1 whose rows are not whole 16-byte chunks) and b04
-    nq=32^2 (the widest workspaces), E = 1000: within 1e-5 (f32) and 1e-12
-    (f64) of the plain version, relative to the largest output."""
+    """K5 (3xTF32 in f32, DMMA in f64, one bf16 pass in bf16) at every
+    element tile that fits, at b05 nq=10^3 (an S1 whose rows are not whole
+    16-byte chunks) and b04 nq=32^2 (the widest workspaces), E = 1000:
+    within 1e-5 (f32), 1e-12 (f64) and 2^-7 (bf16) of the plain version,
+    relative to the largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
     nm = [n - 1 for n in nq]
@@ -248,19 +258,21 @@ def test_qp1d_tensor_core_tiles_on_card(nq):
               else [nm[0] * nm[1] * nm[2], nm[2] * nm[1] * nq[0],
                     nm[2] * nq[1] * nq[0], nq[0] * nq[1] * nq[2]])
     gen = torch.Generator(device="cuda").manual_seed(len(nq))
-    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12),
+                       (torch.bfloat16, 2**-7)):
         em, *ops = (torch.randn(a, b, generator=gen, device="cuda",
                                 dtype=dtype)
                     for a, b in zip((1000, *widths), widths))
         ref = em
         for s in ops:
-            ref = ref @ s
+            ref = k2.mm(ref, s)  # each stage rounded to the dtype
         tiles = k1.qp1d_tiles(em, *ops)
         assert tiles
         for et in tiles:
             out = k1.qp1d_fused(em, *ops, epb=et)
             torch.cuda.synchronize()
-            assert float((out - ref).abs().max() / ref.abs().max()) <= tol
+            assert float((out.double() - ref.double()).abs().max()
+                         / ref.double().abs().max()) <= tol
 
 
 # ---- the launch path: what a kernel launch costs the host --------------
@@ -380,7 +392,7 @@ def _order_products(nq):
     return k1_shape, kron, em
 
 
-@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("itemsize", [2, 4, 8], ids=["bf16", "f32", "f64"])
 @pytest.mark.parametrize("nq", B05_ORDERS + B04_ORDERS,
                          ids=lambda nq: "x".join(map(str, nq)))
 def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):

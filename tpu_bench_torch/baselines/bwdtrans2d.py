@@ -4,7 +4,10 @@ tpu_bench/baselines/bwdtrans2d.py).
 These are the reference's library columns (four Kokkos quad formulations
 and the cuBLAS gemm path, benchmark04/benchmark04.cc:489-825) as
 torch.einsum / torch.matmul calls, which go to cuBLAS on the card.  They are
-not ports of a hand kernel.  TF32 is governed by Config.library_precision.
+not ports of a hand kernel.  TF32, and whether cuBLAS may sum bf16
+products in bf16, is governed by Config.library_precision.  In bf16 each
+call's result is bf16, so the staged columns keep bf16 workspaces, as the
+JAX package's einsum chains do.
 The JAX package's chunk_elems (element chunking of these columns) is not
 ported: benchmark04's residency model fits every order's largest sweep
 size on the card without it.

@@ -4,7 +4,10 @@ tpu_bench/baselines/bwdtrans3d.py).
 These are the reference's library columns (four Kokkos hex formulations and
 the cuBLAS GEMM path, benchmark05/benchmark05.cc:693-1158) as torch.einsum /
 torch.matmul calls, which go to cuBLAS on the card.  They are not ports of a
-hand kernel.  TF32 is governed by Config.library_precision.
+hand kernel.  TF32, and whether cuBLAS may sum bf16 products in bf16, is
+governed by Config.library_precision.  In bf16 each call's result is bf16,
+so the staged columns keep bf16 workspaces, as the JAX package's einsum
+chains do.
 """
 
 from __future__ import annotations

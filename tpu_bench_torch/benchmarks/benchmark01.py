@@ -71,7 +71,7 @@ def main(argv=None):
     from tpu_bench_torch.benchmarks import cli
 
     args = cli.build_parser("benchmark01").parse_args(argv)
-    cfg = Config.from_flags(args)
+    cfg = cli.stream_config(args, "benchmark01")
     reporter = Reporter("Benchmark01 : L2 norm reduction")
     cap = cfg.mem_cap_bytes
     with cli.profiled(args):

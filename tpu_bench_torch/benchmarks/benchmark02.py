@@ -71,7 +71,7 @@ def main(argv=None):
     from tpu_bench_torch.benchmarks import cli
 
     args = cli.build_parser("benchmark02").parse_args(argv)
-    cfg = Config.from_flags(args)
+    cfg = cli.stream_config(args, "benchmark02")
     reporter = Reporter("Benchmark02 : Vector Addition")
     cap = cfg.mem_cap_bytes
     with cli.profiled(args):

@@ -69,7 +69,7 @@ def main(argv=None):
     from tpu_bench_torch.benchmarks import cli
 
     args = cli.build_parser("benchmark03").parse_args(argv)
-    cfg = Config.from_flags(args)
+    cfg = cli.stream_config(args, "benchmark03")
     reporter = Reporter("Benchmark03 : Matrix-Vector Mult")
     cap = cfg.mem_cap_bytes
     with cli.profiled(args):

@@ -23,8 +23,8 @@ def build_parser(name: str, positionals=(),
     for pos, default in positionals:
         p.add_argument(pos, nargs="?", type=int, default=default)
     p.add_argument("--dtype", choices=["f32", "f64", "bf16"], default="f32",
-                   help="element type (the reference uses f64; bf16 is not "
-                        "ported yet)")
+                   help="element type (the reference uses f64; bf16 runs "
+                        "benchmarks 04 and 05, and 01-03 refuse it)")
     p.add_argument("--ntests", type=int, default=40,
                    help="repetitions per variant; min is kept (reference: 40)")
     p.add_argument("--epb", type=int, default=None,
@@ -58,6 +58,19 @@ def build_parser(name: str, positionals=(),
                             "JAX package's exact bf16 slice GEMM (needs "
                             "--dtype f64)")
     return p
+
+
+def stream_config(args, name: str):
+    """Config.from_flags for benchmarks 01-03, which refuse bf16: their
+    kernels (K6-K9) are built in f32 and f64 only."""
+    from tpu_bench_torch.core.config import Config
+
+    cfg = Config.from_flags(args)
+    if cfg.dtype.itemsize == 2:
+        raise NotImplementedError(f"{name}: bf16 is not ported yet for "
+                                  "benchmarks 01-03 (ROADMAP Queue 1 item "
+                                  "2c)")
+    return cfg
 
 
 @contextlib.contextmanager

@@ -5,7 +5,9 @@
     python -m tpu_bench_torch.benchmarks.kernel_blocks --only host
     python -m tpu_bench_torch.benchmarks.kernel_blocks --only ring
 
-For each kernel with a block-size knob, on random inputs in f32 and f64:
+For each kernel with a block-size knob, on random inputs in f32 and f64
+(`--dtype`; `--dtype bf16` runs the sweeps of K1-K5, whose bf16 instances
+take the same knobs):
 the least device time of one call by CUDA events (20 calls, L2 flushed
 before each) for every setting, one line per setting, in turns (each
 setting twice, in the order a b .. b a).  The sweeps:
@@ -23,7 +25,8 @@ setting twice, in the order a b .. b a).  The sweeps:
   nq=8^3 kron_elem_major and QP-1D stages (E=131072); `*` marks
   em_config's choice;
 - K4 (qp_stage2_3d): the 16-byte vectors a thread takes a step
-  (QP2_UNROLLS; at most QP2_CHUNKED_UNROLL above nm0 = QP2_EXACT) at
+  (qp2_unrolls: at most QP2_CHUNKED_UNROLL above nm0 = QP2_EXACT, half in
+  bf16) at
   benchmark05's Pallas(QP) stage 2 at nq=8^3 (E=131072) and benchmark04's
   at nq=8^2, 16^2 and 32^2 (E=1,048,576); `*` marks the default;
 - k4diag, what sets K4's pace at its two main shapes: K4 and torch.matmul
@@ -283,11 +286,11 @@ def uses(rnd, tag) -> None:
 def k4_sweep(rnd, tag, itemsize) -> None:
     for label, nm0, nq0, nkj, e in K4_SHAPES:
         w, b0 = rnd(nm0, nkj, e), rnd(nm0, nq0)
-        settings = [u for u in k1.QP2_UNROLLS
-                    if nm0 <= k1.QP2_EXACT or u <= k1.QP2_CHUNKED_UNROLL]
+        settings = k1.qp2_unrolls(itemsize, nm0)
         times = in_turns(lambda v: k1.qp_stage2_3d(w, b0, unroll=v),
                          settings)
-        report(f"{tag} {label} E={e}", "K4 unroll", times, k1.QP2_UNROLL)
+        report(f"{tag} {label} E={e}", "K4 unroll", times,
+               min(k1.QP2_UNROLL, settings[-1]))
         del w
         torch.cuda.empty_cache()
 
@@ -404,9 +407,8 @@ def launch_parts(fn) -> dict:
         build.run = run
     lib = build.library()
     stream = torch.cuda.current_stream().cuda_stream
-    entries = [(getattr(lib, f"tbt_{name}_"
-                        f"{'f32' if x.dtype == torch.float32 else 'f64'}"),
-                args) for name, x, args in calls]
+    entries = [(getattr(lib, f"tbt_{name}_{build.SUFFIXES[x.dtype]}"), args)
+               for name, x, args in calls]
 
     def replay():
         for name, x, args in calls:
@@ -625,6 +627,9 @@ def ring_sweep(rnd, tag) -> None:
 
 
 SWEEPS = ("k1", "k2", "k3", "k4", "k4diag", "k5", "k8", "k9", "host", "ring")
+# The sweeps run in bf16: K1-K5's, the kernels built for it.
+BF16_SWEEPS = ("k1", "k2", "k3", "k4", "k5")
+DTYPES = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
 
 
 def main(argv=None) -> None:
@@ -636,10 +641,18 @@ def main(argv=None) -> None:
     parser.add_argument("--rows", default="",
                         help="host sweep: comma-separated parts of the "
                         "row labels to run (e.g. b02), all by default")
+    parser.add_argument("--dtype", default="f32,f64",
+                        help="comma-separated element types of the sweeps "
+                        f"({', '.join(DTYPES)}); bf16 runs {BF16_SWEEPS} "
+                        "only")
     args = parser.parse_args(argv)
     only = set(args.only.split(","))
     if not only <= set(SWEEPS):
         parser.error(f"--only: {sorted(only - set(SWEEPS))} not in {SWEEPS}")
+    tags = args.dtype.split(",")
+    if not set(tags) <= set(DTYPES):
+        parser.error(f"--dtype: {sorted(set(tags) - set(DTYPES))} not in "
+                     f"{tuple(DTYPES)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_blocks: needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -648,32 +661,37 @@ def main(argv=None) -> None:
     if "host" in only and not args.uses:
         host_sweep([r for r in args.rows.split(",") if r])
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (DTYPES[t] for t in tags):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",
                                dtype=dtype)
 
         tag = str(dtype)[6:]
+        runs = only
+        if dtype == torch.bfloat16:
+            if args.uses:
+                continue
+            runs = only & set(BF16_SWEEPS)
         if args.uses:
             uses(rnd, tag)
             continue
-        if "k1" in only:
+        if "k1" in runs:
             k1_sweep(rnd, tag, dtype.itemsize)
-        if "k2" in only:
+        if "k2" in runs:
             k2_sweep(rnd, tag, dtype.itemsize)
-        if "k3" in only:
+        if "k3" in runs:
             k3_sweep(rnd, tag, dtype.itemsize)
-        if "k4" in only:
+        if "k4" in runs:
             k4_sweep(rnd, tag, dtype.itemsize)
-        if "k4diag" in only:
+        if "k4diag" in runs:
             k4diag(rnd, tag, dtype.itemsize)
-        if "k5" in only:
+        if "k5" in runs:
             k5_sweep(rnd, tag)
-        if "k8" in only:
+        if "k8" in runs:
             k8_sweep(rnd, tag, dtype.itemsize)
-        if "k9" in only:
+        if "k9" in runs:
             k9_sweep(rnd, tag, dtype.itemsize)
-        if "ring" in only:
+        if "ring" in runs:
             ring_sweep(rnd, tag)
 
 

@@ -3,7 +3,8 @@
 The port keeps the JAX package's array layouts at every public function, so
 an operand built by `tpu_bench.benchmarks.benchmark05.prepare` or
 `benchmark04.prepare`, or by the initializers of benchmarks 01-03, converts
-by a plain copy: `np.asarray` on the JAX side, then `data_from_numpy` here.
+by a plain copy: `np.asarray` on the JAX side, then `data_from_numpy` here
+(bf16 arrays by their bits).
 Tests use it to run both packages on the same bytes.  Benchmarks 01-03
 have no weights: their operands are their state.
 """
@@ -26,13 +27,21 @@ B03_KEYS = ("a_rm", "a_cm", "x")
 KEYS = frozenset(B05_KEYS + B04_KEYS + B01_KEYS + B02_KEYS + B03_KEYS)
 
 
+def _tensor(a) -> torch.Tensor:
+    """A CPU tensor holding a copy of `a`'s values (np.array copies: JAX
+    hands out read-only buffers).  A bf16 array (ml_dtypes' bfloat16,
+    which torch.from_numpy refuses) moves as its bits."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def data_from_numpy(arrays: dict, *, device, dtype) -> dict:
     """{key: tensor} on `device` in `dtype` from {key: np.ndarray} keyed by
     the JAX package's operand names (see B05_KEYS .. B03_KEYS)."""
     unknown = sorted(set(arrays) - KEYS)
     if unknown:
         raise KeyError(f"no port layout for JAX operands {unknown}")
-    # np.array copies: JAX hands out read-only buffers
-    return {k: torch.from_numpy(np.array(a, order="C")).to(device=device,
-                                                            dtype=dtype)
+    return {k: _tensor(a).to(device=device, dtype=dtype)
             for k, a in arrays.items()}

@@ -44,12 +44,14 @@ class Config:
     (benchmark01/benchmark01.cc:186, :208).  `epb` (elements per block, the
     reference's threads*elblocks) is the block size of the fused QP kernel;
     None takes the kernel's default.  `precision` governs the library tier
-    only: "highest" keeps float32 matmuls in full FP32 (TF32 off), "default"
-    lets cuBLAS/cuDNN use TF32.  The hand kernels ignore it: they use
+    only: "highest" keeps float32 matmuls in full FP32 (TF32 off) and
+    bf16 matmuls summing in FP32, "default" lets cuBLAS/cuDNN use TF32 and
+    reduce bf16 products in bf16.  The hand kernels ignore it: they use
     FP32/FP64 FMA, except K5 (QP-1D/Shared), whose f32 chain runs as
     3xTF32 on the tensor cores (FP32-level accuracy) and its f64 chain on
     DMMA, and K14, whose bf16 slice products sum exactly on the tensor
-    cores.
+    cores.  bf16 runs benchmarks 04 and 05 only: their hand kernels (K1-K5)
+    store bf16 and sum in f32, rounding where the JAX kernels round.
     `flush_l2` overwrites the L2 cache between timed repetitions so working
     sets that fit in L2 still report device-memory bandwidth.
     `f64_coales` is the route of benchmarks 04/05's f64 Pallas(Coales)
@@ -66,10 +68,7 @@ class Config:
     f64_coales: str = "native"
 
     def __post_init__(self):
-        if self.dtype == torch.bfloat16:
-            raise NotImplementedError("bf16 is not ported yet "
-                                      "(ROADMAP Queue 1 item 2)")
-        if self.dtype not in (torch.float32, torch.float64):
+        if self.dtype not in DTYPES.values():
             raise ValueError(f"unsupported dtype {self.dtype}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
@@ -95,18 +94,22 @@ class Config:
 
     @contextlib.contextmanager
     def library_precision(self):
-        """Set the TF32 switches of cuBLAS and cuDNN for this run's
-        precision, and restore them on exit."""
-        tf32 = self.precision == "default"
-        saved = (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
+        """Set the TF32 switches of cuBLAS and cuDNN and cuBLAS's bf16
+        reduced-precision reduction for this run's precision, and restore
+        them on exit.  Under "highest" a bf16 product sums in f32, as the
+        JAX library tier asks (preferred_element_type)."""
+        fast = self.precision == "default"
+        matmul = torch.backends.cuda.matmul
+        saved = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                 matmul.allow_bf16_reduced_precision_reduction)
+        matmul.allow_tf32 = fast
+        torch.backends.cudnn.allow_tf32 = fast
+        matmul.allow_bf16_reduced_precision_reduction = fast
         try:
             yield
         finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = saved
+            (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction) = saved
 
     @classmethod
     def from_flags(cls, args) -> "Config":

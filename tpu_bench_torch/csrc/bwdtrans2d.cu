@@ -77,6 +77,19 @@
 // M, N, K and E edges are masked in both: zero-filled copies, masked
 // stores.
 //
+// bf16 (benchmarks 04 and 05 with --dtype bf16): both configurations store
+// bf16 and sum in f32, and each output is rounded to bf16 once, as the JAX
+// kernels' _dot (bf16 operands, f32 accumulator) then .astype do.  The
+// SIMT configurations widen each value as they load it; the dense body
+// runs one mma.sync.m16n8k16 pass (bf16 in, f32 sums) per 16-deep k step
+// on fragments loaded by ldmatrix, as K14 loads them: bf16 products are
+// exact, so no split.  At b05 nq=8^3 the dense product's least FLOP
+// (4.6e10) takes 0.047 ms at the bf16 tensor cores' 989 TFLOP/s, under its
+// 0.067 ms of bf16 bytes; a TF32 pass on widened operands (495 TFLOP/s)
+// would take 0.093 ms and bind it on the units.  Rows that are not whole
+// 16-byte words (K = 343) come in one value a copy, by plain loads
+// (tbt::cp_async<2>).
+//
 // K3's products are of the same two kinds, and one kernel entry runs each
 // on its own configuration, by one rule (em_tile below, em_config in
 // kernels/bwdtrans2d.py): S resident when S (K x N, N padded to 64) and a
@@ -133,10 +146,18 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 constexpr int KR_TM = 4, KR_TN = 4;
 constexpr int KR_MIN_BN = 64, KR_MAX_BN = 512;
 
+// C^T's values, a whole number of 16-byte words (bf16 with K odd), so the
+// ring behind it starts on a 16-byte boundary.
+template <typename T>
+__host__ __device__ int kron_ct_values(int m_rows, int k_depth) {
+    return round_up(k_depth * round_up(m_rows, KR_TM),
+                    static_cast<int>(16 / sizeof(T)));
+}
+
 template <typename T>
 size_t kron_resident_smem(int m_rows, int k_depth, int bn) {
     return sizeof(T) *
-           (static_cast<size_t>(k_depth) * round_up(m_rows, KR_TM) +
+           (static_cast<size_t>(kron_ct_values<T>(m_rows, k_depth)) +
             static_cast<size_t>(KB_RING) * k_depth * bn);
 }
 
@@ -160,12 +181,13 @@ __global__ void __launch_bounds__(KB_THREADS)
     kron_resident_kernel(const T* __restrict__ c, const T* __restrict__ in,
                          T* __restrict__ out, int m_rows, int k_depth,
                          int n_cols, long long n_strips) {
+    using A = tbt::Acc<T>;
     constexpr int TX = BN / KR_TN;
     constexpr int V16 = 16 / sizeof(T);
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int mp = round_up(m_rows, KR_TM), mgs = mp / KR_TM;
     T* s_ct = reinterpret_cast<T*>(smem_raw);             // (K, mp): C^T
-    T* ring = s_ct + static_cast<size_t>(k_depth) * mp;   // RING x (K, BN)
+    T* ring = s_ct + kron_ct_values<T>(m_rows, k_depth);  // RING x (K, BN)
     const size_t slot = static_cast<size_t>(k_depth) * BN;
     const int strips = (n_cols + BN - 1) / BN;  // per chunk
     const bool vec_in = n_cols % V16 == 0 && tbt::aligned16(in);
@@ -188,7 +210,7 @@ __global__ void __launch_bounds__(KB_THREADS)
     }
     for (int t = threadIdx.x; t < k_depth * mp; t += KB_THREADS) {
         const int k = t / mp, m = t % mp;
-        s_ct[t] = m < m_rows ? c[m * k_depth + k] : T(0);
+        s_ct[t] = m < m_rows ? c[m * k_depth + k] : tbt::narrow<T>(0);
     }
 
     int i = 0;
@@ -205,14 +227,14 @@ __global__ void __launch_bounds__(KB_THREADS)
         const int n0 = static_cast<int>(s % strips) * BN;
         for (int q = threadIdx.x; q < mgs * TX; q += KB_THREADS) {
             const int e = (q % TX) * KR_TN, mg = q / TX;
-            T acc[KR_TM][KR_TN];
+            A acc[KR_TM][KR_TN];
 #pragma unroll
             for (int r = 0; r < KR_TM; ++r)
 #pragma unroll
-                for (int cc = 0; cc < KR_TN; ++cc) acc[r][cc] = T(0);
+                for (int cc = 0; cc < KR_TN; ++cc) acc[r][cc] = A(0);
 #pragma unroll 4
             for (int k = 0; k < k_depth; ++k) {
-                T cv[KR_TM], xv[KR_TN];
+                A cv[KR_TM], xv[KR_TN];
                 tbt::load4(s_ct + k * mp + mg * KR_TM, cv);
                 tbt::load4(x + k * BN + e, xv);
 #pragma unroll
@@ -232,7 +254,8 @@ __global__ void __launch_bounds__(KB_THREADS)
                 } else {
 #pragma unroll
                     for (int cc = 0; cc < KR_TN; ++cc)
-                        if (n + cc < n_cols) dst[cc] = acc[r][cc];
+                        if (n + cc < n_cols)
+                            dst[cc] = tbt::narrow<T>(acc[r][cc]);
                 }
             }
         }
@@ -243,7 +266,9 @@ __global__ void __launch_bounds__(KB_THREADS)
 // of MMA_M x 8, so a block tile of (WM*WMT*MMA_M) x (WN*WNT*8); BK deep a
 // ring slot.  A_PAD and B_PAD make the row strides 4 mod 32 (A) and 8 mod
 // 32 (B) banks in f32, 4 mod 16 two-bank pairs in f64, so the fragment
-// loads are conflict-free.
+// loads are conflict-free; in bf16 they make the rows 80 (A) and 272 (B)
+// bytes apart, so the 8 rows of an ldmatrix hit 8 distinct 16-byte bank
+// groups.
 template <typename T>
 struct Dense;
 template <>
@@ -253,6 +278,10 @@ struct Dense<float> {
 template <>
 struct Dense<double> {
     static constexpr int BK = 16, MMA_M = 8, A_PAD = 4, B_PAD = 4;
+};
+template <>
+struct Dense<tbt::bf16> {
+    static constexpr int BK = 32, MMA_M = 16, A_PAD = 8, B_PAD = 8;
 };
 
 template <typename T, int BM, int BN>
@@ -318,36 +347,102 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
     const bool vec_a = k_depth % V == 0 && tbt::aligned16(c);
     const bool vec_b = n_cols % V == 0 && tbt::aligned16(in);
 
+    // bf16 rows of A that are not whole 16-byte words (K = 343) have no
+    // cp.async form: such an A tile comes through registers (A_PER
+    // values a thread), its loads issued before the step's mma and its
+    // stores after them, so their latency overlaps the mma.
+    const bool reg_a = sizeof(T) == 2 && !vec_a;
+    constexpr int A_PER = sizeof(T) == 2 ? KD_BM * BK / NTH : 1;
+    unsigned short a_next[A_PER];
+    auto fetch_a = [&](int i) {
+#pragma unroll
+        for (int j = 0; j < A_PER; ++j) {
+            const int q = threadIdx.x + j * NTH, r = q / BK, k = i * BK + q % BK;
+            a_next[j] = m0 + r < m_rows && k < k_depth
+                            ? reinterpret_cast<const unsigned short*>(
+                                  c)[static_cast<long long>(m0 + r) * k_depth +
+                                     k]
+                            : static_cast<unsigned short>(0);
+        }
+    };
+    auto put_a = [&](int i) {
+        unsigned short* a_s =
+            reinterpret_cast<unsigned short*>(smem + (i % KB_RING) * SLOT);
+#pragma unroll
+        for (int j = 0; j < A_PER; ++j) {
+            const int q = threadIdx.x + j * NTH;
+            a_s[(q / BK) * LDA + q % BK] = a_next[j];
+        }
+    };
     auto load = [&](int i) {
         T* a_s = smem + (i % KB_RING) * SLOT;
-        tbt::copy_tile_async<T, BK, NTH>(a_s, LDA, KD_BM, c, k_depth, m0,
-                                         i * BK, m_rows, k_depth, vec_a);
+        if (!reg_a)
+            tbt::copy_tile_async<T, BK, NTH>(a_s, LDA, KD_BM, c, k_depth, m0,
+                                             i * BK, m_rows, k_depth, vec_a);
         tbt::copy_tile_async<T, KD_BN, NTH>(a_s + KD_BM * LDA, LDB, BK, b,
                                             n_cols, i * BK, n0, k_depth,
                                             n_cols, vec_b);
     };
 #pragma unroll
     for (int i = 0; i < KB_RING - 1; ++i) {
-        if (i < ksteps) load(i);
+        if (i < ksteps) {
+            load(i);
+            if (reg_a) {
+                fetch_a(i);
+                put_a(i);
+            }
+        }
         tbt::cp_async_commit();
     }
 
-    T acc[MT][KD_NT][FRAG];
+    using A = tbt::Acc<T>;
+    A acc[MT][KD_NT][FRAG];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < KD_NT; ++nt)
 #pragma unroll
-            for (int q = 0; q < FRAG; ++q) acc[mt][nt][q] = T(0);
+            for (int q = 0; q < FRAG; ++q) acc[mt][nt][q] = A(0);
 
     for (int i = 0; i < ksteps; ++i) {
         tbt::cp_async_wait<KB_RING - 2>();
         __syncthreads();
-        if (i + KB_RING - 1 < ksteps) load(i + KB_RING - 1);
+        const bool more = i + KB_RING - 1 < ksteps;
+        if (more) {
+            load(i + KB_RING - 1);
+            if (reg_a) fetch_a(i + KB_RING - 1);
+        }
         tbt::cp_async_commit();
         const T* a_s = smem + (i % KB_RING) * SLOT + row0 * LDA;
         const T* b_s = smem + (i % KB_RING) * SLOT + KD_BM * LDA + col0;
-        if constexpr (sizeof(T) == 4) {
+        if constexpr (sizeof(T) == 2) {
+            // one m16n8k16 pass a 16-deep step: exact bf16 products, f32
+            // sums (A rows from ldmatrix, B columns from its transpose)
+#pragma unroll
+            for (int kk = 0; kk < BK; kk += 16) {
+                unsigned af[MT][4], bf[KD_NT][2];
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+                    tbt::ldmatrix_x4(af[mt], a_s + (mt * 16 + lane % 16) * LDA +
+                                                 kk + (lane / 16) * 8);
+#pragma unroll
+                for (int np = 0; np < KD_NT / 2; ++np) {
+                    unsigned r[4];
+                    tbt::ldmatrix_x4_trans(
+                        r, b_s + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDB +
+                               np * 16 + (lane / 16) * 8);
+                    bf[2 * np][0] = r[0];
+                    bf[2 * np][1] = r[1];
+                    bf[2 * np + 1][0] = r[2];
+                    bf[2 * np + 1][1] = r[3];
+                }
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int nt = 0; nt < KD_NT; ++nt)
+                        tbt::mma_bf16(acc[mt][nt], af[mt], bf[nt]);
+            }
+        } else if constexpr (sizeof(T) == 4) {
             // one BK-deep step summed alone, then added in round-to-nearest
             float part[MT][KD_NT][4];
 #pragma unroll
@@ -404,6 +499,7 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
                 }
             }
         }
+        if (reg_a && more) put_a(i + KB_RING - 1);
     }
 
     // fragment value q sits at row g + 8*(q/2), column 2t + q%2 of its tile
@@ -418,15 +514,18 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
                 const int n = n0 + col0 + nt * 8 + 2 * t;
                 if (m >= m_rows || n >= n_cols) continue;
                 T* dst = y + static_cast<long long>(m) * n_cols + n;
-                const T v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
+                const A v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
                 if (pairs) {
-                    if constexpr (sizeof(T) == 4)
+                    if constexpr (sizeof(T) == 2)
+                        *reinterpret_cast<unsigned*>(dst) =
+                            tbt::pack_bf16(v0, v1);
+                    else if constexpr (sizeof(T) == 4)
                         *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
                     else
                         *reinterpret_cast<double2*>(dst) = make_double2(v0, v1);
                 } else {
-                    dst[0] = v0;
-                    if (n + 1 < n_cols) dst[1] = v1;
+                    dst[0] = tbt::narrow<T>(v0);
+                    if (n + 1 < n_cols) dst[1] = tbt::narrow<T>(v1);
                 }
             }
 }
@@ -476,12 +575,16 @@ int launch_dense(const T* c, const T* in, T* out, int m_rows, int k_depth,
 // 32, one block an SM (237 registers); f64: 128 x 64 tiles of 4 warps of
 // 64 x 32, two blocks an SM (234).  The fastest of the tile shapes tried on the
 // H100; 128 x 64 tiles of 8 warps of 32 x 32 spilled under the 128
-// registers of two blocks an SM in both types.
+// registers of two blocks an SM in both types.  bf16: f32's tiles, one
+// block an SM (under the 128 registers of two it spilled 96 bytes).
 template <typename T, typename Order>
 int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
                        int k_depth, int n_cols, int n_chunks,
                        cudaStream_t stream) {
-    if constexpr (sizeof(T) == 4)
+    if constexpr (sizeof(T) == 2)
+        return launch_dense<T, 2, 4, 4, 4, 1, Order>(
+            c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
+    else if constexpr (sizeof(T) == 4)
         return launch_dense<T, 2, 4, 4, 4, 1, Order>(
             c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
     else
@@ -571,6 +674,7 @@ __global__ void __launch_bounds__(EM_THREADS)
     em_resident_kernel(const T* __restrict__ x, const T* __restrict__ s,
                        T* __restrict__ out, int e_rows, int k_depth,
                        int n_cols) {
+    using A = tbt::Acc<T>;
     constexpr int V = 16 / sizeof(T);
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int np = round_up(n_cols, EM_COLS), chunks = np / EM_COLS;
@@ -617,7 +721,8 @@ __global__ void __launch_bounds__(EM_THREADS)
     }
     for (int q = threadIdx.x; q < k_depth * np; q += EM_THREADS) {
         const int k = q / np, n = q % np;
-        s_s[q] = n < n_cols ? s[static_cast<size_t>(k) * n_cols + n] : T(0);
+        s_s[q] = n < n_cols ? s[static_cast<size_t>(k) * n_cols + n]
+                            : tbt::narrow<T>(0);
     }
 
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -638,17 +743,17 @@ __global__ void __launch_bounds__(EM_THREADS)
             const int c0 = (u % chunks) * EM_COLS + j * V;
             const T* xr = xt + r0 * k_depth;
             const T* sc = s_s + c0;
-            T acc[EM_TE][EM_TN];
+            A acc[EM_TE][EM_TN];
 #pragma unroll
             for (int r = 0; r < EM_TE; ++r)
 #pragma unroll
-                for (int c = 0; c < EM_TN; ++c) acc[r][c] = T(0);
+                for (int c = 0; c < EM_TN; ++c) acc[r][c] = A(0);
 #pragma unroll 4
             for (int k = 0; k < k_depth; ++k) {
-                T xv[EM_TE], sv[EM_TN];
+                A xv[EM_TE], sv[EM_TN];
 #pragma unroll
                 for (int r = 0; r < EM_TE; ++r)
-                    xv[r] = xr[4 * r * k_depth + k];
+                    xv[r] = tbt::widen(xr[4 * r * k_depth + k]);
 #pragma unroll
                 for (int p = 0; p < EM_TN / V; ++p)
                     tbt::load16(sc + k * np + p * 8 * V, sv + p * V);
@@ -671,7 +776,8 @@ __global__ void __launch_bounds__(EM_THREADS)
                     } else {
 #pragma unroll
                         for (int v = 0; v < V; ++v)
-                            if (n + v < n_cols) dst[n + v] = acc[r][p * V + v];
+                            if (n + v < n_cols)
+                                dst[n + v] = tbt::narrow<T>(acc[r][p * V + v]);
                     }
                 }
             }
@@ -734,15 +840,26 @@ int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
 // memory at strip width bn.
 extern "C" int tbt_kron_strip(int itemsize, int m_rows, int k_depth,
                               long long limit) {
-    return itemsize == 4 ? kron_strip<float>(m_rows, k_depth, limit)
-                         : kron_strip<double>(m_rows, k_depth, limit);
+    switch (itemsize) {
+        case 2: return kron_strip<tbt::bf16>(m_rows, k_depth, limit);
+        case 4: return kron_strip<float>(m_rows, k_depth, limit);
+        default: return kron_strip<double>(m_rows, k_depth, limit);
+    }
 }
 
 extern "C" long long tbt_kron_resident_smem(int itemsize, int m_rows,
                                             int k_depth, int bn) {
-    return static_cast<long long>(
-        itemsize == 4 ? kron_resident_smem<float>(m_rows, k_depth, bn)
-                      : kron_resident_smem<double>(m_rows, k_depth, bn));
+    switch (itemsize) {
+        case 2:
+            return static_cast<long long>(
+                kron_resident_smem<tbt::bf16>(m_rows, k_depth, bn));
+        case 4:
+            return static_cast<long long>(
+                kron_resident_smem<float>(m_rows, k_depth, bn));
+        default:
+            return static_cast<long long>(
+                kron_resident_smem<double>(m_rows, k_depth, bn));
+    }
 }
 
 extern "C" int tbt_kron_blocked_f32(const void* c, const void* in, void* out,
@@ -763,21 +880,42 @@ extern "C" int tbt_kron_blocked_f64(const void* c, const void* in, void* out,
         static_cast<cudaStream_t>(stream));
 }
 
+extern "C" int tbt_kron_blocked_bf16(const void* c, const void* in,
+                                     void* out, int m_rows, int k_depth,
+                                     int n_cols, int n_chunks, int strip,
+                                     void* stream) {
+    return launch_kron_blocked(
+        static_cast<const tbt::bf16*>(c), static_cast<const tbt::bf16*>(in),
+        static_cast<tbt::bf16*>(out), m_rows, k_depth, n_cols, n_chunks,
+        strip, static_cast<cudaStream_t>(stream));
+}
+
 // K3's rule: the tile height of the S-resident configuration for an S of
 // K x N itemsize-byte values under `limit` bytes of shared memory, 0 for
 // the dense configuration; and the resident configuration's shared memory
 // at tile height be.
 extern "C" int tbt_em_tile(int itemsize, int k_depth, int n_cols,
                            long long limit) {
-    return itemsize == 4 ? em_tile<float>(k_depth, n_cols, limit)
-                         : em_tile<double>(k_depth, n_cols, limit);
+    switch (itemsize) {
+        case 2: return em_tile<tbt::bf16>(k_depth, n_cols, limit);
+        case 4: return em_tile<float>(k_depth, n_cols, limit);
+        default: return em_tile<double>(k_depth, n_cols, limit);
+    }
 }
 
 extern "C" long long tbt_em_resident_smem(int itemsize, int k_depth,
                                           int n_cols, int be) {
-    return static_cast<long long>(
-        itemsize == 4 ? em_resident_smem<float>(k_depth, n_cols, be)
-                      : em_resident_smem<double>(k_depth, n_cols, be));
+    switch (itemsize) {
+        case 2:
+            return static_cast<long long>(
+                em_resident_smem<tbt::bf16>(k_depth, n_cols, be));
+        case 4:
+            return static_cast<long long>(
+                em_resident_smem<float>(k_depth, n_cols, be));
+        default:
+            return static_cast<long long>(
+                em_resident_smem<double>(k_depth, n_cols, be));
+    }
 }
 
 extern "C" int tbt_em_gemm_f32(const void* x, const void* s, void* out,
@@ -796,4 +934,13 @@ extern "C" int tbt_em_gemm_f64(const void* x, const void* s, void* out,
                           static_cast<const double*>(s),
                           static_cast<double*>(out), e_rows, k_depth, n_cols,
                           tile, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_em_gemm_bf16(const void* x, const void* s, void* out,
+                                int e_rows, int k_depth, int n_cols, int tile,
+                                void* stream) {
+    return launch_em_gemm(static_cast<const tbt::bf16*>(x),
+                          static_cast<const tbt::bf16*>(s),
+                          static_cast<tbt::bf16*>(out), e_rows, k_depth,
+                          n_cols, tile, static_cast<cudaStream_t>(stream));
 }

@@ -49,6 +49,12 @@
 //     benchmarks' main orders (32 elements and 4 planes at b05 8^3 f32,
 //     two blocks an SM; 16 and 8 at b04 32^2), else the largest tile that
 //     fits two blocks an SM, else one.  Full FP32/FP64 FMA throughout.
+//   - bf16 (benchmarks 04 and 05 with --dtype bf16): the slab, V, C12T^T
+//     and B0 are stored in bf16 and widened to f32 on load, every sum is
+//     f32, and V is rounded to bf16 when it is stored, before stage 2,
+//     where the JAX kernel rounds its f32 v (bwdtrans3d.py:90); each
+//     output is rounded once.  The bf16 bytes halve the bound (0.067 ms
+//     at b05 8^3 against 0.134 in f32).
 // TMA, a persistent block that copies the next slab while it computes,
 // and warp-uniform C12T loads are later work.
 
@@ -78,11 +84,13 @@ size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj) {
             static_cast<size_t>(nm0) * round_up(nq0, g));
 }
 
+// T is the storage type, A = tbt::Acc<T> the type of the sums.
 template <typename T, int ET, int G>
 __global__ void __launch_bounds__(QP_THREADS, 2)
     qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
                       const T* __restrict__ c12t, T* __restrict__ out,
                       int nm0, int nrq, int nq0, int nkj, long long n_elem) {
+    using A = tbt::Acc<T>;
     constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
     constexpr int V16 = 16 / sizeof(T);
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -100,11 +108,11 @@ __global__ void __launch_bounds__(QP_THREADS, 2)
     tbt::cp_async_commit();
     for (int t = threadIdx.x; t < nrq * kjp; t += QP_THREADS) {
         const int rq = t / kjp, kj = t % kjp;
-        s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : T(0);
+        s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : tbt::narrow<T>(0);
     }
     for (int t = threadIdx.x; t < nm0 * nq0p; t += QP_THREADS) {
         const int p = t / nq0p, i = t % nq0p;
-        s_b0[t] = i < nq0 ? b0[p * nq0 + i] : T(0);
+        s_b0[t] = i < nq0 ? b0[p * nq0 + i] : tbt::narrow<T>(0);
     }
     tbt::cp_async_wait<0>();
     __syncthreads();
@@ -113,16 +121,17 @@ __global__ void __launch_bounds__(QP_THREADS, 2)
         (n_elem * sizeof(T)) % 16 == 0 && tbt::aligned16(out);
     const int kgs = kjp / QP_TK;
     for (int i0 = 0; i0 < nq0; i0 += G) {
-        // stage 1: V[g][rq][e] = sum_p B0[p, i0+g] * slab[p*nrq + rq][e]
+        // stage 1: V[g][rq][e] = sum_p B0[p, i0+g] * slab[p*nrq + rq][e],
+        // stored as T (the bf16 rounding of v)
         for (int q = threadIdx.x; q < nrq * TX; q += QP_THREADS) {
             const int rq = q / TX, e = (q % TX) * QP_TE;
-            T acc[G][QP_TE];
+            A acc[G][QP_TE];
 #pragma unroll
             for (int g = 0; g < G; ++g)
 #pragma unroll
-                for (int c = 0; c < QP_TE; ++c) acc[g][c] = T(0);
+                for (int c = 0; c < QP_TE; ++c) acc[g][c] = A(0);
             for (int p = 0; p < nm0; ++p) {
-                T xv[QP_TE], w[G];
+                A xv[QP_TE], w[G];
                 tbt::load4(s_x + (p * nrq + rq) * ET + e, xv);
 #pragma unroll
                 for (int g = 0; g < G; g += 4)
@@ -145,14 +154,14 @@ __global__ void __launch_bounds__(QP_THREADS, 2)
             if (i0 + g >= nq0) continue;
             const T* v = s_v + g * nrq * ET + e;
             const T* c = s_ct + kg * QP_TK;
-            T acc[QP_TK][QP_TE];
+            A acc[QP_TK][QP_TE];
 #pragma unroll
             for (int r = 0; r < QP_TK; ++r)
 #pragma unroll
-                for (int cc = 0; cc < QP_TE; ++cc) acc[r][cc] = T(0);
+                for (int cc = 0; cc < QP_TE; ++cc) acc[r][cc] = A(0);
 #pragma unroll 2
             for (int rq = 0; rq < nrq; ++rq) {
-                T cv[QP_TK], vv[QP_TE];
+                A cv[QP_TK], vv[QP_TE];
 #pragma unroll
                 for (int r = 0; r < QP_TK; r += 4)
                     tbt::load4(c + rq * kjp + r, cv + r);
@@ -175,7 +184,8 @@ __global__ void __launch_bounds__(QP_THREADS, 2)
                 } else {
 #pragma unroll
                     for (int cc = 0; cc < QP_TE; ++cc)
-                        if (ee + cc < n_elem) y[cc] = acc[r][cc];
+                        if (ee + cc < n_elem)
+                            y[cc] = tbt::narrow<T>(acc[r][cc]);
                 }
             }
         }
@@ -284,6 +294,12 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
 //     nm0 (2D orders to 32) takes p and i in chunks of QP2_CHUNK from
 //     zero-padded B0, U = 1 or 2, w read once a chunk of 8 outputs (the
 //     later chunks from L2).  No instance spills.
+//   - bf16: w's values are widened to f32 as they are loaded (8 a 16-byte
+//     vector), summed in f32 and each output rounded to bf16 once, where
+//     the JAX kernel rounds its f32 sum (bwdtrans3d.py:195).  A vector of
+//     8 values takes 8 registers, so U is 1 or 2 (1 chunked): a thread
+//     holds as many registers of w as in f32 (kernels/bwdtrans3d.
+//     qp2_unrolls).
 constexpr int QP2_THREADS = 256;
 constexpr int QP2_EXACT = 9;
 constexpr int QP2_CHUNK = 8;
@@ -299,13 +315,15 @@ __host__ __device__ constexpr int qp2_cols(int p, int nq0) {
 }
 
 // One step of a thread: vectors t + 32u (u < U) of F, those below v1
-// unless FULL.  P = nm0 (exact), all of w's values in registers.
+// unless FULL.  P = nm0 (exact), all of w's values in registers, in the
+// sum type A.
 template <typename T, int W, int P, int U, bool FULL>
 __device__ __forceinline__ void qp2_exact(const T* __restrict__ w,
                                           const T* s_b0, T* __restrict__ out,
                                           int nq0, long long f, long long t,
                                           long long v1) {
-    T x[P][U][W];
+    using A = tbt::Acc<T>;
+    A x[P][U][W];
 #pragma unroll
     for (int p = 0; p < P; ++p)
 #pragma unroll
@@ -315,18 +333,18 @@ __device__ __forceinline__ void qp2_exact(const T* __restrict__ w,
                 tbt::load_w(w + p * f + v * W, x[p][u]);
             } else {
 #pragma unroll
-                for (int c = 0; c < W; ++c) x[p][u][c] = T(0);
+                for (int c = 0; c < W; ++c) x[p][u][c] = A(0);
             }
         }
     for (int i = 0; i < nq0; ++i) {
-        T acc[U][W];
+        A acc[U][W];
 #pragma unroll
         for (int u = 0; u < U; ++u)
 #pragma unroll
-            for (int c = 0; c < W; ++c) acc[u][c] = T(0);
+            for (int c = 0; c < W; ++c) acc[u][c] = A(0);
 #pragma unroll
         for (int p = 0; p < P; ++p) {
-            const T b = s_b0[p * nq0 + i];
+            const A b = tbt::widen(s_b0[p * nq0 + i]);
 #pragma unroll
             for (int u = 0; u < U; ++u)
 #pragma unroll
@@ -350,18 +368,19 @@ __device__ __forceinline__ void qp2_chunked(const T* __restrict__ w,
                                             T* __restrict__ out, int nm0,
                                             int nq0, long long f, long long t,
                                             long long v1) {
+    using A = tbt::Acc<T>;
     constexpr int C = QP2_CHUNK;
     const int nq0p = round_up(nq0, C);
     for (int i0 = 0; i0 < nq0; i0 += C) {
-        T acc[C][U][W];
+        A acc[C][U][W];
 #pragma unroll
         for (int ii = 0; ii < C; ++ii)
 #pragma unroll
             for (int u = 0; u < U; ++u)
 #pragma unroll
-                for (int c = 0; c < W; ++c) acc[ii][u][c] = T(0);
+                for (int c = 0; c < W; ++c) acc[ii][u][c] = A(0);
         for (int p0 = 0; p0 < nm0; p0 += C) {
-            T x[C][U][W];
+            A x[C][U][W];
 #pragma unroll
             for (int pp = 0; pp < C; ++pp)
 #pragma unroll
@@ -371,14 +390,14 @@ __device__ __forceinline__ void qp2_chunked(const T* __restrict__ w,
                         tbt::load_w(w + (p0 + pp) * f + v * W, x[pp][u]);
                     } else {
 #pragma unroll
-                        for (int c = 0; c < W; ++c) x[pp][u][c] = T(0);
+                        for (int c = 0; c < W; ++c) x[pp][u][c] = A(0);
                     }
                 }
 #pragma unroll
             for (int pp = 0; pp < C; ++pp)
 #pragma unroll
                 for (int ii = 0; ii < C; ++ii) {
-                    const T b = s_b0[(p0 + pp) * nq0p + i0 + ii];
+                    const A b = tbt::widen(s_b0[(p0 + pp) * nq0p + i0 + ii]);
 #pragma unroll
                     for (int u = 0; u < U; ++u)
 #pragma unroll
@@ -413,7 +432,7 @@ __global__ void __launch_bounds__(QP2_THREADS)
     const int rows = qp2_rows(P, nm0), cols = qp2_cols(P, nq0);
     for (int q = threadIdx.x; q < rows * cols; q += QP2_THREADS) {
         const int p = q / cols, i = q % cols;
-        s_b0[q] = p < nm0 && i < nq0 ? b0[p * nq0 + i] : T(0);
+        s_b0[q] = p < nm0 && i < nq0 ? b0[p * nq0 + i] : tbt::narrow<T>(0);
     }
     __syncthreads();
     const long long v0 = blockIdx.x * nv / gridDim.x;
@@ -438,11 +457,13 @@ __global__ void __launch_bounds__(QP2_THREADS)
 // f(kernel, smem bytes) for the instance that serves (vector form, nm0,
 // unroll); cudaErrorInvalidValue where none does.  The scalar form takes
 // U = 1 whatever `unroll` says; the chunked form (nm0 > QP2_EXACT) has U =
-// 1 or 2.
+// 1 or 2, and bf16's vector form (8 values) half of each
+// (kernels/bwdtrans3d.qp2_unrolls).
 template <typename T, int W, int P, typename F>
 int qp2_with_unroll(int nm0, int nq0, int unroll, F&& f) {
     const size_t smem = sizeof(T) * static_cast<size_t>(qp2_rows(P, nm0)) *
                         qp2_cols(P, nq0);
+    constexpr int TOP = (P > 0 ? 4 : 2) / (W == 8 ? 2 : 1);
     if constexpr (W == 1) {
         return f(qp_stage2_3d_kernel<T, W, P, 1>, smem);
     } else {
@@ -450,9 +471,11 @@ int qp2_with_unroll(int nm0, int nq0, int unroll, F&& f) {
             case 1:
                 return f(qp_stage2_3d_kernel<T, W, P, 1>, smem);
             case 2:
-                return f(qp_stage2_3d_kernel<T, W, P, 2>, smem);
+                if constexpr (TOP >= 2)
+                    return f(qp_stage2_3d_kernel<T, W, P, 2>, smem);
+                return cudaErrorInvalidValue;
             case 4:
-                if constexpr (P > 0)
+                if constexpr (TOP >= 4)
                     return f(qp_stage2_3d_kernel<T, W, P, 4>, smem);
                 return cudaErrorInvalidValue;
             default:
@@ -544,11 +567,24 @@ extern "C" int tbt_qp_stage2_3d_f64(const void* w, const void* b0, void* out,
                             vector, blocks, static_cast<cudaStream_t>(stream));
 }
 
+extern "C" int tbt_qp_stage2_3d_bf16(const void* w, const void* b0,
+                                     void* out, int nm0, int nq0, long long f,
+                                     int unroll, int vector, int blocks,
+                                     void* stream) {
+    return launch_qp_stage2(static_cast<const tbt::bf16*>(w),
+                            static_cast<const tbt::bf16*>(b0),
+                            static_cast<tbt::bf16*>(out), nm0, nq0, f, unroll,
+                            vector, blocks, static_cast<cudaStream_t>(stream));
+}
+
 // K4's blocks in one wave for (itemsize, vector form, nm0, nq0, unroll).
 extern "C" int tbt_qp_stage2_wave(int itemsize, int vector, int nm0, int nq0,
                                   int unroll) {
-    return itemsize == 4 ? qp2_wave<float>(vector, nm0, nq0, unroll)
-                         : qp2_wave<double>(vector, nm0, nq0, unroll);
+    switch (itemsize) {
+        case 2: return qp2_wave<tbt::bf16>(vector, nm0, nq0, unroll);
+        case 4: return qp2_wave<float>(vector, nm0, nq0, unroll);
+        default: return qp2_wave<double>(vector, nm0, nq0, unroll);
+    }
 }
 
 extern "C" int tbt_qp_fused3d_f32(const void* in, const void* b0,
@@ -572,14 +608,31 @@ extern "C" int tbt_qp_fused3d_f64(const void* in, const void* b0,
                   static_cast<cudaStream_t>(stream));
 }
 
+extern "C" int tbt_qp_fused3d_bf16(const void* in, const void* b0,
+                                   const void* c12t, void* out, int nm0,
+                                   int nrq, int nq0, int nkj, long long n_elem,
+                                   int et, int g, void* stream) {
+    return launch(static_cast<const tbt::bf16*>(in),
+                  static_cast<const tbt::bf16*>(b0),
+                  static_cast<const tbt::bf16*>(c12t),
+                  static_cast<tbt::bf16*>(out), nm0, nrq, nq0, nkj, n_elem,
+                  et, g, static_cast<cudaStream_t>(stream));
+}
+
 // Shared memory of one K1 block of element tile et and g planes a pass.
 extern "C" long long tbt_qp_fused3d_smem(int itemsize, int et, int g,
                                          int nm0, int nrq, int nq0, int nkj) {
-    return itemsize == 4
-               ? static_cast<long long>(
-                     qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj))
-               : static_cast<long long>(
-                     qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj));
+    switch (itemsize) {
+        case 2:
+            return static_cast<long long>(
+                qp_smem_bytes<tbt::bf16>(et, g, nm0, nrq, nq0, nkj));
+        case 4:
+            return static_cast<long long>(
+                qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj));
+        default:
+            return static_cast<long long>(
+                qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj));
+    }
 }
 
 extern "C" const char* tbt_error_string(int err) {

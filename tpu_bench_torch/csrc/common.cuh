@@ -1,12 +1,60 @@
 // Helpers shared by the port's kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <mutex>
 
 namespace tbt {
+
+using bf16 = __nv_bfloat16;
+
+// ---- Storage and accumulate types ----
+//
+// A kernel stores values in S and sums them in Acc<S>: f32 and f64 in
+// themselves, bf16 in f32.  widen turns a stored value into its sum type
+// (exactly); narrow<S> rounds a sum to S, to nearest even.
+
+template <typename S>
+struct AccOf {
+    using type = S;
+};
+template <>
+struct AccOf<bf16> {
+    using type = float;
+};
+template <typename S>
+using Acc = typename AccOf<S>::type;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename S>
+__device__ __forceinline__ S narrow(Acc<S> v) {
+    if constexpr (sizeof(S) == 2)
+        return __float2bfloat16_rn(v);
+    else
+        return v;
+}
+
+// Two f32 values rounded to bf16 and packed into one 32-bit word, the
+// first in the low half (the lower address).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The two bf16 halves of a word, widened (exactly) to f32.
+__device__ __forceinline__ float bf16_lo(unsigned w) {
+    return __uint_as_float(w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(unsigned w) {
+    return __uint_as_float(w & 0xffff0000u);
+}
 
 // Four consecutive values from 16-byte aligned shared memory in 16-byte
 // loads: one for float, two for double.
@@ -27,8 +75,19 @@ __device__ __forceinline__ void load4(const double* p, double* r) {
     r[3] = b.y;
 }
 
+// Four consecutive bf16 values, widened to f32, from 8-byte aligned memory
+// in one 8-byte load.
+__device__ __forceinline__ void load4(const bf16* p, float* r) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    r[0] = bf16_lo(q.x);
+    r[1] = bf16_hi(q.x);
+    r[2] = bf16_lo(q.y);
+    r[3] = bf16_hi(q.y);
+}
+
 // Four consecutive values to 16-byte aligned (shared or global) memory in
-// 16-byte stores.
+// 16-byte stores; four f32 rounded to bf16 to 8-byte aligned memory in one
+// 8-byte store.
 __device__ __forceinline__ void store4(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -38,7 +97,12 @@ __device__ __forceinline__ void store4(double* p, const double* v) {
     *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
 }
 
-// The 16-byte vector of a type: four floats or two doubles.
+__device__ __forceinline__ void store4(bf16* p, const float* v) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// The 16-byte vector of a type: four floats, two doubles or eight bf16.
 template <typename T>
 struct Vec16;
 template <>
@@ -50,6 +114,11 @@ template <>
 struct Vec16<double> {
     using type = double2;
     static constexpr int width = 2;
+};
+template <>
+struct Vec16<bf16> {
+    using type = uint4;
+    static constexpr int width = 8;
 };
 
 // One 16-byte vector (Vec16<T>::width values) from or to 16-byte aligned
@@ -72,6 +141,23 @@ __device__ __forceinline__ void store16(double* p, const double* v) {
     *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
+// Eight bf16, widened to f32 or rounded from it.
+__device__ __forceinline__ void load16(const bf16* p, float* r) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        r[2 * i] = bf16_lo(w[i]);
+        r[2 * i + 1] = bf16_hi(w[i]);
+    }
+}
+
+__device__ __forceinline__ void store16(bf16* p, const float* v) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
 // W consecutive values (one 16-byte vector: W = 16 / sizeof(T); or W = 1,
 // one value) from global memory by a plain load.
 __device__ __forceinline__ void load_w(const float* p, float (&r)[4]) {
@@ -89,6 +175,15 @@ __device__ __forceinline__ void load_w(const T* p, T (&r)[1]) {
     r[0] = *p;
 }
 
+// bf16 values widened to f32: eight (one 16-byte vector) or one.
+__device__ __forceinline__ void load_w(const bf16* p, float (&r)[8]) {
+    load16(p, r);
+}
+
+__device__ __forceinline__ void load_w(const bf16* p, float (&r)[1]) {
+    r[0] = widen(*p);
+}
+
 // The same W values to global memory that nothing reads again, with the
 // streaming hint (st.global.cs: evict first), so they do not push out of
 // L2 the lines that are read again.
@@ -103,6 +198,19 @@ __device__ __forceinline__ void store_cs(double* p, const double (&v)[2]) {
 template <typename T>
 __device__ __forceinline__ void store_cs(T* p, const T (&v)[1]) {
     __stcs(p, v[0]);
+}
+
+// f32 sums rounded to bf16: eight (one 16-byte vector) or one.
+__device__ __forceinline__ void store_cs(bf16* p, const float (&v)[8]) {
+    __stcs(reinterpret_cast<uint4*>(p),
+           make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                      pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7])));
+}
+
+__device__ __forceinline__ void store_cs(bf16* p, const float (&v)[1]) {
+    const bf16 h = __float2bfloat16_rn(v[0]);
+    __stcs(reinterpret_cast<unsigned short*>(p),
+           *reinterpret_cast<const unsigned short*>(&h));
 }
 
 // Elements of p[0:n] before the first 16-byte boundary at or after p: the
@@ -282,11 +390,18 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 // BYTES (4, 8 or 16) from global src to shared dst without passing through
 // registers; with valid false nothing is read and dst is zero-filled.  src
 // must be a readable address even then (the caller passes a base pointer).
+// cp.async has no 2-byte form, so BYTES = 2 (one bf16 value a copy, on
+// rows that are not whole 16-byte words) is a plain load and store, done
+// before the call returns; the caller's wait and barrier cover it too.
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          bool valid) {
     const int src_bytes = valid ? BYTES : 0;
-    if constexpr (BYTES == 16)
+    if constexpr (BYTES == 2)
+        *static_cast<unsigned short*>(dst) =
+            valid ? *static_cast<const unsigned short*>(src)
+                  : static_cast<unsigned short>(0);
+    else if constexpr (BYTES == 16)
         asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                          smem_addr(dst)),
                      "l"(src), "r"(src_bytes));

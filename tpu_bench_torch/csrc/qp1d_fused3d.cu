@@ -39,7 +39,15 @@
 //     cp.async (16-byte copies where S's rows are whole 16-byte chunks,
 //     else one element a copy), across the stage's column chunks without
 //     draining; the X tile comes in by cp.async too;
-//   - K, N and E edges masked: zero-filled copies, masked stores.
+//   - K, N and E edges masked: zero-filled copies, masked stores;
+//   - bf16: the X tile, the workspaces and the S tiles are bf16, and one
+//     mma.sync.m16n8k16 pass (bf16 in, f32 sums) a 16-deep step, on
+//     fragments loaded by ldmatrix, takes each product exactly: no split.
+//     w1 and w2 are rounded to bf16 as they are written to shared memory,
+//     and the output as it is stored, where the JAX kernel's bf16 scratch
+//     rounds them (bwdtrans3d.py:245-247, bwdtrans2d.py:577).  Rows are
+//     padded by 8 values (16 bytes), so ldmatrix rows are 16-byte aligned
+//     and the 8 rows of a fragment hit distinct bank groups.
 // The kron zeros of S, and wgmma with TMA, are later work.
 
 #include <cuda_runtime.h>
@@ -51,18 +59,23 @@ namespace {
 constexpr int THREADS = 256;  // 8 warps
 constexpr int RING = 3;       // S tiles in shared memory
 constexpr int SPAD = 8;       // S tile row padding (elements)
-constexpr int ROW_PAD = 4;    // workspace row padding past a multiple of BK
 
-// The mma tile's M side and the S tiles (BK x BN) of each type.
+// The mma tile's M side, the S tiles (BK x BN) and the workspace rows'
+// padding past a multiple of BK (ROW_PAD) of each type
+// (kernels/bwdtrans3d.QP1D_STEP).
 template <typename T>
 struct Tile;
 template <>
 struct Tile<float> {
-    static constexpr int MMA_M = 16, BK = 32, BN = 128;
+    static constexpr int MMA_M = 16, BK = 32, BN = 128, ROW_PAD = 4;
 };
 template <>
 struct Tile<double> {
-    static constexpr int MMA_M = 8, BK = 8, BN = 64;
+    static constexpr int MMA_M = 8, BK = 8, BN = 64, ROW_PAD = 4;
+};
+template <>
+struct Tile<tbt::bf16> {
+    static constexpr int MMA_M = 16, BK = 32, BN = 128, ROW_PAD = 8;
 };
 
 template <typename T>
@@ -71,10 +84,11 @@ __host__ __device__ constexpr int pad_k(int n) {
 }
 
 // Row stride of a workspace n wide: a multiple of BK plus ROW_PAD, which is
-// 4 modulo 8, so the 8 rows of an A fragment start in distinct banks.
+// 4 modulo 8 (f32, f64), so the 8 rows of an A fragment start in distinct
+// banks; 8 in bf16, so they start in distinct 16-byte bank groups.
 template <typename T>
 __host__ __device__ constexpr int ld_of(int n) {
-    return pad_k<T>(n) + ROW_PAD;
+    return pad_k<T>(n) + Tile<T>::ROW_PAD;
 }
 
 // Dynamic shared memory of one block: w1, buffer B and the S ring.  n2 is
@@ -127,6 +141,10 @@ struct Acc<float, NT> {
 template <int NT>
 struct Acc<double, NT> {
     double v[NT][2];
+};
+template <int NT>
+struct Acc<tbt::bf16, NT> {
+    float v[NT][4];
 };
 
 // acc += src[rows of this warp][kb : kb+BK] @ s_tile (BK x BN, shared).
@@ -189,10 +207,39 @@ __device__ __forceinline__ void mma_step(Acc<double, NT>& acc,
     }
 }
 
+// bf16: acc += src[rows of this warp][kb : kb+BK] @ s_tile, one
+// m16n8k16 pass a 16-deep step on ldmatrix fragments (as K14's, csrc/
+// ozaki.cu); the products are exact and the sums f32.
+template <int NT>
+__device__ __forceinline__ void mma_step(Acc<tbt::bf16, NT>& acc,
+                                         const tbt::bf16* src, int ld_src,
+                                         int kb, const tbt::bf16* s_tile,
+                                         int row0, int col0, int lane) {
+    constexpr int LDS = Tile<tbt::bf16>::BN + SPAD;
+    static_assert(NT % 2 == 0, "B fragments come in pairs of mma tiles");
+#pragma unroll
+    for (int kk = 0; kk < Tile<tbt::bf16>::BK; kk += 16) {
+        unsigned a[4];
+        tbt::ldmatrix_x4(a, src + (row0 + lane % 16) * ld_src + kb + kk +
+                                (lane / 16) * 8);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+            unsigned r[4];
+            tbt::ldmatrix_x4_trans(
+                r, s_tile + (kk + lane % 8 + ((lane / 8) % 2) * 8) * LDS +
+                       col0 + np * 16 + (lane / 16) * 8);
+            const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+            tbt::mma_bf16(acc.v[2 * np], a, b0);
+            tbt::mma_bf16(acc.v[2 * np + 1], a, b1);
+        }
+    }
+}
+
 // dst = src (ET x k_depth, shared, row stride ld_src) @ s (k_depth x
 // n_cols, global), in BN-wide column chunks.  TO_GLOBAL: dst is out (E x
 // n_cols, row-major) for elements e0..e0+ET-1 below n_elem; else dst is
 // shared, row stride ld_dst, with columns n_cols..pad_k(n_cols)-1 zero.
+// Each value is rounded to T as it is written (tbt::narrow).
 template <typename T, int ET, bool TO_GLOBAL>
 __device__ __forceinline__ void stage(const T* src, int ld_src, int k_depth,
                                       const T* __restrict__ s, int n_cols,
@@ -228,7 +275,7 @@ __device__ __forceinline__ void stage(const T* src, int ld_src, int k_depth,
 #pragma unroll
             for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-                for (int q = 0; q < C::MMA_M * 8 / 32; ++q) acc.v[nt][q] = T(0);
+                for (int q = 0; q < C::MMA_M * 8 / 32; ++q) acc.v[nt][q] = 0;
         }
         tbt::cp_async_wait<RING - 2>();
         __syncthreads();
@@ -249,10 +296,12 @@ __device__ __forceinline__ void stage(const T* src, int ld_src, int k_depth,
                 const int n = n_base + nt * 8 + 2 * (lane % 4) + q % 2;
                 if constexpr (TO_GLOBAL) {
                     if (n < n_cols && e0 + r < n_elem)
-                        dst[(e0 + r) * n_cols + n] = acc.v[nt][q];
+                        dst[(e0 + r) * n_cols + n] =
+                            tbt::narrow<T>(acc.v[nt][q]);
                 } else {
                     if (n < pad_k<T>(n_cols))
-                        dst[r * ld_dst + n] = n < n_cols ? acc.v[nt][q] : T(0);
+                        dst[r * ld_dst + n] = tbt::narrow<T>(
+                            n < n_cols ? acc.v[nt][q] : 0);
                 }
             }
     }
@@ -338,9 +387,15 @@ int launch(const T* x, const T* s1, const T* s2, const T* s3, T* out,
 // workspace's width, 0 for the two-stage chain.
 extern "C" long long tbt_qp1d_smem(int itemsize, int et, int k0, int n1,
                                    int n2) {
-    return itemsize == 4
-               ? static_cast<long long>(smem_bytes<float>(et, k0, n1, n2))
-               : static_cast<long long>(smem_bytes<double>(et, k0, n1, n2));
+    switch (itemsize) {
+        case 2:
+            return static_cast<long long>(
+                smem_bytes<tbt::bf16>(et, k0, n1, n2));
+        case 4:
+            return static_cast<long long>(smem_bytes<float>(et, k0, n1, n2));
+        default:
+            return static_cast<long long>(smem_bytes<double>(et, k0, n1, n2));
+    }
 }
 
 extern "C" int tbt_qp1d_fused3d_f32(const void* x, const void* s1,
@@ -382,5 +437,29 @@ extern "C" int tbt_qp1d_fused2d_f64(const void* x, const void* s1,
     return launch<double, 2>(
         static_cast<const double*>(x), static_cast<const double*>(s1),
         static_cast<const double*>(s2), nullptr, static_cast<double*>(out),
+        n_elem, k0, n1, n2, 0, et, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_qp1d_fused3d_bf16(const void* x, const void* s1,
+                                     const void* s2, const void* s3,
+                                     void* out, long long n_elem, int k0,
+                                     int n1, int n2, int n3, int et,
+                                     void* stream) {
+    using tbt::bf16;
+    return launch<bf16, 3>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(s1),
+        static_cast<const bf16*>(s2), static_cast<const bf16*>(s3),
+        static_cast<bf16*>(out), n_elem, k0, n1, n2, n3, et,
+        static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tbt_qp1d_fused2d_bf16(const void* x, const void* s1,
+                                     const void* s2, void* out,
+                                     long long n_elem, int k0, int n1, int n2,
+                                     int et, void* stream) {
+    using tbt::bf16;
+    return launch<bf16, 2>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(s1),
+        static_cast<const bf16*>(s2), nullptr, static_cast<bf16*>(out),
         n_elem, k0, n1, n2, 0, et, static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,8 @@ loaded at import: `library()` does both on the first kernel launch.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launched` turns a non-zero code into an exception
-and otherwise counts the launch in `launches`, keyed by kernel name.
+and otherwise counts the launch in `launches`, keyed by kernel name (with
+`_bf16` appended for a bf16 instance).
 
 A launch costs the host as little as the library calls it is timed
 beside: `entry` looks each C entry up once per (name, dtype), `run` takes
@@ -46,7 +47,9 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 # (K6, either form counts once per call), map2_inplace (K7), matvec_rm (K8),
 # matvec_cm (K9), the ceiling probes stream_read (K10), stream_fill (K11),
 # stream_map (K12) and stream_expand (K13), and ozaki_slices (K14, either
-# form counts once per launch: the band form launches once per band).
+# form counts once per launch: the band form launches once per band).  A
+# bf16 instance of K1-K5 counts under its name with "_bf16" appended
+# (qp_fused3d_bf16, ...), so a run shows which instance it went through.
 launches: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
@@ -54,7 +57,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 # Every scalar of the kernels' arithmetic (eps) goes as a C double, so one
-# signature serves the _f32 and _f64 entries.
+# signature serves the _f32 and _f64 entries (and _bf16, BF16_KERNELS).
 _SIGNATURES = {
     # in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, g, stream
     "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P],
@@ -85,6 +88,14 @@ _SIGNATURES = {
     # x, n, bias, out, m, shift, stream
     "tbt_stream_expand": [_P, _L, _P, _P, _I, _I, _P],
 }
+
+
+# The kernels built for bf16 as well (entries tbt_<name>_bf16): K1-K5,
+# bf16 storage with f32 sums.  The others refuse bf16 (check_operands).
+BF16_KERNELS = ("qp_fused3d", "kron_blocked", "em_gemm", "qp_stage2_3d",
+                "qp1d_fused3d", "qp1d_fused2d")
+SUFFIXES = {torch.float32: "f32", torch.float64: "f64",
+            torch.bfloat16: "bf16"}
 
 
 def sources() -> list[Path]:
@@ -160,7 +171,9 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in _SIGNATURES.items():
-        for dtype in ("f32", "f64"):
+        dtypes = ("f32", "f64", "bf16") if name[4:] in BF16_KERNELS else (
+            "f32", "f64")
+        for dtype in dtypes:
             fn = getattr(lib, f"{name}_{dtype}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -215,15 +228,17 @@ def launched(err: int, name: str) -> None:
 _FLOATS = (torch.float32, torch.float64)
 
 
-def check_operands(name: str, tensors) -> None:
-    """Raise unless the tensors share one float32 or float64 dtype and one
-    CPU or CUDA device and are contiguous, as every kernel entry needs."""
+def check_operands(name: str, tensors, bf16: bool = False) -> None:
+    """Raise unless the tensors share one float32 or float64 dtype (or
+    bfloat16, where `bf16`: the entries of BF16_KERNELS) and one CPU or
+    CUDA device and are contiguous, as every kernel entry needs."""
     x = tensors[0]
     dtype = x.dtype
-    if dtype not in _FLOATS:
+    if dtype not in _FLOATS and not (bf16 and dtype == torch.bfloat16):
         if dtype == torch.bfloat16:
-            raise NotImplementedError(f"{name}: bf16 is not ported yet "
-                                      "(ROADMAP Queue 1 item 2)")
+            raise NotImplementedError(f"{name}: bf16 is not ported yet for "
+                                      "benchmarks 01-03 and the ceiling "
+                                      "probes (ROADMAP Queue 1 item 2c)")
         raise TypeError(f"{name}: dtype {dtype} is not supported")
     if x.is_cuda:  # the launch path: device indices, not device objects
         index = x.get_device()
@@ -271,10 +286,9 @@ def vector16(n: int, itemsize: int, *ptrs: int) -> bool:
 
 @functools.cache
 def entry(name: str, dtype: torch.dtype):
-    """The C entry tbt_<name>_f32 or tbt_<name>_f64 for dtype, looked up
-    in the library once per (name, dtype)."""
-    suffix = "f32" if dtype == torch.float32 else "f64"
-    return getattr(library(), f"tbt_{name}_{suffix}")
+    """The C entry tbt_<name>_f32, _f64 or _bf16 for dtype, looked up in
+    the library once per (name, dtype)."""
+    return getattr(library(), f"tbt_{name}_{SUFFIXES[dtype]}")
 
 
 def _current_raw_stream(index: int) -> int:
@@ -310,6 +324,8 @@ def call(fn, x: torch.Tensor, *args) -> int:
 
 def run(name: str, x: torch.Tensor, *args) -> None:
     """Launch kernel `name` for x's dtype on x's device and stream:
-    tbt_<name>_f32/_f64(*args, stream); raise on a CUDA error, else count
-    the launch."""
-    launched(call(entry(name, x.dtype), x, *args), name)
+    tbt_<name>_f32/_f64/_bf16(*args, stream); raise on a CUDA error, else
+    count the launch (a bf16 one as <name>_bf16)."""
+    dtype = x.dtype
+    launched(call(entry(name, dtype), x, *args),
+             f"{name}_bf16" if dtype is torch.bfloat16 else name)

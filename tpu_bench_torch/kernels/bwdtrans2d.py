@@ -30,6 +30,11 @@ the TPU kernels' differences were DMA, sublane or MXU-tile geometry:
     qp1d_shared                      bwdtrans3d.qp1d_fused: K5, two stages
     qp1d_global                      qp1d_global below: K3 twice
 
+Both take f32, f64 and bf16.  In bf16 every product is exact and summed
+in f32, and each output is rounded to bf16 once, as the JAX kernels'
+`_dot` (bf16 operands, f32 accumulator) then `.astype` do; the plain
+versions compute the same in f32 (`mm`).
+
 A tensor on the CPU goes to the plain PyTorch version; a tensor on a CUDA
 device goes to the kernel (csrc/), which raises rather than fall back when
 it cannot run.
@@ -64,9 +69,22 @@ EM_WARPS = 8
 EM_EPB = 128  # the element block the JAX kernels take (`epb`)
 
 
+def widened(*ts):
+    """The tensors in the kernels' sum type: f32 for bf16, else as they
+    are."""
+    return [t.float() if t.dtype == torch.bfloat16 else t for t in ts]
+
+
+def mm(a, b):
+    """a @ b as the kernels compute it: in bf16 the operands widened to
+    f32, the products summed in f32 and the result rounded to bf16 once;
+    in f32 and f64 torch.matmul."""
+    return torch.matmul(*widened(a, b)).to(a.dtype)
+
+
 def kron_blocked_plain(in_blk, c_coa):
     """Plain PyTorch version of kron_blocked."""
-    return torch.matmul(c_coa, in_blk)
+    return mm(c_coa, in_blk)
 
 
 def kron_blocked(in_blk, c_coa, *, strip=None):
@@ -86,10 +104,12 @@ def kron_blocked(in_blk, c_coa, *, strip=None):
 
 def kron_resident_smem(itemsize, m, k, bn) -> int:
     """Shared memory of the C-resident configuration (csrc/bwdtrans2d.cu
-    kron_resident_smem): C^T with M padded to KRON_TILE, and KRON_RING
+    kron_resident_smem): C^T with M padded to KRON_TILE, the values
+    rounded up to a whole 16-byte word (bf16 with K odd), and KRON_RING
     strips of k x bn."""
-    return itemsize * (k * (-(-m // KRON_TILE) * KRON_TILE)
-                       + KRON_RING * k * bn)
+    word = 16 // itemsize
+    ct = k * (-(-m // KRON_TILE) * KRON_TILE)
+    return itemsize * (-(-ct // word) * word + KRON_RING * k * bn)
 
 
 @functools.cache
@@ -110,10 +130,7 @@ def kron_config(itemsize, m, k, limit=SMEM_BLOCK) -> int:
 
 
 def _check(x, c):
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError("kron_blocked: bf16 is not ported yet "
-                                  "(ROADMAP Queue 1 item 2)")
-    if x.dtype not in (torch.float32, torch.float64):
+    if x.dtype not in (torch.float32, torch.float64, torch.bfloat16):
         raise TypeError(f"kron_blocked: dtype {x.dtype} is not supported")
     if c.dtype != x.dtype:
         raise TypeError("kron_blocked: in and C must share one dtype")
@@ -148,7 +165,7 @@ def _launch(x, c, strip):
 
 def kron_coalesced_plain(in_coa, c_coa):
     """Plain PyTorch version of kron_coalesced."""
-    return torch.matmul(c_coa, in_coa)
+    return mm(c_coa, in_coa)
 
 
 def kron_coalesced(in_coa, c_coa, *, epb=None):
@@ -165,7 +182,7 @@ def kron_coalesced(in_coa, c_coa, *, epb=None):
 
 def kron_elem_major_plain(in_em2, c_em):
     """Plain PyTorch version of kron_elem_major and one_stage_em."""
-    return torch.matmul(in_em2, c_em)
+    return mm(in_em2, c_em)
 
 
 def kron_elem_major(in_em2, c_em, *, epb=None, tile=None):
@@ -209,7 +226,7 @@ def em_config(itemsize, k, n, limit=SMEM_BLOCK) -> int:
 
 
 def _em_gemm(name, x, s, epb, tile):
-    build.check_operands(name, (x, s))
+    build.check_operands(name, (x, s), bf16=True)
     if x.dim() != 2 or s.dim() != 2 or s.shape[0] != x.shape[1]:
         raise ValueError(f"{name}: in {tuple(x.shape)} and S "
                          f"{tuple(s.shape)} are not (E, K) and (K, N)")
@@ -244,7 +261,7 @@ def _em_gemm(name, x, s, epb, tile):
 def kron_wide4_plain(in_blk4, c_coa):
     """Plain PyTorch version of kron_wide4."""
     nblk, nm, cr, lanes = in_blk4.shape
-    out = torch.matmul(c_coa, in_blk4.reshape(nblk, nm, cr * lanes))
+    out = mm(c_coa, in_blk4.reshape(nblk, nm, cr * lanes))
     return out.reshape(nblk, c_coa.shape[0], cr, lanes)
 
 
@@ -262,8 +279,9 @@ def kron_wide4(in_blk4, c_coa):
 
 def qp1d_plain(in_em2, s1_em, s2_em):
     """Plain PyTorch version of the two-stage chain (qp1d_global and
-    bwdtrans3d.qp1d_fused with two operators)."""
-    return torch.matmul(torch.matmul(in_em2, s1_em), s2_em)
+    bwdtrans3d.qp1d_fused with two operators): each stage rounded to the
+    dtype, as the JAX kernels round their workspace."""
+    return mm(mm(in_em2, s1_em), s2_em)
 
 
 def qp1d_global(in_em2, s1_em, s2_em, *, epb=None):

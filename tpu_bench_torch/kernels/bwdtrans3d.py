@@ -24,6 +24,12 @@ qp1d_global3d (three K3 launches), the Pallas(QP-1D) column, compute the
 element-major chain
 out (E, nqTot) = ((in (E, nmTot) @ S1) @ S2) @ S3.
 
+Each kernel is built for f32, f64 and bf16.  In bf16 the values are
+stored in bf16 and summed in f32, and rounded to bf16 where the JAX
+kernels round: K1's v before the C12T stage and each output; K4's output
+(its workspace w arrives rounded from K2); K5's workspaces w1 and w2 and
+its output.  The plain versions compute the same cast points in f32.
+
 A tensor on the CPU goes to the plain PyTorch version in this module; a
 tensor on a CUDA device goes to the kernel, which raises rather than fall
 back when it cannot run.
@@ -46,7 +52,7 @@ from tpu_bench_torch.kernels import build
 # block.  qp_config picks a tile and a group for each shape; the rule rests
 # on benchmarks/kernel_blocks.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
 # section 6).
-QP_TILES = {4: (128, 64, 32, 16), 8: (64, 32, 16, 8)}
+QP_TILES = {2: (128, 64, 32, 16), 4: (128, 64, 32, 16), 8: (64, 32, 16, 8)}
 QP_PLANE_GROUPS = (4, 8)
 QP_THREADS = 256
 QP_TK, QP_TE = 8, 4
@@ -75,7 +81,8 @@ QP_MEASURED = {
 # takes a step (its U), and the default, from benchmarks/kernel_blocks.py
 # --only k4 (PERF.md section 6); the largest nm0 kept whole in registers
 # (every 3D order to 10^3), and the chunks of p and i above it, where U is
-# at most QP2_CHUNKED_UNROLL.
+# at most QP2_CHUNKED_UNROLL.  A bf16 vector holds 8 values, which take 8
+# f32 registers, so bf16 takes half of each U (qp2_unrolls).
 QP2_THREADS = 256
 QP2_UNROLLS = (1, 2, 4)
 QP2_UNROLL = 4
@@ -86,16 +93,23 @@ QP2_CHUNKED_UNROLL = 2
 QP2_MAX_B0_BYTES = 48 * 1024
 # K5: element tiles it is built for, by element size, in order of
 # preference; it takes the first whose workspaces fit the card's opt-in
-# shared memory.  Multiples of the mma tile's M side (16 rows for TF32, 8
-# for f64); the smallest exist for b04 nq=32 (workspaces 961 and 992
-# wide), where only 16 fits in f32 and 8 in f64.
-QP1D_TILES = {4: (64, 32, 16), 8: (32, 16, 8)}
+# shared memory.  Multiples of the mma tile's M side (16 rows for TF32 and
+# bf16, 8 for f64); the smallest exist for b04 nq=32 (workspaces 961 and
+# 992 wide), where only 16 fits in f32 and 8 in f64.
+QP1D_TILES = {2: (64, 32, 16), 4: (64, 32, 16), 8: (32, 16, 8)}
+# K5's S tiles (QP1D_STEP: BK deep, BN wide, and the workspace rows'
+# padding past a multiple of BK, by element size), its ring of S tiles and
+# their row padding (csrc/qp1d_fused3d.cu Tile, RING, SPAD)
+QP1D_STEP = {2: (32, 128, 8), 4: (32, 128, 4), 8: (8, 64, 4)}
+QP1D_RING, QP1D_SPAD = 3, 8
 
 
 def qp_shared3d_plain(in_pcoa3, b0, c12t):
-    """Plain PyTorch version of qp_shared3d."""
-    v = torch.einsum("pi,pre->ire", b0, in_pcoa3)  # (nq0, nrq, E)
-    return torch.matmul(c12t, v)                    # (nq0, nkj, E)
+    """Plain PyTorch version of qp_shared3d: v in the sum's type (f32 for
+    bf16), rounded to the input's dtype, then C12T @ v."""
+    b0w, xw = k2.widened(b0, in_pcoa3)
+    v = torch.einsum("pi,pre->ire", b0w, xw)       # (nq0, nrq, E)
+    return k2.mm(c12t, v.to(in_pcoa3.dtype))       # (nq0, nkj, E)
 
 
 def qp_shared3d_flat_plain(in_pflat, b0, c12t, *, nrq):
@@ -132,7 +146,7 @@ def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None):
 def _check(x, b0, c12t, nrq):
     """in, b0 and c12t: one dtype and device, contiguous (check_operands),
     2D, and of shapes that agree with nrq."""
-    build.check_operands("qp_shared3d", (x, b0, c12t))
+    build.check_operands("qp_shared3d", (x, b0, c12t), bf16=True)
     if x.dim() != 2 or b0.dim() != 2 or c12t.dim() != 2:
         raise ValueError("qp_shared3d: in, b0 and c12t must be 2D")
     if x.shape[0] != b0.shape[0] * nrq or c12t.shape[1] != nrq:
@@ -227,35 +241,35 @@ def _launch(x, b0, c12t, nrq, epb, planes):
 
 
 def qp_stage2_3d_plain(w, b0):
-    """Plain PyTorch version of qp_stage2_3d."""
-    return torch.einsum("pi,pke->ike", b0, w)
+    """Plain PyTorch version of qp_stage2_3d: sums in f32 for bf16,
+    rounded to w's dtype."""
+    return torch.einsum("pi,pke->ike", *k2.widened(b0, w)).to(w.dtype)
 
 
 def qp_stage2_3d(w, b0, *, unroll=None, out=None):
     """out (nq0, nkj, E) = sum_p B0[p, i] * w[p] from w (nm0, nkj, E) and
     b0 (nm0, nq0).  `unroll`: K4's 16-byte vectors a thread a step, one of
-    QP2_UNROLLS (default QP2_UNROLL; at most QP2_CHUNKED_UNROLL where nm0 >
-    QP2_EXACT); `out`: a contiguous (nq0, nkj, E) tensor to write into,
-    None allocates one."""
-    build.check_operands("qp_stage2_3d", (w, b0))
+    qp2_unrolls (default QP2_UNROLL or the largest below it); `out`: a
+    contiguous (nq0, nkj, E) tensor to write into, None allocates one."""
+    build.check_operands("qp_stage2_3d", (w, b0), bf16=True)
     if w.dim() != 3 or b0.dim() != 2 or b0.shape[0] != w.shape[0]:
         raise ValueError(f"qp_stage2_3d: w {tuple(w.shape)} and b0 "
                          f"{tuple(b0.shape)} are not (nm0, nkj, E) and "
                          "(nm0, nq0)")
     nm0, nkj, e = w.shape
     nq0 = b0.shape[1]
+    takes = qp2_unrolls(w.element_size(), nm0)
     if unroll is None:
-        unroll = min(QP2_UNROLL, QP2_CHUNKED_UNROLL) if nm0 > QP2_EXACT \
-            else QP2_UNROLL
+        unroll = min(QP2_UNROLL, takes[-1])
     if unroll not in QP2_UNROLLS:
         raise ValueError(f"qp_stage2_3d: unroll={unroll} is not one of "
                          f"{QP2_UNROLLS}")
-    if nm0 > QP2_EXACT and unroll > QP2_CHUNKED_UNROLL:
-        raise ValueError(f"qp_stage2_3d: unroll={unroll} with nm0={nm0}: "
-                         f"above nm0={QP2_EXACT} the kernel takes at most "
-                         f"{QP2_CHUNKED_UNROLL}")
+    if unroll not in takes:
+        raise ValueError(f"qp_stage2_3d: unroll={unroll} with nm0={nm0} "
+                         f"in {w.dtype}: the kernel takes at most "
+                         f"{takes[-1]}")
     if out is not None:
-        build.check_operands("qp_stage2_3d", (w, out))
+        build.check_operands("qp_stage2_3d", (w, out), bf16=True)
         if out.shape != (nq0, nkj, e):
             raise ValueError(f"qp_stage2_3d: out {tuple(out.shape)} is not "
                              f"{(nq0, nkj, e)}")
@@ -276,6 +290,17 @@ def qp_stage2_3d(w, b0, *, unroll=None, out=None):
     build.run("qp_stage2_3d", w, w.data_ptr(), b0.data_ptr(), out.data_ptr(),
               nm0, nq0, f, u, int(vector), blocks)
     return out
+
+
+def qp2_unrolls(itemsize, nm0) -> tuple:
+    """The unrolls of QP2_UNROLLS K4 is built for at (element size, nm0):
+    up to the largest, or QP2_CHUNKED_UNROLL where nm0 > QP2_EXACT; in bf16
+    up to half of that, so a thread holds as many f32 registers of w as in
+    f32."""
+    top = QP2_UNROLLS[-1] if nm0 <= QP2_EXACT else QP2_CHUNKED_UNROLL
+    if itemsize == 2:
+        top //= 2
+    return tuple(u for u in QP2_UNROLLS if u <= top)
 
 
 def qp2_smem(itemsize, nm0, nq0) -> int:
@@ -320,8 +345,9 @@ def qp2_wave(device, itemsize, vector, nm0, nq0, unroll) -> int:
 
 
 def qp_global3d_plain(in_pcoa3, b0, c12t):
-    """Plain PyTorch version of qp_global3d."""
-    return qp_stage2_3d_plain(torch.matmul(c12t, in_pcoa3), b0)
+    """Plain PyTorch version of qp_global3d (the workspace rounded to the
+    dtype)."""
+    return qp_stage2_3d_plain(k2.mm(c12t, in_pcoa3), b0)
 
 
 def qp_global3d(in_pcoa3, b0, c12t, *, unroll=None):
@@ -335,9 +361,9 @@ def qp_global3d(in_pcoa3, b0, c12t, *, unroll=None):
 
 
 def qp1d3d_plain(in_em2, s1_em, s2_em, s3_em):
-    """Plain PyTorch version of qp1d_shared3d and qp1d_global3d."""
-    return torch.matmul(torch.matmul(torch.matmul(in_em2, s1_em), s2_em),
-                        s3_em)
+    """Plain PyTorch version of qp1d_shared3d and qp1d_global3d, each
+    stage rounded to the dtype."""
+    return k2.mm(k2.mm(k2.mm(in_em2, s1_em), s2_em), s3_em)
 
 
 def qp1d_global3d(in_em2, s1_em, s2_em, s3_em, *, epb=None):
@@ -353,18 +379,33 @@ def qp1d_tiles(in_em2, *ops) -> list:
     fit the card's opt-in shared memory for the chain in_em2 @ ops[0] @ ...
     (two or three stages), in order of preference."""
     n2 = ops[1].shape[1] if len(ops) == 3 else 0  # second workspace
-    return qp1d_fits(in_em2.get_device(), in_em2.element_size(),
-                     in_em2.shape[1], ops[0].shape[1], n2)
+    return qp1d_fits(in_em2.element_size(), in_em2.shape[1],
+                     ops[0].shape[1], n2,
+                     build.smem_limits(in_em2.get_device())[0])
+
+
+def qp1d_smem(itemsize, et, k0, n1, n2) -> int:
+    """Shared memory of one K5 block of element tile et (csrc/
+    qp1d_fused3d.cu smem_bytes): w1, buffer B (X, then w2; n2 = 0 for the
+    two-stage chain) with rows padded to a whole BK step plus the row
+    padding, and the ring of S tiles."""
+    bk, bn, pad = QP1D_STEP[itemsize]
+
+    def ld(n):
+        return _round_up(n, bk) + pad
+
+    ld_b = max(ld(k0), ld(n2)) if n2 > 0 else ld(k0)
+    return itemsize * (et * (ld(n1) + ld_b)
+                       + QP1D_RING * bk * (bn + QP1D_SPAD))
 
 
 @functools.cache
-def qp1d_fits(index, itemsize, k0, n1, n2) -> list:
-    """qp1d_tiles on CUDA device `index` for a chain of input width k0 and
-    workspaces n1 and n2 (0: two stages), asked of the library once."""
-    smem = build.library().tbt_qp1d_smem
-    limit = build.smem_limits(index)[0]
+def qp1d_fits(itemsize, k0, n1, n2, limit=SMEM_BLOCK) -> list:
+    """The tiles of QP1D_TILES[itemsize] whose buffers (qp1d_smem) fit
+    `limit` bytes for a chain of input width k0 and workspaces n1 and n2
+    (0: two stages), in order of preference."""
     return [et for et in QP1D_TILES[itemsize]
-            if smem(itemsize, et, k0, n1, n2) <= limit]
+            if qp1d_smem(itemsize, et, k0, n1, n2) <= limit]
 
 
 def qp1d_fused(in_em2, *ops, epb=None):
@@ -374,7 +415,7 @@ def qp1d_fused(in_em2, *ops, epb=None):
     `epb`: the element tile, one of QP1D_TILES for the dtype; None takes
     the first that fits."""
     ops = (in_em2, *ops)
-    build.check_operands("qp1d_fused", ops)
+    build.check_operands("qp1d_fused", ops, bf16=True)
     if (len(ops) not in (3, 4) or any(t.dim() != 2 for t in ops)
             or any(a.shape[1] != b.shape[0] for a, b in zip(ops, ops[1:]))):
         raise ValueError("qp1d_fused: shapes "
@@ -387,7 +428,7 @@ def qp1d_fused(in_em2, *ops, epb=None):
     if in_em2.is_cpu:
         out = in_em2
         for s in ops[1:]:
-            out = torch.matmul(out, s)
+            out = k2.mm(out, s)
         return out
     fits = qp1d_tiles(*ops)
     if epb is not None:

@@ -159,25 +159,29 @@ def stream_sources(elem_flat, nm_shape, nelmt: int, e_pad: int, dtype):
       coa        (nmTot, E)           coalesced (element index fastest)
       pcoa3      (nm0, rest, E)       p-major coalesced (fused QP kernel)
       blk(ce)    (E/ce, nmTot, ce)    chunk-interleaved coalesced
+    The padding holds +0.0, as the JAX package's jnp.where gives, so every
+    layout is its bytes.
     """
     nm_shape = tuple(int(n) for n in nm_shape)
     nm0 = nm_shape[-1]
     nm_tot = int(np.prod(nm_shape))
     elem = elem_flat.to(dtype)
-    live = (torch.arange(e_pad, device=elem.device) < nelmt).to(dtype)
+    live = torch.arange(e_pad, device=elem.device) < nelmt
+    zero = torch.zeros((), dtype=dtype, device=elem.device)
 
     def em2():
-        return elem[None, :] * live[:, None]
+        return torch.where(live[:, None], elem[None, :], zero)
 
     def coa():
-        return elem[:, None] * live[None, :]
+        return torch.where(live[None, :], elem[:, None], zero)
 
     def pcoa3():
         ep = elem.reshape(nm_tot // nm0, nm0).T.contiguous()  # (nm0, rest)
-        return ep[:, :, None] * live
+        return torch.where(live, ep[:, :, None], zero)
 
     def blk(ce):
-        return elem[None, :, None] * live.reshape(e_pad // ce, 1, ce)
+        return torch.where(live.reshape(e_pad // ce, 1, ce),
+                           elem[None, :, None], zero)
 
     return dict(em2=em2, coa=coa, pcoa3=pcoa3, blk=blk)
 
