@@ -130,6 +130,9 @@ def test_main_profile_writes_trace(tmp_path):
                   "--device", "cpu", "--profile", str(tmp_path)])
     trace = json.loads((tmp_path / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the wrappers of Pallas(QP/Shared) and Pallas(Coales) record their spans
+    names = {ev.get("name") for ev in trace["traceEvents"]}
+    assert {"tbt.qp_shared3d_flat", "tbt.kron_blocked"} <= names
 
 
 def test_ozaki_route_golden_norm():

@@ -91,6 +91,33 @@ def test_nvcc_command_builds_package_sources_for_sm90a():
     assert build.library_path().parent == build.BUILD_DIR
 
 
+def test_build_logs_seconds_of_each_compile_and_the_link(tmp_path,
+                                                        monkeypatch):
+    """build() keeps the compilers' output in build.log, then a line of
+    each source's nvcc seconds and the link's; stand-in commands write
+    the objects and the library."""
+    write = [sys.executable, "-c",
+             "import sys; open(sys.argv[1], 'w').close(); print('ptxas out')"]
+
+    def commands(output):
+        objects = build._objects(output)
+        return [[*write, str(obj)] for obj in objects], [*write, str(output)]
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc_commands", commands)
+    so = build.build()
+    assert so.exists() and so.parent == tmp_path
+    lines = (tmp_path / "build.log").read_text().splitlines()
+    sources = build.sources()
+    assert lines[:len(sources) + 1] == ["ptxas out"] * (len(sources) + 1)
+    times = lines[len(sources) + 1:]
+    assert [t.split()[:-2] for t in times] == [
+        *(["time:", src.name, "nvcc"] for src in sources), ["time:", "link"]]
+    for t in times:
+        assert t.endswith(" s") and float(t.split()[-2]) > 0
+    assert not list(tmp_path.glob("*.o"))
+
+
 def test_chip_smoke_alone_fails(tmp_path):
     """Outside a checkout (or without a card) the smoke test exits non-zero
     and prints no result."""

@@ -49,7 +49,8 @@ def build_parser(name: str, positionals=(),
                    help="torch device; 'cpu' runs the plain versions")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="write a torch.profiler Chrome trace of the sweep "
-                        "to DIR/trace.json")
+                        "to DIR/trace.json, with the launch path's tbt.* "
+                        "spans (core/spans.py)")
     if f64_coales:
         p.add_argument("--f64-coales", choices=["native", "ozaki"],
                        default="native",

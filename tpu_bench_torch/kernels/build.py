@@ -10,7 +10,9 @@ loaded at import: `library()` does both on the first kernel launch.
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `launched` turns a non-zero code into an exception
 and otherwise counts the launch in `launches`, keyed by kernel name (with
-`_bf16` appended for a bf16 instance).
+`_bf16` appended for a bf16 instance).  While a torch profiler records,
+`run` also puts each launch under the span `tbt.launch.<that key>`
+(core/spans.py).
 
 A launch costs the host as little as the library calls it is timed
 beside: `entry` looks each C entry up once per (name, dtype), `run` takes
@@ -23,15 +25,19 @@ CUDA runtime for occupancy and shared-memory opt-ins once per device
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
+
+from tpu_bench_torch.core import spans
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -133,29 +139,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpubench_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _timed(cmd: list[str]) -> tuple[subprocess.CompletedProcess, float]:
+    """(cmd run to its end, its output and errors in one text, its
+    seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - t0
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
 
     The compilers' output (with ptxas's register and spill counts) is kept
-    in `_build/build.log`."""
+    in `_build/build.log`, and after it a line of each source's nvcc
+    seconds (`time: <source> nvcc <s> s`) and the link's (`time: link <s>
+    s`)."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     compiles, link = nvcc_commands(tmp)
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in compiles]
-    outputs = [p.communicate()[0] for p in procs]
-    failed = [(p.returncode, out) for p, out in zip(procs, outputs)
-              if p.returncode != 0]
+    # one thread a compile, each waiting on its own nvcc process
+    with concurrent.futures.ThreadPoolExecutor(len(compiles)) as pool:
+        done = list(pool.map(_timed, compiles))
+    outputs = [proc.stdout for proc, _ in done]
+    times = [f"time: {src.name} nvcc {seconds:.3f} s\n"
+             for src, (_, seconds) in zip(sources(), done)]
+    failed = [(proc.returncode, proc.stdout) for proc, _ in done
+              if proc.returncode != 0]
     if not failed:
-        proc = subprocess.run(link, capture_output=True, text=True)
-        outputs.append(proc.stdout + proc.stderr)
+        proc, seconds = _timed(link)
+        outputs.append(proc.stdout)
+        times.append(f"time: link {seconds:.3f} s\n")
         if proc.returncode != 0:
-            failed.append((proc.returncode, proc.stdout + proc.stderr))
-    (BUILD_DIR / "build.log").write_text("".join(outputs))
+            failed.append((proc.returncode, proc.stdout))
+    (BUILD_DIR / "build.log").write_text("".join(outputs + times))
     for obj in _objects(tmp):
         obj.unlink(missing_ok=True)
     if failed:
@@ -322,10 +342,21 @@ def call(fn, x: torch.Tensor, *args) -> int:
         return fn(*args, raw_stream(index))
 
 
+def key(name: str, dtype: torch.dtype) -> str:
+    """The key `launches` counts a launch of kernel `name` in `dtype`
+    under: <name>, or <name>_bf16 for a bf16 one."""
+    return f"{name}_bf16" if dtype is torch.bfloat16 else name
+
+
 def run(name: str, x: torch.Tensor, *args) -> None:
     """Launch kernel `name` for x's dtype on x's device and stream:
     tbt_<name>_f32/_f64/_bf16(*args, stream); raise on a CUDA error, else
-    count the launch (a bf16 one as <name>_bf16)."""
+    count the launch under key(name, x.dtype).  Under the span
+    tbt.launch.<that key> while a profiler records (core/spans.py)."""
     dtype = x.dtype
-    launched(call(entry(name, dtype), x, *args),
-             f"{name}_bf16" if dtype is torch.bfloat16 else name)
+    counted = key(name, dtype)
+    if spans.profiler._is_profiler_enabled:
+        with spans.span(f"tbt.launch.{counted}"):
+            launched(call(entry(name, dtype), x, *args), counted)
+        return
+    launched(call(entry(name, dtype), x, *args), counted)

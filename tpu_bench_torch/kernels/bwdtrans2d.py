@@ -46,6 +46,7 @@ import functools
 
 import torch
 
+from tpu_bench_torch.core import spans
 from tpu_bench_torch.kernels import build
 
 # K2's C-resident configuration (csrc/bwdtrans2d.cu): its strip widths,
@@ -90,7 +91,15 @@ def kron_blocked_plain(in_blk, c_coa):
 def kron_blocked(in_blk, c_coa, *, strip=None):
     """out (nblk, nqTot, ce) = C (nqTot, nmTot) @ in (nblk, nmTot, ce).
     `strip`: None runs kron_config's configuration; 0 the dense one; one
-    of KRON_STRIPS the C-resident one at that strip width."""
+    of KRON_STRIPS the C-resident one at that strip width.  Under the span
+    tbt.kron_blocked while a profiler records (core/spans.py)."""
+    if spans.profiler._is_profiler_enabled:
+        with spans.span("tbt.kron_blocked"):
+            return _kron_blocked(in_blk, c_coa, strip)
+    return _kron_blocked(in_blk, c_coa, strip)
+
+
+def _kron_blocked(in_blk, c_coa, strip):
     _check(in_blk, c_coa)
     if strip is not None and strip != 0 and strip not in KRON_STRIPS:
         raise ValueError(f"kron_blocked: strip={strip} is not 0 or one of "
@@ -157,7 +166,11 @@ def _launch(x, c, strip):
             raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
                              f"strips of {strip} do not fit the card's "
                              f"{limit} B of shared memory")
-    out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
+    if spans.profiler._is_profiler_enabled:
+        out = spans.alloc((nblk, nq_tot, ce), x,
+                          build.key("kron_blocked", x.dtype))
+    else:
+        out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
     build.run("kron_blocked", x, c.data_ptr(), x.data_ptr(), out.data_ptr(),
               nq_tot, nm_tot, ce, nblk, -1 if strip is None else strip)
     return out

@@ -41,6 +41,7 @@ import functools
 
 import torch
 
+from tpu_bench_torch.core import spans
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import build
 
@@ -134,7 +135,15 @@ def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None):
 
 
 def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None):
-    """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq."""
+    """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq; under the
+    span tbt.qp_shared3d_flat while a profiler records (core/spans.py)."""
+    if spans.profiler._is_profiler_enabled:
+        with spans.span("tbt.qp_shared3d_flat"):
+            return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes)
+    return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes)
+
+
+def _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes):
     _check(in_pflat, b0, c12t, nrq)
     if in_pflat.is_cpu:
         return qp_shared3d_flat_plain(in_pflat, b0, c12t, nrq=nrq)
@@ -231,7 +240,11 @@ def _launch(x, b0, c12t, nrq, epb, planes):
     e = x.shape[1]
     et, g = qp_launch_config(x.element_size(), nm0, nrq, nq0, nkj, epb,
                              planes, *build.smem_limits(x.get_device()))
-    out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
+    if spans.profiler._is_profiler_enabled:
+        out = spans.alloc((nq0 * nkj, e), x,
+                          build.key("qp_fused3d", x.dtype))
+    else:
+        out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
     build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
               out.data_ptr(), nm0, nrq, nq0, nkj, e, et, g)
     return out
