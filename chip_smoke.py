@@ -57,10 +57,11 @@ five.  Every phase is fatal:
    kernels/bwdtrans2d.kron_config, em_config) against the library's own
    shared-memory sizes and rules at every b05 order 2^3 .. 10^3 and
    (3,4,5) and every b04 order of run04.sh and (10, 12), f32 and f64, then
-   K1 at every (element tile, plane group) that fits at b05 nq=8^3 and b04
-   nq=32^2, K2's QP stage 1 at every strip and dense, K3's b04 nq=8^2
-   kron_elem_major at every tile height and dense, and K2 and K3 just
-   either side of their resident thresholds, on E = 1000 and 131071, and
+   K1 at every (element tile, plane group, depth, threads) that fits at
+   b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at every strip and dense,
+   K3's b04 nq=8^2 kron_elem_major at every tile height and dense, and K2
+   and K3 just either side of their resident thresholds, on E = 1000 and
+   131071, and
    K3 dense at b05 nq=8^3 and on X off a 16-byte boundary; K4 on w and on
    out off a 16-byte boundary, on F = 3 x 1001 and on nkj = 70000 at every
    unroll, and K8 at N = 777 and 1001 and on x off a 16-byte boundary at
@@ -1562,14 +1563,14 @@ def configs(torch) -> None:
     of CONFIG_ORDERS in bf16, f32 and f64: K1's qp_config, K2's
     kron_config, K3's em_config and K5's qp1d_fits (pure Python) fit the
     card, give whole micro-tiles or warp units, and agree with the
-    library's shared-memory sizes (tbt_qp_fused3d_smem at every tile and
-    plane group, tbt_kron_resident_smem at every strip,
+    library's shared-memory sizes (tbt_qp_fused3d_smem at every tile,
+    plane group and depth, tbt_kron_resident_smem at every strip,
     tbt_em_resident_smem at every tile height, tbt_qp1d_smem at every K5
     tile) and with K2's and K3's own rules (tbt_kron_strip, tbt_em_tile)
-    for each of their products.  Then every K1 (tile, planes)
-    that fits, at b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at every
-    strip and dense, K3's b04 nq=8^2 kron_elem_major at every tile height
-    and dense, and K2's and K3's products just either side of their
+    for each of their products.  Then every K1 (tile, planes, depth,
+    threads) that fits, at b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at
+    every strip and dense, K3's b04 nq=8^2 kron_elem_major at every tile
+    height and dense, and K2's and K3's products just either side of their
     resident thresholds, on E = 1000 and 131071 (neither a multiple of an
     element tile, strip or tile height), then K3 dense at the b05 nq=8^3
     kron and QP-1D stages and on X off a 16-byte boundary, against their
@@ -1586,14 +1587,18 @@ def configs(torch) -> None:
     for size in (2, 4, 8):
         for nq in CONFIG_ORDERS:
             (nm0, nrq, nq0, nkj), products = config_operands(nq)
-            et, g = k1.qp_config(size, nm0, nrq, nq0, nkj, block, sm)
+            k1_cfg = k1.qp_config(size, nm0, nrq, nq0, nkj, block, sm)
+            et, g, depth, threads = k1_cfg
             assert et % k1.QP_TE == 0 and g in k1.QP_PLANE_GROUPS, (nq, et)
-            assert k1.qp_smem(size, et, g, nm0, nrq, nq0, nkj) <= block
+            assert (depth, threads) in k1.qp_forms(size, et), (nq, k1_cfg)
+            assert k1.qp_smem(size, et, g, nm0, nrq, nq0, nkj,
+                              depth) <= block
             for t in k1.QP_TILES[size]:
                 for p in k1.QP_PLANE_GROUPS:
-                    assert k1.qp_smem(size, t, p, nm0, nrq, nq0, nkj) == \
-                        lib.tbt_qp_fused3d_smem(size, t, p, nm0, nrq, nq0,
-                                                nkj), (nq, t, p)
+                    for d in (1, 2):
+                        assert k1.qp_smem(size, t, p, nm0, nrq, nq0, nkj,
+                                          d) == lib.tbt_qp_fused3d_smem(
+                            size, t, p, nm0, nrq, nq0, nkj, d), (nq, t, p, d)
             strips = []
             for m, k in products:
                 bn = k2.kron_config(size, m, k, block)
@@ -1623,10 +1628,11 @@ def configs(torch) -> None:
                                    k2.em_resident_smem(size, k, n, be)
                                    <= block)
                 heights.append(be)
-            chosen[(size, nq)] = ((et, g), strips, heights)
+            chosen[(size, nq)] = (tuple(k1_cfg), strips, heights)
     for (size, nq), (k1_cfg, strips, heights) in chosen.items():
         tag = "bf16" if size == 2 else f"f{8 * size}"
-        print(f"  configs {tag} nq={nq}: K1 (tile, planes) {k1_cfg};"
+        print(f"  configs {tag} nq={nq}: K1 (tile, planes, depth, threads) "
+              f"{k1_cfg};"
               f" K2 strip (0: dense) QP stage 1 {strips[0]}, kron "
               f"{strips[1]}; K3 tile (0: dense) kron {heights[0]}, QP-1D "
               f"stages {heights[1:]}")
@@ -1646,14 +1652,12 @@ def configs(torch) -> None:
                 (nm0, nrq, nq0, nkj), _ = config_operands(nq)
                 x, b0, c = rnd(nm0, nrq, e), rnd(nm0, nq0), rnd(nkj, nrq)
                 ref = k1.qp_shared3d_plain(x, b0, c)
-                for et in k1.QP_TILES[size]:
-                    for g in k1.QP_PLANE_GROUPS:
-                        if k1.qp_smem(size, et, g, nm0, nrq, nq0,
-                                      nkj) > block:
-                            continue
-                        compare(torch, f"K1 {tag} nq={nq} E={e} tile {et} "
-                                f"planes {g}", k1.qp_shared3d(
-                                    x, b0, c, epb=et, planes=g), ref, dtype)
+                for et, g, d, t in k1.qp_settings(size, nm0, nrq, nq0,
+                                                  nkj, block):
+                    compare(torch, f"K1 {tag} nq={nq} E={e} tile {et} "
+                            f"planes {g} depth {d} threads {t}",
+                            k1.qp_shared3d(x, b0, c, epb=et, planes=g,
+                                           depth=d, threads=t), ref, dtype)
             x, c = rnd(7, 49, e), rnd(64, 49)
             ref = k2.kron_blocked_plain(x, c)
             for w in (0, *k2.KRON_STRIPS):
@@ -2229,7 +2233,10 @@ def main() -> int:
     launches_streams = stream_sweeps(torch, bw)
     print("== 11. benchmark05 and benchmark04 CLIs, bf16", flush=True)
     launches_bf16 = bf16_sweeps(torch, bw)
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
 
+    print(f"K1 launches by ring depth (qp_depths): "
+          f"{dict(sorted(k1.qp_depths.items()))}")
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -175,13 +175,14 @@ K1_SHAPES = ([(f"b05 nq={n}^3", (n - 1, (n - 1) ** 2, n, n * n))
 @pytest.mark.parametrize("label,shape", K1_SHAPES)
 def test_qp_config_fits_the_card(label, shape, itemsize):
     """At every order both benchmarks sweep, in bf16, f32 and f64, qp_config
-    gives one of K1's tiles and plane groups, whose buffers fit the
-    H100's 232,448 B of a block, and the tile is a whole number of
-    4-element micro-tiles."""
-    et, g = k1.qp_config(itemsize, *shape)
+    gives one of K1's tiles, plane groups and forms, whose buffers, slab
+    slots included, fit the H100's 232,448 B of a block, and the tile is a
+    whole number of 4-element micro-tiles."""
+    et, g, depth, threads = k1.qp_config(itemsize, *shape)
     assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
+    assert (depth, threads) in k1.qp_forms(itemsize, et)
     assert et % k1.QP_TE == 0
-    assert k1.qp_smem(itemsize, et, g, *shape) <= 232448
+    assert k1.qp_smem(itemsize, et, g, *shape, depth) <= 232448
 
 
 def test_qp_smem_counts_each_buffer():
@@ -192,6 +193,11 @@ def test_qp_smem_counts_each_buffer():
     # nkj padded to the 8-row micro-tile, nq0 to the plane group
     assert k1.qp_smem(8, 16, 8, 2, 12, 3, 20) == 8 * (
         24 * 16 + 8 * 12 * 16 + 12 * 24 + 2 * 8)
+    # depth 2: a second slab, and the 16 bytes of the slots' tiles first
+    assert k1.qp_smem(8, 16, 8, 7, 49, 8, 64, 2) == 16 + 8 * (
+        2 * 343 * 16 + 8 * 49 * 16 + 49 * 64 + 7 * 8)
+    assert k1.qp_smem(4, 32, 4, 7, 49, 8, 64, 2) == \
+        k1.qp_smem(4, 32, 4, 7, 49, 8, 64) + 16 + 4 * 343 * 32
 
 
 def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
@@ -200,8 +206,8 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     that fits one, else None."""
     # (3, 4, 5) is not in the table: tile 128 fits two blocks in f32
     assert (4, 2, 12, 3, 20) not in k1.QP_MEASURED
-    et, g = k1.qp_config(4, 2, 12, 3, 20)
-    assert et == 128
+    et, g, depth, threads = k1.qp_config(4, 2, 12, 3, 20)
+    assert (et, depth, threads) == (128, 1, k1.QP_THREADS)
     assert 2 * (k1.qp_smem(4, et, g, 2, 12, 3, 20) + k1.SMEM_RESERVED) \
         <= k1.SMEM_SM
     # 31 x 31 rows with 30 outputs a plane: tile 16 fits two blocks but
@@ -209,17 +215,36 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     # the largest tile that fits one block, 32
     shape = (31, 31, 32, 30)
     assert 2 * (k1.qp_smem(4, 16, 8, *shape) + k1.SMEM_RESERVED) <= k1.SMEM_SM
-    assert k1.qp_config(4, *shape) == (32, 8)
+    assert k1.qp_config(4, *shape) == (32, 8, 1, k1.QP_THREADS)
     # a 32^3 slab (961 x 31 rows) fits no tile at all
     assert k1.qp_config(4, 31, 961, 32, 1024) is None
     assert k1.qp_config(4, 7, 49, 8, 64, block_limit=1024) is None
 
 
 def test_qp_measured_settings_fit_and_are_the_configs():
-    for (itemsize, *shape), (et, g) in k1.QP_MEASURED.items():
+    for (itemsize, *shape), setting in k1.QP_MEASURED.items():
+        et, g, depth, threads = cfg = k1.QPConfig(*setting)
         assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
-        assert k1.qp_smem(itemsize, et, g, *shape) <= 232448
-        assert k1.qp_config(itemsize, *shape) == (et, g)
+        assert (depth, threads) in k1.qp_forms(itemsize, et)
+        assert k1.qp_smem(itemsize, et, g, *shape, depth) <= 232448
+        assert k1.qp_config(itemsize, *shape) == cfg
+
+
+@pytest.mark.parametrize("itemsize,shape,depth", [
+    (4, (7, 49, 8, 64), 2), (8, (7, 49, 8, 64), 2),
+    (8, (31, 31, 32, 32), 1)])
+def test_qp_config_takes_the_ring_where_measured(itemsize, shape, depth):
+    """Depth 2 at the benchmark's b05 nq=8^3 in f32 and f64, where the
+    sweep measured the ring faster; depth 1 at b04 nq=32^2, where two
+    slabs of the chosen tile do not fit a block.  Either way the buffers,
+    slots included, fit one block's shared memory."""
+    cfg = k1.qp_config(itemsize, *shape)
+    assert cfg.depth == depth
+    assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
+                      cfg.depth) <= k1.SMEM_BLOCK
+    if depth == 1:
+        assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
+                          2) > k1.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("et,nkj,planes", [(32, 64, 4), (16, 64, 8),
@@ -234,11 +259,12 @@ def test_qp_planes_fills_stage_2(et, nkj, planes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq", [(8, 8, 8), (3, 4, 5), (32, 32), (10, 12)])
 def test_qp_fused3d_every_config_on_card(nq):
-    """K1 at every (element tile, plane group) that fits, and qp_config's,
-    on E = 1000 and 131071 elements (neither a multiple of a tile): within
-    1e-5 (f32), 1e-12 (f64) and 2^-7 (bf16, whose rounding of v and of
-    each output may fall either side of a tie on other f32 sums) of the
-    plain version, relative to the largest output."""
+    """K1 at every (element tile, plane group, depth, threads) that fits,
+    and qp_config's, on E = 1000 and 131071 elements (neither a multiple
+    of a tile): within 1e-5 (f32), 1e-12 (f64) and 2^-7 (bf16, whose
+    rounding of v and of each output may fall either side of a tie on
+    other f32 sums) of the plain version, relative to the largest
+    output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     if len(nq) == 3:
@@ -255,16 +281,18 @@ def test_qp_fused3d_every_config_on_card(nq):
                                     dtype=dtype)
                         for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
             ref = k1.qp_shared3d_plain(x, b0, c)
-            configs = [(None, None)] + [
-                (et, g) for et in k1.QP_TILES[size]
-                for g in k1.QP_PLANE_GROUPS
-                if k1.qp_smem(size, et, g, nm0, nrq, nq0, nkj) <= 232448]
-            for et, g in configs:
-                out = k1.qp_shared3d(x, b0, c, epb=et, planes=g)
+            configs = [(None, None, None, None)] + k1.qp_settings(
+                size, nm0, nrq, nq0, nkj)
+            for et, g, d, t in configs:
+                out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
+                                     threads=t)
                 torch.cuda.synchronize()
-                err = float((out.double() - ref.double()).abs().max()
-                            / ref.double().abs().max())
-                assert err <= tol, (dtype, e, et, g, err)
+                assert _rel_err(out, ref) <= tol, (dtype, e, et, g, d, t)
+
+
+def _rel_err(out, ref) -> float:
+    return float((out.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
 
 
 # ---- K4's work dealing (kernels/bwdtrans3d.qp2_grid, qp2_shares) -----------

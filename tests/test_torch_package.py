@@ -208,6 +208,69 @@ def test_kernels_match_plain_on_card(kernel):
         assert build.launches[kernel] == before + 1
 
 
+# the benchmark's cells' K1 shape, b05 nq=8^3: (nm0, nrq, nq0, nkj)
+CELL_SHAPE = (7, 49, 8, 64)
+
+
+def _rel_err(out, ref) -> float:
+    """The largest |out - ref| over the largest |ref|, in f64."""
+    return float((out.double() - ref.double()).abs().max()
+                 / ref.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12),
+                                       (torch.bfloat16, 2**-7)],
+                         ids=["f32", "f64", "bf16"])
+def test_qp_fused3d_ring_on_card(dtype, tol):
+    """K1's depth-2 form (a one-wave grid of persistent blocks on the
+    stream's tile counter) at b05 nq=8^3, at every tile, plane group and
+    block size whose two slabs fit, against the plain version: on E =
+    131071 (a ragged last tile, and thousands of tiles, so each block
+    walks many) and E = 1001 (rows of no whole 16-byte words: the scalar
+    copies and stores); then four launches back to back on one stream
+    with no synchronisation between (each takes its tiles from the
+    counter the one before set back to zero).  The cells' shape takes the
+    depth qp_config records, counted once a launch in qp_depths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    nm0, nrq, nq0, nkj = CELL_SHAPE
+    size = dtype.itemsize
+    gen = torch.Generator(device="cuda").manual_seed(15)
+
+    def operands(e):
+        return (torch.randn(*s, generator=gen, device="cuda", dtype=dtype)
+                for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
+
+    forms = [c for c in k1.qp_settings(size, *CELL_SHAPE) if c.depth == 2]
+    assert forms
+    for e in (131071, 1001):
+        x, b0, c = operands(e)
+        ref = k1.qp_shared3d_plain(x, b0, c)
+        for et, g, d, t in forms:
+            out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
+                                 threads=t)
+            torch.cuda.synchronize()
+            assert _rel_err(out, ref) <= tol, (e, et, g, d, t)
+    et, g, d, t = forms[0]
+    calls = [tuple(operands(1000)) for _ in range(4)]
+    outs = [k1.qp_shared3d(*ops, epb=et, planes=g, depth=d, threads=t)
+            for ops in calls]
+    torch.cuda.synchronize()
+    for ops, out in zip(calls, outs):
+        assert _rel_err(out, k1.qp_shared3d_plain(*ops)) <= tol
+    depth = k1.qp_config(size, *CELL_SHAPE).depth
+    before = k1.qp_depths.copy()
+    x, b0, c = operands(4096)
+    out = k1.qp_shared3d(x, b0, c)
+    torch.cuda.synchronize()
+    assert _rel_err(out, k1.qp_shared3d_plain(x, b0, c)) <= tol
+    assert k1.qp_depths - before == {depth: 1}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form,t_c,t_x", [("pair", 9, 9), ("band", 9, 9),
                                           ("band", 7, 9), ("band", 9, 7)])
@@ -425,7 +488,8 @@ def _order_products(nq):
 def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):
     """K1's launch configuration and K1's, K2's, K3's and K4's rules, each
     computed once per key, equal the rules computed afresh at every b05
-    and b04 order."""
+    and b04 order; K1's ring depth among them: the rule's where no knob is
+    given, depth 1 for a given tile unless the depth is given too."""
     from tpu_bench_torch.kernels import bwdtrans2d as k2
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -434,11 +498,21 @@ def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):
     for _ in range(2):
         assert k1.qp_config(itemsize, nm0, nrq, nq0, nkj) == rule
     if rule is not None:
+        assert (rule.depth, rule.threads) in k1.qp_forms(itemsize, rule.et)
         assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, None,
                                    None) == rule
-        tile = k1.QP_TILES[itemsize][-1]
+        assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, None, None,
+                                   depth=rule.depth) == rule
+        tile = k1.QP_RING_TILES[-1]
+        planes = k1.qp_planes(tile, nkj)
         assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, tile,
-                                   None) == (tile, k1.qp_planes(tile, nkj))
+                                   None) == (tile, planes, 1, k1.QP_THREADS)
+        threads = k1.QP_FORMS[itemsize][-1][1]
+        if k1.qp_smem(itemsize, tile, planes, nm0, nrq, nq0, nkj,
+                      2) <= k1.SMEM_BLOCK:
+            assert k1.qp_launch_config(
+                itemsize, nm0, nrq, nq0, nkj, tile, None, depth=2,
+                threads=threads) == (tile, planes, 2, threads)
     for m, k in kron:
         assert k2.kron_config(itemsize, m, k) == \
             k2.kron_config.__wrapped__(itemsize, m, k)
@@ -487,3 +561,46 @@ def test_qp_launch_config_refuses_bad_knobs():
         k1.qp_launch_config(4, 31, 961, 32, 1024, None, None)
     with pytest.raises(ValueError, match="does not fit"):
         k1.qp_launch_config(4, 7, 49, 8, 64, 128, None, 1024)
+    with pytest.raises(ValueError, match="forms"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 32, 4, depth=3)
+    with pytest.raises(ValueError, match="forms"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 32, 4, depth=1, threads=512)
+    with pytest.raises(ValueError, match="forms"):  # not built in f64
+        k1.qp_launch_config(8, 7, 49, 8, 64, 16, 8, depth=2, threads=512)
+    with pytest.raises(ValueError, match="forms"):  # no ring at tile 64
+        k1.qp_launch_config(4, 7, 49, 8, 64, 64, 4, depth=2)
+    # two f64 slabs of 16 elements at b04 nq=32^2 do not fit; one does
+    assert k1.qp_launch_config(8, 31, 31, 32, 32, 16, 8, depth=1)
+    with pytest.raises(ValueError, match="depth 2 does not fit"):
+        k1.qp_launch_config(8, 31, 31, 32, 32, 16, 8, depth=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=["f32", "f64",
+                                                         "bf16"])
+def test_qp_launch_counts_its_depth(fake_library, monkeypatch, dtype):
+    """K1's launch path into the stand-in library: each launch counted
+    once under build.key("qp_fused3d", dtype) and once in qp_depths under
+    the depth it took, which the entry receives after the tile and plane
+    group, with the block's threads."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    monkeypatch.setattr(build, "smem_limits", lambda index: (232448, 233472))
+    gen = torch.Generator().manual_seed(5)
+    x, b0, c12t = (torch.randn(*s, generator=gen).to(dtype)
+                   for s in ((7 * 49, 64), (7, 8), (64, 49)))
+    key = build.key("qp_fused3d", dtype)
+    rule = k1.qp_config(dtype.itemsize, 7, 49, 8, 64)
+    threads = k1.QP_FORMS[dtype.itemsize][-1][1]
+    for knobs, depth in (((None, None, None, None), rule.depth),
+                         ((16, None, 2, threads), 2),
+                         ((16, None, None, None), 1),
+                         ((None, None, 1, None), 1)):
+        launches, depths = build.launches[key], k1.qp_depths.copy()
+        out = k1._launch(x, b0, c12t, 49, *knobs)
+        assert build.launches[key] == launches + 1
+        assert k1.qp_depths - depths == {depth: 1}
+        name, args = fake_library.calls[-1]
+        assert name == f"tbt_qp_fused3d_{build.SUFFIXES[dtype]}"
+        assert args[3] == out.data_ptr() and args[-1] == 77
+        assert args[-3] == depth and args[-2] in (256, 512)

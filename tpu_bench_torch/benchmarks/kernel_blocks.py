@@ -12,9 +12,10 @@ the least device time of one call by CUDA events (20 calls, L2 flushed
 before each) for every setting, one line per setting, in turns (each
 setting twice, in the order a b .. b a).  The sweeps:
 
-- K1 (qp_fused3d): every (element tile, plane group) whose buffers fit,
-  at benchmark05's nq=4^3, 6^3, 8^3 and 10^3 (E=131072) and benchmark04's
-  8^2, 16^2 and 32^2 (E=1,048,576); `*` marks qp_config's choice;
+- K1 (qp_fused3d): every (element tile, plane group, depth, threads)
+  whose buffers fit, at benchmark05's nq=4^3, 6^3, 8^3 and 10^3
+  (E=131072) and benchmark04's 8^2, 16^2 and 32^2 (E=1,048,576); `*`
+  marks qp_config's choice; then K1's launches by depth (qp_depths);
 - K2 (kron_blocked): every strip width of the C-resident configuration
   that fits, and 0, the dense one, at benchmark05's Pallas(QP) stage 1
   (64 x 49, nq=8^3), benchmark04's at nq=8^2 (8 x 7) and benchmark04's
@@ -148,19 +149,20 @@ def report(tag, name, times, chosen=None) -> None:
 def k1_sweep(rnd, tag, itemsize) -> None:
     for label, nm0, nrq, nq0, nkj, e in K1_SHAPES:
         x, b0, c = rnd(nm0 * nrq, e), rnd(nm0, nq0), rnd(nkj, nrq)
-        settings = [(et, g) for et in k1.QP_TILES[itemsize]
-                    for g in k1.QP_PLANE_GROUPS
-                    if k1.qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj)
-                    <= k1.SMEM_BLOCK]
+        settings = k1.qp_settings(itemsize, nm0, nrq, nq0, nkj)
         times = in_turns(lambda v: k1.qp_shared3d_flat(
-            x, b0, c, nrq=nrq, epb=v[0], planes=v[1]), settings)
-        report(f"{tag} {label} E={e}", "K1 (element tile, planes)", times,
+            x, b0, c, nrq=nrq, epb=v[0], planes=v[1], depth=v[2],
+            threads=v[3]), settings)
+        report(f"{tag} {label} E={e}",
+               "K1 (element tile, planes, depth, threads)", times,
                k1.qp_config(itemsize, nm0, nrq, nq0, nkj))
         best = min(times, key=lambda v: min(times[v]))
         print(f"{tag} {label} K1 best {best}: {min(times[best]):.4f} ms",
               flush=True)
         del x
         torch.cuda.empty_cache()
+    print(f"{tag} K1 launches by depth: {dict(sorted(k1.qp_depths.items()))}",
+          flush=True)
 
 
 def k2_sweep(rnd, tag, itemsize) -> None:

@@ -23,10 +23,10 @@
 // ms by bytes, 0.109 by FLOP; b04 32^2: 2.49 and 1.87), but only just, so
 // the design must both read the input once and keep the FMA pipes fed; the
 // tensor cores are not needed to reach the bound.
-//   - A block of 256 threads owns a tile of ET elements and copies the
-//     tile's whole input slab (nm0*nrq rows x ET) into shared memory once,
-//     by 16-byte cp.async along e where every row starts on a 16-byte
-//     boundary (else one element a copy), zero-filling past E.  The first
+//   - A block copies a tile of ET elements' whole input slab (nm0*nrq
+//     rows x ET) into shared memory once, by 16-byte cp.async along e
+//     where every row starts on a 16-byte boundary (else one element a
+//     copy), zero-filling past E.  The first
 //     design gave each element a thread that re-read its input from L2
 //     once per output plane (4 times at 8^3, 16 at b04 32^2): 0.88 ms at
 //     8^3 and 52 ms at 32^2 in f32, 6.6x and 21x its bound.
@@ -43,11 +43,29 @@
 //     on that variant, since dropped).
 //   - Each output row segment is written once from registers, 16-byte
 //     stores along e where aligned, masked past E.
-//   - The slab copy is not overlapped with the block's own compute: the
-//     other blocks on the SM hide it.  kernels/bwdtrans3d.qp_config picks
-//     (ET, G): the fastest of benchmarks/kernel_blocks.py's sweep at the
-//     benchmarks' main orders (32 elements and 4 planes at b05 8^3 f32,
-//     two blocks an SM; 16 and 8 at b04 32^2), else the largest tile that
+//   - The slab ring.  At depth 1 a block of 256 threads owns one tile and
+//     waits for its whole slab before it computes; only the other blocks
+//     on the SM hide the copy and the stores.  At b05 8^3 in f64 (16
+//     elements, 8 planes: 119,616 B) one block fills an SM, so nothing
+//     hid them.  At depth 2 the grid is one wave (the occupancy API's
+//     blocks an SM times the SMs) of persistent blocks with two slab slots
+//     each: a block takes element tiles one after another from a counter
+//     in device memory (one atomicAdd a tile; the stream's counter of
+//     csrc/ring.cuh, which the last block to finish sets back to zero),
+//     and copies tile j+1's slab into the other slot (cp.async, a commit
+//     group a tile, wait_group 1) while it computes tile j and stores its
+//     outputs.  A slot is refilled only after the barrier that ends its
+//     tile; B0 and C12T^T are staged once a block.  Blocks of 256 or 512
+//     threads, 128 registers a thread either way, but for f64's depth-2
+//     blocks (256 threads, one an SM), which spilled at 128.  Measured at
+//     b05 8^3 with calls back to back (port_bench; NVIDIA H100 80GB HBM3,
+//     700 W): a 16-element f64 tile took an SM 13.2 us at depth 1 and 9.9
+//     us at depth 2 (its bytes alone 4.3 us, its FMAs 3.5 us); in f32 a
+//     32-element tile took 11.7 us at depth 1, two 16-element tiles 9.2 us
+//     at depth 2 (two blocks an SM).
+//   - kernels/bwdtrans3d.qp_config picks (ET, G, depth, threads): the
+//     fastest of benchmarks/kernel_blocks.py's sweep at the benchmarks'
+//     main orders (QP_MEASURED), else depth 1 with the largest tile that
 //     fits two blocks an SM, else one.  Full FP32/FP64 FMA throughout.
 //   - bf16 (benchmarks 04 and 05 with --dtype bf16): the slab, V, C12T^T
 //     and B0 are stored in bf16 and widened to f32 on load, every sum is
@@ -55,75 +73,58 @@
 //     where the JAX kernel rounds its f32 v (bwdtrans3d.py:90); each
 //     output is rounded once.  The bf16 bytes halve the bound (0.067 ms
 //     at b05 8^3 against 0.134 in f32).
-// TMA, a persistent block that copies the next slab while it computes,
-// and warp-uniform C12T loads are later work.
+// TMA and warp-uniform C12T loads are later work.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "ring.cuh"
 
 namespace {
 
-constexpr int QP_THREADS = 256;
+constexpr int QP_THREADS = 256;  // the block of the depth-1 form
 constexpr int QP_TK = 8;  // kj rows of a stage-2 micro-tile
 constexpr int QP_TE = 4;  // elements of a micro-tile (16 or 32 bytes)
+// In front of a depth-2 block's buffers: the tiles its two slots hold
+// (two long longs, so the buffers stay on 16-byte boundaries).
+constexpr int QP_SLOT_TILES_BYTES = 16;
 
 __host__ __device__ constexpr int round_up(int n, int m) {
     return (n + m - 1) / m * m;
 }
 
-// Dynamic shared memory of one block: the slab, V for G planes, C12T^T
-// (nrq x nkj padded to QP_TK) and B0 (nm0 x nq0 padded to G), each a
-// whole number of 16-byte words.
+// Dynamic shared memory of one block: `depth` slabs, V for G planes,
+// C12T^T (nrq x nkj padded to QP_TK) and B0 (nm0 x nq0 padded to G), each
+// a whole number of 16-byte words; at depth 2 the slots' tiles first.
 template <typename T>
-size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj) {
-    return sizeof(T) *
-           (static_cast<size_t>(nm0) * nrq * et +
-            static_cast<size_t>(g) * nrq * et +
-            static_cast<size_t>(nrq) * round_up(nkj, QP_TK) +
-            static_cast<size_t>(nm0) * round_up(nq0, g));
+size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
+                     int depth) {
+    return (depth > 1 ? QP_SLOT_TILES_BYTES : 0) +
+           sizeof(T) *
+               (static_cast<size_t>(depth) * nm0 * nrq * et +
+                static_cast<size_t>(g) * nrq * et +
+                static_cast<size_t>(nrq) * round_up(nkj, QP_TK) +
+                static_cast<size_t>(nm0) * round_up(nq0, g));
 }
 
-// T is the storage type, A = tbt::Acc<T> the type of the sums.
-template <typename T, int ET, int G>
-__global__ void __launch_bounds__(QP_THREADS, 2)
-    qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
-                      const T* __restrict__ c12t, T* __restrict__ out,
-                      int nm0, int nrq, int nq0, int nkj, long long n_elem) {
+// Output elements [e0, e0 + ET) from their slab s_x in shared memory, NT
+// threads: for each group of G planes, stage 1 into s_v, a barrier,
+// stage 2 and the stores, a barrier.
+template <typename T, int ET, int G, int NT>
+__device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
+                                        const T* s_b0, T* __restrict__ out,
+                                        int nm0, int nrq, int nq0, int nkj,
+                                        long long n_elem, long long e0) {
     using A = tbt::Acc<T>;
     constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
-    constexpr int V16 = 16 / sizeof(T);
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int rows = nm0 * nrq;
     const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
-    T* s_x = reinterpret_cast<T*>(smem_raw);               // (rows, ET)
-    T* s_v = s_x + static_cast<size_t>(rows) * ET;         // (G, nrq, ET)
-    T* s_ct = s_v + static_cast<size_t>(G) * nrq * ET;     // (nrq, kjp)
-    T* s_b0 = s_ct + static_cast<size_t>(nrq) * kjp;       // (nm0, nq0p)
-    const long long e0 = static_cast<long long>(blockIdx.x) * ET;
-
-    tbt::copy_tile_async<T, ET, QP_THREADS>(
-        s_x, ET, rows, in, n_elem, 0, e0, rows, n_elem,
-        n_elem % V16 == 0 && tbt::aligned16(in));
-    tbt::cp_async_commit();
-    for (int t = threadIdx.x; t < nrq * kjp; t += QP_THREADS) {
-        const int rq = t / kjp, kj = t % kjp;
-        s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : tbt::narrow<T>(0);
-    }
-    for (int t = threadIdx.x; t < nm0 * nq0p; t += QP_THREADS) {
-        const int p = t / nq0p, i = t % nq0p;
-        s_b0[t] = i < nq0 ? b0[p * nq0 + i] : tbt::narrow<T>(0);
-    }
-    tbt::cp_async_wait<0>();
-    __syncthreads();
-
     const bool vec_out =
         (n_elem * sizeof(T)) % 16 == 0 && tbt::aligned16(out);
     const int kgs = kjp / QP_TK;
     for (int i0 = 0; i0 < nq0; i0 += G) {
         // stage 1: V[g][rq][e] = sum_p B0[p, i0+g] * slab[p*nrq + rq][e],
         // stored as T (the bf16 rounding of v)
-        for (int q = threadIdx.x; q < nrq * TX; q += QP_THREADS) {
+        for (int q = threadIdx.x; q < nrq * TX; q += NT) {
             const int rq = q / TX, e = (q % TX) * QP_TE;
             A acc[G][QP_TE];
 #pragma unroll
@@ -148,7 +149,7 @@ __global__ void __launch_bounds__(QP_THREADS, 2)
         }
         __syncthreads();
         // stage 2: out[i0+g][kj][e] = sum_rq C12T[kj][rq] * V[g][rq][e]
-        for (int q = threadIdx.x; q < G * kgs * TX; q += QP_THREADS) {
+        for (int q = threadIdx.x; q < G * kgs * TX; q += NT) {
             const int e = (q % TX) * QP_TE;
             const int kg = (q / TX) % kgs, g = q / (TX * kgs);
             if (i0 + g >= nq0) continue;
@@ -193,62 +194,202 @@ __global__ void __launch_bounds__(QP_THREADS, 2)
     }
 }
 
-template <typename T, int ET, int G>
-int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
-                int nrq, int nq0, int nkj, long long n_elem,
-                cudaStream_t stream) {
-    const size_t smem = qp_smem_bytes<T>(ET, G, nm0, nrq, nq0, nkj);
-    static tbt::DeviceCache<> optin;  // the opt-in, once per device
-    auto kernel = qp_fused3d_kernel<T, ET, G>;
-    const cudaError_t err = tbt::optin_smem(optin, kernel);
-    if (err != cudaSuccess) return err;
-    const long long blocks = (n_elem + ET - 1) / ET;
-    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-    kernel<<<static_cast<unsigned>(blocks), QP_THREADS, smem, stream>>>(
-        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem);
-    return cudaGetLastError();
+// The blocks an SM that K1's registers must leave room for: two of 256
+// threads, one of 512; one in f64 at depth 2 (two f64 slabs fill an SM at
+// b05 8^3), whose loop spilled at 128 registers a thread.
+template <typename T, int D, int NT>
+constexpr int qp_min_blocks() {
+    return sizeof(T) == 8 && D > 1 ? 1 : 2 * QP_THREADS / NT;
 }
 
-template <typename T, int G>
-int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
-                  int nrq, int nq0, int nkj, long long n_elem, int et,
-                  cudaStream_t stream) {
-    switch (et) {
-        case 8:
-            return launch_tile<T, 8, G>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                        n_elem, stream);
-        case 16:
-            return launch_tile<T, 16, G>(in, b0, c12t, out, nm0, nrq, nq0,
-                                         nkj, n_elem, stream);
-        case 32:
-            return launch_tile<T, 32, G>(in, b0, c12t, out, nm0, nrq, nq0,
-                                         nkj, n_elem, stream);
-        case 64:
-            return launch_tile<T, 64, G>(in, b0, c12t, out, nm0, nrq, nq0,
-                                         nkj, n_elem, stream);
-        case 128:
-            return launch_tile<T, 128, G>(in, b0, c12t, out, nm0, nrq, nq0,
-                                          nkj, n_elem, stream);
-        default:
-            return cudaErrorInvalidValue;
+// T is the storage type, tbt::Acc<T> the type of the sums.  D = 1: block
+// b owns element tile b.  D = 2: a persistent block of a one-wave grid
+// takes tiles from counter[0] (the stream's: {next tile, blocks done},
+// zero between launches) and copies tile j+1's slab into the other slot
+// while it computes tile j.
+template <typename T, int ET, int G, int D, int NT>
+__global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
+    qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
+                      const T* __restrict__ c12t, T* __restrict__ out,
+                      int nm0, int nrq, int nq0, int nkj, long long n_elem,
+                      unsigned long long* __restrict__ counter) {
+    constexpr int V16 = 16 / sizeof(T);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int rows = nm0 * nrq;
+    const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
+    long long* s_tile = reinterpret_cast<long long*>(smem_raw);  // D = 2
+    T* s_x = reinterpret_cast<T*>(smem_raw +
+                                  (D > 1 ? QP_SLOT_TILES_BYTES : 0));
+    const size_t slab = static_cast<size_t>(rows) * ET;
+    T* s_v = s_x + D * slab;                               // (G, nrq, ET)
+    T* s_ct = s_v + static_cast<size_t>(G) * nrq * ET;     // (nrq, kjp)
+    T* s_b0 = s_ct + static_cast<size_t>(nrq) * kjp;       // (nm0, nq0p)
+    // tile t's slab (rows x ET from element t*ET, zero past E) into slot s
+    auto copy = [&](int s, long long t) {
+        tbt::copy_tile_async<T, ET, NT>(
+            s_x + s * slab, ET, rows, in, n_elem, 0, t * ET, rows, n_elem,
+            n_elem % V16 == 0 && tbt::aligned16(in));
+    };
+    auto stage_operators = [&] {
+        for (int t = threadIdx.x; t < nrq * kjp; t += NT) {
+            const int rq = t / kjp, kj = t % kjp;
+            s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : tbt::narrow<T>(0);
+        }
+        for (int t = threadIdx.x; t < nm0 * nq0p; t += NT) {
+            const int p = t / nq0p, i = t % nq0p;
+            s_b0[t] = i < nq0 ? b0[p * nq0 + i] : tbt::narrow<T>(0);
+        }
+    };
+
+    if constexpr (D == 1) {
+        copy(0, blockIdx.x);
+        tbt::cp_async_commit();
+        stage_operators();
+        tbt::cp_async_wait<0>();
+        __syncthreads();
+        qp_tile<T, ET, G, NT>(s_x, s_v, s_ct, s_b0, out, nm0, nrq, nq0, nkj,
+                              n_elem, static_cast<long long>(blockIdx.x) * ET);
+    } else {
+        if (threadIdx.x == 0) {
+            s_tile[0] = static_cast<long long>(atomicAdd(&counter[0], 1ULL));
+            s_tile[1] = static_cast<long long>(atomicAdd(&counter[0], 1ULL));
+        }
+        stage_operators();
+        __syncthreads();
+        long long cur = s_tile[0];
+        if (cur * ET < n_elem) copy(0, cur);
+        tbt::cp_async_commit();
+        // s: the slot of cur, the tile in hand; s_tile[s ^ 1], the tile of
+        // the other slot, is written during the tile before cur and read
+        // at cur's start and end
+        for (int s = 0; cur * ET < n_elem; s ^= 1) {
+            const long long next = s_tile[s ^ 1];
+            if (next * ET < n_elem) copy(s ^ 1, next);  // every thread has
+            tbt::cp_async_commit();                     // left that slot
+            tbt::cp_async_wait<1>();  // this thread's copies of cur
+            __syncthreads();          // everyone's
+            // the tile after next, for slot s, read after cur's barriers
+            if (threadIdx.x == 0)
+                s_tile[s] =
+                    static_cast<long long>(atomicAdd(&counter[0], 1ULL));
+            qp_tile<T, ET, G, NT>(s_x + s * slab, s_v, s_ct, s_b0, out, nm0,
+                                  nrq, nq0, nkj, n_elem, cur * ET);
+            cur = s_tile[s ^ 1];  // next, read again, not held in a register
+        }
+        if (threadIdx.x == 0) {
+            // every block has taken its last tile once all are done: the
+            // last one sets the counter back to zero for the next launch
+            __threadfence();
+            if (atomicAdd(&counter[1], 1ULL) == gridDim.x - 1) {
+                counter[0] = 0;
+                counter[1] = 0;
+            }
+        }
     }
 }
 
-// The element tiles et and plane groups g it is built for (qp_config in
-// kernels/bwdtrans3d.py picks them for each shape and dtype).
+// One launch of the instance (ET, G, D, NT): at depth 1 a block a tile;
+// at depth 2 one wave (the occupancy API's blocks an SM times the SMs,
+// once per device and size), no more than the tiles, on the stream's
+// counter.
+template <typename T, int ET, int G, int D, int NT>
+int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
+                int nrq, int nq0, int nkj, long long n_elem,
+                cudaStream_t stream) {
+    const size_t smem = qp_smem_bytes<T>(ET, G, nm0, nrq, nq0, nkj, D);
+    static tbt::DeviceCache<> optin, waves;  // once per device (and size)
+    auto kernel = qp_fused3d_kernel<T, ET, G, D, NT>;
+    cudaError_t err = tbt::optin_smem(optin, kernel);
+    if (err != cudaSuccess) return err;
+    long long blocks = (n_elem + ET - 1) / ET;
+    unsigned long long* counter = nullptr;
+    if constexpr (D > 1) {
+        err = tbt::ring::stream_counter(stream, &counter);
+        if (err != cudaSuccess) return err;
+        const long long wave = tbt::wave_blocks(waves, kernel, NT, smem);
+        if (wave < 0) return static_cast<int>(-wave);
+        if (wave == 0) return cudaErrorInvalidConfiguration;
+        if (wave < blocks) blocks = wave;
+    }
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    kernel<<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
+        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, counter);
+    return cudaGetLastError();
+}
+
+// The element tiles of T at depth 1 (kernels/bwdtrans3d.QP_TILES) and
+// at depth 2 (QP_RING_TILES).
+template <typename T, int G, int D, int NT>
+int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
+                int nrq, int nq0, int nkj, long long n_elem, int et,
+                cudaStream_t stream) {
+    constexpr bool f64 = sizeof(T) == 8;
+    switch (et) {
+        case 16:
+            return launch_tile<T, 16, G, D, NT>(in, b0, c12t, out, nm0, nrq,
+                                                nq0, nkj, n_elem, stream);
+        case 32:
+            return launch_tile<T, 32, G, D, NT>(in, b0, c12t, out, nm0, nrq,
+                                                nq0, nkj, n_elem, stream);
+    }
+    if constexpr (D == 1) {
+        switch (et) {
+            case 64:
+                return launch_tile<T, 64, G, D, NT>(in, b0, c12t, out, nm0,
+                                                    nrq, nq0, nkj, n_elem,
+                                                    stream);
+            case 8:
+                if constexpr (f64)
+                    return launch_tile<T, 8, G, D, NT>(
+                        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
+                        stream);
+                break;
+            case 128:
+                if constexpr (!f64)
+                    return launch_tile<T, 128, G, D, NT>(
+                        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
+                        stream);
+                break;
+        }
+    }
+    return cudaErrorInvalidValue;
+}
+
+// The (ring depth, threads) forms: kernels/bwdtrans3d.QP_FORMS (no f64
+// block of 512 threads).
+template <typename T, int G>
+int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
+                  int nrq, int nq0, int nkj, long long n_elem, int et,
+                  int depth, int threads, cudaStream_t stream) {
+    if (depth == 1 && threads == QP_THREADS)
+        return launch_form<T, G, 1, QP_THREADS>(in, b0, c12t, out, nm0, nrq,
+                                                nq0, nkj, n_elem, et, stream);
+    if (depth == 2 && threads == QP_THREADS)
+        return launch_form<T, G, 2, QP_THREADS>(in, b0, c12t, out, nm0, nrq,
+                                                nq0, nkj, n_elem, et, stream);
+    if constexpr (sizeof(T) != 8)
+        if (depth == 2 && threads == 2 * QP_THREADS)
+            return launch_form<T, G, 2, 2 * QP_THREADS>(
+                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream);
+    return cudaErrorInvalidValue;
+}
+
+// The element tiles et, plane groups g, ring depths and block threads it
+// is built for (qp_config in kernels/bwdtrans3d.py picks them for each
+// shape and dtype).
 template <typename T>
 int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
-           int nq0, int nkj, long long n_elem, int et, int g,
-           cudaStream_t stream) {
+           int nq0, int nkj, long long n_elem, int et, int g, int depth,
+           int threads, cudaStream_t stream) {
     if (n_elem <= 0) return cudaSuccess;
     if (nm0 <= 0 || nrq <= 0 || nq0 <= 0 || nkj <= 0)
         return cudaErrorInvalidValue;
     if (g == 4)
         return launch_planes<T, 4>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                   n_elem, et, stream);
+                                   n_elem, et, depth, threads, stream);
     if (g == 8)
         return launch_planes<T, 8>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                   n_elem, et, stream);
+                                   n_elem, et, depth, threads, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -590,48 +731,53 @@ extern "C" int tbt_qp_stage2_wave(int itemsize, int vector, int nm0, int nq0,
 extern "C" int tbt_qp_fused3d_f32(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,
                                   int nrq, int nq0, int nkj, long long n_elem,
-                                  int et, int g, void* stream) {
+                                  int et, int g, int depth, int threads,
+                                  void* stream) {
     return launch(static_cast<const float*>(in), static_cast<const float*>(b0),
                   static_cast<const float*>(c12t), static_cast<float*>(out),
-                  nm0, nrq, nq0, nkj, n_elem, et, g,
+                  nm0, nrq, nq0, nkj, n_elem, et, g, depth, threads,
                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_qp_fused3d_f64(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,
                                   int nrq, int nq0, int nkj, long long n_elem,
-                                  int et, int g, void* stream) {
+                                  int et, int g, int depth, int threads,
+                                  void* stream) {
     return launch(static_cast<const double*>(in),
                   static_cast<const double*>(b0),
                   static_cast<const double*>(c12t), static_cast<double*>(out),
-                  nm0, nrq, nq0, nkj, n_elem, et, g,
+                  nm0, nrq, nq0, nkj, n_elem, et, g, depth, threads,
                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_qp_fused3d_bf16(const void* in, const void* b0,
                                    const void* c12t, void* out, int nm0,
                                    int nrq, int nq0, int nkj, long long n_elem,
-                                   int et, int g, void* stream) {
+                                   int et, int g, int depth, int threads,
+                                   void* stream) {
     return launch(static_cast<const tbt::bf16*>(in),
                   static_cast<const tbt::bf16*>(b0),
                   static_cast<const tbt::bf16*>(c12t),
                   static_cast<tbt::bf16*>(out), nm0, nrq, nq0, nkj, n_elem,
-                  et, g, static_cast<cudaStream_t>(stream));
+                  et, g, depth, threads, static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of one K1 block of element tile et and g planes a pass.
+// Shared memory of one K1 block of element tile et, g planes a pass and
+// `depth` slab slots.
 extern "C" long long tbt_qp_fused3d_smem(int itemsize, int et, int g,
-                                         int nm0, int nrq, int nq0, int nkj) {
+                                         int nm0, int nrq, int nq0, int nkj,
+                                         int depth) {
     switch (itemsize) {
         case 2:
-            return static_cast<long long>(
-                qp_smem_bytes<tbt::bf16>(et, g, nm0, nrq, nq0, nkj));
+            return static_cast<long long>(qp_smem_bytes<tbt::bf16>(
+                et, g, nm0, nrq, nq0, nkj, depth));
         case 4:
             return static_cast<long long>(
-                qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj));
+                qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj, depth));
         default:
             return static_cast<long long>(
-                qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj));
+                qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj, depth));
     }
 }
 

@@ -37,7 +37,9 @@ back when it cannot run.
 
 from __future__ import annotations
 
+import collections
 import functools
+import typing
 
 import torch
 
@@ -47,37 +49,64 @@ from tpu_bench_torch.kernels import build
 
 # K1 (csrc/bwdtrans3d.cu): its element tiles (the elements a block owns
 # and stages in shared memory) by element size, largest first; its plane
-# groups (output planes of one pass); its block, stage-2 micro-tile (kj
-# rows x elements) and the H100's shared memory: the most one block may
-# opt in to, an SM's total, and what the card reserves of it for each
-# block.  qp_config picks a tile and a group for each shape; the rule rests
-# on benchmarks/kernel_blocks.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
-# section 6).
+# groups (output planes of one pass); its forms by element size, (slab
+# slots, threads a block): depth 1, a block a tile, and depth 2, a
+# persistent block that copies the next tile's slab while it computes one
+# (in f64 of 256 threads only: at 512, 128 registers a thread spilled),
+# built for the tiles QP_RING_TILES (two slabs of more elements fit only
+# the smallest orders, where the sweep found depth 1 as fast); its
+# depth-1 block, stage-2 micro-tile (kj rows x elements) and the H100's
+# shared memory: the most one block may opt in to, an SM's total, and
+# what the card reserves of it for each block.  qp_config picks a
+# configuration for each shape; the rule rests on benchmarks/
+# kernel_blocks.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
 QP_TILES = {2: (128, 64, 32, 16), 4: (128, 64, 32, 16), 8: (64, 32, 16, 8)}
 QP_PLANE_GROUPS = (4, 8)
+QP_FORMS = {2: ((1, 256), (2, 256), (2, 512)),
+            4: ((1, 256), (2, 256), (2, 512)), 8: ((1, 256), (2, 256))}
+QP_RING_TILES = (32, 16)
 QP_THREADS = 256
 QP_TK, QP_TE = 8, 4
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
 SMEM_RESERVED = 1024
+# In front of a depth-2 block's buffers: the tiles its two slots hold
+QP_SLOT_TILES_BYTES = 16
 # The element tile: None takes qp_config's choice.
 EPB = None
-# K1's (element tile, plane group) at the shapes benchmarks/kernel_blocks.py
-# sweeps, by (itemsize, nm0, nrq, nq0, nkj): its fastest setting in one
-# run (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).  The rule of
-# qp_config gave the same at 4^3, 8^3 and 10^3 in f32 and 10^3, 8^2 and
-# 32^2 in f64, and elsewhere a setting 1.5-32% slower (f64 b04 16^2:
-# 2.0687 ms against 1.5636).
+
+
+class QPConfig(typing.NamedTuple):
+    """K1's configuration of a launch."""
+    et: int          # element tile
+    planes: int      # plane group
+    depth: int = 1   # slab slots of a block (1: a block a tile)
+    threads: int = QP_THREADS
+
+
+# K1's configuration at the shapes benchmarks/kernel_blocks.py sweeps, by
+# (itemsize, nm0, nrq, nq0, nkj): its fastest (element tile, plane group)
+# in one run, and (depth, threads) where the ring ran faster in two (NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6).  Depth 2 took 3-22% off
+# the best depth-1 time at b05 6^3-10^3 in f32, 8^3 in f64 and 10^3 in
+# bf16; elsewhere depth 1 was as fast or faster.  Before the ring, the
+# depth-1 rule of qp_config gave the sweep's tile and group at 4^3, 8^3
+# and 10^3 in f32 and 10^3, 8^2 and 32^2 in f64, and elsewhere a setting
+# 1.5-32% slower (f64 b04 16^2: 2.0687 ms against 1.5636).
 QP_MEASURED = {
-    (4, 3, 9, 4, 16): (128, 4), (4, 5, 25, 6, 36): (32, 8),
-    (4, 7, 49, 8, 64): (32, 4), (4, 9, 81, 10, 100): (16, 4),
+    (4, 3, 9, 4, 16): (128, 4), (4, 5, 25, 6, 36): (32, 8, 2, 256),
+    (4, 7, 49, 8, 64): (16, 8, 2, 256), (4, 9, 81, 10, 100): (16, 8, 2, 512),
     (4, 7, 7, 8, 8): (128, 4), (4, 15, 15, 16, 16): (64, 4),
     (4, 31, 31, 32, 32): (16, 8),
     (8, 3, 9, 4, 16): (64, 4), (8, 5, 25, 6, 36): (32, 8),
-    (8, 7, 49, 8, 64): (16, 8), (8, 9, 81, 10, 100): (16, 4),
+    (8, 7, 49, 8, 64): (16, 8, 2, 256), (8, 9, 81, 10, 100): (16, 4),
     (8, 7, 7, 8, 8): (64, 8), (8, 15, 15, 16, 16): (32, 8),
     (8, 31, 31, 32, 32): (16, 8),
+    (2, 9, 81, 10, 100): (16, 8, 2, 256),
 }
+# K1's launches by the depth they took (a launch of the depth-2 form counts
+# under 2), since the count was last reset: how often the slab ring runs.
+qp_depths: collections.Counter = collections.Counter()
 # K4 (csrc/bwdtrans3d.cu): threads a block; the 16-byte vectors a thread
 # takes a step (its U), and the default, from benchmarks/kernel_blocks.py
 # --only k4 (PERF.md section 6); the largest nm0 kept whole in registers
@@ -120,36 +149,40 @@ def qp_shared3d_flat_plain(in_pflat, b0, c12t, *, nrq):
     return out.reshape(-1, e)
 
 
-def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None):
+def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None, depth=None,
+                threads=None):
     """out (nq0, nkj, E) from in (nm0, nrq, E), b0 (nm0, nq0),
     c12t (nkj, nrq).  `epb`: K1's element tile, one of QP_TILES for the
-    dtype, and `planes`, one of QP_PLANE_GROUPS; None takes qp_config's
-    choice."""
+    dtype, `planes`, one of QP_PLANE_GROUPS, and `depth` and `threads`, a
+    form of qp_forms; None takes qp_config's choice."""
     if in_pcoa3.dim() != 3:
         raise ValueError(f"in_pcoa3 must be (nm0, nrq, E), got "
                          f"{tuple(in_pcoa3.shape)}")
     nm0, nrq, e = in_pcoa3.shape
     out = qp_shared3d_flat(in_pcoa3.reshape(nm0 * nrq, e), b0, c12t, nrq=nrq,
-                           epb=epb, planes=planes)
+                           epb=epb, planes=planes, depth=depth,
+                           threads=threads)
     return out.reshape(-1, c12t.shape[0], e)
 
 
-def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None):
+def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None,
+                     depth=None, threads=None):
     """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq; under the
     span tbt.qp_shared3d_flat while a profiler records (core/spans.py)."""
+    knobs = (epb, planes, depth, threads)
     if spans.profiler._is_profiler_enabled:
         with spans.span("tbt.qp_shared3d_flat"):
-            return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes)
-    return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes)
+            return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, *knobs)
+    return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, *knobs)
 
 
-def _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes):
+def _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes, depth, threads):
     _check(in_pflat, b0, c12t, nrq)
     if in_pflat.is_cpu:
         return qp_shared3d_flat_plain(in_pflat, b0, c12t, nrq=nrq)
     if not in_pflat.is_cuda:
         raise ValueError(f"qp_shared3d: no kernel for device {in_pflat.device}")
-    return _launch(in_pflat, b0, c12t, nrq, epb, planes)
+    return _launch(in_pflat, b0, c12t, nrq, epb, planes, depth, threads)
 
 
 def _check(x, b0, c12t, nrq):
@@ -168,13 +201,29 @@ def _round_up(n, m):
     return -(-n // m) * m
 
 
-def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj) -> int:
+def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1) -> int:
     """Shared memory of one K1 block (csrc/bwdtrans3d.cu qp_smem_bytes):
-    the element tile's input slab, V for g planes, C12T^T with nkj padded
-    to QP_TK, and B0 with nq0 padded to g."""
-    return itemsize * (nm0 * nrq * et + g * nrq * et
-                       + nrq * _round_up(nkj, QP_TK)
-                       + nm0 * _round_up(nq0, g))
+    `depth` input slabs of the element tile, V for g planes, C12T^T with
+    nkj padded to QP_TK, and B0 with nq0 padded to g; at depth 2 the
+    slots' tiles too."""
+    return (QP_SLOT_TILES_BYTES if depth > 1 else 0) + itemsize * (
+        depth * nm0 * nrq * et + g * nrq * et
+        + nrq * _round_up(nkj, QP_TK) + nm0 * _round_up(nq0, g))
+
+
+def qp_forms(itemsize, et) -> tuple:
+    """K1's (depth, threads) forms at element tile et: depth 2 at
+    QP_RING_TILES only."""
+    forms = QP_FORMS[itemsize]
+    return forms if et in QP_RING_TILES else forms[:1]
+
+
+def qp_settings(itemsize, nm0, nrq, nq0, nkj, limit=SMEM_BLOCK) -> list:
+    """Every QPConfig K1 is built for whose buffers fit `limit` bytes at
+    a shape (benchmarks/kernel_blocks.py sweeps them)."""
+    return [QPConfig(et, g, d, t) for et in QP_TILES[itemsize]
+            for g in QP_PLANE_GROUPS for d, t in qp_forms(itemsize, et)
+            if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d) <= limit]
 
 
 def qp_planes(et, nkj) -> int:
@@ -187,35 +236,40 @@ def qp_planes(et, nkj) -> int:
 @functools.cache
 def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
               sm_limit=SMEM_SM):
-    """K1's (element tile, plane group) for a shape: QP_MEASURED's where
-    the sweep measured the shape; else the largest tile of
-    QP_TILES[itemsize], with qp_planes' group, whose buffers fit two blocks
-    an SM of `sm_limit` bytes (each block also costs SMEM_RESERVED) while
-    stage 1 keeps at least half the block busy (nrq * et / QP_TE
-    positions), else the largest that fits one block's `block_limit`; None
-    if none fits."""
+    """K1's QPConfig for a shape: QP_MEASURED's where the sweep measured
+    the shape and it fits one block's `block_limit` bytes; else depth 1
+    with the largest tile of QP_TILES[itemsize], with qp_planes' group,
+    whose buffers fit two blocks an SM of `sm_limit` bytes (each block
+    also costs SMEM_RESERVED) while stage 1 keeps at least half the block
+    busy (nrq * et / QP_TE positions), else the largest that fits one
+    block; None if none fits.  Depth 2 is taken only where the sweep
+    measured it faster."""
     measured = QP_MEASURED.get((itemsize, nm0, nrq, nq0, nkj))
-    if measured and qp_smem(itemsize, *measured, nm0, nrq, nq0,
-                            nkj) <= block_limit:
-        return measured
+    if measured:
+        cfg = QPConfig(*measured)
+        if qp_smem(itemsize, cfg.et, cfg.planes, nm0, nrq, nq0, nkj,
+                   cfg.depth) <= block_limit:
+            return cfg
     sizes = {}
     for et in QP_TILES[itemsize]:
         g = qp_planes(et, nkj)
-        sizes[(et, g)] = qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj)
+        sizes[QPConfig(et, g)] = qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj)
     fits = [c for c, b in sizes.items() if b <= block_limit]
-    two = [(et, g) for et, g in fits
-           if 2 * (sizes[(et, g)] + SMEM_RESERVED) <= sm_limit
-           and nrq * et // QP_TE >= QP_THREADS // 2]
+    two = [c for c in fits
+           if 2 * (sizes[c] + SMEM_RESERVED) <= sm_limit
+           and nrq * c.et // QP_TE >= QP_THREADS // 2]
     return (two or fits or [None])[0]
 
 
 @functools.cache
 def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
-                     block=SMEM_BLOCK, sm=SMEM_SM) -> tuple:
-    """K1's (element tile, plane group) for a launch: `epb` and `planes`
-    where given (qp_planes' group for a given tile), else qp_config's,
-    under the card's `block` and `sm` bytes of shared memory; raises if
-    the knobs are not the kernel's or the tile does not fit."""
+                     block=SMEM_BLOCK, sm=SMEM_SM, depth=None,
+                     threads=None) -> QPConfig:
+    """K1's QPConfig for a launch: the knobs `epb`, `planes`, `depth` and
+    `threads` where given, else qp_config's choice under the card's
+    `block` and `sm` bytes of shared memory; with a given tile, qp_planes'
+    group and depth 1 unless given too.  Raises if the knobs are not the
+    kernel's or the buffers do not fit."""
     tiles = QP_TILES[itemsize]
     if epb is not None and epb not in tiles:
         raise ValueError(f"qp_shared3d: epb={epb} is not one of the "
@@ -224,29 +278,43 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
     if planes is not None and planes not in QP_PLANE_GROUPS:
         raise ValueError(f"qp_shared3d: planes={planes} is not one of "
                          f"{QP_PLANE_GROUPS}")
-    et, g = qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm) or (None, None)
-    et = epb or et
-    g = planes or (qp_planes(et, nkj) if epb else g)
-    if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj) > block:
+    if epb is None:
+        et, g, d, t = (qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm)
+                       or (None, None, 1, QP_THREADS))
+    else:
+        et, g, d, t = epb, qp_planes(epb, nkj), 1, QP_THREADS
+    g = planes or g
+    depth = depth or d
+    threads = threads or (t if depth == d else QP_THREADS)
+    if et is not None and (depth, threads) not in qp_forms(itemsize, et):
+        raise ValueError(f"qp_shared3d: depth={depth}, threads={threads} "
+                         "is not one of the kernel's forms "
+                         f"{qp_forms(itemsize, et)} at element tile {et}, "
+                         f"itemsize {itemsize}")
+    if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj,
+                             depth) > block:
         raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
-                         f" of nm0*nrq = {nm0 * nrq} input rows does not fit "
-                         f"the card's {block} B of shared memory")
-    return et, g
+                         f" of nm0*nrq = {nm0 * nrq} input rows and depth "
+                         f"{depth} does not fit the card's {block} B of "
+                         "shared memory")
+    return QPConfig(et, g, depth, threads)
 
 
-def _launch(x, b0, c12t, nrq, epb, planes):
+def _launch(x, b0, c12t, nrq, epb, planes, depth=None, threads=None):
     nm0, nq0 = b0.shape
     nkj = c12t.shape[0]
     e = x.shape[1]
-    et, g = qp_launch_config(x.element_size(), nm0, nrq, nq0, nkj, epb,
-                             planes, *build.smem_limits(x.get_device()))
+    cfg = qp_launch_config(x.element_size(), nm0, nrq, nq0, nkj, epb,
+                           planes, *build.smem_limits(x.get_device()), depth,
+                           threads)
     if spans.profiler._is_profiler_enabled:
         out = spans.alloc((nq0 * nkj, e), x,
                           build.key("qp_fused3d", x.dtype))
     else:
         out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
     build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
-              out.data_ptr(), nm0, nrq, nq0, nkj, e, et, g)
+              out.data_ptr(), nm0, nrq, nq0, nkj, e, *cfg)
+    qp_depths[cfg.depth] += 1
     return out
 
 
