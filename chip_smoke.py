@@ -24,7 +24,8 @@ five.  Every phase is fatal:
    instance), K8, K9 and the cp.async.bulk rings of K12 and K7 (f32 and
    f64; K1-K5 in bf16 too), and
    `cuobjdump -sass` must show HMMA in K14 and in the f32 and bf16
-   entries of K5 and of K2's and K3's dense GEMM, DMMA in their f64
+   entries of K5 and of K2's and K3's dense GEMM, DMMA in K5's f64 entry,
+   sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
    entries, and the bulk copy (UBLKCP) in the rings;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
@@ -343,6 +344,8 @@ OZAKI_RTOL = 5e-14
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores (NVIDIA's data sheet)
 TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores
 FP64_TC_FLOP_PER_S = 67e12  # FP64 on the tensor cores (DMMA)
+# sm_90's f64 mma.sync.m16n8k8 and the A100's m8n8k4 in cuobjdump's SASS
+DMMA_SM90, DMMA_SM80 = "DMMA.16x8x8", "DMMA.8x8x4"
 # The tensor-core kernels: name: a pattern (re.search) of their instances'
 # mangled names, and the mma instruction each must hold in the SASS.  K2
 # and K3 share one dense GEMM, told apart by its tile-order argument
@@ -360,10 +363,13 @@ TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
 TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
           ("K5 qp1d f64 (DMMA)", "DMMA"),
           ("K2 kron dense f32 (3xTF32)", "HMMA"),
-          ("K2 kron dense f64 (DMMA)", "DMMA"),
+          ("K2 kron dense f64 (DMMA)", DMMA_SM90),
           ("K3 em dense f32 (3xTF32)", "HMMA"),
-          ("K3 em dense f64 (DMMA)", "DMMA"), ("K5 qp1d bf16", "HMMA"),
+          ("K3 em dense f64 (DMMA)", DMMA_SM90), ("K5 qp1d bf16", "HMMA"),
           ("K2 kron dense bf16", "HMMA"), ("K3 em dense bf16", "HMMA")]
+# The f64 dense entries issue sm_90's m16n8k8 only, never the A100's
+# m8n8k4, which the H100 runs at half the rate (scripts/dmma_probe.cu)
+DMMA_F64_DENSE = ("K2 kron dense f64 (DMMA)", "K3 em dense f64 (DMMA)")
 # The cp.async.bulk rings (csrc/ring.cuh) of K12 (copy, scale, triad) and
 # K7's 16-byte form (add), whose SASS must hold the bulk copy (UBLKCP).
 RING_KERNELS = {"K12 ring f32": "ring_kernelIfN.*(Copy|Scale|Triad)",
@@ -405,11 +411,11 @@ SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
 # form's previous designs (the first SIMT designs) by (use, order or
 # shape, dtype), CUDA events, L2
 # flushed, from this script (PERF.md section 6; NVIDIA H100 80GB HBM3,
-# 700.00 W); K1's and K2's in f64 at b05 nq=8^3, the host clock of their
-# columns there (PERF.md section 5: K1 20.4077 GDOF/s, K2 9.3621; 131072 *
-# 343 DOF over each); K3's in f64, and K4's f64 and K8's at the shapes
-# other than 16384^2, from benchmarks/kernel_blocks.py --uses on the
-# previous tree.
+# 700.00 W); K1's in f64 at b05 nq=8^3, the host clock of its column there
+# (PERF.md section 5: 20.4077 GDOF/s; 131072 * 343 DOF over it); K2's and
+# K3's in f64, the dense body on the A100's m8n8k4 DMMA, from this script
+# (PERF.md section 6); K4's f64 and K8's at the shapes other than 16384^2,
+# from benchmarks/kernel_blocks.py --uses on the previous tree.
 K4_3D, K4_2D = "K4 qp_stage2_3d (QP stage 2)", "K4 qp_stage2 (QP stage 2)"
 PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            ("K1 qp_shared3d", (8, 8, 8), "float32"): 0.8836,
@@ -425,7 +431,7 @@ PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            ("kron_coalesced", "b05 nq=8^3", "float32"): 1.7319,
            ("kron_coalesced", "b04 nq=8^2", "float32"): 0.8350,
            ("K1 qp_shared3d_flat", (8, 8, 8), "float64"): 2.2030,
-           ("K2 kron_blocked (Coales)", (8, 8, 8), "float64"): 4.8021,
+           ("K2 kron_blocked (Coales)", (8, 8, 8), "float64"): 1.9314,
            (K3_KRON, (8, 8, 8), "float32"): 1.6906,
            (K3_STAGES[0], (8, 8, 8), "float32"): 1.5500,
            (K3_STAGES[1], (8, 8, 8), "float32"): 1.7053,
@@ -433,10 +439,10 @@ PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
            (K3_KRON, (8, 8), "float32"): 0.5388,
            (K3_STAGES[0], (8, 8), "float32"): 0.5803,
            (K3_STAGES[1], (8, 8), "float32"): 0.5520,
-           (K3_KRON, (8, 8, 8), "float64"): 4.6604,
-           (K3_STAGES[0], (8, 8, 8), "float64"): 4.4437,
-           (K3_STAGES[1], (8, 8, 8), "float64"): 5.0594,
-           (K3_STAGES[2], (8, 8, 8), "float64"): 5.9294,
+           (K3_KRON, (8, 8, 8), "float64"): 1.9574,
+           (K3_STAGES[0], (8, 8, 8), "float64"): 1.7194,
+           (K3_STAGES[1], (8, 8, 8), "float64"): 1.7911,
+           (K3_STAGES[2], (8, 8, 8), "float64"): 2.2577,
            ("K9 matvec_cm", "float32"): 0.4519,
            ("K9 matvec_cm", "float64"): 0.7676,
            (K4_3D, (8, 8, 8), "float32"): 0.3996,
@@ -566,17 +572,20 @@ def build_kernels() -> None:
         print(f"  SASS: {n} {op} in {kernel}")
     for kernel, op in TC_MMA + RING_BULK:
         assert counts.get((kernel, op), 0) > 0, (kernel, op, counts)
+    for kernel in DMMA_F64_DENSE:
+        assert counts.get((kernel, DMMA_SM80), 0) == 0, (kernel, counts)
 
 
 def sass_counts(library) -> dict:
     """{(kernel, op): instructions over its instances} in `cuobjdump
     -sass` of the built library: HMMA and DMMA in the tensor-core kernels
-    (TC_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
-    (SYNCS) in the rings (RING_KERNELS)."""
+    (TC_KERNELS), each DMMA also under its shape (DMMA_SM90, DMMA_SM80),
+    and the bulk copies (UBLKCP) and mbarrier operations (SYNCS) in the
+    rings (RING_KERNELS)."""
     from tpu_bench_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    groups = [(TC_KERNELS, ("HMMA", "DMMA")),
+    groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80)),
               (RING_KERNELS, ("UBLKCP", "SYNCS"))]
     counts, kernel, ops = {}, None, ()
     for line in _run([tool, "-sass", str(library)]).splitlines():
@@ -587,7 +596,7 @@ def sass_counts(library) -> dict:
                                 if re.search(tag, name)), (None, ()))
         elif kernel:
             for op in ops:
-                if re.search(rf"\b{op}\.", line):
+                if re.search(rf"\b{re.escape(op)}[.\s]", line):
                     counts[(kernel, op)] = counts.get((kernel, op), 0) + 1
     return counts
 
@@ -1600,6 +1609,9 @@ def configs(torch) -> None:
                                           d) == lib.tbt_qp_fused3d_smem(
                             size, t, p, nm0, nrq, nq0, nkj, d), (nq, t, p, d)
             strips = []
+            if size == 8:
+                assert k2.dense_smem(k2.DENSE_F64) == \
+                    lib.tbt_dense_f64_smem() <= block
             for m, k in products:
                 bn = k2.kron_config(size, m, k, block)
                 assert bn == lib.tbt_kron_strip(size, m, k, block), (m, k)
@@ -2237,6 +2249,13 @@ def main() -> int:
 
     print(f"K1 launches by ring depth (qp_depths): "
           f"{dict(sorted(k1.qp_depths.items()))}")
+    from tpu_bench_torch.kernels import bwdtrans2d as k2
+
+    print(f"K2 and K3 dense launches by (dtype, mma) (dense_mma): "
+          f"{dict(sorted(k2.dense_mma.items()))}")
+    f64_shapes = {shape for (dtype, shape) in k2.dense_mma
+                  if dtype == "float64"}
+    assert f64_shapes == {k2.DENSE_MMA[torch.float64]}, k2.dense_mma
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

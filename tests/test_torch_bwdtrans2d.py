@@ -335,6 +335,45 @@ def test_kron_config_rule():
     assert k2.kron_config(4, 16, 100) == 128
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16], ids=["f32", "f64",
+                                                         "bf16"])
+@pytest.mark.parametrize("kernel", ["kron_blocked", "em_gemm"])
+def test_dense_mma_counts_each_dense_launch(monkeypatch, kernel, dtype):
+    """dense_mma counts one launch a call of the dense configuration, by
+    the rule or asked for, under (dtype, its mma shape), and none of the
+    resident one, on launches into a stand-in for the library."""
+    calls = []
+    monkeypatch.setattr(build, "run", lambda *args: calls.append(args))
+    monkeypatch.setattr(build, "smem_limits",
+                        lambda index: (232448, 233472))
+    key = (str(dtype)[6:], k2.DENSE_MMA[dtype])
+    assert key[1] == {torch.float32: "m16n8k8", torch.float64: "m16n8k8",
+                      torch.bfloat16: "m16n8k16"}[dtype]
+    if kernel == "kron_blocked":
+        dense = (torch.zeros(1, 343, 40, dtype=dtype),
+                 torch.zeros(512, 343, dtype=dtype))
+        resident = (torch.zeros(7, 49, 40, dtype=dtype),
+                    torch.zeros(64, 49, dtype=dtype))
+
+        def launch(ops, knob):
+            return k2._launch(ops[0], ops[1], knob)
+    else:
+        dense = (torch.zeros(40, 343, dtype=dtype),
+                 torch.zeros(343, 512, dtype=dtype))
+        resident = (torch.zeros(40, 49, dtype=dtype),
+                    torch.zeros(49, 64, dtype=dtype))
+
+        def launch(ops, knob):
+            return k2._em_launch("one_stage_em", ops[0], ops[1], knob)
+    for ops, knob, counted in ((dense, None, 1), (dense, 0, 1),
+                               (resident, None, 0), (resident, 0, 1)):
+        before = k2.dense_mma.copy()
+        launch(ops, knob)
+        assert k2.dense_mma - before == ({key: 1} if counted else {})
+    assert len(calls) == 4 and calls[0][0] == kernel
+
+
 def test_kron_blocked_rejects_unknown_strip():
     c = torch.from_numpy(_kron_operator(4, np.float32))
     x = torch.zeros(NBLK, c.shape[1], CE)
@@ -350,9 +389,10 @@ def test_kron_blocked_both_configs_on_card(itemsize):
     """K2 in both configurations against its plain version on E = 1000 and
     131071 columns (neither a multiple of a strip or a tile): Pallas(QP)
     stage 1 at b05 nq=8^3 at every strip and dense, the b05 nq=8^3 kron
-    (dense), and C (M x 128) just either side of the C-resident
-    threshold; 1e-5 (f32), 1e-12 (f64), 2^-7 (bf16), relative to the
-    largest output."""
+    (dense), C (M x 128) just either side of the C-resident threshold,
+    and the dense tile's edges, C of 512 and 500 rows by K = 343 and 344;
+    1e-5 (f32), 1e-12 (f64), 2^-7 (bf16), relative to the largest
+    output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
@@ -373,6 +413,11 @@ def test_kron_blocked_both_configs_on_card(itemsize):
         cases += [(rnd(1, 343, e), rnd(512, 343), None)]
         cases += [(rnd(2, 128, e), rnd(m, 128), None)
                   for m in (threshold, threshold + 4)]
+        # the dense tile's edges: M 512 and 500 (not a multiple of 128), K
+        # 343 (8-byte copies) and 344, chunks of E columns (not a multiple
+        # of 64)
+        cases += [(rnd(2, k, e), rnd(m, k), None)
+                  for m in (512, 500) for k in (343, 344)]
         for x, c, w in cases:
             out = k2.kron_blocked(x, c, strip=w)
             ref = k2.kron_blocked_plain(x, c)
@@ -420,6 +465,37 @@ def test_em_config_fits_the_card(label, shape, itemsize):
         assert be in fits and be % k2.EM_UNIT[0] == 0
 
 
+def _dense_f64_products():
+    """K2's and K3's products that run the dense configuration in f64, at
+    every order K2_PRODUCTS and _em_products hold."""
+    k2_dense = [(f"K2 {label}", shape) for label, shape in K2_PRODUCTS
+                if not k2.kron_config(8, *shape)]
+    k3_dense = [(f"K3 {label}", shape) for label, shape in _em_products()
+                if not k2.em_config(8, *shape)]
+    return k2_dense + k3_dense
+
+
+@pytest.mark.parametrize("label,shape", _dense_f64_products())
+def test_dense_f64_tile_fits_the_card(label, shape):
+    """The f64 dense tile (DENSE_F64), the one tile of every product that
+    runs dense in f64: its ring of padded A and B tiles, 66,048 B, fits the
+    232,448 B a block may opt in to, twice over in an SM's 233,472 (1 KB a
+    block reserved), and it is whole m16n8k8 tiles: rows of 16, columns of
+    pairs of 8 (a 16-byte load of B feeds two), depth of 8."""
+    t = k2.DENSE_F64
+    assert t.mma == (16, 8, 8)
+    assert k2.DENSE_MMA[torch.float64] == "m{}n{}k{}".format(*t.mma)
+    smem = k2.dense_smem(t)
+    assert smem == 8 * 2 * (128 * 24 + 16 * 66) == 66048
+    assert smem <= 232448 and t.blocks * (smem + 1024) <= 233472
+    assert t.bm % t.mma[0] == 0 and t.bn % (2 * t.mma[1]) == 0
+    assert t.bk % t.mma[2] == 0
+    # the rows' pads keep 16-byte rows and conflict-free fragment loads: A
+    # rows 8 mod 16 bank pairs apart, B rows 2 mod 16
+    assert (t.bk + t.a_pad) % 16 == 8 and (t.bn + t.b_pad) % 16 == 2
+    assert shape[0] > 0 and shape[1] > 0, label
+
+
 def test_em_config_rule():
     """The narrowest tile height whose 32 x 64 warp units fill the 8 warps
     (256 rows for N <= 64, 32 from N = 193), narrowed until S and a ring
@@ -459,8 +535,9 @@ def test_em_gemm_both_configs_on_card(itemsize):
     (49 x 64) at every tile height and dense, and its QP-1D stages; the b05
     nq=8^3 kron and QP-1D stages (dense; K = 343 rows are not whole
     16-byte words); S (128 x N) just either side of the resident
-    threshold; X off a 16-byte boundary; 1e-5 (f32), 1e-12 (f64), 2^-7
-    (bf16), relative to the largest output."""
+    threshold; X off a 16-byte boundary; the dense tile's edges, S of K =
+    343 and 344 by N = 512 and 500; 1e-5 (f32), 1e-12 (f64), 2^-7 (bf16),
+    relative to the largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
@@ -485,6 +562,10 @@ def test_em_gemm_both_configs_on_card(itemsize):
                   for n in (threshold, threshold + 64)]
         cases += [(rnd(e * 49 + 1)[1:].view(e, 49), rnd(49, 64), h)
                   for h in (None, 0)]
+        # the dense tile's edges: N 512 and 500 (not a multiple of 64), K
+        # 343 (8-byte copies) and 344, E rows (not a multiple of 128)
+        cases += [(rnd(e, k), rnd(k, n), None)
+                  for n in (512, 500) for k in (343, 344)]
         for x, s, h in cases:
             out = k2.one_stage_em(x, s, tile=h)
             ref = k2.kron_elem_major_plain(x, s)

@@ -58,22 +58,29 @@
 //     whole depth that bias breaks the 1e-5 held against the FP32 plain
 //     version (tests/test_torch_tensorcore.py).  Never plain TF32: the f32
 //     columns are held to 5e-4 of each other;
-//   - f64: mma.sync.m8n8k4 on f64 (DMMA), IEEE FP64 FMA;
+//   - f64: sm_90's mma.sync.m16n8k8 on f64 (DMMA), IEEE FP64 FMA, 1024
+//     FMAs an instruction: the H100 runs it at 66.7 TFLOP/s and the
+//     A100's m8n8k4 at 33.6 (scripts/dmma_probe.cu).  Each lane's k slots
+//     take neighbouring k, so its fragments come in 16-byte loads;
 //   - f32: 128 x 128 output tiles, 8 warps of 64 x 32, one block an SM;
 //     f64: 128 x 64 tiles, 4 warps of 64 x 32, two blocks an SM.  The C
 //     tile (128 x BK) and the in tile (BK x the tile's width) go through a
-//     ring of RING slots filled by cp.async; rows padded so the fragment
-//     loads hit distinct banks;
+//     ring of RING slots (three; two in f64) filled by cp.async; rows
+//     padded so the fragment loads hit distinct banks.  f64's copies keep
+//     one column a thread and step its rows by a stride (copy_tile_f64):
+//     the general copy's index arithmetic and the addresses it held
+//     across the k loop spilled the f64 body and took as long as its mma;
 //   - tile order on a 1D grid, M tiles fastest (MFast): the blocks that
 //     share an in[b] tile run together and find it in L2, as C does.
 //   The body is one templated GEMM, dense_gemm_kernel, which K3's dense
 //   configuration launches too, with its own tile order (NFast below).
-//   It stays short of cuBLAS at b05 nq=8^3 (PERF.md section 6): the
-//   operand splits and fragment loads of mma.sync cost about as many
+//   In f32 it stays short of cuBLAS at b05 nq=8^3 (PERF.md section 6):
+//   the operand splits and fragment loads of mma.sync cost about as many
 //   instructions as the mma, and C's 343-wide rows are not whole 16-byte
-//   words, so its tiles come in 4-byte copies.  wgmma with TMA, which
-//   reads both operands from shared memory without the register
-//   fragments, and persistent scheduling are later work.
+//   words, so its tiles come in 4-byte copies (8-byte in f64).  wgmma
+//   with TMA, which reads both operands from shared memory without the
+//   register fragments, and persistent scheduling are later work; wgmma
+//   has no f64 form.
 // M, N, K and E edges are masked in both: zero-filled copies, masked
 // stores.
 //
@@ -262,13 +269,57 @@ __global__ void __launch_bounds__(KB_THREADS)
     }
 }
 
+// ROWS x COLS doubles of a row-major global matrix (row stride ld_g) from
+// (r0, c0) into shared memory of row stride ld_s by cp.async of V values,
+// zero past n_rows and n_cols, as tbt::copy_tile_async copies them; but a
+// thread keeps one column and every STEP-th row, so its source is one
+// pointer advanced by a fixed stride a copy and its row test one compare
+// (tbt::copy_tile_async's per-copy index arithmetic and addresses held
+// across the k loop cost the f64 body the registers it spilled).
+template <int ROWS, int COLS, int NTH, int V>
+__device__ __forceinline__ void copy_rows_f64(
+    double* dst, int ld_s, const double* __restrict__ src, long long ld_g,
+    long long r0, long long c0, long long n_rows, long long n_cols) {
+    constexpr int PER_ROW = COLS / V, STEP = NTH / PER_ROW;
+    static_assert(NTH % PER_ROW == 0 && ROWS % STEP == 0, "whole passes");
+    const int r = threadIdx.x / PER_ROW, c = threadIdx.x % PER_ROW * V;
+    const long long rows_left = n_rows - r0 - r;
+    const bool col = c0 + c < n_cols;
+    const double* s = src + (r0 + r) * ld_g + c0 + c;
+#pragma unroll
+    for (int j = 0; j < ROWS / STEP; ++j) {
+        const bool ok = col && j * STEP < rows_left;
+        tbt::cp_async<8 * V>(dst + (r + j * STEP) * ld_s + c, ok ? s : src,
+                             ok);
+        s += STEP * ld_g;
+    }
+}
+
+// vec: 16-byte copies (rows of whole 16-byte words, c0 and COLS even);
+// else one value a copy.
+template <int ROWS, int COLS, int NTH>
+__device__ __forceinline__ void copy_tile_f64(
+    double* dst, int ld_s, const double* __restrict__ src, long long ld_g,
+    long long r0, long long c0, long long n_rows, long long n_cols,
+    bool vec) {
+    if (vec)
+        copy_rows_f64<ROWS, COLS, NTH, 2>(dst, ld_s, src, ld_g, r0, c0,
+                                          n_rows, n_cols);
+    else
+        copy_rows_f64<ROWS, COLS, NTH, 1>(dst, ld_s, src, ld_g, r0, c0,
+                                          n_rows, n_cols);
+}
+
 // (b) Dense on the tensor cores: WM x WN warps, each WMT x WNT mma tiles
 // of MMA_M x 8, so a block tile of (WM*WMT*MMA_M) x (WN*WNT*8); BK deep a
 // ring slot.  A_PAD and B_PAD make the row strides 4 mod 32 (A) and 8 mod
-// 32 (B) banks in f32, 4 mod 16 two-bank pairs in f64, so the fragment
-// loads are conflict-free; in bf16 they make the rows 80 (A) and 272 (B)
-// bytes apart, so the 8 rows of an ldmatrix hit 8 distinct 16-byte bank
-// groups.
+// 32 (B) banks in f32, so the fragment loads are conflict-free; in bf16
+// they make the rows 80 (A) and 272 (B) bytes apart, so the 8 rows of an
+// ldmatrix hit 8 distinct 16-byte bank groups.  f64 loads its fragments
+// in 16 bytes, a quarter-warp's 8 loads one pass over the 16 bank pairs:
+// A rows 8 mod 16 pairs apart (lanes t = 0..3 read pairs 2t of rows g =
+// 0, 1) and B rows 2 mod 16 (lanes read pairs 2g of rows 2t + i), both
+// conflict-free.
 template <typename T>
 struct Dense;
 template <>
@@ -277,17 +328,23 @@ struct Dense<float> {
 };
 template <>
 struct Dense<double> {
-    static constexpr int BK = 16, MMA_M = 8, A_PAD = 4, B_PAD = 4;
+    static constexpr int BK = 16, MMA_M = 16, A_PAD = 8, B_PAD = 2;
 };
 template <>
 struct Dense<tbt::bf16> {
     static constexpr int BK = 32, MMA_M = 16, A_PAD = 8, B_PAD = 8;
 };
 
+// The dense GEMM's ring of operand tiles: KB_RING, but two in f64, whose
+// copies have one step's mma to land in (1-2% faster than three at K2's
+// and K3's b05 nq=8^3 products, benchmarks/kernel_blocks.py).
+template <typename T>
+constexpr int dense_ring = sizeof(T) == 8 ? 2 : KB_RING;
+
 template <typename T, int BM, int BN>
 constexpr size_t kron_dense_smem() {
     using D = Dense<T>;
-    return sizeof(T) * KB_RING *
+    return sizeof(T) * dense_ring<T> *
            (static_cast<size_t>(BM) * (D::BK + D::A_PAD) +
             static_cast<size_t>(D::BK) * (BN + D::B_PAD));
 }
@@ -327,6 +384,7 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
     constexpr int LDA = BK + D::A_PAD, LDB = KD_BN + D::B_PAD;
     constexpr int SLOT = KD_BM * LDA + BK * LDB;
     constexpr int FRAG = MMA_M * 8 / 32;  // accumulators of a lane
+    constexpr int RING = dense_ring<T>;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* smem = reinterpret_cast<T*>(smem_raw);
 
@@ -367,7 +425,7 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
     };
     auto put_a = [&](int i) {
         unsigned short* a_s =
-            reinterpret_cast<unsigned short*>(smem + (i % KB_RING) * SLOT);
+            reinterpret_cast<unsigned short*>(smem + (i % RING) * SLOT);
 #pragma unroll
         for (int j = 0; j < A_PER; ++j) {
             const int q = threadIdx.x + j * NTH;
@@ -375,16 +433,24 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
         }
     };
     auto load = [&](int i) {
-        T* a_s = smem + (i % KB_RING) * SLOT;
-        if (!reg_a)
-            tbt::copy_tile_async<T, BK, NTH>(a_s, LDA, KD_BM, c, k_depth, m0,
-                                             i * BK, m_rows, k_depth, vec_a);
-        tbt::copy_tile_async<T, KD_BN, NTH>(a_s + KD_BM * LDA, LDB, BK, b,
-                                            n_cols, i * BK, n0, k_depth,
-                                            n_cols, vec_b);
+        T* a_s = smem + (i % RING) * SLOT;
+        if constexpr (sizeof(T) == 8) {
+            copy_tile_f64<KD_BM, BK, NTH>(a_s, LDA, c, k_depth, m0, i * BK,
+                                          m_rows, k_depth, vec_a);
+            copy_tile_f64<BK, KD_BN, NTH>(a_s + KD_BM * LDA, LDB, b, n_cols,
+                                          i * BK, n0, k_depth, n_cols, vec_b);
+        } else {
+            if (!reg_a)
+                tbt::copy_tile_async<T, BK, NTH>(a_s, LDA, KD_BM, c, k_depth,
+                                                 m0, i * BK, m_rows, k_depth,
+                                                 vec_a);
+            tbt::copy_tile_async<T, KD_BN, NTH>(a_s + KD_BM * LDA, LDB, BK, b,
+                                                n_cols, i * BK, n0, k_depth,
+                                                n_cols, vec_b);
+        }
     };
 #pragma unroll
-    for (int i = 0; i < KB_RING - 1; ++i) {
+    for (int i = 0; i < RING - 1; ++i) {
         if (i < ksteps) {
             load(i);
             if (reg_a) {
@@ -405,16 +471,16 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
             for (int q = 0; q < FRAG; ++q) acc[mt][nt][q] = A(0);
 
     for (int i = 0; i < ksteps; ++i) {
-        tbt::cp_async_wait<KB_RING - 2>();
+        tbt::cp_async_wait<RING - 2>();
         __syncthreads();
-        const bool more = i + KB_RING - 1 < ksteps;
+        const bool more = i + RING - 1 < ksteps;
         if (more) {
-            load(i + KB_RING - 1);
-            if (reg_a) fetch_a(i + KB_RING - 1);
+            load(i + RING - 1);
+            if (reg_a) fetch_a(i + RING - 1);
         }
         tbt::cp_async_commit();
-        const T* a_s = smem + (i % KB_RING) * SLOT + row0 * LDA;
-        const T* b_s = smem + (i % KB_RING) * SLOT + KD_BM * LDA + col0;
+        const T* a_s = smem + (i % RING) * SLOT + row0 * LDA;
+        const T* b_s = smem + (i % RING) * SLOT + KD_BM * LDA + col0;
         if constexpr (sizeof(T) == 2) {
             // one m16n8k16 pass a 16-deep step: exact bf16 products, f32
             // sums (A rows from ldmatrix, B columns from its transpose)
@@ -484,50 +550,98 @@ __global__ void __launch_bounds__(32 * WM * WN, MINB)
                     for (int q = 0; q < 4; ++q)
                         acc[mt][nt][q] += part[mt][nt][q];
         } else {
+            // sm_90's m16n8k8: lane 4g + t's k slots t and t + 4 take k 2t
+            // and 2t + 1 of the 8 (the same sum, its terms in another
+            // order), so a row's two values are one 16-byte load; n slot g
+            // of tiles 2p and 2p + 1 takes columns 16p + 2g and + 1, so a
+            // k's two values of B are one 16-byte load too
+            static_assert(KD_NT % 2 == 0, "B loads pair the n tiles");
 #pragma unroll
-            for (int kk = 0; kk < BK; kk += 4) {
-                double a[MT];
+            for (int kk = 0; kk < BK; kk += 8) {
+                double bf[KD_NT][2];
 #pragma unroll
-                for (int mt = 0; mt < MT; ++mt)
-                    a[mt] = a_s[(mt * 8 + g) * LDA + kk + t];
+                for (int np = 0; np < KD_NT / 2; ++np)
 #pragma unroll
-                for (int nt = 0; nt < KD_NT; ++nt) {
-                    const double bv = b_s[(kk + t) * LDB + nt * 8 + g];
+                    for (int r = 0; r < 2; ++r) {
+                        const double2 v = *reinterpret_cast<const double2*>(
+                            b_s + (kk + 2 * t + r) * LDB + np * 16 + 2 * g);
+                        bf[2 * np][r] = v.x;
+                        bf[2 * np + 1][r] = v.y;
+                    }
 #pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-                        tbt::mma_f64(acc[mt][nt], a[mt], bv);
+                for (int mt = 0; mt < MT; ++mt) {
+                    const double* a = a_s + (mt * 16 + g) * LDA + kk + 2 * t;
+                    const double2 lo = *reinterpret_cast<const double2*>(a);
+                    const double2 hi =
+                        *reinterpret_cast<const double2*>(a + 8 * LDA);
+                    const double af[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+                    for (int nt = 0; nt < KD_NT; ++nt)
+                        tbt::mma_f64_16x8x8(acc[mt][nt], af, bf[nt]);
                 }
             }
         }
-        if (reg_a && more) put_a(i + KB_RING - 1);
+        if (reg_a && more) put_a(i + RING - 1);
     }
 
-    // fragment value q sits at row g + 8*(q/2), column 2t + q%2 of its tile
     const bool pairs = n_cols % 2 == 0 && tbt::aligned16(out);
+    if constexpr (sizeof(T) == 8) {
+        // tiles 2p + q hold columns 16p + 4t + 2r + q of row g + 8h in
+        // acc[mt][2p + q][2h + r]: four neighbouring columns a lane
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < KD_NT; ++nt)
+            for (int np = 0; np < KD_NT / 2; ++np)
 #pragma unroll
-            for (int h = 0; h < FRAG / 2; ++h) {
-                const int m = m0 + row0 + mt * MMA_M + g + 8 * h;
-                const int n = n0 + col0 + nt * 8 + 2 * t;
-                if (m >= m_rows || n >= n_cols) continue;
-                T* dst = y + static_cast<long long>(m) * n_cols + n;
-                const A v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-                if (pairs) {
-                    if constexpr (sizeof(T) == 2)
-                        *reinterpret_cast<unsigned*>(dst) =
-                            tbt::pack_bf16(v0, v1);
-                    else if constexpr (sizeof(T) == 4)
-                        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-                    else
-                        *reinterpret_cast<double2*>(dst) = make_double2(v0, v1);
-                } else {
-                    dst[0] = tbt::narrow<T>(v0);
-                    if (n + 1 < n_cols) dst[1] = tbt::narrow<T>(v1);
+                for (int h = 0; h < 2; ++h) {
+                    const int m = m0 + row0 + mt * 16 + g + 8 * h;
+                    const int n = n0 + col0 + np * 16 + 4 * t;
+                    if (m >= m_rows) continue;
+                    T* dst = y + static_cast<long long>(m) * n_cols + n;
+                    const double v[4] = {acc[mt][2 * np][2 * h],
+                                         acc[mt][2 * np + 1][2 * h],
+                                         acc[mt][2 * np][2 * h + 1],
+                                         acc[mt][2 * np + 1][2 * h + 1]};
+#pragma unroll
+                    for (int c = 0; c < 4; c += 2) {
+                        if (n + c >= n_cols) break;
+                        if (pairs) {
+                            *reinterpret_cast<double2*>(dst + c) =
+                                make_double2(v[c], v[c + 1]);
+                        } else {
+                            dst[c] = v[c];
+                            if (n + c + 1 < n_cols) dst[c + 1] = v[c + 1];
+                        }
+                    }
                 }
-            }
+    } else {
+        // fragment value q sits at row g + 8*(q/2), column 2t + q%2 of its
+        // tile
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < KD_NT; ++nt)
+#pragma unroll
+                for (int h = 0; h < FRAG / 2; ++h) {
+                    const int m = m0 + row0 + mt * MMA_M + g + 8 * h;
+                    const int n = n0 + col0 + nt * 8 + 2 * t;
+                    if (m >= m_rows || n >= n_cols) continue;
+                    T* dst = y + static_cast<long long>(m) * n_cols + n;
+                    const A v0 = acc[mt][nt][2 * h],
+                            v1 = acc[mt][nt][2 * h + 1];
+                    if (pairs) {
+                        if constexpr (sizeof(T) == 2)
+                            *reinterpret_cast<unsigned*>(dst) =
+                                tbt::pack_bf16(v0, v1);
+                        else
+                            *reinterpret_cast<float2*>(dst) =
+                                make_float2(v0, v1);
+                    } else {
+                        dst[0] = tbt::narrow<T>(v0);
+                        if (n + 1 < n_cols) dst[1] = tbt::narrow<T>(v1);
+                    }
+                }
+    }
 }
 
 // The shared-memory opt-in and the occupancy at each size are asked of the
@@ -571,12 +685,20 @@ int launch_dense(const T* c, const T* in, T* out, int m_rows, int k_depth,
     return cudaGetLastError();
 }
 
+// f64's dense tile: WM x WN warps of WMT x WNT m16n8k8 tiles, MINB blocks
+// an SM (launch_dense_tiles; kernels/bwdtrans2d.py DENSE_F64 mirrors it).
+struct DenseF64 {
+    static constexpr int WM = 2, WN = 2, WMT = 4, WNT = 4, MINB = 2;
+};
+
 // The dense GEMM's tile shapes.  f32: 128 x 128 tiles of 8 warps of 64 x
 // 32, one block an SM (237 registers); f64: 128 x 64 tiles of 4 warps of
-// 64 x 32, two blocks an SM (234).  The fastest of the tile shapes tried on the
-// H100; 128 x 64 tiles of 8 warps of 32 x 32 spilled under the 128
-// registers of two blocks an SM in both types.  bf16: f32's tiles, one
-// block an SM (under the 128 registers of two it spilled 96 bytes).
+// 64 x 32, two blocks an SM (m16n8k8, BK 16, a ring of two).  The fastest
+// of the tile shapes tried on the H100, in f64 at K2's and K3's five b05
+// nq=8^3 products alike (benchmarks/kernel_blocks.py; PERF.md section 6):
+// 128 x 128 or 256 x 64 tiles of 8 warps, one block an SM, were 10-25%
+// slower; 32 x 32 warp tiles and m16n8k16 spilled.  bf16: f32's tiles,
+// one block an SM (under the 128 registers of two it spilled 96 bytes).
 template <typename T, typename Order>
 int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
                        int k_depth, int n_cols, int n_chunks,
@@ -588,7 +710,8 @@ int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
         return launch_dense<T, 2, 4, 4, 4, 1, Order>(
             c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
     else
-        return launch_dense<T, 2, 2, 8, 4, 2, Order>(
+        return launch_dense<T, DenseF64::WM, DenseF64::WN, DenseF64::WMT,
+                            DenseF64::WNT, DenseF64::MINB, Order>(
             c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
 }
 
@@ -888,6 +1011,14 @@ extern "C" int tbt_kron_blocked_bf16(const void* c, const void* in,
         static_cast<const tbt::bf16*>(c), static_cast<const tbt::bf16*>(in),
         static_cast<tbt::bf16*>(out), m_rows, k_depth, n_cols, n_chunks,
         strip, static_cast<cudaStream_t>(stream));
+}
+
+// The f64 dense configuration's shared memory of a block (both orders).
+extern "C" long long tbt_dense_f64_smem() {
+    using F = DenseF64;
+    return static_cast<long long>(
+        kron_dense_smem<double, F::WM * F::WMT * Dense<double>::MMA_M,
+                        F::WN * F::WNT * 8>());
 }
 
 // K3's rule: the tile height of the S-resident configuration for an S of

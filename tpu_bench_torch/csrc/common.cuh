@@ -518,6 +518,20 @@ __device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
         : "d"(a), "d"(b));
 }
 
+// d (16x8 f64) += a (16x8 f64, row) @ b (8x8 f64, col): sm_90's DMMA
+// shape, 1024 IEEE FP64 FMAs an instruction, at twice m8n8k4's rate per
+// FMA on the H100 (scripts/dmma_probe.cu: 66.7 against 33.6 TFLOP/s).
+// Lane 4g + t holds a[i] at (g + 8 (i % 2), t + 4 (i / 2)), b[i] at
+// (t + 4i, g) and d[i] at (g + 8 (i / 2), 2t + i % 2).
+__device__ __forceinline__ void mma_f64_16x8x8(double (&d)[4],
+                                               const double (&a)[4],
+                                               const double (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
 // ---- Bulk copies and mbarriers (sm_90) ----
 
 // An mbarrier in shared memory expecting `count` arrivals a phase.

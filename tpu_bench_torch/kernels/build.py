@@ -208,6 +208,9 @@ def library() -> ctypes.CDLL:
     lib.tbt_kron_resident_smem.restype = _L
     lib.tbt_kron_strip.argtypes = [_I, _I, _I, _L]
     lib.tbt_kron_strip.restype = ctypes.c_int
+    # K2's and K3's dense configuration in f64: a block's shared memory
+    lib.tbt_dense_f64_smem.argtypes = []
+    lib.tbt_dense_f64_smem.restype = _L
     # K3's shared memory and configuration rule; K9's blocks in one wave
     lib.tbt_em_resident_smem.argtypes = [_I, _I, _I, _I]
     lib.tbt_em_resident_smem.restype = _L

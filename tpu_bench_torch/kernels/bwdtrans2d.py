@@ -42,7 +42,9 @@ it cannot run.
 
 from __future__ import annotations
 
+import collections
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -68,6 +70,49 @@ EM_RING = 2
 EM_UNIT = (32, 64)
 EM_WARPS = 8
 EM_EPB = 128  # the element block the JAX kernels take (`epb`)
+
+
+class DenseTile(NamedTuple):
+    """A block tile of the dense configuration: bm x bn outputs, bk deep a
+    ring slot, `ring` slots, A's and B's rows padded by a_pad and b_pad
+    values, `blocks` blocks an SM, on mma tiles of mma (M, N, K)."""
+    bm: int
+    bn: int
+    bk: int
+    ring: int
+    a_pad: int
+    b_pad: int
+    blocks: int
+    mma: tuple
+
+
+# K2's and K3's dense configuration in f64 (csrc/bwdtrans2d.cu Dense<double>,
+# DenseF64, dense_ring): 4 warps of 64 x 32 outputs on sm_90's m16n8k8
+# DMMA, two blocks an SM.  (Chosen on an NVIDIA H100 80GB HBM3, 700.00 W,
+# over tiles of 64-256 rows, warp tiles of 32 x 32 to 64 x 32, m16n8k8 and
+# m16n8k16, depths 16 and 32 and rings of 2-4, at K2's and K3's five b05
+# nq=8^3 products; PERF.md section 6.)
+DENSE_F64 = DenseTile(bm=128, bn=64, bk=16, ring=2, a_pad=8, b_pad=2,
+                      blocks=2, mma=(16, 8, 8))
+# The mma shape the dense configuration issues, by dtype (f32 as three TF32
+# passes, f64 on the DMMA shape of DENSE_F64)
+DENSE_MMA = {torch.float32: "m16n8k8", torch.float64: "m16n8k8",
+             torch.bfloat16: "m16n8k16"}
+# K2's and K3's launches of the dense configuration by (dtype, mma shape),
+# since the count was last reset: which instruction the dense products run.
+dense_mma: collections.Counter = collections.Counter()
+
+
+def dense_smem(tile: DenseTile, itemsize: int = 8) -> int:
+    """Shared memory of one block of the dense configuration
+    (csrc/bwdtrans2d.cu kron_dense_smem): a ring of A (bm x bk) and B
+    (bk x bn) tiles, their rows padded."""
+    return itemsize * tile.ring * (tile.bm * (tile.bk + tile.a_pad)
+                                   + tile.bk * (tile.bn + tile.b_pad))
+
+
+def _count_dense(dtype) -> None:
+    dense_mma[(str(dtype)[6:], DENSE_MMA[dtype])] += 1
 
 
 def widened(*ts):
@@ -159,8 +204,8 @@ def _launch(x, c, strip):
     if max(nblk, nm_tot, nq_tot, ce) >= 2**31:
         raise ValueError(f"kron_blocked: in {tuple(x.shape)} exceeds the "
                          "kernel's 32-bit extents")
+    limit = build.smem_limits(x.get_device())[0]
     if strip:
-        limit = build.smem_limits(x.get_device())[0]
         if kron_resident_smem(x.element_size(), nq_tot, nm_tot,
                               strip) > limit:
             raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
@@ -173,6 +218,9 @@ def _launch(x, c, strip):
         out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
     build.run("kron_blocked", x, c.data_ptr(), x.data_ptr(), out.data_ptr(),
               nq_tot, nm_tot, ce, nblk, -1 if strip is None else strip)
+    if strip == 0 or strip is None and not kron_config(
+            x.element_size(), nq_tot, nm_tot, limit):
+        _count_dense(x.dtype)
     return out
 
 
@@ -251,13 +299,17 @@ def _em_gemm(name, x, s, epb, tile):
                          f"{EM_TILES}")
     if x.is_cpu:
         return kron_elem_major_plain(x, s)
+    return _em_launch(name, x, s, tile)
+
+
+def _em_launch(name, x, s, tile):
     e, k = x.shape
     n = s.shape[1]
     if max(e, k, n) >= 2**31:
         raise ValueError(f"{name}: {tuple(x.shape)} @ {tuple(s.shape)} "
                          "exceeds the kernel's 32-bit extents")
+    limit = build.smem_limits(x.get_device())[0]
     if tile:
-        limit = build.smem_limits(x.get_device())[0]
         if em_resident_smem(x.element_size(), k, n, tile) > limit:
             raise ValueError(f"{name}: S ({k} x {n}) and tiles of {tile} "
                              f"do not fit the card's {limit} B of shared "
@@ -265,6 +317,9 @@ def _em_gemm(name, x, s, epb, tile):
     out = torch.empty((e, n), dtype=x.dtype, device=x.device)
     build.run("em_gemm", x, x.data_ptr(), s.data_ptr(), out.data_ptr(), e, k,
               n, -1 if tile is None else tile)
+    if tile == 0 or tile is None and not em_config(x.element_size(), k, n,
+                                                   limit):
+        _count_dense(x.dtype)
     return out
 
 
