@@ -36,62 +36,38 @@ five.  Every phase is fatal:
    and (32,32), E=1000 and 1,048,576; the K6 and K7 uses at n = 1000 (x
    and y placed differently against 16-byte boundaries), 1,048,579 and
    536,870,912 (K7 bit for bit); K8 and K9 at (1000, 777), (777, 1000),
-   (4096, 16384), (16384, 4096) and (16384, 16384); the rings of K12
-   (copy, scale, triad) and K7's 16-byte form at one chunk, a partial
-   last chunk, more chunks than blocks x depth, n = 1000 and 1,048,579,
-   operands off a 16-byte boundary placed alike and placed apart, on a
-   second stream, and the main sizes, f32 and f64 (copy, scale and add
-   bit for bit, triad to RTOL); the seven ceiling probes of K10-K13
-   (expand at m = 2, 4 and 8) at n = 128*8 (one chunk), 128*64 and 128*24
-   in chunks of 8 rows (more chunks than the ring's depth, and exactly
-   depth), 128*64 with x and y off a 16-byte boundary, and the ceilings'
-   134,217,728 (copy, scale, fill, expand and the token bit for bit);
-   K14's pair and band forms bit for bit in hi and lo on slices of random
-   f64 operands at b04 nq=8^2 (E = 1000 and 1,048,576), b05 nq=8^3 (E =
-   1000 and 131072), K=729 with
-   nqTot=1000, and T_c < T_x and T_c > T_x, the recombined product within
-   5e-14 of K2 in double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3
-   in f32 and f64; K14, K5 (f32, and f64 timed apart) and the dense
-   configurations of K2 and K3 at their main shapes with the rate they
-   reach, their units' peak time and the SIMT design's time; K1's, K2's
-   and K3's configuration rules (kernels/bwdtrans3d.qp_config,
-   kernels/bwdtrans2d.kron_config, em_config) against the library's own
-   shared-memory sizes and rules at every b05 order 2^3 .. 10^3 and
-   (3,4,5) and every b04 order of run04.sh and (10, 12), f32 and f64, then
-   K1 at every (element tile, plane group, depth, threads) that fits at
-   b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at every strip and dense,
-   K3's b04 nq=8^2 kron_elem_major at every tile height and dense, and K2
-   and K3 just either side of their resident thresholds, on E = 1000 and
-   131071, and
-   K3 dense at b05 nq=8^3 and on X off a 16-byte boundary; K4 on w and on
-   out off a 16-byte boundary, on F = 3 x 1001 and on nkj = 70000 at every
-   unroll, and K8 at N = 777 and 1001 and on x off a 16-byte boundary at
-   every (rows, unroll), two calls bit-identical; K1-K4 in f64 at b05
-   nq=8^3 timed beside torch.matmul in f64, K1-K4, K8 and K9 beside their
-   previous design where it was timed, and K8 at every matvec shape beside
-   torch.mv.  At each path's main
-   shapes (b05
-   nq=8^3, E=131072; b04 nq=8^2, E=1,048,576; f32; b01/b02 n = 536,870,912
-   and b03 16384^2, f32 and f64; the probes at 134,217,728, f32; K14 at
-   b04 nq=8^2, E=1,048,576 and b05 nq=8^3, E=131072, against torch.matmul
-   in f64; kron_coalesced at the same shapes, f32), and for the b04 uses
-   of B04_USES at their own order, each use is timed beside its plain
-   version, one library call and its bound, with what one call costs the
-   host beside the library call's (the µs to enqueue it, and the host
-   clock's time minus the events'; printed, not held), and K1-K4, K7-K9
-   and K12 beside their previous design's time; then
-   every column's f64 golden norm of the benchmark data (b05 nq=8^3 and b04
-   nq=8^2, nelmt=128; b01 and b02 at 1024, b02 after 40 accumulating
-   calls; b03 at 128), device_x and device_y built on the card against
-   utils/native.py bit for bit, and every b04 column in f32 at (10, 12)
-   and (12, 10) against the f64 oracle; and every K1-K5 use in bf16
-   against its plain version (the same cast points, computed in f32) at
-   the b05 and b04 orders above, E = 1000, 131071 and the main size:
-   elementwise within 2^-7 of the largest output, norms within 1e-4;
-   timed at the main shapes beside its plain version, the library call in
-   bf16 and its bound (bytes at 2 a value, FLOP at the bf16 tensor
-   cores' rate); K1's, K2's, K3's and K5's rules and K4's unrolls in
-   bf16 as in f32 and f64 above;
+   (4096, 16384), (16384, 4096) and (16384, 16384); the seven ceiling
+   probes of K10-K13 (expand at m = 2, 4 and 8) at n = 128*8 (one chunk),
+   128*64 and 128*24 in chunks of 8 rows (more chunks than the ring's
+   depth, and exactly depth), 128*64 with x and y off a 16-byte boundary,
+   and the ceilings' 134,217,728 (copy, scale, fill, expand and the token
+   bit for bit); K14's pair and band forms bit for bit in hi and lo on
+   slices of random f64 operands at b04 nq=8^2, E = 1,048,576 and b05
+   nq=8^3, E = 131072, the recombined product within 5e-14 of K2 in
+   double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3 in f32 and
+   f64; K14, K5 (f32, and f64 timed apart) and the dense configurations
+   of K2 and K3 at their main shapes with the rate they reach and their
+   units' peak time; K1-K4 in f64 at b05 nq=8^3 timed beside
+   torch.matmul in f64, and K8 at every matvec shape beside torch.mv.  At
+   each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
+   E=1,048,576; f32; b01/b02 n = 536,870,912 and b03 16384^2, f32 and
+   f64; the probes at 134,217,728, f32; K14 at b04 nq=8^2, E=1,048,576
+   and b05 nq=8^3, E=131072, against torch.matmul in f64; kron_coalesced
+   at the same shapes, f32), and for the b04 uses of B04_USES at their
+   own order, each use is timed beside its plain version, one library
+   call and its bound, with what one call costs the host beside the
+   library call's (the µs to enqueue it, and the host clock's time minus
+   the events'; printed, not held); then every column's f64 golden norm
+   of the benchmark data (b05 nq=8^3 and b04 nq=8^2, nelmt=128; b01 and
+   b02 at 1024, b02 after 40 accumulating calls; b03 at 128), device_x
+   and device_y built on the card against utils/native.py bit for bit,
+   and every b04 column in f32 at (10, 12) and (12, 10) against the f64
+   oracle; and every K1-K5 use in bf16 against its plain version (the
+   same cast points, computed in f32) at the b05 and b04 orders above, E
+   = 1000, 131071 and the main size: elementwise within 2^-7 of the
+   largest output, norms within 1e-4; timed at the main shapes beside its
+   plain version, the library call in bf16 and its bound (bytes at 2 a
+   value, FLOP at the bf16 tensor cores' rate);
 4. the headline (`python -m tpu_bench_torch.bench`): K1's and K2's launch
    counts must rise during it, and the three columns' norms must agree
    with each other and with the f64 oracle to 5e-4;
@@ -117,6 +93,13 @@ five.  Every phase is fatal:
    bf16 log (artifacts/bf16), but b04 Pallas(QP/Shared), whose JAX kernel
    rounds elsewhere (ROADMAP Queue 3); then K1 in bf16 at nq=6^3,
    nelmt 256 within 5e-4 of the f64 oracle.
+
+Each kernel against its plain version at its edge cases and in every
+configuration it is built for (K1's tiles, plane groups and slab rings,
+K2's strips, K3's tile heights, K4's and K8's unrolls, the rings of K12
+and K7, K14's tile edges), and the shared memory the configuration rules
+count against the library's own, is held by the `cuda` tests, not here:
+README.md's `pytest ... -m cuda` line runs them.
 
 In phases 6-10 the kernels of the sweep's own set must each launch, and no
 other; the logs must parse with postprocess/common.py with every column
@@ -324,22 +307,14 @@ PROBE_USES = [
 
 
 # K14 (csrc/ozaki.cu), the split-mantissa f64 GEMM of --f64-coales ozaki:
-# phase 3's shapes (label, K = nmTot, nqTot, E, T_c, T_x; None takes
-# slice_params' T), the shapes where both forms are timed, the last one's
-# band-form launches counted, and the recombined product's tolerance
-# against K2 in double (the JAX package's, tests/test_ozaki.py).
+# phase 3's shapes, where both forms are timed (label, K = nmTot, nqTot,
+# E), the last one's band-form launches counted, and the recombined
+# product's tolerance against K2 in double (the JAX package's,
+# tests/test_ozaki.py).
 OZAKI_CU = "tpu_bench_torch/csrc/ozaki.cu"
 PLO = f"{PL}/ozaki.py"
-OZAKI_SHAPES = [
-    ("b04 nq=8^2", 49, 64, 1000, None, None),
-    ("b04 nq=8^2", 49, 64, B04_NELMT, None, None),
-    ("b05 nq=8^3", 343, 512, 1000, None, None),
-    ("b05 nq=8^3", 343, 512, HEADLINE_NELMT, None, None),
-    ("K=729", 729, 1000, 1000, None, None),
-    ("T_c < T_x", 49, 64, 1000, 6, 8),
-    ("T_c > T_x", 343, 512, 1000, 9, 7),
-]
-OZAKI_TIMED = [("b04 nq=8^2", B04_NELMT), ("b05 nq=8^3", HEADLINE_NELMT)]
+OZAKI_SHAPES = [("b04 nq=8^2", 49, 64, B04_NELMT),
+                ("b05 nq=8^3", 343, 512, HEADLINE_NELMT)]
 OZAKI_RTOL = 5e-14
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor cores (NVIDIA's data sheet)
 TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores
@@ -386,97 +361,15 @@ NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
             "K4 qp_stage2_3d": "qp_stage2_3d_kernel",
             "K8 matvec_rm": "matvec_rm_kernel",
             "K9 matvec_cm": "matvec_cm", **RING_KERNELS}
-# Times of the SIMT FMA designs that K14, K5, K2 and K3 replaced, CUDA
-# events, L2 flushed, by (use, shape, units): from this script and, for K5
-# and K3 in f64, benchmarks/kernel_blocks.py (PERF.md section 6; NVIDIA
-# H100 80GB HBM3, 700.00 W).
 K5_3D = "K5 qp1d_shared3d (QP-1D/Shared)"
 K3_KRON = "K3 kron_elem_major (Uncoales)"
 K3_STAGES = tuple(f"K3 one_stage_em (QP-1D stage {i})" for i in (1, 2, 3))
 K5_2D = "K5 qp1d_fused (QP-1D/Shared)"
-SIMT_MS = {("K14 kron_ozaki_pair", "b05 nq=8^3", "bf16"): 75.2060,
-           ("K14 kron_ozaki_pair", "b04 nq=8^2", "bf16"): 15.4328,
-           ("K14 kron_ozaki_band", "b05 nq=8^3", "bf16"): 79.4008,
-           ("K14 kron_ozaki_band", "b04 nq=8^2", "bf16"): 16.3749,
-           (K5_3D, "b05 nq=8^3", "f32 3xTF32"): 6.3326,
-           (K5_3D, "b05 nq=8^3", "f64 DMMA"): 21.3871,
-           (K5_2D, "b04 nq=8^2", "f32 3xTF32"): 1.5546,
-           # K2's and K3's first designs (PREV_MS; K2's f64 from the
-           # column's host clock)
-           ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f32 3xTF32"): 1.7305,
-           ("K2 kron_blocked (Coales)", "b05 nq=8^3", "f64 DMMA"): 4.8021,
-           (K3_KRON, "b05 nq=8^3", "f32 3xTF32"): 1.6906,
-           (K3_KRON, "b05 nq=8^3", "f64 DMMA"): 4.6604}
-# Times of K1's, K2's, K3's, K4's, K8's, K9's, K12's and K7's 16-byte
-# form's previous designs (the first SIMT designs) by (use, order or
-# shape, dtype), CUDA events, L2
-# flushed, from this script (PERF.md section 6; NVIDIA H100 80GB HBM3,
-# 700.00 W); K1's in f64 at b05 nq=8^3, the host clock of its column there
-# (PERF.md section 5: 20.4077 GDOF/s; 131072 * 343 DOF over it); K2's and
-# K3's in f64, the dense body on the A100's m8n8k4 DMMA, from this script
-# (PERF.md section 6); K4's f64 and K8's at the shapes other than 16384^2,
-# from benchmarks/kernel_blocks.py --uses on the previous tree.
 K4_3D, K4_2D = "K4 qp_stage2_3d (QP stage 2)", "K4 qp_stage2 (QP stage 2)"
-PREV_MS = {("K1 qp_shared3d_flat", (8, 8, 8), "float32"): 0.8819,
-           ("K1 qp_shared3d", (8, 8, 8), "float32"): 0.8836,
-           ("K2 kron_blocked (Coales)", (8, 8, 8), "float32"): 1.7305,
-           ("K2 kron_blocked (QP stage 1)", (8, 8, 8), "float32"): 0.7498,
-           (K2_COALES, (8, 8), "float32"): 0.8117,
-           (K2_COALES, (2, 2), "float32"): 0.0923,
-           (K1_2D, (8, 8), "float32"): 0.4352,
-           (K1_2D, (10, 12), "float32"): 1.7870,
-           (K1_2D, (16, 16), "float32"): 6.2892,
-           (K1_2D, (32, 32), "float32"): 52.1788,
-           ("K2 kron_blocked (QP stage 1)", (8, 8), "float32"): 0.7001,
-           ("kron_coalesced", "b05 nq=8^3", "float32"): 1.7319,
-           ("kron_coalesced", "b04 nq=8^2", "float32"): 0.8350,
-           ("K1 qp_shared3d_flat", (8, 8, 8), "float64"): 2.2030,
-           ("K2 kron_blocked (Coales)", (8, 8, 8), "float64"): 1.9314,
-           (K3_KRON, (8, 8, 8), "float32"): 1.6906,
-           (K3_STAGES[0], (8, 8, 8), "float32"): 1.5500,
-           (K3_STAGES[1], (8, 8, 8), "float32"): 1.7053,
-           (K3_STAGES[2], (8, 8, 8), "float32"): 2.0805,
-           (K3_KRON, (8, 8), "float32"): 0.5388,
-           (K3_STAGES[0], (8, 8), "float32"): 0.5803,
-           (K3_STAGES[1], (8, 8), "float32"): 0.5520,
-           (K3_KRON, (8, 8, 8), "float64"): 1.9574,
-           (K3_STAGES[0], (8, 8, 8), "float64"): 1.7194,
-           (K3_STAGES[1], (8, 8, 8), "float64"): 1.7911,
-           (K3_STAGES[2], (8, 8, 8), "float64"): 2.2577,
-           ("K9 matvec_cm", "float32"): 0.4519,
-           ("K9 matvec_cm", "float64"): 0.7676,
-           (K4_3D, (8, 8, 8), "float32"): 0.3996,
-           (K4_2D, (8, 8), "float32"): 0.4057,
-           (K4_3D, (8, 8, 8), "float64"): 0.4407,
-           ("K8 matvec_rm", "float32"): 0.3731,
-           ("K8 matvec_rm", "float64"): 0.7191,
-           ("K8 matvec_rm", (1000, 777), "float32"): 0.0091,
-           ("K8 matvec_rm", (777, 1000), "float32"): 0.0093,
-           ("K8 matvec_rm", (4096, 16384), "float32"): 0.1062,
-           ("K8 matvec_rm", (16384, 4096), "float32"): 0.1041,
-           ("K8 matvec_rm", (1000, 777), "float64"): 0.0130,
-           ("K8 matvec_rm", (777, 1000), "float64"): 0.0139,
-           ("K8 matvec_rm", (4096, 16384), "float64"): 0.1941,
-           ("K8 matvec_rm", (16384, 4096), "float64"): 0.1913,
-           # K12's and K7's 16-byte form's first designs, 16-byte vectors
-           # through registers (this script, before the ring; PERF.md
-           # section 6)
-           ("K12 copy_manual", "float32"): 0.3595,
-           ("K12 scale_manual", "float32"): 0.3606,
-           ("K12 triad_manual", "float32"): 0.5260,
-           ("K7 add_inplace_manual", "float32"): 2.0870,
-           ("K7 add_inplace_wide", "float32"): 2.0872,
-           ("K7 add_inplace_manual", "float64"): 4.1630,
-           ("K7 add_inplace_wide", "float64"): 4.1625}
 # K1's, K2's, K3's and K4's uses also timed in f64 at b05 nq=8^3,
 # E=131072
 F64_USES = ("K1 qp_shared3d_flat", "K1 qp_shared3d", "K2 kron_blocked (Coales)",
             "K2 kron_blocked (QP stage 1)", K3_KRON, *K3_STAGES, K4_3D)
-# The orders whose K1 and K2 configurations phase 3 holds to the library's
-# own rule and shared-memory sizes: every b05 order 2^3 .. 10^3 and
-# (3,4,5); every order of run04.sh and (10, 12)
-CONFIG_ORDERS = ([(n, n, n) for n in range(2, 11)] + [(3, 4, 5)]
-                 + [(n, n) for n in RUN04_ORDERS] + [(10, 12)])
 # kron_coalesced (K2 on the flat layout): (label, nmTot, nqTot, E), the last
 # one's launches counted
 COALESCED_SHAPES = [("b04 nq=8^2", 49, 64, B04_NELMT),
@@ -920,8 +813,7 @@ def kernels_vs_plain(torch) -> dict:
     E=1,048,576) and for the b04 uses of B04_USES at their own order,
     E=1,048,576, and {(use, nq, "float64"): the same} for K1's, K2's,
     K3's and K4's uses in f64 at b05 nq=8^3 (F64_USES; the bound's FLOP at
-    the card's FP64 peak, DMMA).  K1's-K4's lines carry their previous
-    design's time where PREV_MS has it."""
+    the card's FP64 peak, DMMA)."""
     from tpu_bench_torch.core.timing import event_ms
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
@@ -979,11 +871,8 @@ def kernels_vs_plain(torch) -> dict:
         label, nq, *f64 = key
         e = HEADLINE_NELMT if len(nq) == 3 else B04_NELMT
         dtype = f64[0] if f64 else "float32"
-        prev = PREV_MS.get((label, nq, dtype))
         print(f"  {label} at nq={nq} E={e} {dtype}: kernel "
-              f"{k['ms']:.4f} ms, "
-              + (f"previous design {prev:.4f} ms, " if prev else "")
-              + f"plain {k['plain_ms']:.4f} ms, library "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})" + host_text(hosts[key]))
     return measured
@@ -1053,7 +942,7 @@ def streams_vs_plain(torch) -> dict:
     element off) and 536,870,912; K8 and K9 at MATVEC_SHAPES.  At
     536,870,912 and 16384^2 each use is timed beside its plain version, one
     library call and its bound, and K8 at the other MATVEC_SHAPES beside
-    its first design and torch.mv; returns {(use, dtype): those}."""
+    torch.mv; returns {(use, dtype): those}."""
     from tpu_bench_torch.core.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1086,19 +975,15 @@ def streams_vs_plain(torch) -> dict:
                     hosts[(case.label, tag)] = host_cost(torch, case.run,
                                                          case.library)
                 elif case.label == "K8 matvec_rm":
-                    prev = PREV_MS[(case.label, args, tag)]
                     print(f"  K8 matvec_rm at {args} {tag}: kernel "
-                          f"{event_ms(case.run):.4f} ms, previous design "
-                          f"{prev:.4f} ms, torch.mv "
+                          f"{event_ms(case.run):.4f} ms, torch.mv "
                           f"{event_ms(case.library):.4f} ms, bound "
                           f"{bound(case.inputs, out, case.flops)[0]:.4f} ms")
                 del out
             torch.cuda.empty_cache()
     for (label, tag), k in measured.items():
-        prev = PREV_MS.get((label, tag))
         print(f"  {label} at its main shape {tag}: kernel {k['ms']:.4f} ms, "
-              + (f"previous design {prev:.4f} ms, " if prev else "")
-              + f"plain {k['plain_ms']:.4f} ms, library "
+              f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})" + host_text(hosts[(label, tag)]))
     return measured
@@ -1211,126 +1096,23 @@ def probes_vs_plain(torch) -> dict:
                 del out
             torch.cuda.empty_cache()
     for label, k in measured.items():
-        prev = PREV_MS.get((label, "float32"))
         print(f"  {label} at n={CEILING_N} f32: kernel {k['ms']:.4f} ms, "
-              + (f"previous design {prev:.4f} ms, " if prev else "")
-              + f"plain {k['plain_ms']:.4f} ms, library "
+              f"plain {k['plain_ms']:.4f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
               f"({k['bound_by']})" + host_text(hosts[label]))
     return measured
 
 
-# The cases the rings of K12 and K7's 16-byte form are held to their plain
-# versions at: (label, x's and y's offsets in elements into their
-# buffers); the sizes come from ring_case_n
-RING_CASES = [("one chunk", (0, 0)), ("partial last chunk", (0, 0)),
-              ("more chunks than blocks x depth", (0, 0)),
-              ("n=1000", (0, 0)), ("n=1048579", (0, 0)),
-              ("off 16 B, alike", (1, 1)), ("placed apart", (1, 2)),
-              ("on a second stream", (0, 0)), ("main size", (0, 0))]
-
-
-def ring_case_n(case, use, itemsize, wave) -> int:
-    """Elements of a ring case for `use` (kernels/ring.py RING's chunk and
-    depth; `wave` its blocks in one wave)."""
-    from tpu_bench_torch.kernels import ring
-
-    chunk, depth = ring.RING[use]
-    per_chunk = chunk // itemsize
-    return {"one chunk": per_chunk,
-            "partial last chunk": 5 * per_chunk + 128,
-            "more chunks than blocks x depth":
-                (wave * depth + 3) * per_chunk + 640,
-            "n=1000": 1000, "main size": STREAM_N if use == "add"
-            else CEILING_N}.get(case, 1048579)
-
-
-def rings_vs_plain(torch) -> None:
-    """Phase 3, the cp.async.bulk rings (csrc/ring.cuh): K12's copy, scale
-    and triad and K7's 16-byte form (add) at RING_CASES in f32 and f64
-    against their plain versions, copy, scale and add bit for bit, triad
-    to RTOL (the kernel may fuse its multiply and add).  K12 runs through
-    its C entry at the ring's chunk and depth, so n need not be a
-    multiple of the wrappers' 128-wide rows; K7 through add_inplace_wide.
-    Each use launches its kernel once a case, on the current stream but
-    in one case on a second one (each stream has its ring's counter)."""
-    from tpu_bench_torch.kernels import build, ring
-
-    gen = torch.Generator(device="cuda").manual_seed(10)
-    for dtype in (torch.float32, torch.float64):
-        size, tag = dtype.itemsize, str(dtype)[6:]
-        for use in ("copy", "scale", "triad", "add"):
-            chunk, depth = ring.RING[use]
-            wave = ring.ring_wave(0, size, use, chunk, depth)
-            for case, (ox, oy) in RING_CASES:
-                n = ring_case_n(case, use, size, wave)
-
-                def placed(offset, source=None):
-                    buf = torch.empty(n + 4, dtype=dtype, device="cuda")
-                    view = buf[offset:offset + n]
-                    if source is None:
-                        return view.normal_(generator=gen)
-                    return view.copy_(source)
-
-                x, y = placed(ox), placed(oy)
-                c = torch.randn(1, 1, generator=gen, device="cuda",
-                                dtype=dtype)
-                # the case is what its label says, by the ring's plan
-                plan = ring.ring_plan(n, size, x.data_ptr(), chunk, wave)
-                assert {"one chunk": plan.chunks == 1,
-                        "partial last chunk": plan.nbytes % chunk != 0,
-                        "more chunks than blocks x depth":
-                            plan.chunks > plan.blocks * depth}.get(
-                                case, True), (use, case, plan)
-                kernel = "map2_inplace" if use == "add" else "stream_map"
-                before = build.launches[kernel]
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with (torch.cuda.stream(side) if case == "on a second stream"
-                      else contextlib.nullcontext()):
-                    got, ref = ring_case_run(use, x, y, c, placed, ox, oy, n,
-                                             chunk, depth)
-                torch.cuda.synchronize()
-                assert build.launches[kernel] == before + 1, (use, case)
-                compare(torch, f"ring {use} {tag} {case} n={n} at "
-                        f"({ox}, {oy})", got, ref, dtype,
-                        None if use == "triad" else 0.0)
-                del x, y, got, ref
-            torch.cuda.empty_cache()
-
-
-def ring_case_run(use, x, y, c, placed, ox, oy, n, chunk, depth) -> tuple:
-    """One case of rings_vs_plain: (the kernel's output, the plain
-    version's), copy into a buffer placed as y, the others in place."""
-    from tpu_bench_torch.kernels import axpy as k7
-    from tpu_bench_torch.kernels import build, ring
-    from tpu_bench_torch.kernels import stream
-
-    if use == "add":
-        xs = placed(ox, x)
-        return k7.add_inplace_wide(xs, y), k7.map2_inplace_plain(x.clone(),
-                                                                 y)
-    src = x if use == "copy" else placed(ox, x)
-    got = placed(oy) if use == "copy" else src
-    build.run("stream_map", x, got.data_ptr(), src.data_ptr(), y.data_ptr(),
-              c.data_ptr(), n, ring.MAP_OPS[use], chunk, depth)
-    ref = {"copy": lambda: x.clone(),
-           "scale": lambda: stream.scale_plain(x.clone(), c),
-           "triad": lambda: stream.triad_plain(x.clone(), y, c)}[use]()
-    return got, ref
-
-
-def ozaki_operands(torch, rng, k, nq_tot, e, t_c=None, t_x=None):
+def ozaki_operands(torch, rng, k, nq_tot, e):
     """Random f64 C (nq_tot, k) and X (k, e) on the card, and their slices
-    by the port's split_f64_np (T_c and T_x of them, by default
-    slice_params' T) in bf16 on the card with the product of the scales."""
+    by the port's split_f64_np (slice_params' T of them) in bf16 on the
+    card with the product of the scales."""
     from tpu_bench_torch.kernels import ozaki
 
     w, t = ozaki.slice_params(k)
     out = []
-    for a, n in ((rng.standard_normal((nq_tot, k)), t_c or t),
-                 (rng.standard_normal((k, e)), t_x or t)):
-        sl, scale = ozaki.split_f64_np(a, w, n)
+    for a in (rng.standard_normal((nq_tot, k)), rng.standard_normal((k, e))):
+        sl, scale = ozaki.split_f64_np(a, w, t)
         out.append((torch.from_numpy(sl).to("cuda", torch.bfloat16), scale,
                     torch.from_numpy(a).to("cuda")))
         del a, sl
@@ -1340,12 +1122,12 @@ def ozaki_operands(torch, rng, k, nq_tot, e, t_c=None, t_x=None):
 
 def ozaki_vs_plain(torch) -> tuple:
     """Phase 3, K14.  Both forms against kron_ozaki_pair_plain bit for bit
-    in hi and lo on slices of random f64 operands at OZAKI_SHAPES, and,
-    where T_c = T_x, scale * (hi + lo) against K2 in double on those f64
-    operands, to OZAKI_RTOL of the largest output.  At OZAKI_TIMED each
-    form is timed beside the plain version, torch.matmul in f64 on the f64
-    operands and its bound (bytes at the HBM rate; FLOP,
-    the band's slice products, at the bf16 tensor-core rate).  Returns
+    in hi and lo on slices of random f64 operands at OZAKI_SHAPES, and
+    scale * (hi + lo) against K2 in double on those f64 operands, to
+    OZAKI_RTOL of the largest output; each form timed beside the plain
+    version, torch.matmul in f64 on the f64 operands and its bound (bytes
+    at the HBM rate; FLOP, the band's slice products, at the bf16
+    tensor-core rate).  Returns
     ({(use, shape label): those}, the band form's launches in one call at
     b05 nq=8^3)."""
     import numpy as np
@@ -1358,21 +1140,20 @@ def ozaki_vs_plain(torch) -> tuple:
     measured, hosts, band_launches = {}, {}, None
     forms = (("K14 kron_ozaki_pair", ozaki.kron_ozaki_pair),
              ("K14 kron_ozaki_band", ozaki.kron_ozaki_band))
-    for label, k, nq_tot, e, t_c, t_x in OZAKI_SHAPES:
-        x_sl, c_sl, scale, x64, c64 = ozaki_operands(
-            torch, rng, k, nq_tot, e, t_c, t_x)
+    for label, k, nq_tot, e in OZAKI_SHAPES:
+        x_sl, c_sl, scale, x64, c64 = ozaki_operands(torch, rng, k, nq_tot,
+                                                     e)
         hi_p, lo_p = ozaki.kron_ozaki_pair_plain(x_sl, c_sl)
-        timed = (label, e) in OZAKI_TIMED
-        if timed:  # the plain version and the library call, once a shape
-            shared = dict(
-                plain_ms=event_ms(
-                    lambda: ozaki.kron_ozaki_pair_plain(x_sl, c_sl)),
-                library_ms=event_ms(lambda: torch.matmul(c64, x64)))
-            pairs = sum(len(ss) for _, ss in ozaki.bands(c_sl.shape[0],
-                                                         x_sl.shape[0]))
-            shared.update(zip(("bound_ms", "bound_by"), bound(
-                (x_sl, c_sl), (hi_p, lo_p), pairs * 2 * nq_tot * k * e,
-                BF16_FLOP_PER_S)))
+        # the plain version and the library call, once a shape
+        shared = dict(
+            plain_ms=event_ms(
+                lambda: ozaki.kron_ozaki_pair_plain(x_sl, c_sl)),
+            library_ms=event_ms(lambda: torch.matmul(c64, x64)))
+        pairs = sum(len(ss) for _, ss in ozaki.bands(c_sl.shape[0],
+                                                     x_sl.shape[0]))
+        shared.update(zip(("bound_ms", "bound_by"), bound(
+            (x_sl, c_sl), (hi_p, lo_p), pairs * 2 * nq_tot * k * e,
+            BF16_FLOP_PER_S)))
         for use, fn in forms:
             hi, lo = fn(x_sl, c_sl)
             torch.cuda.synchronize()
@@ -1384,20 +1165,18 @@ def ozaki_vs_plain(torch) -> tuple:
                   f"version: {same}")
             assert same, (use, err)
             del hi, lo
-            if timed:
-                measured[(use, label)] = dict(
-                    max_abs_err=err, ms=event_ms(lambda: fn(x_sl, c_sl)),
-                    **shared)
-                hosts[(use, label)] = host_cost(
-                    torch, lambda: fn(x_sl, c_sl),
-                    lambda: torch.matmul(c64, x64))
-        if t_c is None and t_x is None:
-            ref = k2.kron_coalesced(x64, c64)
-            out = scale * (hi_p.double() + lo_p.double())
-            compare(torch, f"K14 recombined vs K2 f64 {label} E={e}", out,
-                    ref, torch.float64, OZAKI_RTOL)
-            del ref, out
-        if (label, e) == OZAKI_TIMED[-1]:
+            measured[(use, label)] = dict(
+                max_abs_err=err, ms=event_ms(lambda: fn(x_sl, c_sl)),
+                **shared)
+            hosts[(use, label)] = host_cost(
+                torch, lambda: fn(x_sl, c_sl),
+                lambda: torch.matmul(c64, x64))
+        ref = k2.kron_coalesced(x64, c64)
+        out = scale * (hi_p.double() + lo_p.double())
+        compare(torch, f"K14 recombined vs K2 f64 {label} E={e}", out, ref,
+                torch.float64, OZAKI_RTOL)
+        del ref, out
+        if label == OZAKI_SHAPES[-1][0]:
             build.launches.clear()
             ozaki.kron_ozaki_band(x_sl, c_sl)
             torch.cuda.synchronize()
@@ -1418,16 +1197,14 @@ def tensor_core_times(torch, measured, measured_ozaki) -> None:
     (timed here on random inputs) and the dense configurations of K2 and
     K3 at b05 nq=8^3 in f32 and f64 (phase 3's times): each one's time, the
     rate it reaches in the FLOP of its own arithmetic (the slice products;
-    the chain in stage order), the time of the units it uses at their peak
-    (dense bf16; 3 TF32 passes; DMMA), and the SIMT design's time."""
+    the chain in stage order) and the time of the units it uses at their
+    peak (dense bf16; 3 TF32 passes; DMMA)."""
     from tpu_bench_torch.core.timing import event_ms
     from tpu_bench_torch.kernels import bwdtrans3d as k1
     from tpu_bench_torch.kernels import ozaki
 
     rows = []
-    for label, k, nq_tot, e, *_ in OZAKI_SHAPES:
-        if (label, e) not in OZAKI_TIMED:
-            continue
+    for label, k, nq_tot, e in OZAKI_SHAPES:
         w, t = ozaki.slice_params(k)
         flops = 2 * nq_tot * k * e * sum(len(ss) for _, ss in
                                          ozaki.bands(t, t))
@@ -1466,11 +1243,9 @@ def tensor_core_times(torch, measured, measured_ozaki) -> None:
                  measured[(K3_KRON, (8, 8, 8), "float64")]["ms"], flops,
                  flops / FP64_TC_FLOP_PER_S * 1e3))
     for use, label, units, ms, flops, unit_ms in rows:
-        simt = SIMT_MS.get((use, label, units))
         print(f"  {use} at {label} {units}: {ms:.4f} ms, "
               f"{flops / ms * 1e-9:.1f} TFLOP/s; its units at peak "
-              f"{unit_ms:.4f} ms; SIMT design "
-              + (f"{simt:.4f} ms" if simt else "not measured"))
+              f"{unit_ms:.4f} ms")
 
 
 def stage_widths(nq) -> list:
@@ -1524,253 +1299,11 @@ def coalesced_vs_plain(torch) -> tuple:
             del x, c, out
             torch.cuda.empty_cache()
     for label, m in measured.items():
-        prev = PREV_MS[("kron_coalesced", label, "float32")]
         print(f"  kron_coalesced at {label} f32: kernel {m['ms']:.4f} ms, "
-              f"previous design {prev:.4f} ms, "
               f"plain {m['plain_ms']:.4f} ms, torch.matmul "
               f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
               f"({m['bound_by']})" + host_text(hosts[label]))
     return measured, launches
-
-
-def config_operands(nq) -> tuple:
-    """K1's (nm0, nrq, nq0, nkj) and K2's products (M, K) at order nq: the
-    QP stage 1 operator and the kron operator."""
-    nm = [n - 1 for n in nq]
-    if len(nq) == 2:
-        k1_shape = (nm[0], nm[1], nq[0], nq[1])
-        return k1_shape, [(nq[1], nm[1]), (nq[0] * nq[1], nm[0] * nm[1])]
-    k1_shape = (nm[0], nm[1] * nm[2], nq[0], nq[1] * nq[2])
-    return k1_shape, [(nq[1] * nq[2], nm[1] * nm[2]),
-                      (nq[0] * nq[1] * nq[2], nm[0] * nm[1] * nm[2])]
-
-
-def k2_threshold(itemsize, k, limit) -> int:
-    """The largest M, a multiple of 4, at which C (M x k) still runs
-    C-resident under `limit` bytes; M + 4 runs dense."""
-    from tpu_bench_torch.kernels import bwdtrans2d as k2
-
-    m = 4
-    while k2.kron_config(itemsize, m + 4, k, limit):
-        m += 4
-    return m
-
-
-def k3_threshold(itemsize, k, limit) -> int:
-    """The largest N, a multiple of 64, at which S (k x N) still runs
-    S-resident under `limit` bytes; N + 64 runs dense."""
-    from tpu_bench_torch.kernels import bwdtrans2d as k2
-
-    n = 64
-    while k2.em_config(itemsize, k, n + 64, limit):
-        n += 64
-    return n
-
-
-def configs(torch) -> None:
-    """Phase 3, K1's, K2's, K3's and K5's configurations.  At every order
-    of CONFIG_ORDERS in bf16, f32 and f64: K1's qp_config, K2's
-    kron_config, K3's em_config and K5's qp1d_fits (pure Python) fit the
-    card, give whole micro-tiles or warp units, and agree with the
-    library's shared-memory sizes (tbt_qp_fused3d_smem at every tile,
-    plane group and depth, tbt_kron_resident_smem at every strip,
-    tbt_em_resident_smem at every tile height, tbt_qp1d_smem at every K5
-    tile) and with K2's and K3's own rules (tbt_kron_strip, tbt_em_tile)
-    for each of their products.  Then every K1 (tile, planes, depth,
-    threads) that fits, at b05 nq=8^3 and b04 nq=32^2, K2's QP stage 1 at
-    every strip and dense, K3's b04 nq=8^2 kron_elem_major at every tile
-    height and dense, and K2's and K3's products just either side of their
-    resident thresholds, on E = 1000 and 131071 (neither a multiple of an
-    element tile, strip or tile height), then K3 dense at the b05 nq=8^3
-    kron and QP-1D stages and on X off a 16-byte boundary, against their
-    plain versions."""
-    from tpu_bench_torch.kernels import build
-    from tpu_bench_torch.kernels import bwdtrans2d as k2
-    from tpu_bench_torch.kernels import bwdtrans3d as k1
-
-    lib = build.library()
-    props = torch.cuda.get_device_properties(0)
-    block = props.shared_memory_per_block_optin
-    sm = getattr(props, "shared_memory_per_multiprocessor", k1.SMEM_SM)
-    chosen = {}
-    for size in (2, 4, 8):
-        for nq in CONFIG_ORDERS:
-            (nm0, nrq, nq0, nkj), products = config_operands(nq)
-            k1_cfg = k1.qp_config(size, nm0, nrq, nq0, nkj, block, sm)
-            et, g, depth, threads = k1_cfg
-            assert et % k1.QP_TE == 0 and g in k1.QP_PLANE_GROUPS, (nq, et)
-            assert (depth, threads) in k1.qp_forms(size, et), (nq, k1_cfg)
-            assert k1.qp_smem(size, et, g, nm0, nrq, nq0, nkj,
-                              depth) <= block
-            for t in k1.QP_TILES[size]:
-                for p in k1.QP_PLANE_GROUPS:
-                    for d in (1, 2):
-                        assert k1.qp_smem(size, t, p, nm0, nrq, nq0, nkj,
-                                          d) == lib.tbt_qp_fused3d_smem(
-                            size, t, p, nm0, nrq, nq0, nkj, d), (nq, t, p, d)
-            strips = []
-            if size == 8:
-                assert k2.dense_smem(k2.DENSE_F64) == \
-                    lib.tbt_dense_f64_smem() <= block
-            for m, k in products:
-                bn = k2.kron_config(size, m, k, block)
-                assert bn == lib.tbt_kron_strip(size, m, k, block), (m, k)
-                for w in k2.KRON_STRIPS:
-                    assert k2.kron_resident_smem(size, m, k, w) == \
-                        lib.tbt_kron_resident_smem(size, m, k, w), (m, k, w)
-                assert bn == 0 or (bn in k2.KRON_STRIPS and
-                                   k2.kron_resident_smem(size, m, k, bn)
-                                   <= block)
-                strips.append(bn)
-            widths = stage_widths(nq)
-            n2 = widths[2] if len(widths) == 4 else 0
-            for tile in k1.QP1D_TILES[size]:
-                assert k1.qp1d_smem(size, tile, widths[0], widths[1], n2) \
-                    == lib.tbt_qp1d_smem(size, tile, widths[0], widths[1],
-                                         n2), (nq, tile)
-            assert k1.qp1d_fits(size, widths[0], widths[1], n2, block), nq
-            heights = []
-            for k, n in [(widths[0], widths[-1]), *zip(widths, widths[1:])]:
-                be = k2.em_config(size, k, n, block)
-                assert be == lib.tbt_em_tile(size, k, n, block), (k, n)
-                for h in k2.EM_TILES:
-                    assert k2.em_resident_smem(size, k, n, h) == \
-                        lib.tbt_em_resident_smem(size, k, n, h), (k, n, h)
-                assert be == 0 or (be in k2.EM_TILES and
-                                   k2.em_resident_smem(size, k, n, be)
-                                   <= block)
-                heights.append(be)
-            chosen[(size, nq)] = (tuple(k1_cfg), strips, heights)
-    for (size, nq), (k1_cfg, strips, heights) in chosen.items():
-        tag = "bf16" if size == 2 else f"f{8 * size}"
-        print(f"  configs {tag} nq={nq}: K1 (tile, planes, depth, threads) "
-              f"{k1_cfg};"
-              f" K2 strip (0: dense) QP stage 1 {strips[0]}, kron "
-              f"{strips[1]}; K3 tile (0: dense) kron {heights[0]}, QP-1D "
-              f"stages {heights[1:]}")
-
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    for dtype in (torch.float32, torch.float64, torch.bfloat16):
-        size = dtype.itemsize
-
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda",
-                               dtype=dtype)
-
-        tag = str(dtype)[6:]
-        threshold = k2_threshold(size, 128, block)
-        for e in (1000, 131071):
-            for nq in ((8, 8, 8), (32, 32)):
-                (nm0, nrq, nq0, nkj), _ = config_operands(nq)
-                x, b0, c = rnd(nm0, nrq, e), rnd(nm0, nq0), rnd(nkj, nrq)
-                ref = k1.qp_shared3d_plain(x, b0, c)
-                for et, g, d, t in k1.qp_settings(size, nm0, nrq, nq0,
-                                                  nkj, block):
-                    compare(torch, f"K1 {tag} nq={nq} E={e} tile {et} "
-                            f"planes {g} depth {d} threads {t}",
-                            k1.qp_shared3d(x, b0, c, epb=et, planes=g,
-                                           depth=d, threads=t), ref, dtype)
-            x, c = rnd(7, 49, e), rnd(64, 49)
-            ref = k2.kron_blocked_plain(x, c)
-            for w in (0, *k2.KRON_STRIPS):
-                if w and k2.kron_resident_smem(size, 64, 49, w) > block:
-                    continue
-                compare(torch, f"K2 {tag} QP stage 1 (64 x 49) E={e} strip "
-                        f"{w}", k2.kron_blocked(x, c, strip=w), ref, dtype)
-            for m in (threshold, threshold + 4):
-                x, c = rnd(2, 128, e), rnd(m, 128)
-                bn = k2.kron_config(size, m, 128, block)
-                assert bool(bn) == (m == threshold), (m, bn)
-                compare(torch, f"K2 {tag} ({m} x 128) E={e} strip {bn} "
-                        f"({'resident' if bn else 'dense'})",
-                        k2.kron_blocked(x, c), k2.kron_blocked_plain(x, c),
-                        dtype)
-            x, s = rnd(e, 49), rnd(49, 64)
-            ref = k2.kron_elem_major_plain(x, s)
-            for h in (0, *k2.EM_TILES):
-                if h and k2.em_resident_smem(size, 49, 64, h) > block:
-                    continue
-                compare(torch, f"K3 {tag} b04 nq=8^2 kron_elem_major (49 x "
-                        f"64) E={e} tile {h}", k2.kron_elem_major(x, s,
-                                                                 tile=h),
-                        ref, dtype)
-            for n in (k3_threshold(size, 128, block),
-                      k3_threshold(size, 128, block) + 64):
-                x, s = rnd(e, 128), rnd(128, n)
-                be = k2.em_config(size, 128, n, block)
-                compare(torch, f"K3 {tag} (128 x {n}) E={e} tile {be} "
-                        f"({'resident' if be else 'dense'})",
-                        k2.one_stage_em(x, s),
-                        k2.kron_elem_major_plain(x, s), dtype)
-        x, c = rnd(16, 343, 8192), rnd(512, 343)
-        assert k2.kron_config(size, 512, 343, block) == 0
-        compare(torch, f"K2 {tag} b05 nq=8^3 Coales (dense)",
-                k2.kron_blocked(x, c), k2.kron_blocked_plain(x, c), dtype)
-        widths = stage_widths((8, 8, 8))
-        for k, n in [(widths[0], widths[-1]), *zip(widths, widths[1:])]:
-            x, s = rnd(8191, k), rnd(k, n)
-            assert k2.em_config(size, k, n, block) == 0
-            compare(torch, f"K3 {tag} b05 nq=8^3 ({k} x {n}) E=8191 (dense)",
-                    k2.one_stage_em(x, s), k2.kron_elem_major_plain(x, s),
-                    dtype)
-        x, s = rnd(8191 * 49 + 1)[1:].view(8191, 49), rnd(49, 64)
-        for h in (None, 0):
-            compare(torch, f"K3 {tag} X off a 16-byte boundary (49 x 64) "
-                    f"tile {h}", k2.one_stage_em(x, s, tile=h),
-                    k2.kron_elem_major_plain(x, s), dtype)
-        del x, c, s
-        torch.cuda.empty_cache()
-
-
-def edges(torch) -> None:
-    """Phase 3, K4's and K8's scalar forms and grids: K4 on w and on out
-    one element off a 16-byte boundary, on F = nkj*E = 3 x 1001 values
-    (not whole 16-byte vectors) and on nkj = 70000 (above the first
-    design's grid limit), at every unroll; K8 at N = 777 and 1001 and on
-    an x one element off a 16-byte boundary, at every (rows, unroll), and
-    two calls of each use bit-identical; against their plain versions, f32
-    and f64 (K4 in bf16 too)."""
-    from tpu_bench_torch.kernels import bwdtrans3d as k1
-    from tpu_bench_torch.kernels import matvec as kmv
-
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    for dtype in (torch.float32, torch.float64, torch.bfloat16):
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda",
-                               dtype=dtype)
-
-        tag = str(dtype)[6:]
-        b0 = rnd(7, 8)
-        cases = [("w off a 16-byte boundary",
-                  rnd(7 * 64 * 1000 + 1)[1:].view(7, 64, 1000), None),
-                 ("out off a 16-byte boundary", rnd(7, 64, 1000),
-                  torch.empty(8 * 64 * 1000 + 1, dtype=dtype,
-                              device="cuda")[1:].view(8, 64, 1000)),
-                 ("F = 3 x 1001", rnd(7, 3, 1001), None),
-                 ("nkj = 70000", rnd(7, 70000, 8), None)]
-        for label, w, out in cases:
-            ref = k1.qp_stage2_3d_plain(w, b0)
-            for unroll in k1.qp2_unrolls(dtype.itemsize, 7):
-                compare(torch, f"K4 {tag} {label} unroll {unroll}",
-                        k1.qp_stage2_3d(w, b0, unroll=unroll, out=out), ref,
-                        dtype)
-        if dtype == torch.bfloat16:  # K8 is built in f32 and f64
-            continue
-        for m, n, off in ((1000, 777, 0), (1001, 1001, 0), (4096, 4096, 1),
-                          (777, 1000, 1)):
-            a, x = rnd(m, n), rnd(n + 1)[off:off + n]
-            ref = kmv.matvec_rm_plain(a, x)
-            for rows in kmv.RM_ROWS:
-                for unroll in kmv.RM_UNROLLS:
-                    y = kmv.matvec_rm(a, x, rows=rows, unroll=unroll)
-                    compare(torch, f"K8 {tag} ({m}, {n}), x {off} element"
-                            f"(s) off, rows {rows} unroll {unroll}", y, ref,
-                            dtype)
-                    assert torch.equal(
-                        y, kmv.matvec_rm(a, x, rows=rows, unroll=unroll)), \
-                        ("K8 not bit-identical on two calls", m, n, rows,
-                         unroll)
-        torch.cuda.empty_cache()
 
 
 def initdata_on_card(torch) -> None:
@@ -2191,12 +1724,9 @@ def main() -> int:
     measured_bf16 = bf16_vs_plain(torch)
     measured_streams = streams_vs_plain(torch)
     measured_probes = probes_vs_plain(torch)
-    rings_vs_plain(torch)
     measured_ozaki, band_launches = ozaki_vs_plain(torch)
     tensor_core_times(torch, measured, measured_ozaki)
     measured_coalesced, coalesced_launches = coalesced_vs_plain(torch)
-    configs(torch)
-    edges(torch)
     from tpu_bench_torch.benchmarks import benchmark01 as b01
     from tpu_bench_torch.benchmarks import benchmark02 as b02
     from tpu_bench_torch.benchmarks import benchmark03 as b03
@@ -2249,13 +1779,6 @@ def main() -> int:
 
     print(f"K1 launches by ring depth (qp_depths): "
           f"{dict(sorted(k1.qp_depths.items()))}")
-    from tpu_bench_torch.kernels import bwdtrans2d as k2
-
-    print(f"K2 and K3 dense launches by (dtype, mma) (dense_mma): "
-          f"{dict(sorted(k2.dense_mma.items()))}")
-    f64_shapes = {shape for (dtype, shape) in k2.dense_mma
-                  if dtype == "float64"}
-    assert f64_shapes == {k2.DENSE_MMA[torch.float64]}, k2.dense_mma
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_bwdtrans3d import card_agree
 from tpu_bench.kernels import bwdtrans2d as pl_bt2d
 from tpu_bench.utils import native
 from tpu_bench_torch.kernels import build
@@ -339,22 +340,26 @@ def test_kron_config_rule():
                                    torch.bfloat16], ids=["f32", "f64",
                                                          "bf16"])
 @pytest.mark.parametrize("kernel", ["kron_blocked", "em_gemm"])
-def test_dense_mma_counts_each_dense_launch(monkeypatch, kernel, dtype):
-    """dense_mma counts one launch a call of the dense configuration, by
-    the rule or asked for, under (dtype, its mma shape), and none of the
-    resident one, on launches into a stand-in for the library."""
+def test_launch_passes_the_rule_configuration(monkeypatch, kernel, dtype):
+    """The wrapper decides the configuration and the kernel runs what it is
+    given: with the knob None, _launch (K2) and _em_launch (K3) pass
+    kron_config's or em_config's choice (0, dense, for the b05 nq=8^3
+    product; a resident width for the b04 nq=8^2 one), a given knob (0 or
+    a resident width other than the rule's) as it is, and never a
+    negative value, on launches into a stand-in for the library."""
     calls = []
     monkeypatch.setattr(build, "run", lambda *args: calls.append(args))
     monkeypatch.setattr(build, "smem_limits",
                         lambda index: (232448, 233472))
-    key = (str(dtype)[6:], k2.DENSE_MMA[dtype])
-    assert key[1] == {torch.float32: "m16n8k8", torch.float64: "m16n8k8",
-                      torch.bfloat16: "m16n8k16"}[dtype]
+    size = dtype.itemsize
     if kernel == "kron_blocked":
         dense = (torch.zeros(1, 343, 40, dtype=dtype),
                  torch.zeros(512, 343, dtype=dtype))
         resident = (torch.zeros(7, 49, 40, dtype=dtype),
                     torch.zeros(64, 49, dtype=dtype))
+        rule = k2.kron_config(size, 64, 49)
+        assert k2.kron_config(size, 512, 343) == 0
+        other = 128
 
         def launch(ops, knob):
             return k2._launch(ops[0], ops[1], knob)
@@ -363,15 +368,18 @@ def test_dense_mma_counts_each_dense_launch(monkeypatch, kernel, dtype):
                  torch.zeros(343, 512, dtype=dtype))
         resident = (torch.zeros(40, 49, dtype=dtype),
                     torch.zeros(49, 64, dtype=dtype))
+        rule = k2.em_config(size, 49, 64)
+        assert k2.em_config(size, 343, 512) == 0
+        other = 32
 
         def launch(ops, knob):
             return k2._em_launch("one_stage_em", ops[0], ops[1], knob)
-    for ops, knob, counted in ((dense, None, 1), (dense, 0, 1),
-                               (resident, None, 0), (resident, 0, 1)):
-        before = k2.dense_mma.copy()
+    assert rule > 0 and other != rule
+    for ops, knob in ((dense, None), (dense, 0), (resident, None),
+                      (resident, 0), (resident, other)):
         launch(ops, knob)
-        assert k2.dense_mma - before == ({key: 1} if counted else {})
-    assert len(calls) == 4 and calls[0][0] == kernel
+    assert [args[0] for args in calls] == [kernel] * 5
+    assert [args[-1] for args in calls] == [0, 0, rule, 0, other]
 
 
 def test_kron_blocked_rejects_unknown_strip():
@@ -419,12 +427,9 @@ def test_kron_blocked_both_configs_on_card(itemsize):
         cases += [(rnd(2, k, e), rnd(m, k), None)
                   for m in (512, 500) for k in (343, 344)]
         for x, c, w in cases:
-            out = k2.kron_blocked(x, c, strip=w)
-            ref = k2.kron_blocked_plain(x, c)
-            torch.cuda.synchronize()
-            err = float((out.double() - ref.double()).abs().max()
-                        / ref.double().abs().max())
-            assert err <= tol, (tuple(c.shape), e, w, err)
+            card_agree(k2.kron_blocked(x, c, strip=w),
+                       k2.kron_blocked_plain(x, c), dtype, tol,
+                       (tuple(c.shape), e, w))
 
 
 # ---- K3's configurations (kernels/bwdtrans2d.em_config) --------------------
@@ -484,7 +489,6 @@ def test_dense_f64_tile_fits_the_card(label, shape):
     pairs of 8 (a 16-byte load of B feeds two), depth of 8."""
     t = k2.DENSE_F64
     assert t.mma == (16, 8, 8)
-    assert k2.DENSE_MMA[torch.float64] == "m{}n{}k{}".format(*t.mma)
     smem = k2.dense_smem(t)
     assert smem == 8 * 2 * (128 * 24 + 16 * 66) == 66048
     assert smem <= 232448 and t.blocks * (smem + 1024) <= 233472
@@ -567,12 +571,9 @@ def test_em_gemm_both_configs_on_card(itemsize):
         cases += [(rnd(e, k), rnd(k, n), None)
                   for n in (512, 500) for k in (343, 344)]
         for x, s, h in cases:
-            out = k2.one_stage_em(x, s, tile=h)
-            ref = k2.kron_elem_major_plain(x, s)
-            torch.cuda.synchronize()
-            err = float((out.double() - ref.double()).abs().max()
-                        / ref.double().abs().max())
-            assert err <= tol, (tuple(s.shape), e, h, err)
+            card_agree(k2.one_stage_em(x, s, tile=h),
+                       k2.kron_elem_major_plain(x, s), dtype, tol,
+                       (tuple(s.shape), e, h))
 
 
 # ---- K4 at benchmark04's orders (kernels/bwdtrans3d.qp2_*) -----------------
@@ -643,3 +644,54 @@ def test_qp_stage2_every_b04_order_on_card(nq):
                 err = float((out.double() - ref.double()).abs().max()
                             / ref.double().abs().max())
                 assert err <= tol, (dtype, e, unroll, err)
+
+
+# ---- the shared memory the rules count, against the library's --------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+def test_smem_sizes_agree_with_the_library_on_card(itemsize):
+    """The rules of kernels/ decide each configuration from the shared
+    memory they count, so each count equals the library's own (csrc/): K1's
+    qp_smem and tbt_qp_fused3d_smem at every element tile, plane group and
+    depth, K2's kron_resident_smem and tbt_kron_resident_smem at every
+    strip (QP stage 1 and the kron), K3's em_resident_smem and
+    tbt_em_resident_smem at every tile height (the kron and each QP-1D
+    stage), K5's qp1d_smem and tbt_qp1d_smem at every element tile, at
+    every benchmark05 order 2^3 .. 10^3 and (3,4,5) and every benchmark04
+    order of scripts/run04.sh and (10, 12); and the f64 dense tile's
+    dense_smem and tbt_dense_f64_smem, within one block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = build.library()
+    assert k2.dense_smem(k2.DENSE_F64) == lib.tbt_dense_f64_smem() <= 232448
+    orders = [(n, n, n) for n in range(2, 11)] + [(3, 4, 5)] + B04_ORDERS
+    for nq in orders:
+        nm = [n - 1 for n in nq]
+        if len(nq) == 2:
+            k1_shape = (nm[0], nm[1], nq[0], nq[1])
+            widths = [nm[0] * nm[1], nm[1] * nq[0], nq[0] * nq[1]]
+        else:
+            k1_shape = (nm[0], nm[1] * nm[2], nq[0], nq[1] * nq[2])
+            widths = [nm[0] * nm[1] * nm[2], nm[2] * nm[1] * nq[0],
+                      nm[2] * nq[1] * nq[0], nq[0] * nq[1] * nq[2]]
+        for et in k1.QP_TILES[itemsize]:
+            for g in k1.QP_PLANE_GROUPS:
+                for depth in (1, 2):
+                    assert k1.qp_smem(itemsize, et, g, *k1_shape, depth) == \
+                        lib.tbt_qp_fused3d_smem(itemsize, et, g, *k1_shape,
+                                                depth), (nq, et, g, depth)
+        stage1 = (k1_shape[3], k1_shape[1])
+        for m, k in (stage1, (widths[-1], widths[0])):
+            for w in k2.KRON_STRIPS:
+                assert k2.kron_resident_smem(itemsize, m, k, w) == \
+                    lib.tbt_kron_resident_smem(itemsize, m, k, w), (m, k, w)
+        for k, n in [(widths[0], widths[-1]), *zip(widths, widths[1:])]:
+            for h in k2.EM_TILES:
+                assert k2.em_resident_smem(itemsize, k, n, h) == \
+                    lib.tbt_em_resident_smem(itemsize, k, n, h), (k, n, h)
+        n2 = widths[2] if len(widths) == 4 else 0
+        for et in k1.QP1D_TILES[itemsize]:
+            assert k1.qp1d_smem(itemsize, et, widths[0], widths[1], n2) == \
+                lib.tbt_qp1d_smem(itemsize, et, widths[0], widths[1],
+                                  n2), (nq, et)

@@ -304,7 +304,8 @@ def test_ozaki_slices_match_plain_on_card(form, t_c, t_x):
 @pytest.mark.parametrize("k,m,e,t_c,t_x", [
     (49, 64, 1000, None, None), (343, 512, 1000, None, None),
     (729, 1000, 1000, None, None), (49, 64, 1000, 6, 8),
-    (729, 1000, 1000, 11, 9), (343, 512, 999, 9, 9)])
+    (343, 512, 1000, 9, 7), (729, 1000, 1000, 11, 9),
+    (343, 512, 999, 9, 9)])
 def test_ozaki_tensor_core_tile_edges_on_card(k, m, e, t_c, t_x):
     """K14 on the tensor cores at its tile edges: the depths of b04 nq=8^2,
     b05 nq=8^3 and nq=10^3 (k not a multiple of the mma depth), rows past
@@ -466,7 +467,7 @@ MATVEC_SHAPES = [(1000, 777), (777, 1000), (4096, 16384), (16384, 4096),
 
 def _order_products(nq):
     """K1's (nm0, nrq, nq0, nkj), K2's products (M, K) and K3's (K, N) at
-    order nq (chip_smoke.config_operands' shapes)."""
+    order nq."""
     nm = [n - 1 for n in nq]
     if len(nq) == 2:
         k1_shape = (nm[0], nm[1], nq[0], nq[1])

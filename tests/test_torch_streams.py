@@ -366,16 +366,17 @@ def test_matvec_rm_rejects_bad_knobs(kwargs, error):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_matvec_rm_on_card(dtype):
-    """K8 against its plain version at the smoke's shapes (1000, 777) ..
-    16384^2 and at N = 1001, at every (rows, unroll), also on an x one
-    element off a 16-byte boundary (the scalar form); two calls give the
-    same bits; 1e-5 (f32), 1e-12 (f64), relative to the largest output."""
+    """K8 against its plain version at (1000, 777) .. 16384^2, (1001,
+    1001) and (4096, 4096), at every (rows, unroll), also on an x one
+    element off a 16-byte boundary (the scalar form); two calls at each
+    setting give the same bits; 1e-5 (f32), 1e-12 (f64), relative to the
+    largest output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
     tol = 1e-5 if dt == torch.float32 else 1e-12
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for m, n in MATVEC_SHAPES + [(1001, 1001)]:
+    for m, n in MATVEC_SHAPES + [(1001, 1001), (4096, 4096)]:
         a = torch.randn(m, n, generator=gen, device="cuda", dtype=dt)
         x = torch.randn(n + 1, generator=gen, device="cuda", dtype=dt)
         for xv in (x[:n], x[1:]):
@@ -386,4 +387,7 @@ def test_matvec_rm_on_card(dtype):
                     torch.cuda.synchronize()
                     err = float((out - ref).abs().max() / ref.abs().max())
                     assert err <= tol, (m, n, rows, unroll, err)
+                    assert torch.equal(out, kmv.matvec_rm(
+                        a, xv, rows=rows, unroll=unroll)), (m, n, rows,
+                                                            unroll)
             assert torch.equal(kmv.matvec_rm(a, xv), kmv.matvec_rm(a, xv))

@@ -19,8 +19,7 @@ setting twice, in the order a b .. b a).  The sweeps:
 - K2 (kron_blocked): every strip width of the C-resident configuration
   that fits, and 0, the dense one, at benchmark05's Pallas(QP) stage 1
   (64 x 49, nq=8^3), benchmark04's at nq=8^2 (8 x 7) and benchmark04's
-  kron_wide4 at nq=8^2 (64 x 49); `*` marks kron_config's choice; then
-  K2's and K3's dense launches by (dtype, mma shape) (dense_mma);
+  kron_wide4 at nq=8^2 (64 x 49); `*` marks kron_config's choice;
 - K3 (em_gemm): every tile height of the S-resident configuration that
   fits, and 0, the dense one, at benchmark04's nq=8^2 kron_elem_major and
   QP-1D stages (E=1,048,576), benchmark05's nq=6^3 kron_elem_major and
@@ -177,8 +176,6 @@ def k2_sweep(rnd, tag, itemsize) -> None:
                k2.kron_config(itemsize, m, k))
         del x
         torch.cuda.empty_cache()
-    print(f"{tag} K2 and K3 dense launches by (dtype, mma): "
-          f"{dict(sorted(k2.dense_mma.items()))}", flush=True)
 
 
 def k3_sweep(rnd, tag, itemsize) -> None:

@@ -17,11 +17,11 @@
 //
 //   out (E x N) = X (E x K) @ S (K x N),  elements on rows.
 //
-// K2's products are of two kinds, and one kernel entry runs each on its
-// own configuration.  The rule (kron_strip below, kron_config in
-// kernels/bwdtrans2d.py): C resident when C^T and a ring of RING strips
-// of in[b] fit the card's opt-in shared memory at some strip width, else
-// dense.
+// K2's products are of two kinds, and one kernel entry runs each on the
+// configuration it is given.  The rule (kron_config in
+// kernels/bwdtrans2d.py, which passes its choice): C resident when C^T and
+// a ring of RING strips of in[b] fit the card's opt-in shared memory at
+// some strip width, else dense.
 //
 // (a) C resident: the skinny products (Pallas(QP) stage 1, 64 x 49 at b05
 // nq=8^3 and 8 x 7 at b04 nq=8^2; kron_wide4 and kron_coalesced at b04
@@ -98,10 +98,10 @@
 // (tbt::cp_async<2>).
 //
 // K3's products are of the same two kinds, and one kernel entry runs each
-// on its own configuration, by one rule (em_tile below, em_config in
-// kernels/bwdtrans2d.py): S resident when S (K x N, N padded to 64) and a
-// ring of RING element tiles fit the card's opt-in shared memory at some
-// tile height, else dense.
+// on the configuration it is given, by one rule (em_config in
+// kernels/bwdtrans2d.py, which passes its choice): S resident when S (K x
+// N, N padded to 64) and a ring of RING element tiles fit the card's
+// opt-in shared memory at some tile height, else dense.
 //
 // (a) S resident: the skinny products (b04 nq=8^2 kron_elem_major 49 x 64
 // and QP-1D stages 49 x 56, 56 x 64; b05 to nq=6^3 in f32; b04 to nq=14^2
@@ -151,7 +151,6 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 
 // (a) C resident: 4 x 4 micro-tiles; strip widths 64..512.
 constexpr int KR_TM = 4, KR_TN = 4;
-constexpr int KR_MIN_BN = 64, KR_MAX_BN = 512;
 
 // C^T's values, a whole number of 16-byte words (bf16 with K odd), so the
 // ring behind it starts on a 16-byte boundary.
@@ -166,21 +165,6 @@ size_t kron_resident_smem(int m_rows, int k_depth, int bn) {
     return sizeof(T) *
            (static_cast<size_t>(kron_ct_values<T>(m_rows, k_depth)) +
             static_cast<size_t>(KB_RING) * k_depth * bn);
-}
-
-// The rule: the narrowest strip width whose micro-tiles fill the block's
-// threads, narrowed further (down to KR_MIN_BN) until C^T and the ring fit
-// `limit` bytes; 0, the dense configuration, if they fit at none.
-template <typename T>
-int kron_strip(int m_rows, int k_depth, long long limit) {
-    const int mgs = round_up(m_rows, KR_TM) / KR_TM;
-    int bn = KR_MIN_BN;
-    while (bn < KR_MAX_BN && mgs * (bn / KR_TN) < KB_THREADS) bn *= 2;
-    for (; bn >= KR_MIN_BN; bn /= 2)
-        if (static_cast<long long>(kron_resident_smem<T>(m_rows, k_depth,
-                                                         bn)) <= limit)
-            return bn;
-    return 0;
 }
 
 template <typename T, int BN>
@@ -715,30 +699,15 @@ int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
             c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
 }
 
-// The card's opt-in shared memory of a block, read once per device; or
-// minus a CUDA error code.
-inline long long card_smem_limit() {
-    static tbt::DeviceCache<> limits;
-    return limits.get(0, [](int dev) -> long long {
-        int limit = 0;
-        const cudaError_t err = cudaDeviceGetAttribute(
-            &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-        return err == cudaSuccess ? limit : -static_cast<long long>(err);
-    });
-}
-
-// strip < 0: the rule (kron_strip); 0: the dense configuration; else C
-// resident with that strip width.
+// strip 0: the dense configuration; 64, 128, 256 or 512: C resident with
+// that strip width; any other value is refused.
 template <typename T>
 int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
                         int k_depth, int n_cols, int n_chunks, int strip,
                         cudaStream_t stream) {
     if (m_rows <= 0 || n_cols <= 0 || n_chunks <= 0) return cudaSuccess;
     if (k_depth <= 0) return cudaErrorInvalidValue;
-    const long long limit = card_smem_limit();
-    if (limit < 0) return static_cast<int>(-limit);
-    const int bn = strip < 0 ? kron_strip<T>(m_rows, k_depth, limit) : strip;
-    switch (bn) {
+    switch (strip) {
         case 0:
             return launch_dense_tiles<T, MFast>(c, in, out, m_rows, k_depth,
                                                 n_cols, n_chunks, stream);
@@ -768,28 +737,12 @@ constexpr int EM_WARPS = EM_THREADS / 32;
 constexpr int EM_RING = 2;
 constexpr int EM_TE = 8, EM_TN = 8;
 constexpr int EM_ROWS = 4 * EM_TE, EM_COLS = 8 * EM_TN;
-constexpr int EM_MIN_BE = 32, EM_MAX_BE = 256;
 
 template <typename T>
 size_t em_resident_smem(int k_depth, int n_cols, int be) {
     return sizeof(T) *
            (static_cast<size_t>(k_depth) * round_up(n_cols, EM_COLS) +
             static_cast<size_t>(EM_RING) * be * k_depth);
-}
-
-// The rule: the narrowest tile height whose units fill the block's warps,
-// narrowed further (down to EM_MIN_BE) until S and the ring fit `limit`
-// bytes; 0, the dense configuration, if they fit at none.
-template <typename T>
-int em_tile(int k_depth, int n_cols, long long limit) {
-    const int chunks = (n_cols + EM_COLS - 1) / EM_COLS;
-    int be = EM_MIN_BE;
-    while (be < EM_MAX_BE && (be / EM_ROWS) * chunks < EM_WARPS) be *= 2;
-    for (; be >= EM_MIN_BE; be /= 2)
-        if (static_cast<long long>(em_resident_smem<T>(k_depth, n_cols, be)) <=
-            limit)
-            return be;
-    return 0;
 }
 
 template <typename T, int BE>
@@ -925,16 +878,14 @@ int launch_em_resident(const T* x, const T* s, T* out, int e_rows,
     return cudaGetLastError();
 }
 
-// tile < 0: the rule (em_tile); 0: the dense configuration; else S
-// resident with that tile height.
+// tile 0: the dense configuration; 32, 64, 128 or 256: S resident with
+// that tile height; any other value is refused.
 template <typename T>
 int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
                    int n_cols, int tile, cudaStream_t stream) {
     if (e_rows <= 0 || n_cols <= 0) return cudaSuccess;
     if (k_depth < 0) return cudaErrorInvalidValue;
-    const long long limit = card_smem_limit();
-    if (limit < 0) return static_cast<int>(-limit);
-    switch (tile < 0 ? em_tile<T>(k_depth, n_cols, limit) : tile) {
+    switch (tile) {
         case 0:
             return launch_dense_tiles<T, NFast>(x, s, out, e_rows, k_depth,
                                                 n_cols, 1, stream);
@@ -957,19 +908,8 @@ int launch_em_gemm(const T* x, const T* s, T* out, int e_rows, int k_depth,
 
 }  // namespace
 
-// K2's rule: the strip width of the C-resident configuration for an M x K
-// operator of itemsize-byte values under `limit` bytes of shared memory,
-// 0 for the dense configuration; and the resident configuration's shared
-// memory at strip width bn.
-extern "C" int tbt_kron_strip(int itemsize, int m_rows, int k_depth,
-                              long long limit) {
-    switch (itemsize) {
-        case 2: return kron_strip<tbt::bf16>(m_rows, k_depth, limit);
-        case 4: return kron_strip<float>(m_rows, k_depth, limit);
-        default: return kron_strip<double>(m_rows, k_depth, limit);
-    }
-}
-
+// K2's C-resident configuration's shared memory for an M x K operator of
+// itemsize-byte values at strip width bn.
 extern "C" long long tbt_kron_resident_smem(int itemsize, int m_rows,
                                             int k_depth, int bn) {
     switch (itemsize) {
@@ -1021,19 +961,8 @@ extern "C" long long tbt_dense_f64_smem() {
                         F::WN * F::WNT * 8>());
 }
 
-// K3's rule: the tile height of the S-resident configuration for an S of
-// K x N itemsize-byte values under `limit` bytes of shared memory, 0 for
-// the dense configuration; and the resident configuration's shared memory
-// at tile height be.
-extern "C" int tbt_em_tile(int itemsize, int k_depth, int n_cols,
-                           long long limit) {
-    switch (itemsize) {
-        case 2: return em_tile<tbt::bf16>(k_depth, n_cols, limit);
-        case 4: return em_tile<float>(k_depth, n_cols, limit);
-        default: return em_tile<double>(k_depth, n_cols, limit);
-    }
-}
-
+// K3's S-resident configuration's shared memory for an S of K x N
+// itemsize-byte values at tile height be.
 extern "C" long long tbt_em_resident_smem(int itemsize, int k_depth,
                                           int n_cols, int be) {
     switch (itemsize) {

@@ -201,21 +201,17 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     lib.tbt_qp1d_smem.argtypes = [_I, _I, _I, _I, _I]
     lib.tbt_qp1d_smem.restype = _L
-    # K1's and K2's shared memory and K2's configuration rule
+    # K1's and K2's shared memory
     lib.tbt_qp_fused3d_smem.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I]
     lib.tbt_qp_fused3d_smem.restype = _L
     lib.tbt_kron_resident_smem.argtypes = [_I, _I, _I, _I]
     lib.tbt_kron_resident_smem.restype = _L
-    lib.tbt_kron_strip.argtypes = [_I, _I, _I, _L]
-    lib.tbt_kron_strip.restype = ctypes.c_int
     # K2's and K3's dense configuration in f64: a block's shared memory
     lib.tbt_dense_f64_smem.argtypes = []
     lib.tbt_dense_f64_smem.restype = _L
-    # K3's shared memory and configuration rule; K9's blocks in one wave
+    # K3's shared memory; K9's blocks in one wave
     lib.tbt_em_resident_smem.argtypes = [_I, _I, _I, _I]
     lib.tbt_em_resident_smem.restype = _L
-    lib.tbt_em_tile.argtypes = [_I, _I, _I, _L]
-    lib.tbt_em_tile.restype = ctypes.c_int
     lib.tbt_matvec_cm_blocks.argtypes = [_I, _I]
     lib.tbt_matvec_cm_blocks.restype = ctypes.c_int
     # K4's and K8's blocks in one wave

@@ -12,9 +12,10 @@ element-major product with elements on rows:
 
     out (E, N) = in (E, K) @ S (K, N)
 
-Both run one of two configurations by a rule mirrored here in pure Python
-(kron_config, em_config): the small operator resident in shared memory for
-the skinny products, else dense on the tensor cores.
+Both run one of two configurations: the small operator resident in shared
+memory for the skinny products, else dense on the tensor cores.  The
+wrapper picks it by a rule in pure Python (kron_config, em_config) and
+passes it to the kernel, which runs the configuration it is given.
 
 The rest of tpu_bench/kernels/bwdtrans2d.py, benchmark04's 2D kernels, is
 served by kernels that already compute each function on the same bytes;
@@ -42,7 +43,6 @@ it cannot run.
 
 from __future__ import annotations
 
-import collections
 import functools
 from typing import NamedTuple
 
@@ -94,13 +94,6 @@ class DenseTile(NamedTuple):
 # nq=8^3 products; PERF.md section 6.)
 DENSE_F64 = DenseTile(bm=128, bn=64, bk=16, ring=2, a_pad=8, b_pad=2,
                       blocks=2, mma=(16, 8, 8))
-# The mma shape the dense configuration issues, by dtype (f32 as three TF32
-# passes, f64 on the DMMA shape of DENSE_F64)
-DENSE_MMA = {torch.float32: "m16n8k8", torch.float64: "m16n8k8",
-             torch.bfloat16: "m16n8k16"}
-# K2's and K3's launches of the dense configuration by (dtype, mma shape),
-# since the count was last reset: which instruction the dense products run.
-dense_mma: collections.Counter = collections.Counter()
 
 
 def dense_smem(tile: DenseTile, itemsize: int = 8) -> int:
@@ -109,10 +102,6 @@ def dense_smem(tile: DenseTile, itemsize: int = 8) -> int:
     (bk x bn) tiles, their rows padded."""
     return itemsize * tile.ring * (tile.bm * (tile.bk + tile.a_pad)
                                    + tile.bk * (tile.bn + tile.b_pad))
-
-
-def _count_dense(dtype) -> None:
-    dense_mma[(str(dtype)[6:], DENSE_MMA[dtype])] += 1
 
 
 def widened(*ts):
@@ -168,11 +157,11 @@ def kron_resident_smem(itemsize, m, k, bn) -> int:
 
 @functools.cache
 def kron_config(itemsize, m, k, limit=SMEM_BLOCK) -> int:
-    """K2's rule (csrc/bwdtrans2d.cu kron_strip) for C (m x k): the strip
-    width of the C-resident configuration, the narrowest of KRON_STRIPS
-    whose micro-tiles fill the block, narrowed until C^T and the ring fit
-    `limit` bytes; 0, the dense configuration on the tensor cores, if they
-    fit at none."""
+    """K2's rule for C (m x k), which _launch passes to the kernel: the
+    strip width of the C-resident configuration, the narrowest of
+    KRON_STRIPS whose micro-tiles fill the block, narrowed until C^T and
+    the ring fit `limit` bytes; 0, the dense configuration on the tensor
+    cores, if they fit at none."""
     tiles = -(-m // KRON_TILE)
     bn = KRON_STRIPS[0]
     while bn < KRON_STRIPS[-1] and tiles * (bn // KRON_TILE) < KRON_THREADS:
@@ -205,22 +194,20 @@ def _launch(x, c, strip):
         raise ValueError(f"kron_blocked: in {tuple(x.shape)} exceeds the "
                          "kernel's 32-bit extents")
     limit = build.smem_limits(x.get_device())[0]
-    if strip:
-        if kron_resident_smem(x.element_size(), nq_tot, nm_tot,
-                              strip) > limit:
-            raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
-                             f"strips of {strip} do not fit the card's "
-                             f"{limit} B of shared memory")
+    if strip is None:
+        strip = kron_config(x.element_size(), nq_tot, nm_tot, limit)
+    elif strip and kron_resident_smem(x.element_size(), nq_tot, nm_tot,
+                                      strip) > limit:
+        raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
+                         f"strips of {strip} do not fit the card's "
+                         f"{limit} B of shared memory")
     if spans.profiler._is_profiler_enabled:
         out = spans.alloc((nblk, nq_tot, ce), x,
                           build.key("kron_blocked", x.dtype))
     else:
         out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
     build.run("kron_blocked", x, c.data_ptr(), x.data_ptr(), out.data_ptr(),
-              nq_tot, nm_tot, ce, nblk, -1 if strip is None else strip)
-    if strip == 0 or strip is None and not kron_config(
-            x.element_size(), nq_tot, nm_tot, limit):
-        _count_dense(x.dtype)
+              nq_tot, nm_tot, ce, nblk, strip)
     return out
 
 
@@ -270,8 +257,8 @@ def em_resident_smem(itemsize, k, n, be) -> int:
 
 @functools.cache
 def em_config(itemsize, k, n, limit=SMEM_BLOCK) -> int:
-    """K3's rule (csrc/bwdtrans2d.cu em_tile) for S (k x n): the tile
-    height of the S-resident configuration, the narrowest of EM_TILES
+    """K3's rule for S (k x n), which _em_launch passes to the kernel: the
+    tile height of the S-resident configuration, the narrowest of EM_TILES
     whose warp units fill the block, narrowed until S and the ring fit
     `limit` bytes; 0, the dense configuration on the tensor cores, if they
     fit at none."""
@@ -309,17 +296,14 @@ def _em_launch(name, x, s, tile):
         raise ValueError(f"{name}: {tuple(x.shape)} @ {tuple(s.shape)} "
                          "exceeds the kernel's 32-bit extents")
     limit = build.smem_limits(x.get_device())[0]
-    if tile:
-        if em_resident_smem(x.element_size(), k, n, tile) > limit:
-            raise ValueError(f"{name}: S ({k} x {n}) and tiles of {tile} "
-                             f"do not fit the card's {limit} B of shared "
-                             "memory")
+    if tile is None:
+        tile = em_config(x.element_size(), k, n, limit)
+    elif tile and em_resident_smem(x.element_size(), k, n, tile) > limit:
+        raise ValueError(f"{name}: S ({k} x {n}) and tiles of {tile} do not "
+                         f"fit the card's {limit} B of shared memory")
     out = torch.empty((e, n), dtype=x.dtype, device=x.device)
     build.run("em_gemm", x, x.data_ptr(), s.data_ptr(), out.data_ptr(), e, k,
-              n, -1 if tile is None else tile)
-    if tile == 0 or tile is None and not em_config(x.element_size(), k, n,
-                                                   limit):
-        _count_dense(x.dtype)
+              n, tile)
     return out
 
 

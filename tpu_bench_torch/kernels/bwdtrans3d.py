@@ -94,15 +94,21 @@ class QPConfig(typing.NamedTuple):
 # and 10^3 in f32 and 10^3, 8^2 and 32^2 in f64, and elsewhere a setting
 # 1.5-32% slower (f64 b04 16^2: 2.0687 ms against 1.5636).
 QP_MEASURED = {
-    (4, 3, 9, 4, 16): (128, 4), (4, 5, 25, 6, 36): (32, 8, 2, 256),
-    (4, 7, 49, 8, 64): (16, 8, 2, 256), (4, 9, 81, 10, 100): (16, 8, 2, 512),
-    (4, 7, 7, 8, 8): (128, 4), (4, 15, 15, 16, 16): (64, 4),
-    (4, 31, 31, 32, 32): (16, 8),
-    (8, 3, 9, 4, 16): (64, 4), (8, 5, 25, 6, 36): (32, 8),
-    (8, 7, 49, 8, 64): (16, 8, 2, 256), (8, 9, 81, 10, 100): (16, 4),
-    (8, 7, 7, 8, 8): (64, 8), (8, 15, 15, 16, 16): (32, 8),
-    (8, 31, 31, 32, 32): (16, 8),
-    (2, 9, 81, 10, 100): (16, 8, 2, 256),
+    (4, 3, 9, 4, 16): QPConfig(128, 4, 1, 256),
+    (4, 5, 25, 6, 36): QPConfig(32, 8, 2, 256),
+    (4, 7, 49, 8, 64): QPConfig(16, 8, 2, 256),
+    (4, 9, 81, 10, 100): QPConfig(16, 8, 2, 512),
+    (4, 7, 7, 8, 8): QPConfig(128, 4, 1, 256),
+    (4, 15, 15, 16, 16): QPConfig(64, 4, 1, 256),
+    (4, 31, 31, 32, 32): QPConfig(16, 8, 1, 256),
+    (8, 3, 9, 4, 16): QPConfig(64, 4, 1, 256),
+    (8, 5, 25, 6, 36): QPConfig(32, 8, 1, 256),
+    (8, 7, 49, 8, 64): QPConfig(16, 8, 2, 256),
+    (8, 9, 81, 10, 100): QPConfig(16, 4, 1, 256),
+    (8, 7, 7, 8, 8): QPConfig(64, 8, 1, 256),
+    (8, 15, 15, 16, 16): QPConfig(32, 8, 1, 256),
+    (8, 31, 31, 32, 32): QPConfig(16, 8, 1, 256),
+    (2, 9, 81, 10, 100): QPConfig(16, 8, 2, 256),
 }
 # K1's launches by the depth they took (a launch of the depth-2 form counts
 # under 2), since the count was last reset: how often the slab ring runs.
@@ -244,12 +250,10 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
     busy (nrq * et / QP_TE positions), else the largest that fits one
     block; None if none fits.  Depth 2 is taken only where the sweep
     measured it faster."""
-    measured = QP_MEASURED.get((itemsize, nm0, nrq, nq0, nkj))
-    if measured:
-        cfg = QPConfig(*measured)
-        if qp_smem(itemsize, cfg.et, cfg.planes, nm0, nrq, nq0, nkj,
-                   cfg.depth) <= block_limit:
-            return cfg
+    cfg = QP_MEASURED.get((itemsize, nm0, nrq, nq0, nkj))
+    if cfg and qp_smem(itemsize, cfg.et, cfg.planes, nm0, nrq, nq0, nkj,
+                       cfg.depth) <= block_limit:
+        return cfg
     sizes = {}
     for et in QP_TILES[itemsize]:
         g = qp_planes(et, nkj)
