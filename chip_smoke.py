@@ -24,7 +24,8 @@ five.  Every phase is fatal:
    instance), K8, K9 and the cp.async.bulk rings of K12 and K7 (f32 and
    f64; K1-K5 in bf16 too), and
    `cuobjdump -sass` must show HMMA in K14 and in the f32 and bf16
-   entries of K5 and of K2's and K3's dense GEMM, DMMA in K5's f64 entry,
+   entries of K5 and of K2's and K3's dense GEMM on mma.sync, HGMMA on
+   TF32 in K2's f32 dense body on wgmma, DMMA in K5's f64 entry,
    sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
    entries, and the bulk copy (UBLKCP) in the rings;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
@@ -47,7 +48,9 @@ five.  Every phase is fatal:
    double, and kron_coalesced at b04 nq=8^2 and b05 nq=8^3 in f32 and
    f64; K14, K5 (f32, and f64 timed apart) and the dense configurations
    of K2 and K3 at their main shapes with the rate they reach and their
-   units' peak time; K1-K4 in f64 at b05 nq=8^3 timed beside
+   units' peak time (K2's f32 on both its bodies: wgmma, and mma.sync
+   through Pallas(Coales)'s input copied off a 16-byte boundary, a use
+   of its own held against its plain version at every shape above); K1-K4 in f64 at b05 nq=8^3 timed beside
    torch.matmul in f64, and K8 at every matvec shape beside torch.mv.  At
    each path's main shapes (b05 nq=8^3, E=131072; b04 nq=8^2,
    E=1,048,576; f32; b01/b02 n = 536,870,912 and b03 16384^2, f32 and
@@ -321,11 +324,18 @@ TF32_FLOP_PER_S = 495e12  # dense TF32 tensor cores
 FP64_TC_FLOP_PER_S = 67e12  # FP64 on the tensor cores (DMMA)
 # sm_90's f64 mma.sync.m16n8k8 and the A100's m8n8k4 in cuobjdump's SASS
 DMMA_SM90, DMMA_SM80 = "DMMA.16x8x8", "DMMA.8x8x4"
+# a warp-group mma on TF32 operands (wgmma, e.g. HGMMA.64x128x8.F32.TF32)
+HGMMA_TF32 = "HGMMA TF32"
+# SASS patterns (re.search) of ops that are no literal prefix of a line
+SASS_PATTERNS = {HGMMA_TF32: r"\bHGMMA\.\S*TF32"}
 # The tensor-core kernels: name: a pattern (re.search) of their instances'
 # mangled names, and the mma instruction each must hold in the SASS.  K2
-# and K3 share one dense GEMM, told apart by its tile-order argument
-# (MFast: K2, NFast: K3).
+# and K3 share one dense GEMM on mma.sync, told apart by its tile-order
+# argument (MFast: K2, NFast: K3); K2's f32 body on wgmma is its own
+# kernel.
 TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
+              "K2 kron dense f32 (wgmma 3xTF32)":
+                  "dense_gemm_kernel_wgmma.*MFast",
               "K5 qp1d f32 (3xTF32)": "qp1d_tc_kernelIf",
               "K5 qp1d f64 (DMMA)": "qp1d_tc_kernelId",
               "K2 kron dense f32 (3xTF32)": "dense_gemm_kernelIf.*MFast",
@@ -336,6 +346,7 @@ TC_KERNELS = {"K14 ozaki_slices": "ozaki_mma_kernel",
               "K2 kron dense bf16": "dense_gemm_kernelI13__nv_bfloat16.*MFast",
               "K3 em dense bf16": "dense_gemm_kernelI13__nv_bfloat16.*NFast"}
 TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
+          ("K2 kron dense f32 (wgmma 3xTF32)", HGMMA_TF32),
           ("K5 qp1d f64 (DMMA)", "DMMA"),
           ("K2 kron dense f32 (3xTF32)", "HMMA"),
           ("K2 kron dense f64 (DMMA)", DMMA_SM90),
@@ -363,6 +374,10 @@ NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
             "K9 matvec_cm": "matvec_cm", **RING_KERNELS}
 K5_3D = "K5 qp1d_shared3d (QP-1D/Shared)"
 K3_KRON = "K3 kron_elem_major (Uncoales)"
+# Pallas(Coales)'s K2 use on its input copied one value off a 16-byte
+# boundary, which takes K2's dense f32 launch from its wgmma body to the
+# mma.sync one (kernels/bwdtrans2d.dense_body)
+K2_OFF = "K2 kron_blocked (Coales, in off 16 B)"
 K3_STAGES = tuple(f"K3 one_stage_em (QP-1D stage {i})" for i in (1, 2, 3))
 K5_2D = "K5 qp1d_fused (QP-1D/Shared)"
 K4_3D, K4_2D = "K4 qp_stage2_3d (QP stage 2)", "K4 qp_stage2 (QP stage 2)"
@@ -471,14 +486,16 @@ def build_kernels() -> None:
 
 def sass_counts(library) -> dict:
     """{(kernel, op): instructions over its instances} in `cuobjdump
-    -sass` of the built library: HMMA and DMMA in the tensor-core kernels
-    (TC_KERNELS), each DMMA also under its shape (DMMA_SM90, DMMA_SM80),
+    -sass` of the built library: HMMA, DMMA and HGMMA on TF32 in the
+    tensor-core kernels (TC_KERNELS), each DMMA also under its shape
+    (DMMA_SM90, DMMA_SM80),
     and the bulk copies (UBLKCP) and mbarrier operations (SYNCS) in the
     rings (RING_KERNELS)."""
     from tpu_bench_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80)),
+    groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80,
+                            HGMMA_TF32)),
               (RING_KERNELS, ("UBLKCP", "SYNCS"))]
     counts, kernel, ops = {}, None, ()
     for line in _run([tool, "-sass", str(library)]).splitlines():
@@ -489,7 +506,8 @@ def sass_counts(library) -> dict:
                                 if re.search(tag, name)), (None, ()))
         elif kernel:
             for op in ops:
-                if re.search(rf"\b{re.escape(op)}[.\s]", line):
+                pattern = SASS_PATTERNS.get(op, rf"\b{re.escape(op)}[.\s]")
+                if re.search(pattern, line):
                     counts[(kernel, op)] = counts.get((kernel, op), 0) + 1
     return counts
 
@@ -578,6 +596,10 @@ def shape_cases(torch, rnd, nq, e) -> list:
     em, c_em = rnd(e, nm_tot), rnd(nm_tot, nq_tot)
     s1, s2, s3 = rnd(nm_tot, n1), rnd(n1, n2), rnd(n2, nq_tot)
     w1, w2 = rnd(e, n1), rnd(e, n2)
+    xo = torch.empty(xb.numel() + 1, dtype=xb.dtype,
+                     device=xb.device)[1:].view(xb.shape)
+    xo.copy_(xb)
+    assert k2.dense_body(xo.dtype, ce, xo.data_ptr()) == "mma"
     mm = torch.matmul
 
     def k1_library():
@@ -596,6 +618,9 @@ def shape_cases(torch, rnd, nq, e) -> list:
         Case("K2 kron_blocked (Coales)", lambda: k2.kron_blocked(xb, c_coa),
              lambda: k2.kron_blocked_plain(xb, c_coa),
              lambda: mm(c_coa, xb), (xb, c_coa), 2 * nq_tot * nm_tot * e),
+        Case(K2_OFF, lambda: k2.kron_blocked(xo, c_coa),
+             lambda: k2.kron_blocked_plain(xo, c_coa),
+             lambda: mm(c_coa, xo), (xo, c_coa), 2 * nq_tot * nm_tot * e),
         Case("K2 kron_blocked (QP stage 1)", lambda: k2.kron_blocked(x, c12t),
              lambda: k2.kron_blocked_plain(x, c12t), lambda: mm(c12t, x),
              (x, c12t), 2 * nkj * nrq * nm0 * e),
@@ -1195,7 +1220,8 @@ def tensor_core_times(torch, measured, measured_ozaki) -> None:
     """Phase 3, the tensor-core kernels at their main shapes: K14 (both
     forms; phase 3's times), K5 in f32 (phase 3's times) and in f64
     (timed here on random inputs) and the dense configurations of K2 and
-    K3 at b05 nq=8^3 in f32 and f64 (phase 3's times): each one's time, the
+    K3 at b05 nq=8^3 in f32 and f64 (phase 3's times; K2's f32 also on
+    its mma.sync body, K2_OFF): each one's time, the
     rate it reaches in the FLOP of its own arithmetic (the slice products;
     the chain in stage order) and the time of the units it uses at their
     peak (dense bf16; 3 TF32 passes; DMMA)."""
@@ -1231,6 +1257,9 @@ def tensor_core_times(torch, measured, measured_ozaki) -> None:
     k2_use, flops = "K2 kron_blocked (Coales)", 2 * 512 * 343 * HEADLINE_NELMT
     rows.append((k2_use, "b05 nq=8^3", "f32 3xTF32",
                  measured[(k2_use, (8, 8, 8))]["ms"], flops,
+                 3 * flops / TF32_FLOP_PER_S * 1e3))
+    rows.append((K2_OFF, "b05 nq=8^3", "f32 3xTF32 (mma.sync)",
+                 measured[(K2_OFF, (8, 8, 8))]["ms"], flops,
                  3 * flops / TF32_FLOP_PER_S * 1e3))
     rows.append((k2_use, "b05 nq=8^3", "f64 DMMA",
                  measured[(k2_use, (8, 8, 8), "float64")]["ms"], flops,

@@ -9,6 +9,8 @@ k1.qp_shared3d_flat), k1.qp_global3d, k1.qp1d_fused and k2.qp1d_global.
 K2's rule between its C-resident and dense configurations (kron_config)
 is held at every order both benchmarks sweep."""
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -346,7 +348,9 @@ def test_launch_passes_the_rule_configuration(monkeypatch, kernel, dtype):
     kron_config's or em_config's choice (0, dense, for the b05 nq=8^3
     product; a resident width for the b04 nq=8^2 one), a given knob (0 or
     a resident width other than the rule's) as it is, and never a
-    negative value, on launches into a stand-in for the library."""
+    negative value, on launches into a stand-in for the library; K2 passes
+    its dense body after it (1, wgmma, for the f32 dense launches, whose
+    rows of 40 values are whole 16-byte words; else 0)."""
     calls = []
     monkeypatch.setattr(build, "run", lambda *args: calls.append(args))
     monkeypatch.setattr(build, "smem_limits",
@@ -379,6 +383,10 @@ def test_launch_passes_the_rule_configuration(monkeypatch, kernel, dtype):
                       (resident, 0), (resident, other)):
         launch(ops, knob)
     assert [args[0] for args in calls] == [kernel] * 5
+    if kernel == "kron_blocked":
+        wgmma = int(dtype == torch.float32)
+        assert [args[-1] for args in calls] == [wgmma, wgmma, 0, wgmma, 0]
+        calls = [args[:-1] for args in calls]
     assert [args[-1] for args in calls] == [0, 0, rule, 0, other]
 
 
@@ -399,6 +407,12 @@ def test_kron_blocked_both_configs_on_card(itemsize):
     stage 1 at b05 nq=8^3 at every strip and dense, the b05 nq=8^3 kron
     (dense), C (M x 128) just either side of the C-resident threshold,
     and the dense tile's edges, C of 512 and 500 rows by K = 343 and 344;
+    the dense body's cases: the b05 nq=8^3 kron at ce 8192, the b04 dense
+    orders 16^2 and 32^2 and kron_coalesced at b05 (one chunk of 131072),
+    each on the body dense_body gives (in f32 the wgmma body; E = 131071
+    and in off a 16-byte boundary fall back to mma.sync, counted), and
+    in f32 each wgmma case again with in copied one value off a 16-byte
+    boundary, which takes it to the mma.sync body;
     1e-5 (f32), 1e-12 (f64), 2^-7 (bf16), relative to the largest
     output."""
     if not torch.cuda.is_available():
@@ -430,6 +444,108 @@ def test_kron_blocked_both_configs_on_card(itemsize):
             card_agree(k2.kron_blocked(x, c, strip=w),
                        k2.kron_blocked_plain(x, c), dtype, tol,
                        (tuple(c.shape), e, w))
+    dense = [(rnd(2, k, e), rnd(m, k)) for e in (1000, 131071)
+             for m in (512, 500) for k in (343, 344)]
+    dense += [(rnd(16, 343, 8192), rnd(512, 343)),
+              (rnd(3, 225, 8192), rnd(256, 225)),
+              (rnd(2, 961, 8192), rnd(1024, 961))]
+    # in one value off a 16-byte boundary
+    dense += [(rnd(2 * 343 * 1000 + 1)[1:].view(2, 343, 1000),
+               rnd(512, 343))]
+    for x, c in dense:
+        body = k2.dense_body(dtype, x.shape[2], x.data_ptr())
+        assert body == ("wgmma" if itemsize == 4 and x.shape[2] % 4 == 0
+                        and x.data_ptr() % 16 == 0 else "mma")
+        before = k2.dense_bodies[(build.SUFFIXES[dtype], body)]
+        ref = k2.kron_blocked_plain(x, c)
+        card_agree(k2.kron_blocked(x, c, strip=0), ref, dtype, tol,
+                   (tuple(x.shape), tuple(c.shape), body))
+        assert k2.dense_bodies[(build.SUFFIXES[dtype], body)] == before + 1
+        if body == "wgmma":
+            off = torch.empty(x.numel() + 1, dtype=dtype,
+                              device="cuda")[1:].view(x.shape)
+            off.copy_(x)
+            assert k2.dense_body(dtype, x.shape[2], off.data_ptr()) == "mma"
+            card_agree(k2.kron_blocked(off, c, strip=0), ref, dtype, tol,
+                       (tuple(x.shape), tuple(c.shape), "mma"))
+    x, c = rnd(343, 131072), rnd(512, 343)
+    card_agree(k2.kron_coalesced(x, c), k2.kron_coalesced_plain(x, c), dtype,
+               tol, ("kron_coalesced", tuple(x.shape)))
+
+
+# ---- K2's dense bodies (kernels/bwdtrans2d.dense_body) ---------------------
+
+@pytest.mark.parametrize("dtype,ce,offset,body", [
+    (torch.float32, 8192, 0, "wgmma"), (torch.float32, 1000, 0, "wgmma"),
+    (torch.float32, 131072, 0, "wgmma"), (torch.float32, 131071, 0, "mma"),
+    (torch.float32, 8192, 4, "mma"), (torch.float32, 8192, 8, "mma"),
+    (torch.float64, 8192, 0, "mma"), (torch.bfloat16, 8192, 0, "mma")],
+    ids=["f32-8192", "f32-1000", "f32-131072", "f32-ragged",
+         "f32-off4", "f32-off8", "f64", "bf16"])
+def test_dense_body_rule(dtype, ce, offset, body):
+    """The wgmma body for f32 whose rows of in[b] the TMA can read (ce a
+    multiple of 4, in on a 16-byte boundary); mma.sync for f64, bf16,
+    ragged rows and in off a 16-byte boundary."""
+    assert k2.dense_body(dtype, ce, 1 << 20 | offset) == body
+
+
+def _dense_f32_products():
+    """K2's products that run the dense configuration in f32, at every
+    order K2_PRODUCTS holds."""
+    return [(label, shape) for label, shape in K2_PRODUCTS
+            if not k2.kron_config(4, *shape)]
+
+
+@pytest.mark.parametrize("label,shape", _dense_f32_products())
+def test_wgmma_tile_fits_the_card(label, shape):
+    """K2's f32 body on wgmma (WGMMA_F32), the one tile of every product
+    that runs dense in f32: a ring of three stages (C's big and small
+    halves, 2 x 16,512 B; in's tile, 17,408 B), two consumer groups'
+    staging (2 x 34,816 B) and six mbarriers, 220,976 B, fit the 232,448 B
+    a block may opt in to; two consumer warp groups of 64 elements on
+    wgmma's m64n128k8 and a producer group; the pads keep the fragment
+    loads and stores conflict-free."""
+    t = k2.WGMMA_F32
+    assert k2.wgmma_smem(t) == 4 * (3 * (2 * 8 * (128 * 4 + 4) + 32 * 136)
+                                    + 2 * 128 * 68) + 48 == 220976
+    assert k2.wgmma_smem(t) <= 232448
+    assert t.threads == 3 * 128 and t.be == 2 * 64
+    assert t.bm % 8 == 0 and t.bm <= 256 and t.bk % 8 == 0
+    # in's rows 8 mod 32 banks apart, the staging's 4 mod 16, the halves'
+    # k groups 4 banks past a whole number of 32
+    assert (t.be + t.in_pad) % 32 == 8 and (t.be // 2 + t.out_pad) % 16 == 4
+    assert (t.bm * 4 + t.c_pad) % 32 == 4
+    assert shape[0] > 0 and shape[1] > 0, label
+
+
+@pytest.mark.parametrize("dtype,shape,offset,c_rows,flag,counted", [
+    (torch.float32, (1, 343, 40), 0, 512, 1, ("f32", "wgmma")),
+    (torch.float32, (1, 343, 41), 0, 512, 0, ("f32", "mma")),
+    (torch.float32, (1, 343, 40), 1, 512, 0, ("f32", "mma")),
+    (torch.float64, (1, 343, 40), 0, 512, 0, ("f64", "mma")),
+    (torch.bfloat16, (1, 343, 40), 0, 512, 0, ("bf16", "mma")),
+    (torch.float32, (7, 49, 40), 0, 64, 0, None)],
+    ids=["f32", "f32-ragged", "f32-off4", "f64", "bf16", "resident"])
+def test_dense_body_of_each_launch(monkeypatch, dtype, shape, offset, c_rows,
+                                   flag, counted):
+    """Each K2 launch passes the body dense_body gives for its input (1,
+    wgmma, for f32 rows of whole 16-byte words on a 16-byte boundary; else
+    0) and is counted in dense_bodies by (dtype, body) if it runs the
+    dense configuration: a ragged row, in one value off a 16-byte
+    boundary, f64 and bf16 take mma.sync; a C-resident launch is not
+    counted."""
+    calls = []
+    monkeypatch.setattr(build, "run", lambda *args: calls.append(args))
+    monkeypatch.setattr(build, "smem_limits",
+                        lambda index: (232448, 233472))
+    monkeypatch.setattr(k2, "dense_bodies", collections.Counter())
+    n = int(np.prod(shape))
+    x = torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+    c = torch.zeros(c_rows, shape[1], dtype=dtype)
+    k2._launch(x, c, None)
+    assert len(calls) == 1 and calls[0][-1] == flag
+    assert (calls[0][-2] == 0) == (counted is not None)
+    assert k2.dense_bodies == ({counted: 1} if counted else {})
 
 
 # ---- K3's configurations (kernels/bwdtrans2d.em_config) --------------------
@@ -660,11 +776,13 @@ def test_smem_sizes_agree_with_the_library_on_card(itemsize):
     stage), K5's qp1d_smem and tbt_qp1d_smem at every element tile, at
     every benchmark05 order 2^3 .. 10^3 and (3,4,5) and every benchmark04
     order of scripts/run04.sh and (10, 12); and the f64 dense tile's
-    dense_smem and tbt_dense_f64_smem, within one block."""
+    dense_smem and tbt_dense_f64_smem and the f32 wgmma body's wgmma_smem
+    and tbt_dense_wgmma_smem, within one block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lib = build.library()
     assert k2.dense_smem(k2.DENSE_F64) == lib.tbt_dense_f64_smem() <= 232448
+    assert k2.wgmma_smem() == lib.tbt_dense_wgmma_smem() <= 232448
     orders = [(n, n, n) for n in range(2, 11)] + [(3, 4, 5)] + B04_ORDERS
     for nq in orders:
         nm = [n - 1 for n in nq]

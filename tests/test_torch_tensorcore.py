@@ -15,8 +15,9 @@ big*small + big*big accumulated in f32.  Emulated here on the port's own
 stage operators, it stays within K5's tolerance of the f64 chain and of the
 JAX kernel at precision HIGHEST, and a single TF32 pass does not.  K2's
 dense configuration (csrc/bwdtrans2d.cu) runs the same 3xTF32 arithmetic
-in 32-deep partial sums: emulated at the depths it runs, it stays within
-1e-5 of the f64 product too.
+in 32-deep partial sums, on wgmma in f32, as K3's does on mma.sync:
+emulated at the depths they run, they stay within 1e-5 of the f64
+product too.
 """
 
 import jax
@@ -28,6 +29,7 @@ import torch
 from tpu_bench.kernels import bwdtrans2d as pl_bt2
 from tpu_bench.kernels import bwdtrans3d as pl_bt3
 from tpu_bench.kernels import ozaki as jax_ozaki
+from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
 from tpu_bench_torch.kernels import ozaki
 from tpu_bench_torch.ops import bwdtrans
@@ -275,8 +277,11 @@ def test_qp1d_tiles_are_whole_mma_tiles(size):
 
 
 # K2's dense configuration (csrc/bwdtrans2d.cu) sums 3xTF32 products over
-# 32-deep k steps (its BK in f32), each step alone, added in round-to-nearest.
-K2_PART = 32
+# k steps, each step alone, added in round-to-nearest: its f32 body on
+# wgmma a ring stage deep (WGMMA_F32.bk); K3's dense configuration, on the
+# mma.sync body, 32 deep (its BK in f32).
+K2_PART = k2.WGMMA_F32.bk
+K3_PART = 32
 
 
 @pytest.mark.parametrize("label,m,k", [
@@ -289,7 +294,8 @@ def test_k2_3xtf32_within_1e5_at_its_depths(label, m, k):
     """The dense f32 product that K2 and K3 share, C (M x K) @ X (K x E),
     at the depths it runs (K2: b05 nq=8^3 K = 343; b04 nq=16^2 225, nq=32^2
     961; K3, X @ S with S's N columns as M: 392 and 448 at b05 nq=8^3, 992
-    at b04 nq=32^2), emulated with the tensor cores' truncating f32 sums:
+    at b04 nq=32^2), in the partial sums of each (K2_PART, K3_PART),
+    emulated with the tensor cores' truncating f32 sums:
     within 1e-5 of the f64 product, relative to its largest output, on
     random dense operands (a slice of C's rows: the error of an output
     depends on its own row only)."""
@@ -297,6 +303,7 @@ def test_k2_3xtf32_within_1e5_at_its_depths(label, m, k):
     c = rng.standard_normal((min(m, 64), k)).astype(np.float32)
     x = rng.standard_normal((k, 32)).astype(np.float32)
     ref = c.astype(np.float64) @ x.astype(np.float64)
-    out = matmul_3xtf32_truncating(c, x, K2_PART)
+    part = K3_PART if label.startswith("K3") else K2_PART
+    out = matmul_3xtf32_truncating(c, x, part)
     assert _rel(out, ref) <= K5_RTOL
     assert _rel(matmul_1xtf32(c, x), ref) > K5_RTOL

@@ -19,7 +19,14 @@ setting twice, in the order a b .. b a).  The sweeps:
 - K2 (kron_blocked): every strip width of the C-resident configuration
   that fits, and 0, the dense one, at benchmark05's Pallas(QP) stage 1
   (64 x 49, nq=8^3), benchmark04's at nq=8^2 (8 x 7) and benchmark04's
-  kron_wide4 at nq=8^2 (64 x 49); `*` marks kron_config's choice;
+  kron_wide4 at nq=8^2 (64 x 49); `*` marks kron_config's choice; then
+  the dense configuration's bodies (wgmma where dense_body allows it,
+  and mma.sync, on a copy of in one value off a 16-byte boundary, which
+  dense_body sends there; `*` marks its choice) at benchmark05's nq=8^3
+  kron (16 chunks of 8192) and kron_coalesced (one of 131072) and
+  benchmark04's dense krons at 16^2 and 32^2 (chunks of 8192), beside
+  torch.matmul; then K2's dense launches by (dtype, body)
+  (dense_bodies);
 - K3 (em_gemm): every tile height of the S-resident configuration that
   fits, and 0, the dense one, at benchmark04's nq=8^2 kron_elem_major and
   QP-1D stages (E=1,048,576), benchmark05's nq=6^3 kron_elem_major and
@@ -105,6 +112,12 @@ K1_SHAPES += [(f"b04 nq={n}^2", n - 1, n - 1, n, n, B04_NELMT)
 K2_SHAPES = [("b05 nq=8^3 QP stage 1", 64, 49, 7, NELMT),
              ("b04 nq=8^2 QP stage 1", 8, 7, 7, B04_NELMT),
              ("b04 nq=8^2 kron_wide4", 64, 49, B04_NELMT // 8192, 8192)]
+# K2's dense products, whose bodies the sweep times: (label, M, K, chunks,
+# columns a chunk)
+K2_DENSE = [("b05 nq=8^3 kron", 512, 343, NELMT // 8192, 8192),
+            ("b05 nq=8^3 kron_coalesced", 512, 343, 1, NELMT),
+            ("b04 nq=16^2 kron", 256, 225, B04_NELMT // 8192, 8192),
+            ("b04 nq=32^2 kron", 1024, 961, B04_NELMT // 8192, 8192)]
 # K3's products: (label, E, K, N)
 K3_SHAPES = [("b04 nq=8^2 kron_elem_major", B04_NELMT, 49, 64),
              ("b04 nq=8^2 QP-1D stage 1", B04_NELMT, 49, 56),
@@ -176,6 +189,24 @@ def k2_sweep(rnd, tag, itemsize) -> None:
                k2.kron_config(itemsize, m, k))
         del x
         torch.cuda.empty_cache()
+    for label, m, k, chunks, n in K2_DENSE:
+        x, c = rnd(chunks, k, n), rnd(m, k)
+        off = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=x.device)[1:].view(x.shape)
+        off.copy_(x)
+        # {body: the input dense_body sends to it}
+        inputs = {k2.dense_body(t.dtype, n, t.data_ptr()): t
+                  for t in (off, x)}
+        times = in_turns(lambda v: k2.kron_blocked(inputs[v], c, strip=0),
+                         list(inputs))
+        report(f"{tag} {label}", "K2 dense body", times,
+               k2.dense_body(x.dtype, n, x.data_ptr()))
+        print(f"{tag} {label} torch.matmul "
+              f"{event_ms(lambda: torch.matmul(c, x)):.4f} ms", flush=True)
+        del x, off, inputs
+        torch.cuda.empty_cache()
+    print(f"{tag} K2 dense launches by (dtype, body): "
+          f"{dict(sorted(k2.dense_bodies.items()))}", flush=True)
 
 
 def k3_sweep(rnd, tag, itemsize) -> None:

@@ -72,15 +72,36 @@
 //     across the k loop spilled the f64 body and took as long as its mma;
 //   - tile order on a 1D grid, M tiles fastest (MFast): the blocks that
 //     share an in[b] tile run together and find it in L2, as C does.
-//   The body is one templated GEMM, dense_gemm_kernel, which K3's dense
+//   This body is one templated GEMM, dense_gemm_kernel, which K3's dense
 //   configuration launches too, with its own tile order (NFast below).
-//   In f32 it stays short of cuBLAS at b05 nq=8^3 (PERF.md section 6):
+//   In f32 it stayed short of cuBLAS at b05 nq=8^3 (PERF.md section 6):
 //   the operand splits and fragment loads of mma.sync cost about as many
 //   instructions as the mma, and C's 343-wide rows are not whole 16-byte
-//   words, so its tiles come in 4-byte copies (8-byte in f64).  wgmma
-//   with TMA, which reads both operands from shared memory without the
-//   register fragments, and persistent scheduling are later work; wgmma
-//   has no f64 form.
+//   words, so its tiles come in 4-byte copies (8-byte in f64).
+// (b') Dense in f32 on wgmma, K2's body wherever in's rows are whole
+// 16-byte words on a 16-byte boundary (dense_body in
+// kernels/bwdtrans2d.py, which passes its choice; else (b) runs): the
+// same 3xTF32 arithmetic and 32-deep partial sums, as wgmma.mma_async
+// m64n128k8 products, the only way to the H100's full tensor-core rate.
+// A tf32 operand is read from shared memory K-major only, and in[b] is
+// not, so a tile is computed transposed, out[b]^T = in[b]^T C^T: A is
+// in[b]^T in registers, each value loaded and split once by the one
+// thread that feeds it; B is C's big and small halves in shared memory.
+// A persistent block an SM of three warp groups: a producer (its
+// registers handed to the others by setmaxnreg) whose thread 0 asks the
+// TMA for in's BK x (BE + 8) tile (a tensor map; zeros past K and E) and
+// whose warps load C's BM x BK tile a row a warp instruction, split each
+// value once and store both halves in the descriptors' layout; and two
+// consumer groups of 64 elements x 128 points, each holding its partial
+// sums and the tile's.  A ring of three stages between them, each signalled
+// by mbarriers both ways; the tile leaves transposed through shared
+// memory in 16-byte stores along the elements.  C cannot come by TMA
+// (rows of 1,372 bytes break its 16-byte stride rule), and is split anew
+// in every call.  What bounds it (PERF.md section 7): at b05 nq=8^3 it
+// runs at 62% of its units; C's tile, read from L2 and split anew for
+// each 128 x 128 tile, takes a sixth of its time, and each consumer group
+// waits on its partial sum every stage; back to back the card reaches
+// its power cap.  Clusters that share C's halves are later work.
 // M, N, K and E edges are masked in both: zero-filled copies, masked
 // stores.
 //
@@ -134,6 +155,8 @@
 // 1 MB) stays in L2.  At K = 343 X's rows are not whole 16-byte words, so
 // its tiles come in 4-byte copies; at 392 and 448 in 16-byte ones.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -699,16 +722,301 @@ int launch_dense_tiles(const T* c, const T* in, T* out, int m_rows,
             c, in, out, m_rows, k_depth, n_cols, n_chunks, stream);
 }
 
-// strip 0: the dense configuration; 64, 128, 256 or 512: C resident with
+// (b') K2's f32 dense body on wgmma (the note at the top): a tile is BE
+// elements (columns of in[b]) by BM points (rows of C), BK deep a stage
+// of a ring of RING.  Warp group 2 produces, groups 0 and 1 consume 64
+// elements each of every stage.
+struct WgF32 {
+    static constexpr int BE = 128, BM = 128, BK = 32, RING = 3;
+    static constexpr int THREADS = 384;
+    // in's tile as the TMA box writes it: BK rows of LDI elements, the
+    // tile's BE and 8 more, so the rows lie 8 mod 32 banks apart and lanes
+    // (g, t) of a fragment load (row t, column g) read banks 8t + g
+    static constexpr int LDI = BE + 8;
+    // a consumer group's staging, point rows of its 64 elements 4 mod 32
+    // banks apart: lanes (g, t) write row 2t, column g, banks 8t + g
+    static constexpr int LDO = BE / 2 + 4;
+    // C's halves: core matrices of 8 points x 4 k (128 bytes), point group
+    // pg of k group kg at kg * LBO + pg * SBO bytes; LBO is 16 bytes past
+    // the group's BM * 16, so a warp's 4-byte stores of one point's 32 k
+    // (lane = k) fall in 32 distinct banks
+    static constexpr unsigned SBO = 128, LBO = BM * 16 + 16;
+    static constexpr int HALF = BK / 4 * LBO / 4;      // floats
+    static constexpr int STAGE = 2 * HALF + BK * LDI;  // floats
+    static constexpr int STAGING = BM * LDO;           // floats a group
+};
+
+constexpr size_t wgmma_smem() {
+    using W = WgF32;
+    return sizeof(float) * (W::RING * W::STAGE + 2 * W::STAGING) +
+           2 * W::RING * sizeof(unsigned long long);
+}
+
+// out[b] = c @ in[b] for every chunk b (f32; in by the tensor map in_map,
+// its rows n_cols values; out 16-byte aligned, n_cols a multiple of 4),
+// persistent blocks over the tiles in Order.
+template <typename Order>
+__global__ void __launch_bounds__(WgF32::THREADS, 1)
+    dense_gemm_kernel_wgmma(const __grid_constant__ CUtensorMap in_map,
+                            const float* __restrict__ c,
+                            float* __restrict__ out, int m_rows, int k_depth,
+                            int n_cols, int n_chunks) {
+    using W = WgF32;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* smem = reinterpret_cast<float*>(smem_raw);
+    auto* full = reinterpret_cast<unsigned long long*>(
+        smem + W::RING * W::STAGE + 2 * W::STAGING);
+    auto* empty = full + W::RING;
+    const int m_tiles = (m_rows + W::BM - 1) / W::BM;
+    const int e_tiles = (n_cols + W::BE - 1) / W::BE;
+    const long long tiles =
+        static_cast<long long>(n_chunks) * m_tiles * e_tiles;
+    const int ksteps = (k_depth + W::BK - 1) / W::BK;
+    const int wg = threadIdx.x / 128;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < W::RING; ++s) {
+            // the producer's 128 threads and its byte count; the consumers'
+            // 8 warps
+            tbt::mbar_init(&full[s], 128 + 1);
+            tbt::mbar_init(&empty[s], 8);
+        }
+        tbt::mbar_init_fence();
+    }
+    __syncthreads();
+
+    if (wg == 2) {
+        // The producer: thread 0 asks the TMA for in's tile (past K and
+        // n_cols it fills zeros); warp w splits C's points 32w .. 32w + 31,
+        // lane k of each, so a warp's load is one row's 128 contiguous
+        // bytes and its 4-byte stores fall in 32 distinct banks.  C's
+        // values are loaded before the stage is free, so their latency
+        // hides behind the wait.
+        tbt::setmaxnreg_dec<96>();
+        const int p = threadIdx.x - 256, lane = p % 32, pw = p / 32;
+        // lane's place in a half: k group lane / 4, slot lane % 4 of its
+        // warp's first point
+        const int put = (lane / 4) * (W::LBO / 4) + lane % 4 + pw * 32 * 4;
+        long long i = 0;  // the block's stages so far
+        for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            int mt, et;
+            Order::tile(static_cast<unsigned>(tile), m_tiles, e_tiles, mt, et);
+            const int chunk = static_cast<int>(
+                tile / (static_cast<long long>(m_tiles) * e_tiles));
+            const int m0 = mt * W::BM + pw * 32;
+            const float* cw = c + static_cast<long long>(m0) * k_depth + lane;
+            for (int s = 0; s < ksteps; ++s, ++i) {
+                const int k0 = s * W::BK;
+                const bool kin = k0 + lane < k_depth;
+                // one pointer stepped a row: the loads in flight hold their
+                // values, not 32 addresses
+                const float* q = cw + k0;
+                float v[32];
+#pragma unroll
+                for (int r = 0; r < 32; ++r) {
+                    v[r] = kin && m0 + r < m_rows ? *q : 0.0f;
+                    q += k_depth;
+                }
+                const int slot = static_cast<int>(i % W::RING);
+                tbt::mbar_wait(&empty[slot],
+                               static_cast<unsigned>((i / W::RING) & 1) ^ 1);
+                float* st = smem + slot * W::STAGE;
+                if (p == 0) {
+                    tbt::mbar_expect_tx(&full[slot],
+                                        sizeof(float) * W::BK * W::LDI);
+                    tbt::tma_load_3d(st + 2 * W::HALF, &in_map, et * W::BE,
+                                     k0, chunk, &full[slot]);
+                }
+                unsigned* half = reinterpret_cast<unsigned*>(st) + put;
+#pragma unroll
+                for (int r = 0; r < 32; ++r) {
+                    unsigned big, small;
+                    tbt::split_tf32(v[r], big, small);
+                    half[r * 4] = big;
+                    half[W::HALF + r * 4] = small;
+                }
+                tbt::fence_async_shared();
+                tbt::mbar_arrive(&full[slot]);
+            }
+        }
+    } else {
+        tbt::setmaxnreg_inc<200>();
+        const int ct = threadIdx.x % 128, q = ct / 32, lane = ct % 32;
+        const int g = lane / 4, t = lane % 4;
+        float* stg = smem + W::RING * W::STAGE + wg * W::STAGING;
+        float acc[64], part[64];
+        long long i = 0;
+        for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+            int mt, et;
+            Order::tile(static_cast<unsigned>(tile), m_tiles, e_tiles, mt, et);
+            const long long chunk = tile / (static_cast<long long>(m_tiles) *
+                                            e_tiles);
+#pragma unroll
+            for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
+            for (int s = 0; s < ksteps; ++s, ++i) {
+                const int slot = static_cast<int>(i % W::RING);
+                tbt::mbar_wait(&full[slot],
+                               static_cast<unsigned>((i / W::RING) & 1));
+                const float* st = smem + slot * W::STAGE;
+                // A: lane (g, t)'s elements 16q + g (+ 8) of the group's,
+                // k t (+ 4) of each 8-deep slice, each split once
+                const float* xa =
+                    st + 2 * W::HALF + t * W::LDI + wg * 64 + 16 * q + g;
+                unsigned ab[W::BK / 8][4], as[W::BK / 8][4];
+#pragma unroll
+                for (int kk = 0; kk < W::BK / 8; ++kk) {
+                    const float* x = xa + 8 * kk * W::LDI;
+                    tbt::split_tf32(x[0], ab[kk][0], as[kk][0]);
+                    tbt::split_tf32(x[8], ab[kk][1], as[kk][1]);
+                    tbt::split_tf32(x[4 * W::LDI], ab[kk][2], as[kk][2]);
+                    tbt::split_tf32(x[4 * W::LDI + 8], ab[kk][3], as[kk][3]);
+                }
+                const unsigned long long big =
+                    tbt::wgmma_desc(st, W::LBO, W::SBO);
+                const unsigned long long small =
+                    tbt::wgmma_desc(st + W::HALF, W::LBO, W::SBO);
+                // one BK-deep step summed alone (scale-d 0 first), then
+                // added in round-to-nearest
+#pragma unroll
+                for (int kk = 0; kk < W::BK / 8; ++kk)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        tbt::reg_fence(ab[kk][j]);
+                        tbt::reg_fence(as[kk][j]);
+                    }
+#pragma unroll
+                for (int j = 0; j < 64; ++j) tbt::reg_fence(part[j]);
+                tbt::wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < W::BK / 8; ++kk) {
+                    // the slice's two k groups: 2 * LBO bytes on
+                    const unsigned long long off = (2 * kk * W::LBO) >> 4;
+                    if (kk == 0)
+                        tbt::wgmma_tf32_m64n128<0>(part, as[kk], big + off);
+                    else
+                        tbt::wgmma_tf32_m64n128<1>(part, as[kk], big + off);
+                    tbt::wgmma_tf32_m64n128<1>(part, ab[kk], small + off);
+                    tbt::wgmma_tf32_m64n128<1>(part, ab[kk], big + off);
+                }
+                tbt::wgmma_commit();
+                tbt::wgmma_wait<0>();
+#pragma unroll
+                for (int j = 0; j < 64; ++j) tbt::reg_fence(part[j]);
+                __syncwarp();
+                if (lane == 0) tbt::mbar_arrive(&empty[slot]);
+#pragma unroll
+                for (int j = 0; j < 64; ++j) acc[j] += part[j];
+            }
+            // acc[4j + 2h + r] is element 16q + g + 8h, point 8j + 2t + r:
+            // transposed through the staging, out by 16-byte stores along
+            // the elements
+            tbt::named_sync(1 + wg, 128);
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int r = 0; r < 2; ++r)
+                        stg[(8 * j + 2 * t + r) * W::LDO + 16 * q + g +
+                            8 * h] = acc[4 * j + 2 * h + r];
+            tbt::named_sync(1 + wg, 128);
+            const int e = et * W::BE + wg * 64;
+            float* y = out + chunk * m_rows * n_cols;
+#pragma unroll 4
+            for (int u = ct; u < W::BM * 16; u += 128) {
+                const int pt = u / 16, v = (u % 16) * 4;
+                const int m = mt * W::BM + pt;
+                if (m < m_rows && e + v < n_cols) {
+                    const float4 w =
+                        *reinterpret_cast<const float4*>(stg + pt * W::LDO +
+                                                         v);
+                    __stcs(reinterpret_cast<float4*>(
+                               y + static_cast<long long>(m) * n_cols + e +
+                               v),
+                           w);
+                }
+            }
+        }
+    }
+}
+
+// cuTensorMapEncodeTiled from the driver, looked up once (no link to
+// libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+    static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                    cudaEnableDefault,
+                                    &found) != cudaSuccess ||
+            found != cudaDriverEntryPointSuccess)
+            fn = nullptr;
+        return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+    }();
+    return encode;
+}
+
+template <typename Order>
+int launch_dense_wgmma(const float* c, const float* in, float* out,
+                       int m_rows, int k_depth, int n_cols, int n_chunks,
+                       cudaStream_t stream) {
+    using W = WgF32;
+    if (n_cols % 4 != 0 || !tbt::aligned16(in) || !tbt::aligned16(out))
+        return cudaErrorInvalidValue;
+    // in as (n_chunks, K, n_cols), n_cols fastest; a box is one stage's
+    // tile, BK rows of LDI values
+    const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    CUtensorMap in_map;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n_cols),
+                                static_cast<cuuint64_t>(k_depth),
+                                static_cast<cuuint64_t>(n_chunks)};
+    const cuuint64_t strides[2] = {
+        sizeof(float) * static_cast<cuuint64_t>(n_cols),
+        sizeof(float) * static_cast<cuuint64_t>(n_cols) * k_depth};
+    const cuuint32_t box[3] = {W::LDI, W::BK, 1}, steps[3] = {1, 1, 1};
+    if (encode(&in_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+               const_cast<float*>(in), dims, strides, box, steps,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+        return cudaErrorInvalidValue;
+    constexpr size_t smem = wgmma_smem();
+    static tbt::DeviceCache<> optin, waves;
+    auto kernel = dense_gemm_kernel_wgmma<Order>;
+    const cudaError_t err = tbt::optin_smem(optin, kernel);
+    if (err != cudaSuccess) return err;
+    const long long full = tbt::wave_blocks(waves, kernel, W::THREADS, smem);
+    if (full < 0) return static_cast<int>(-full);
+    if (full == 0) return cudaErrorInvalidConfiguration;
+    const long long tiles = static_cast<long long>(n_chunks) *
+                            ((m_rows + W::BM - 1) / W::BM) *
+                            ((n_cols + W::BE - 1) / W::BE);
+    if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+    kernel<<<static_cast<unsigned>(tiles < full ? tiles : full), W::THREADS,
+             smem, stream>>>(in_map, c, out, m_rows, k_depth, n_cols,
+                             n_chunks);
+    return cudaGetLastError();
+}
+
+// strip 0: the dense configuration, on the mma.sync body (wgmma 0) or,
+// f32 only, the wgmma body (wgmma 1); 64, 128, 256 or 512: C resident with
 // that strip width; any other value is refused.
 template <typename T>
 int launch_kron_blocked(const T* c, const T* in, T* out, int m_rows,
                         int k_depth, int n_cols, int n_chunks, int strip,
-                        cudaStream_t stream) {
+                        int wgmma, cudaStream_t stream) {
     if (m_rows <= 0 || n_cols <= 0 || n_chunks <= 0) return cudaSuccess;
-    if (k_depth <= 0) return cudaErrorInvalidValue;
+    if (k_depth <= 0 || (wgmma && strip != 0)) return cudaErrorInvalidValue;
     switch (strip) {
         case 0:
+            if (wgmma) {
+                if constexpr (sizeof(T) == 4)
+                    return launch_dense_wgmma<MFast>(c, in, out, m_rows,
+                                                     k_depth, n_cols,
+                                                     n_chunks, stream);
+                else
+                    return cudaErrorInvalidValue;
+            }
             return launch_dense_tiles<T, MFast>(c, in, out, m_rows, k_depth,
                                                 n_cols, n_chunks, stream);
         case 64:
@@ -927,30 +1235,32 @@ extern "C" long long tbt_kron_resident_smem(int itemsize, int m_rows,
 
 extern "C" int tbt_kron_blocked_f32(const void* c, const void* in, void* out,
                                     int m_rows, int k_depth, int n_cols,
-                                    int n_chunks, int strip, void* stream) {
+                                    int n_chunks, int strip, int wgmma,
+                                    void* stream) {
     return launch_kron_blocked(
         static_cast<const float*>(c), static_cast<const float*>(in),
         static_cast<float*>(out), m_rows, k_depth, n_cols, n_chunks, strip,
-        static_cast<cudaStream_t>(stream));
+        wgmma, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_kron_blocked_f64(const void* c, const void* in, void* out,
                                     int m_rows, int k_depth, int n_cols,
-                                    int n_chunks, int strip, void* stream) {
+                                    int n_chunks, int strip, int wgmma,
+                                    void* stream) {
     return launch_kron_blocked(
         static_cast<const double*>(c), static_cast<const double*>(in),
         static_cast<double*>(out), m_rows, k_depth, n_cols, n_chunks, strip,
-        static_cast<cudaStream_t>(stream));
+        wgmma, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tbt_kron_blocked_bf16(const void* c, const void* in,
                                      void* out, int m_rows, int k_depth,
                                      int n_cols, int n_chunks, int strip,
-                                     void* stream) {
+                                     int wgmma, void* stream) {
     return launch_kron_blocked(
         static_cast<const tbt::bf16*>(c), static_cast<const tbt::bf16*>(in),
         static_cast<tbt::bf16*>(out), m_rows, k_depth, n_cols, n_chunks,
-        strip, static_cast<cudaStream_t>(stream));
+        strip, wgmma, static_cast<cudaStream_t>(stream));
 }
 
 // The f64 dense configuration's shared memory of a block (both orders).
@@ -959,6 +1269,11 @@ extern "C" long long tbt_dense_f64_smem() {
     return static_cast<long long>(
         kron_dense_smem<double, F::WM * F::WMT * Dense<double>::MMA_M,
                         F::WN * F::WNT * 8>());
+}
+
+// The f32 wgmma body's shared memory of a block.
+extern "C" long long tbt_dense_wgmma_smem() {
+    return static_cast<long long>(wgmma_smem());
 }
 
 // K3's S-resident configuration's shared memory for an S of K x N

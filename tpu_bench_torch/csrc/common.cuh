@@ -583,6 +583,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
         : "memory");
 }
 
+// One box of a 3D tensor map (TMA) at coordinates (x, y, z), x fastest,
+// into shared dst (128-byte aligned); completes the box's bytes on bar,
+// zeros included for the parts past the tensor's ends.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int x,
+                                            int y, int z, void* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_"
+        "tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(map), "r"(smem_addr(bar)), "r"(x), "r"(y), "r"(z)
+        : "memory");
+}
+
 // `bytes` from shared src to global dst by the copy engine, in the
 // thread's current bulk group.
 __device__ __forceinline__ void bulk_store(void* dst, const void* src,
@@ -612,9 +624,110 @@ __device__ __forceinline__ void bulk_wait() {
 }
 
 // Order this thread's writes to shared memory before later bulk copies
-// (the async proxy) read it.
+// or wgmma (the async proxy) read it.
 __device__ __forceinline__ void fence_async_shared() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One arrival on bar, after this thread's earlier memory operations.
+__device__ __forceinline__ void mbar_arrive(void* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     smem_addr(bar))
+                 : "memory");
+}
+
+// Wait at named barrier `id` for `count` threads (whole warps).
+__device__ __forceinline__ void named_sync(int id, int count) {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- Warp-group mma (sm_90a) ----
+
+// Set the executing warp group's registers a thread to N (all four warps
+// together): dec hands registers back to the block's pool, inc takes them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The wgmma descriptor of a K-major operand in shared memory without
+// swizzle: core matrices of 8 rows of 16 bytes, the rows contiguous; lbo
+// bytes between the two core matrices of a 32-byte k slice, sbo bytes
+// between neighbouring groups of 8 rows.
+__device__ __forceinline__ unsigned long long wgmma_desc(const void* p,
+                                                         unsigned lbo,
+                                                         unsigned sbo) {
+    return static_cast<unsigned long long>((smem_addr(p) & 0x3FFFF) >> 4) |
+           static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16 |
+           static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N of the warp group's wgmma groups are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin r in place: the compiler moves no access of it across this point (a
+// wgmma reads and writes its registers after the instruction has issued,
+// which the compiler cannot see).
+__device__ __forceinline__ void reg_fence(float& r) {
+    asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void reg_fence(unsigned& r) {
+    asm volatile("" : "+r"(r)::"memory");
+}
+
+// d (64x128 f32, the warp group's) = a (64x8 tf32, registers) @ b (8x128
+// tf32, shared memory, K-major, descriptor b), plus d where SCALE_D is 1.
+// Warp w of the group holds rows 16w .. 16w + 15: lane 4g + t holds a[i]
+// at (g + 8 (i % 2), t + 4 (i / 2)) and d[4j + i] at (g + 8 (i / 2),
+// 8j + 2t + i % 2).  Asynchronous: a and d are not to be touched until
+// wgmma_wait says the group is done.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64],
+                                                   const unsigned (&a)[4],
+                                                   unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(SCALE_D));
 }
 
 }  // namespace tbt

@@ -69,8 +69,8 @@ _SIGNATURES = {
     # threads, stream
     "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I,
                        _P],
-    # c, in, out, m_rows, k_depth, n_cols, n_chunks, strip, stream
-    "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # c, in, out, m_rows, k_depth, n_cols, n_chunks, strip, wgmma, stream
+    "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, s, out, e_rows, k_depth, n_cols, tile, stream
     "tbt_em_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
     # w, b0, out, nm0, nq0, f, unroll, vector, blocks, stream
@@ -209,6 +209,9 @@ def library() -> ctypes.CDLL:
     # K2's and K3's dense configuration in f64: a block's shared memory
     lib.tbt_dense_f64_smem.argtypes = []
     lib.tbt_dense_f64_smem.restype = _L
+    # K2's f32 dense body on wgmma: a block's shared memory
+    lib.tbt_dense_wgmma_smem.argtypes = []
+    lib.tbt_dense_wgmma_smem.restype = _L
     # K3's shared memory; K9's blocks in one wave
     lib.tbt_em_resident_smem.argtypes = [_I, _I, _I, _I]
     lib.tbt_em_resident_smem.restype = _L

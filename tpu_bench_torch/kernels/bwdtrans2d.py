@@ -15,7 +15,10 @@ element-major product with elements on rows:
 Both run one of two configurations: the small operator resident in shared
 memory for the skinny products, else dense on the tensor cores.  The
 wrapper picks it by a rule in pure Python (kron_config, em_config) and
-passes it to the kernel, which runs the configuration it is given.
+passes it to the kernel, which runs the configuration it is given.  K2's
+dense configuration has two bodies, picked the same way (dense_body):
+3xTF32 on wgmma for f32 rows of whole 16-byte words, mma.sync for the
+rest (and for K3).
 
 The rest of tpu_bench/kernels/bwdtrans2d.py, benchmark04's 2D kernels, is
 served by kernels that already compute each function on the same bytes;
@@ -43,6 +46,7 @@ it cannot run.
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import NamedTuple
 
@@ -96,6 +100,54 @@ DENSE_F64 = DenseTile(bm=128, bn=64, bk=16, ring=2, a_pad=8, b_pad=2,
                       blocks=2, mma=(16, 8, 8))
 
 
+class WgmmaTile(NamedTuple):
+    """K2's f32 dense body on wgmma: tiles of `be` elements (columns of
+    in[b]) by `bm` points (rows of C), `bk` deep a ring stage, `ring`
+    stages; C's halves in groups of 4 k (bm x 4 values) padded by c_pad
+    values, in's tile rows by in_pad, the consumer groups' staging rows by
+    out_pad; `threads` a block, one block an SM."""
+    be: int
+    bm: int
+    bk: int
+    ring: int
+    c_pad: int
+    in_pad: int
+    out_pad: int
+    threads: int
+
+
+# K2's f32 dense body on wgmma (csrc/bwdtrans2d.cu WgF32): two consumer
+# warp groups of 64 elements x 128 points and a producer group.
+WGMMA_F32 = WgmmaTile(be=128, bm=128, bk=32, ring=3, c_pad=4, in_pad=8,
+                      out_pad=4, threads=384)
+
+# K2's dense launches by (dtype, body) since the count was last reset:
+# "wgmma" (f32 only) or "mma" (mma.sync, every dtype); dense_body's choice.
+dense_bodies: collections.Counter = collections.Counter()
+
+
+def wgmma_smem(tile: WgmmaTile = WGMMA_F32) -> int:
+    """Shared memory of one block of the wgmma body (csrc/bwdtrans2d.cu
+    wgmma_smem): a ring of stages, each C's big and small halves (bm x bk,
+    each group of 4 k padded) and in's tile (bk x be, rows padded); two
+    consumer groups' staging of bm points x be / 2 elements (rows padded);
+    two mbarriers a stage."""
+    half = tile.bk // 4 * (tile.bm * 4 + tile.c_pad)
+    stage = 2 * half + tile.bk * (tile.be + tile.in_pad)
+    staging = 2 * tile.bm * (tile.be // 2 + tile.out_pad)
+    return 4 * (tile.ring * stage + staging) + 8 * 2 * tile.ring
+
+
+def dense_body(dtype, ce: int, ptr: int) -> str:
+    """K2's dense body for in[b] of `dtype` with rows of ce values at
+    address ptr: "wgmma" in f32 where the TMA can read in's rows (ce a
+    multiple of 4, in on a 16-byte boundary: its stride rule), else "mma"
+    (mma.sync: f64, bf16, ragged or misaligned rows)."""
+    if dtype == torch.float32 and build.vector16(ce, 4, ptr):
+        return "wgmma"
+    return "mma"
+
+
 def dense_smem(tile: DenseTile, itemsize: int = 8) -> int:
     """Shared memory of one block of the dense configuration
     (csrc/bwdtrans2d.cu kron_dense_smem): a ring of A (bm x bk) and B
@@ -125,8 +177,9 @@ def kron_blocked_plain(in_blk, c_coa):
 def kron_blocked(in_blk, c_coa, *, strip=None):
     """out (nblk, nqTot, ce) = C (nqTot, nmTot) @ in (nblk, nmTot, ce).
     `strip`: None runs kron_config's configuration; 0 the dense one; one
-    of KRON_STRIPS the C-resident one at that strip width.  Under the span
-    tbt.kron_blocked while a profiler records (core/spans.py)."""
+    of KRON_STRIPS the C-resident one at that strip width.  The dense
+    configuration runs dense_body's body.  Under the span tbt.kron_blocked
+    while a profiler records (core/spans.py)."""
     if spans.profiler._is_profiler_enabled:
         with spans.span("tbt.kron_blocked"):
             return _kron_blocked(in_blk, c_coa, strip)
@@ -201,13 +254,16 @@ def _launch(x, c, strip):
         raise ValueError(f"kron_blocked: C ({nq_tot} x {nm_tot}) and "
                          f"strips of {strip} do not fit the card's "
                          f"{limit} B of shared memory")
+    body = dense_body(x.dtype, ce, x.data_ptr()) if strip == 0 else None
     if spans.profiler._is_profiler_enabled:
         out = spans.alloc((nblk, nq_tot, ce), x,
                           build.key("kron_blocked", x.dtype))
     else:
         out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
     build.run("kron_blocked", x, c.data_ptr(), x.data_ptr(), out.data_ptr(),
-              nq_tot, nm_tot, ce, nblk, strip)
+              nq_tot, nm_tot, ce, nblk, strip, int(body == "wgmma"))
+    if body:
+        dense_bodies[(build.SUFFIXES[x.dtype], body)] += 1
     return out
 
 
