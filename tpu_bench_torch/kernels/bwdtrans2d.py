@@ -124,6 +124,9 @@ WGMMA_F32 = WgmmaTile(be=128, bm=128, bk=32, ring=3, c_pad=4, in_pad=8,
 # K2's dense launches by (dtype, body) since the count was last reset:
 # "wgmma" (f32 only) or "mma" (mma.sync, every dtype); dense_body's choice.
 dense_bodies: collections.Counter = collections.Counter()
+# K2's launches by (dtype, strip) since the count was last reset: the strip
+# width of the C-resident configuration, or 0 for the dense one.
+kron_strips: collections.Counter = collections.Counter()
 
 
 def wgmma_smem(tile: WgmmaTile = WGMMA_F32) -> int:
@@ -262,6 +265,7 @@ def _launch(x, c, strip):
         out = torch.empty((nblk, nq_tot, ce), dtype=x.dtype, device=x.device)
     build.run("kron_blocked", x, c.data_ptr(), x.data_ptr(), out.data_ptr(),
               nq_tot, nm_tot, ce, nblk, strip, int(body == "wgmma"))
+    kron_strips[(build.SUFFIXES[x.dtype], strip)] += 1
     if body:
         dense_bodies[(build.SUFFIXES[x.dtype], body)] += 1
     return out
