@@ -27,7 +27,8 @@ five.  Every phase is fatal:
    entries of K5 and of K2's and K3's dense GEMM on mma.sync, HGMMA on
    TF32 in K2's f32 dense body on wgmma, DMMA in K5's f64 entry,
    sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
-   entries, and the bulk copy (UBLKCP) in the rings;
+   entries and in K1's f64 instances on its DMMA stage-2 body, no DMMA
+   in K1's f32 instances, and the bulk copy (UBLKCP) in the rings;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -356,6 +357,12 @@ TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
 # The f64 dense entries issue sm_90's m16n8k8 only, never the A100's
 # m8n8k4, which the H100 runs at half the rate (scripts/dmma_probe.cu)
 DMMA_F64_DENSE = ("K2 kron dense f64 (DMMA)", "K3 em dense f64 (DMMA)")
+# K1's instances by dtype and stage-2 body (the QPBody template argument,
+# QP_DMMA = 1): its f64 DMMA body must hold sm_90's m16n8k8 and no
+# m8n8k4, its f32 instances (all SIMT) no DMMA at all.
+K1_DMMA, K1_F32 = "K1 qp_fused3d f64 (DMMA)", "K1 qp_fused3d f32"
+K1_KERNELS = {K1_DMMA: r"qp_fused3d_kernelId.*QPBodyE1E",
+              K1_F32: "qp_fused3d_kernelIf"}
 # The cp.async.bulk rings (csrc/ring.cuh) of K12 (copy, scale, triad) and
 # K7's 16-byte form (add), whose SASS must hold the bulk copy (UBLKCP).
 RING_KERNELS = {"K12 ring f32": "ring_kernelIfN.*(Copy|Scale|Triad)",
@@ -480,22 +487,25 @@ def build_kernels() -> None:
         print(f"  SASS: {n} {op} in {kernel}")
     for kernel, op in TC_MMA + RING_BULK:
         assert counts.get((kernel, op), 0) > 0, (kernel, op, counts)
-    for kernel in DMMA_F64_DENSE:
+    for kernel in (*DMMA_F64_DENSE, K1_DMMA):
         assert counts.get((kernel, DMMA_SM80), 0) == 0, (kernel, counts)
+    assert counts.get((K1_DMMA, DMMA_SM90), 0) > 0, counts
+    assert counts.get((K1_F32, "DMMA"), 0) == 0, counts
 
 
 def sass_counts(library) -> dict:
     """{(kernel, op): instructions over its instances} in `cuobjdump
     -sass` of the built library: HMMA, DMMA and HGMMA on TF32 in the
     tensor-core kernels (TC_KERNELS), each DMMA also under its shape
-    (DMMA_SM90, DMMA_SM80),
-    and the bulk copies (UBLKCP) and mbarrier operations (SYNCS) in the
-    rings (RING_KERNELS)."""
+    (DMMA_SM90, DMMA_SM80), DMMA in K1's f64 DMMA body and f32 instances
+    (K1_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
+    (SYNCS) in the rings (RING_KERNELS)."""
     from tpu_bench_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80,
                             HGMMA_TF32)),
+              (K1_KERNELS, ("DMMA", DMMA_SM90, DMMA_SM80)),
               (RING_KERNELS, ("UBLKCP", "SYNCS"))]
     counts, kernel, ops = {}, None, ()
     for line in _run([tool, "-sass", str(library)]).splitlines():
@@ -1808,6 +1818,8 @@ def main() -> int:
 
     print(f"K1 launches by ring depth (qp_depths): "
           f"{dict(sorted(k1.qp_depths.items()))}")
+    print(f"K1 launches by (dtype, stage-2 body) (qp_bodies): "
+          f"{dict(sorted(k1.qp_bodies.items()))}")
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

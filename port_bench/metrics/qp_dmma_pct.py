@@ -1,0 +1,19 @@
+"""qp_dmma_pct: the share of K1's launches in the process whose stage 2
+ran on its f64 DMMA body (mma.sync.m16n8k8 on the FP64 tensor units), in
+%, from the program's counter tpu_bench_torch/kernels/bwdtrans3d.qp_bodies
+(K1's launches by dtype and body).  K1's body is fixed by shape and dtype
+(qp_config's cache), so the count over the process, warm-up and windows
+alike, is the window's share.  None where the program keeps no such
+counter or K1 never launched."""
+
+
+def read(run):
+    try:
+        from tpu_bench_torch.kernels.bwdtrans3d import qp_bodies
+    except ImportError:  # a program without the counter
+        return None
+    total = sum(qp_bodies.values())
+    if not total:
+        return None
+    dmma = sum(n for (_, body), n in qp_bodies.items() if body == "dmma")
+    return 100.0 * dmma / total

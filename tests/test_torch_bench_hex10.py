@@ -75,16 +75,19 @@ def test_control_fails_the_limit_and_the_program_meets_it():
 
 
 def test_k1_takes_its_depth_1_form_alone_on_an_sm():
-    """No depth-2 form fits a block's shared memory at any ring tile, so
-    qp_config keeps the sweep's (16, 4) at depth 1, whose buffers leave
-    room for one block an SM."""
-    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 4, 1, 256)
+    """No depth-2 form fits a block's shared memory at any ring tile, on
+    either stage-2 body, so qp_config keeps the sweep's (16, 4) at depth 1,
+    on DMMA, whose buffers (V and C12T padded: 223,712 B against SIMT's
+    203,040) leave room for one block an SM."""
+    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 4, 1, 256, "dmma")
     for et in k1.QP_RING_TILES:
         for g in k1.QP_PLANE_GROUPS:
-            assert k1.qp_smem(8, et, g, *SHAPE, 2) > k1.SMEM_BLOCK
+            for body in k1.QP_BODIES:
+                assert k1.qp_smem(8, et, g, *SHAPE, 2, body) > k1.SMEM_BLOCK
     assert k1.qp_smem(8, 16, 4, *SHAPE, 2) == 296368
-    alone = k1.qp_smem(8, 16, 4, *SHAPE)
-    assert alone == 203040 <= k1.SMEM_BLOCK
+    assert k1.qp_smem(8, 16, 4, *SHAPE) == 203040
+    alone = k1.qp_smem(8, 16, 4, *SHAPE, 1, "dmma")
+    assert alone == 223712 <= k1.SMEM_BLOCK
     assert 2 * (alone + k1.SMEM_RESERVED) > k1.SMEM_SM
 
 

@@ -769,8 +769,8 @@ def test_qp_stage2_every_b04_order_on_card(nq):
 def test_smem_sizes_agree_with_the_library_on_card(itemsize):
     """The rules of kernels/ decide each configuration from the shared
     memory they count, so each count equals the library's own (csrc/): K1's
-    qp_smem and tbt_qp_fused3d_smem at every element tile, plane group and
-    depth, K2's kron_resident_smem and tbt_kron_resident_smem at every
+    qp_smem and tbt_qp_fused3d_smem at every element tile, plane group,
+    depth and stage-2 body, K2's kron_resident_smem and tbt_kron_resident_smem at every
     strip (QP stage 1 and the kron), K3's em_resident_smem and
     tbt_em_resident_smem at every tile height (the kron and each QP-1D
     stage), K5's qp1d_smem and tbt_qp1d_smem at every element tile, at
@@ -796,9 +796,12 @@ def test_smem_sizes_agree_with_the_library_on_card(itemsize):
         for et in k1.QP_TILES[itemsize]:
             for g in k1.QP_PLANE_GROUPS:
                 for depth in (1, 2):
-                    assert k1.qp_smem(itemsize, et, g, *k1_shape, depth) == \
-                        lib.tbt_qp_fused3d_smem(itemsize, et, g, *k1_shape,
-                                                depth), (nq, et, g, depth)
+                    for body in k1.qp_built_bodies(itemsize, et):
+                        assert k1.qp_smem(itemsize, et, g, *k1_shape, depth,
+                                          body) == lib.tbt_qp_fused3d_smem(
+                            itemsize, et, g, *k1_shape, depth,
+                            k1.QP_BODIES.index(body)), (nq, et, g, depth,
+                                                        body)
         stage1 = (k1_shape[3], k1_shape[1])
         for m, k in (stage1, (widths[-1], widths[0])):
             for w in k2.KRON_STRIPS:

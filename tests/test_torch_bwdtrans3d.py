@@ -175,14 +175,15 @@ K1_SHAPES = ([(f"b05 nq={n}^3", (n - 1, (n - 1) ** 2, n, n * n))
 @pytest.mark.parametrize("label,shape", K1_SHAPES)
 def test_qp_config_fits_the_card(label, shape, itemsize):
     """At every order both benchmarks sweep, in bf16, f32 and f64, qp_config
-    gives one of K1's tiles, plane groups and forms, whose buffers, slab
-    slots included, fit the H100's 232,448 B of a block, and the tile is a
-    whole number of 4-element micro-tiles."""
-    et, g, depth, threads = k1.qp_config(itemsize, *shape)
+    gives one of K1's tiles, plane groups, forms and stage-2 bodies, whose
+    buffers, slab slots included, fit the H100's 232,448 B of a block, and
+    the tile is a whole number of 4-element micro-tiles."""
+    et, g, depth, threads, body = k1.qp_config(itemsize, *shape)
     assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
     assert (depth, threads) in k1.qp_forms(itemsize, et)
+    assert body in k1.qp_built_bodies(itemsize, et)
     assert et % k1.QP_TE == 0
-    assert k1.qp_smem(itemsize, et, g, *shape, depth) <= 232448
+    assert k1.qp_smem(itemsize, et, g, *shape, depth, body) <= 232448
 
 
 def test_qp_smem_counts_each_buffer():
@@ -198,6 +199,25 @@ def test_qp_smem_counts_each_buffer():
         2 * 343 * 16 + 8 * 49 * 16 + 49 * 64 + 7 * 8)
     assert k1.qp_smem(4, 32, 4, 7, 49, 8, 64, 2) == \
         k1.qp_smem(4, 32, 4, 7, 49, 8, 64) + 16 + 4 * 343 * 32
+    # DMMA: V's rows padded to 8 (81 -> 88) and 2 values longer, C12T's
+    # rows to 16 (100 -> 112), each of 88 values (8 mod 16)
+    assert k1.qp_smem(8, 16, 4, 9, 81, 10, 100, 1, "dmma") == 8 * (
+        729 * 16 + 4 * 88 * 18 + 112 * 88 + 9 * 12) == 223712
+    assert k1.qp_smem(8, 16, 8, 7, 49, 8, 64, 2, "dmma") == 16 + 8 * (
+        2 * 343 * 16 + 8 * 56 * 18 + 64 * 56 + 7 * 8)
+    # nrq = 12 pads to 16, a multiple of 16, so C12T's rows take 24 values
+    assert k1.qp_smem(8, 16, 8, 2, 12, 3, 20, 1, "dmma") == 8 * (
+        24 * 16 + 8 * 16 * 18 + 32 * 24 + 2 * 8)
+
+
+@pytest.mark.parametrize("nrq,lda", [(81, 88), (49, 56), (12, 24), (7, 8),
+                                     (16, 24), (31, 40), (1, 8)])
+def test_qp_lda_pads_c12t_rows_to_8_mod_16(nrq, lda):
+    """The DMMA body's C12T rows: nrq padded to the mma's 8-deep k step,
+    then to 8 mod 16 values, so a quarter warp's 16-byte A loads of two
+    rows 8 apart land in distinct banks."""
+    assert k1.qp_lda(nrq) == lda
+    assert lda >= nrq and lda % 16 == 8
 
 
 def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
@@ -206,7 +226,7 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     that fits one, else None."""
     # (3, 4, 5) is not in the table: tile 128 fits two blocks in f32
     assert (4, 2, 12, 3, 20) not in k1.QP_MEASURED
-    et, g, depth, threads = k1.qp_config(4, 2, 12, 3, 20)
+    et, g, depth, threads, _ = k1.qp_config(4, 2, 12, 3, 20)
     assert (et, depth, threads) == (128, 1, k1.QP_THREADS)
     assert 2 * (k1.qp_smem(4, et, g, 2, 12, 3, 20) + k1.SMEM_RESERVED) \
         <= k1.SMEM_SM
@@ -215,7 +235,7 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     # the largest tile that fits one block, 32
     shape = (31, 31, 32, 30)
     assert 2 * (k1.qp_smem(4, 16, 8, *shape) + k1.SMEM_RESERVED) <= k1.SMEM_SM
-    assert k1.qp_config(4, *shape) == (32, 8, 1, k1.QP_THREADS)
+    assert k1.qp_config(4, *shape) == (32, 8, 1, k1.QP_THREADS, "simt")
     # a 32^3 slab (961 x 31 rows) fits no tile at all
     assert k1.qp_config(4, 31, 961, 32, 1024) is None
     assert k1.qp_config(4, 7, 49, 8, 64, block_limit=1024) is None
@@ -224,11 +244,48 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
 def test_qp_measured_settings_fit_and_are_the_configs():
     for (itemsize, *shape), cfg in k1.QP_MEASURED.items():
         assert type(cfg) is k1.QPConfig
-        et, g, depth, threads = cfg
+        et, g, depth, threads, body = cfg
         assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
         assert (depth, threads) in k1.qp_forms(itemsize, et)
-        assert k1.qp_smem(itemsize, et, g, *shape, depth) <= 232448
+        assert body in k1.qp_built_bodies(itemsize, et)
+        assert k1.qp_smem(itemsize, et, g, *shape, depth, body) <= 232448
         assert k1.qp_config(itemsize, *shape) == cfg
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("label,shape", K1_SHAPES)
+def test_qp_config_keeps_simt_outside_f64(label, shape, itemsize):
+    """DMMA is f64's alone: in bf16 and f32 qp_config gives the SIMT body at
+    every order both benchmarks sweep, and the sweep has no other."""
+    assert k1.qp_config(itemsize, *shape).body == "simt"
+    assert {c.body for c in k1.qp_settings(itemsize, *shape)} <= {"simt"}
+
+
+def test_qp_config_takes_dmma_at_10_cubed_f64():
+    """At b05 10^3 in f64 (cell hex10-f64-qp) K1's stage 2, 92% of its
+    FLOP, runs on the FP64 tensor units: the sweep's (16, 4) at depth 1 on
+    DMMA."""
+    assert k1.qp_config(8, 9, 81, 10, 100) == k1.QPConfig(16, 4, 1, 256,
+                                                          "dmma")
+
+
+@pytest.mark.parametrize("shape,body", [
+    ((8, 64, 9, 81), "dmma"), ((6, 36, 7, 49), "dmma"),
+    ((4, 4, 5, 5), "simt"), ((1, 1, 2, 4), "simt"), ((13, 13, 14, 14),
+                                                     "simt")])
+def test_qp_config_default_rule_for_f64(shape, body):
+    """Off the measured table, f64 takes DMMA where C12T holds a whole
+    m16n8k8 tile (nkj >= 16, nrq >= 8) and a tile of QP_DMMA_TILES fits,
+    with the SIMT rule's choice of tile and group among those; else
+    SIMT."""
+    assert (8, *shape) not in k1.QP_MEASURED
+    cfg = k1.qp_config(8, *shape)
+    assert cfg.body == body and cfg.depth == 1
+    assert cfg.et in (k1.QP_DMMA_TILES if body == "dmma" else
+                      k1.QP_TILES[8])
+    assert cfg.planes == k1.qp_planes(cfg.et, shape[3])
+    assert k1.qp_smem(8, cfg.et, cfg.planes, *shape, 1, body) <= \
+        k1.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("itemsize,shape,depth", [
@@ -242,10 +299,10 @@ def test_qp_config_takes_the_ring_where_measured(itemsize, shape, depth):
     cfg = k1.qp_config(itemsize, *shape)
     assert cfg.depth == depth
     assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
-                      cfg.depth) <= k1.SMEM_BLOCK
+                      cfg.depth, cfg.body) <= k1.SMEM_BLOCK
     if depth == 1:
         assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
-                          2) > k1.SMEM_BLOCK
+                          2, cfg.body) > k1.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("et,nkj,planes", [(32, 64, 4), (16, 64, 8),
@@ -258,14 +315,19 @@ def test_qp_planes_fills_stage_2(et, nkj, planes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nq", [(8, 8, 8), (3, 4, 5), (32, 32), (10, 12)])
-def test_qp_fused3d_every_config_on_card(nq):
-    """K1 at every (element tile, plane group, depth, threads) that fits,
-    and qp_config's, on E = 1000 and 131071 elements (neither a multiple
-    of a tile): within 1e-5 (f32), 1e-12 (f64) and 2^-7 (bf16, whose
-    rounding of v and of each output may fall either side of a tie on
-    other f32 sums) of the plain version, relative to the largest
-    output."""
+@pytest.mark.parametrize("nq,sizes", [
+    ((8, 8, 8), (1000, 131071)), ((3, 4, 5), (1000, 131071)),
+    ((32, 32), (1000, 131071)), ((10, 12), (1000, 131071)),
+    ((10, 10, 10), (1000,)), ((8, 8, 8), (4099,)), ((5, 6, 7), (1000,))])
+def test_qp_fused3d_every_config_on_card(nq, sizes):
+    """K1 at every (element tile, plane group, depth, threads, body) that
+    fits, and qp_config's, on E elements that are no multiple of a tile:
+    within 1e-5 (f32), 1e-12 (f64) and 2^-7 (bf16, whose rounding of v and
+    of each output may fall either side of a tie on other f32 sums) of the
+    plain version, relative to the largest output.  The f64 DMMA body at
+    b05 10^3 (E = 1000, a ragged last tile), 8^3 (E = 4099) and on shapes
+    whose nkj and nrq are no multiples of 16 and 8 ((3, 4, 5): 20 and 12;
+    (5, 6, 7): 42 and 30), where its operands are padded with zeros."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     if len(nq) == 3:
@@ -277,17 +339,17 @@ def test_qp_fused3d_every_config_on_card(nq):
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12),
                        (torch.bfloat16, 2**-7)):
         size = dtype.itemsize
-        for e in (1000, 131071):
+        for e in sizes:
             x, b0, c = (torch.randn(*s, generator=gen, device="cuda",
                                     dtype=dtype)
                         for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
             ref = k1.qp_shared3d_plain(x, b0, c)
-            configs = [(None, None, None, None)] + k1.qp_settings(
+            configs = [(None,) * 5] + k1.qp_settings(
                 size, nm0, nrq, nq0, nkj)
-            for et, g, d, t in configs:
+            for et, g, d, t, body in configs:
                 out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
-                                     threads=t)
-                card_agree(out, ref, dtype, tol, (e, et, g, d, t))
+                                     threads=t, body=body)
+                card_agree(out, ref, dtype, tol, (e, et, g, d, t, body))
 
 
 # bf16's norm tolerance (test_torch_bf16's NORM_TOL): it catches a bias of

@@ -250,14 +250,15 @@ def test_qp_fused3d_ring_on_card(dtype, tol):
     for e in (131071, 1001):
         x, b0, c = operands(e)
         ref = k1.qp_shared3d_plain(x, b0, c)
-        for et, g, d, t in forms:
+        for et, g, d, t, body in forms:
             out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
-                                 threads=t)
+                                 threads=t, body=body)
             torch.cuda.synchronize()
-            assert _rel_err(out, ref) <= tol, (e, et, g, d, t)
-    et, g, d, t = forms[0]
+            assert _rel_err(out, ref) <= tol, (e, et, g, d, t, body)
+    et, g, d, t, body = forms[0]
     calls = [tuple(operands(1000)) for _ in range(4)]
-    outs = [k1.qp_shared3d(*ops, epb=et, planes=g, depth=d, threads=t)
+    outs = [k1.qp_shared3d(*ops, epb=et, planes=g, depth=d, threads=t,
+                           body=body)
             for ops in calls]
     torch.cuda.synchronize()
     for ops, out in zip(calls, outs):
@@ -507,13 +508,14 @@ def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):
         tile = k1.QP_RING_TILES[-1]
         planes = k1.qp_planes(tile, nkj)
         assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, tile,
-                                   None) == (tile, planes, 1, k1.QP_THREADS)
+                                   None) == (tile, planes, 1, k1.QP_THREADS,
+                                             "simt")
         threads = k1.QP_FORMS[itemsize][-1][1]
         if k1.qp_smem(itemsize, tile, planes, nm0, nrq, nq0, nkj,
                       2) <= k1.SMEM_BLOCK:
             assert k1.qp_launch_config(
                 itemsize, nm0, nrq, nq0, nkj, tile, None, depth=2,
-                threads=threads) == (tile, planes, 2, threads)
+                threads=threads) == (tile, planes, 2, threads, "simt")
     for m, k in kron:
         assert k2.kron_config(itemsize, m, k) == \
             k2.kron_config.__wrapped__(itemsize, m, k)
@@ -574,6 +576,16 @@ def test_qp_launch_config_refuses_bad_knobs():
     assert k1.qp_launch_config(8, 31, 31, 32, 32, 16, 8, depth=1)
     with pytest.raises(ValueError, match="depth 2 does not fit"):
         k1.qp_launch_config(8, 31, 31, 32, 32, 16, 8, depth=2)
+    # DMMA is built in f64 only, at the tiles QP_DMMA_TILES
+    with pytest.raises(ValueError, match="bodies"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 16, 8, body="dmma")
+    with pytest.raises(ValueError, match="bodies"):
+        k1.qp_launch_config(8, 7, 49, 8, 64, 64, 4, body="dmma")
+    with pytest.raises(ValueError, match="bodies"):
+        k1.qp_launch_config(8, 7, 49, 8, 64, 16, 8, body="tf32")
+    # DMMA's padded V and C12T at b05 10^3 leave no room for 8 planes
+    with pytest.raises(ValueError, match="does not fit"):
+        k1.qp_launch_config(8, 9, 81, 10, 100, None, 8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
@@ -604,4 +616,35 @@ def test_qp_launch_counts_its_depth(fake_library, monkeypatch, dtype):
         name, args = fake_library.calls[-1]
         assert name == f"tbt_qp_fused3d_{build.SUFFIXES[dtype]}"
         assert args[3] == out.data_ptr() and args[-1] == 77
-        assert args[-3] == depth and args[-2] in (256, 512)
+        assert args[-4] == depth and args[-3] in (256, 512)
+
+
+@pytest.mark.parametrize("dtype,body", [
+    (torch.float32, None), (torch.bfloat16, None), (torch.float64, None),
+    (torch.float64, "simt"), (torch.float64, "dmma")],
+    ids=["f32", "bf16", "f64", "f64-simt", "f64-dmma"])
+def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
+                                              dtype, body):
+    """K1's stage-2 body round-trips through the wrapper: the knob, or
+    qp_config's choice (SIMT outside f64), reaches the entry as the index
+    of QP_BODIES just before the stream, after the QPConfig's other
+    fields, and the launch is counted once in qp_bodies under (dtype,
+    body)."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    monkeypatch.setattr(build, "smem_limits", lambda index: (232448, 233472))
+    gen = torch.Generator().manual_seed(6)
+    x, b0, c12t = (torch.randn(*s, generator=gen).to(dtype)
+                   for s in ((7 * 49, 64), (7, 8), (64, 49)))
+    cfg = k1.qp_launch_config(dtype.itemsize, 7, 49, 8, 64, None, None,
+                              body=body)
+    rule = k1.qp_config(dtype.itemsize, 7, 49, 8, 64)
+    assert cfg == rule._replace(body=body or rule.body)
+    if dtype != torch.float64:
+        assert cfg.body == "simt"
+    bodies = k1.qp_bodies.copy()
+    k1._launch(x, b0, c12t, 49, None, None, body=body)
+    name, args = fake_library.calls[-1]
+    assert name == f"tbt_qp_fused3d_{build.SUFFIXES[dtype]}"
+    assert args[-6:-1] == (*cfg[:4], k1.QP_BODIES.index(cfg.body))
+    assert k1.qp_bodies - bodies == {(build.SUFFIXES[dtype], cfg.body): 1}

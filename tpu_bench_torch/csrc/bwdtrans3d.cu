@@ -63,7 +63,7 @@
 //     us at depth 2 (its bytes alone 4.3 us, its FMAs 3.5 us); in f32 a
 //     32-element tile took 11.7 us at depth 1, two 16-element tiles 9.2 us
 //     at depth 2 (two blocks an SM).
-//   - kernels/bwdtrans3d.qp_config picks (ET, G, depth, threads): the
+//   - kernels/bwdtrans3d.qp_config picks (ET, G, depth, threads, body): the
 //     fastest of benchmarks/kernel_blocks.py's sweep at the benchmarks'
 //     main orders (QP_MEASURED), else depth 1 with the largest tile that
 //     fits two blocks an SM, else one.  Full FP32/FP64 FMA throughout.
@@ -73,7 +73,35 @@
 //     where the JAX kernel rounds its f32 v (bwdtrans3d.py:90); each
 //     output is rounded once.  The bf16 bytes halve the bound (0.067 ms
 //     at b05 8^3 against 0.134 in f32).
-// TMA and warp-uniform C12T loads are later work.
+//   - f64 at b05 10^3: the operations, not the bytes, bound the SIMT form.
+//     An element takes 2*nq0*nrq*(nm0 + nkj) = 176,580 FLOP, 162,000 of
+//     them (92%) in stage 2, 92.6 GFLOP a call of 524,288 elements: 2.76
+//     ms at FP64's 33.5 TFLOP/s on the CUDA cores, above its 2.165 ms of
+//     bytes.  The SIMT micro-tile ran it at 8.0 TFLOP/s (11.5 ms a call;
+//     a 16-element tile took an SM 46.4 us against 8.7 of bytes): its
+//     shared-memory loads match its FMAs, and one block of 8 warps an SM
+//     hides no latency.  So in f64 stage 2 runs on sm_90's DMMA
+//     (mma.sync.m16n8k8 on f64, 66.7 TFLOP/s, IEEE FP64 FMAs as the SIMT
+//     body's; qp_stage2_dmma): C12T is staged untransposed, nkj padded
+//     with zero rows to 16 (100 -> 112) and each row zero-padded to nrq
+//     rounded to 8 (81 -> 88), then to 8 mod 16 values, so the A
+//     fragments' 16-byte loads hit distinct banks; V's rows (rq) are
+//     padded with zeros to 8 as well and each is ET + 2 values long for
+//     the B fragments' loads.  A warp's unit, 16 kj by 32 elements of the
+//     group's planes, loads 12 values a lane per k step for 4 m16n8k8
+//     products (8,192 FLOP): 0.375 shared-memory bytes a FLOP, a quarter
+//     of the SIMT micro-tile's 1.5.  Stage 1 stays SIMT (8% of the FLOP).
+//     The body is a template argument; kernels/bwdtrans3d.qp_config picks
+//     it from the shape (QP_MEASURED, else DMMA in f64 where nkj >= 16 and
+//     nrq >= 8); f32 and bf16 keep the SIMT body.  Measured at b05 10^3,
+//     E = 524,288 (NVIDIA H100 80GB HBM3, 700 W; L2 flushed, least of
+//     20): 5.37 ms against the SIMT body's 11.52 and the bytes' 2.165, a
+//     tile 21.6 us an SM, whose slab copy, products and stores still take
+//     turns at depth 1; at 8^3 in the ring, 0.460 ms against 0.636.
+// Later work: TMA for the slab; at 10^3 f64 a depth-2 ring at tile 16,
+// which would fit (228,976 B) once C12T leaves shared memory (its A
+// fragments held in registers, 88 a lane for a warp's 16 kj rows) and V
+// is unpadded (a swizzle for the B loads, the last k step masked).
 
 #include <cuda_runtime.h>
 
@@ -93,30 +121,154 @@ __host__ __device__ constexpr int round_up(int n, int m) {
     return (n + m - 1) / m * m;
 }
 
+// Stage 2's bodies (kernels/bwdtrans3d.QP_BODIES): the SIMT micro-tiles,
+// or in f64 sm_90's DMMA, on m16n8k8 tiles of QP_MMA_M kj rows, 8
+// elements and QP_MMA_K rq, a warp's unit one m tile by QP_MMA_PAIRS pairs
+// of n tiles (16 elements a pair).
+enum QPBody : int { QP_SIMT = 0, QP_DMMA = 1 };
+constexpr int QP_MMA_M = 16;
+constexpr int QP_MMA_K = 8;
+constexpr int QP_MMA_PAIRS = 2;
+
+// V's rows a plane and its row stride: nrq x ET, or for DMMA nrq padded
+// with zero rows to QP_MMA_K and each row 2 values longer, so the B
+// fragments' 16-byte loads of a quarter warp hit distinct banks.
+__host__ __device__ constexpr int qp_v_rows(QPBody b, int nrq) {
+    return b == QP_DMMA ? round_up(nrq, QP_MMA_K) : nrq;
+}
+
+__host__ __device__ constexpr int qp_v_ld(QPBody b, int et) {
+    return b == QP_DMMA ? et + 2 : et;
+}
+
+// DMMA's C12T row stride: nrq padded to QP_MMA_K, then to 8 mod 16 values,
+// so the A fragments' 16-byte loads of a quarter warp hit distinct banks.
+__host__ __device__ constexpr int qp_lda(int nrq) {
+    const int kp = round_up(nrq, QP_MMA_K);
+    return kp % 16 ? kp : kp + 8;
+}
+
+// C12T's buffer: C12T^T (nrq x nkj padded to QP_TK) for SIMT, C12T (nkj
+// padded to QP_MMA_M rows of qp_lda values) for DMMA.
+__host__ __device__ constexpr int qp_c_size(QPBody b, int nrq, int nkj) {
+    return b == QP_DMMA ? round_up(nkj, QP_MMA_M) * qp_lda(nrq)
+                        : nrq * round_up(nkj, QP_TK);
+}
+
 // Dynamic shared memory of one block: `depth` slabs, V for G planes,
-// C12T^T (nrq x nkj padded to QP_TK) and B0 (nm0 x nq0 padded to G), each
-// a whole number of 16-byte words; at depth 2 the slots' tiles first.
+// C12T's buffer and B0 (nm0 x nq0 padded to G), each a whole number of
+// 16-byte words; at depth 2 the slots' tiles first.
 template <typename T>
 size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
-                     int depth) {
+                     int depth, QPBody body) {
     return (depth > 1 ? QP_SLOT_TILES_BYTES : 0) +
            sizeof(T) *
                (static_cast<size_t>(depth) * nm0 * nrq * et +
-                static_cast<size_t>(g) * nrq * et +
-                static_cast<size_t>(nrq) * round_up(nkj, QP_TK) +
+                static_cast<size_t>(g) * qp_v_rows(body, nrq) *
+                    qp_v_ld(body, et) +
+                static_cast<size_t>(qp_c_size(body, nrq, nkj)) +
                 static_cast<size_t>(nm0) * round_up(nq0, g));
+}
+
+// Stage 2 of the planes [i0, i0 + G) on DMMA: out[i0+g][kj][e] = sum_rq
+// C12T[kj][rq] * V[g][rq][e], each plane's (nkj x nrq) @ (nrq x ET) as
+// m16n8k8 f64 products, IEEE FP64 FMAs throughout.  The group's G*ET
+// columns are ET/16 pairs of n tiles a plane; a warp's unit is m tile mt
+// by QP_MMA_PAIRS pairs, units dealt to the warps in turn, and a unit
+// whose planes all lie past nq0 is skipped.  As in K2's f64 body
+// (csrc/bwdtrans2d.cu), lane 4g + t's k slots t and t + 4 take rq 2t and
+// 2t + 1 of a step, so its A values of a row are one 16-byte load, and n
+// slot g of a pair's two tiles takes elements 2g and 2g + 1, so its B
+// values of an rq are one 16-byte load too; each lane then holds four
+// neighbouring elements of a row, stored as two 16-byte stores along e
+// where aligned, with the streaming hint (st.global.cs, as K4's: 5% off
+// the kernel at b05 10^3 against plain stores), masked past nkj and E.
+// Padding (kj rows past nkj, rq past nrq) is zero in both operands.
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_stage2_dmma(
+    const double* s_v, const double* s_c, double* __restrict__ out, int nrq,
+    int nq0, int nkj, long long n_elem, long long e0, int i0, bool vec_out) {
+    constexpr int NP = QP_MMA_PAIRS, LDV = qp_v_ld(QP_DMMA, ET);
+    constexpr int UNITS_MT = G * ET / 16 / NP;  // units of one m tile
+    static_assert(ET % 16 == 0 && (G * ET / 16) % NP == 0, "whole units");
+    const int kp = qp_v_rows(QP_DMMA, nrq), lda = qp_lda(nrq);
+    const int mts = round_up(nkj, QP_MMA_M) / QP_MMA_M;
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+    for (int u = threadIdx.x / 32; u < mts * UNITS_MT; u += NT / 32) {
+        const int mt = u % mts, p0 = u / mts * NP;
+        if (i0 + p0 * 16 / ET >= nq0) continue;  // warp-uniform
+        const double* a = s_c + (mt * QP_MMA_M + gq) * lda + 2 * tq;
+        const double* b[NP];
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+            const int p = p0 + np;
+            b[np] = s_v + (p * 16 / ET * kp + 2 * tq) * LDV + p * 16 % ET +
+                    2 * gq;
+        }
+        double acc[2 * NP][4] = {};
+#pragma unroll 2
+        for (int k = 0; k < kp; k += QP_MMA_K) {
+            const double2 lo = *reinterpret_cast<const double2*>(a + k);
+            const double2 hi =
+                *reinterpret_cast<const double2*>(a + k + 8 * lda);
+            const double af[4] = {lo.x, hi.x, lo.y, hi.y};
+            double bf[2 * NP][2];
+#pragma unroll
+            for (int np = 0; np < NP; ++np)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const double2 v = *reinterpret_cast<const double2*>(
+                        b[np] + (k + r) * LDV);
+                    bf[2 * np][r] = v.x;
+                    bf[2 * np + 1][r] = v.y;
+                }
+#pragma unroll
+            for (int nt = 0; nt < 2 * NP; ++nt)
+                tbt::mma_f64_16x8x8(acc[nt], af, bf[nt]);
+        }
+        // tiles 2np + q hold elements 4tq + 2r + q of the pair, row gq + 8h,
+        // in acc[2np + q][2h + r]
+#pragma unroll
+        for (int np = 0; np < NP; ++np) {
+            const int p = p0 + np, i = i0 + p * 16 / ET;
+            if (i >= nq0) break;
+            const long long ee = e0 + p * 16 % ET + 4 * tq;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int kj = mt * QP_MMA_M + gq + 8 * h;
+                if (kj >= nkj) continue;
+                double* y =
+                    out + (static_cast<long long>(i) * nkj + kj) * n_elem + ee;
+                const double lo[2] = {acc[2 * np][2 * h],
+                                      acc[2 * np + 1][2 * h]};
+                const double hi[2] = {acc[2 * np][2 * h + 1],
+                                      acc[2 * np + 1][2 * h + 1]};
+                if (vec_out && ee + 4 <= n_elem) {
+                    tbt::store_cs(y, lo);
+                    tbt::store_cs(y + 2, hi);
+                } else {
+                    const double v[4] = {lo[0], lo[1], hi[0], hi[1]};
+#pragma unroll
+                    for (int c = 0; c < 4; ++c)
+                        if (ee + c < n_elem) y[c] = v[c];
+                }
+            }
+        }
+    }
 }
 
 // Output elements [e0, e0 + ET) from their slab s_x in shared memory, NT
 // threads: for each group of G planes, stage 1 into s_v, a barrier,
-// stage 2 and the stores, a barrier.
-template <typename T, int ET, int G, int NT>
+// stage 2 on body B and the stores, a barrier.
+template <typename T, int ET, int G, int NT, QPBody B>
 __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
                                         const T* s_b0, T* __restrict__ out,
                                         int nm0, int nrq, int nq0, int nkj,
                                         long long n_elem, long long e0) {
     using A = tbt::Acc<T>;
     constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
+    constexpr int LDV = qp_v_ld(B, ET);
+    const int vrows = qp_v_rows(B, nrq);
     const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
     const bool vec_out =
         (n_elem * sizeof(T)) % 16 == 0 && tbt::aligned16(out);
@@ -145,9 +297,15 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
             }
 #pragma unroll
             for (int g = 0; g < G; ++g)
-                tbt::store4(s_v + (g * nrq + rq) * ET + e, acc[g]);
+                tbt::store4(s_v + (g * vrows + rq) * LDV + e, acc[g]);
         }
         __syncthreads();
+        if constexpr (B == QP_DMMA) {
+            qp_stage2_dmma<ET, G, NT>(s_v, s_ct, out, nrq, nq0, nkj, n_elem,
+                                      e0, i0, vec_out);
+            __syncthreads();
+            continue;
+        }
         // stage 2: out[i0+g][kj][e] = sum_rq C12T[kj][rq] * V[g][rq][e]
         for (int q = threadIdx.x; q < G * kgs * TX; q += NT) {
             const int e = (q % TX) * QP_TE;
@@ -206,8 +364,8 @@ constexpr int qp_min_blocks() {
 // b owns element tile b.  D = 2: a persistent block of a one-wave grid
 // takes tiles from counter[0] (the stream's: {next tile, blocks done},
 // zero between launches) and copies tile j+1's slab into the other slot
-// while it computes tile j.
-template <typename T, int ET, int G, int D, int NT>
+// while it computes tile j.  B: stage 2's body.
+template <typename T, int ET, int G, int D, int NT, QPBody B>
 __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
     qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
                       const T* __restrict__ c12t, T* __restrict__ out,
@@ -221,9 +379,11 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
     T* s_x = reinterpret_cast<T*>(smem_raw +
                                   (D > 1 ? QP_SLOT_TILES_BYTES : 0));
     const size_t slab = static_cast<size_t>(rows) * ET;
-    T* s_v = s_x + D * slab;                               // (G, nrq, ET)
-    T* s_ct = s_v + static_cast<size_t>(G) * nrq * ET;     // (nrq, kjp)
-    T* s_b0 = s_ct + static_cast<size_t>(nrq) * kjp;       // (nm0, nq0p)
+    constexpr int LDV = qp_v_ld(B, ET);
+    const int vrows = qp_v_rows(B, nrq);
+    T* s_v = s_x + D * slab;                            // (G, vrows, LDV)
+    T* s_ct = s_v + static_cast<size_t>(G) * vrows * LDV;  // qp_c_size
+    T* s_b0 = s_ct + qp_c_size(B, nrq, nkj);               // (nm0, nq0p)
     // tile t's slab (rows x ET from element t*ET, zero past E) into slot s
     auto copy = [&](int s, long long t) {
         tbt::copy_tile_async<T, ET, NT>(
@@ -231,9 +391,27 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
             n_elem % V16 == 0 && tbt::aligned16(in));
     };
     auto stage_operators = [&] {
-        for (int t = threadIdx.x; t < nrq * kjp; t += NT) {
-            const int rq = t / kjp, kj = t % kjp;
-            s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : tbt::narrow<T>(0);
+        if constexpr (B == QP_DMMA) {
+            // C12T by cp.async, its own commit group (staged anew a tile at
+            // depth 1: by plain loads it cost a fifth of the kernel at b05
+            // 10^3), zero rows past nkj and zero columns past nrq; V's rows
+            // past nrq, which stage 1 never writes, zero
+            const int lda = qp_lda(nrq), pad = (vrows - nrq) * LDV;
+            for (int t = threadIdx.x; t < qp_c_size(B, nrq, nkj); t += NT) {
+                const int kj = t / lda, rq = t % lda;
+                const bool ok = kj < nkj && rq < nrq;
+                tbt::cp_async<sizeof(T)>(s_ct + t,
+                                         ok ? c12t + kj * nrq + rq : c12t, ok);
+            }
+            tbt::cp_async_commit();
+            for (int t = threadIdx.x; t < G * pad; t += NT)
+                s_v[(t / pad * vrows + nrq) * LDV + t % pad] =
+                    tbt::narrow<T>(0);
+        } else {
+            for (int t = threadIdx.x; t < nrq * kjp; t += NT) {
+                const int rq = t / kjp, kj = t % kjp;
+                s_ct[t] = kj < nkj ? c12t[kj * nrq + rq] : tbt::narrow<T>(0);
+            }
         }
         for (int t = threadIdx.x; t < nm0 * nq0p; t += NT) {
             const int p = t / nq0p, i = t % nq0p;
@@ -247,8 +425,9 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
         stage_operators();
         tbt::cp_async_wait<0>();
         __syncthreads();
-        qp_tile<T, ET, G, NT>(s_x, s_v, s_ct, s_b0, out, nm0, nrq, nq0, nkj,
-                              n_elem, static_cast<long long>(blockIdx.x) * ET);
+        qp_tile<T, ET, G, NT, B>(s_x, s_v, s_ct, s_b0, out, nm0, nrq, nq0,
+                                 nkj, n_elem,
+                                 static_cast<long long>(blockIdx.x) * ET);
     } else {
         if (threadIdx.x == 0) {
             s_tile[0] = static_cast<long long>(atomicAdd(&counter[0], 1ULL));
@@ -272,8 +451,8 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
             if (threadIdx.x == 0)
                 s_tile[s] =
                     static_cast<long long>(atomicAdd(&counter[0], 1ULL));
-            qp_tile<T, ET, G, NT>(s_x + s * slab, s_v, s_ct, s_b0, out, nm0,
-                                  nrq, nq0, nkj, n_elem, cur * ET);
+            qp_tile<T, ET, G, NT, B>(s_x + s * slab, s_v, s_ct, s_b0, out,
+                                     nm0, nrq, nq0, nkj, n_elem, cur * ET);
             cur = s_tile[s ^ 1];  // next, read again, not held in a register
         }
         if (threadIdx.x == 0) {
@@ -288,17 +467,17 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
     }
 }
 
-// One launch of the instance (ET, G, D, NT): at depth 1 a block a tile;
-// at depth 2 one wave (the occupancy API's blocks an SM times the SMs,
-// once per device and size), no more than the tiles, on the stream's
+// One launch of the instance (ET, G, D, NT, B): at depth 1 a block a
+// tile; at depth 2 one wave (the occupancy API's blocks an SM times the
+// SMs, once per device and size), no more than the tiles, on the stream's
 // counter.
-template <typename T, int ET, int G, int D, int NT>
+template <typename T, int ET, int G, int D, int NT, QPBody B>
 int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                 int nrq, int nq0, int nkj, long long n_elem,
                 cudaStream_t stream) {
-    const size_t smem = qp_smem_bytes<T>(ET, G, nm0, nrq, nq0, nkj, D);
+    const size_t smem = qp_smem_bytes<T>(ET, G, nm0, nrq, nq0, nkj, D, B);
     static tbt::DeviceCache<> optin, waves;  // once per device (and size)
-    auto kernel = qp_fused3d_kernel<T, ET, G, D, NT>;
+    auto kernel = qp_fused3d_kernel<T, ET, G, D, NT, B>;
     cudaError_t err = tbt::optin_smem(optin, kernel);
     if (err != cudaSuccess) return err;
     long long blocks = (n_elem + ET - 1) / ET;
@@ -318,35 +497,35 @@ int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 }
 
 // The element tiles of T at depth 1 (kernels/bwdtrans3d.QP_TILES) and
-// at depth 2 (QP_RING_TILES).
-template <typename T, int G, int D, int NT>
+// at depth 2 (QP_RING_TILES); DMMA's at either depth (QP_DMMA_TILES).
+template <typename T, int G, int D, int NT, QPBody B>
 int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                 int nrq, int nq0, int nkj, long long n_elem, int et,
                 cudaStream_t stream) {
     constexpr bool f64 = sizeof(T) == 8;
     switch (et) {
         case 16:
-            return launch_tile<T, 16, G, D, NT>(in, b0, c12t, out, nm0, nrq,
-                                                nq0, nkj, n_elem, stream);
+            return launch_tile<T, 16, G, D, NT, B>(
+                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream);
         case 32:
-            return launch_tile<T, 32, G, D, NT>(in, b0, c12t, out, nm0, nrq,
-                                                nq0, nkj, n_elem, stream);
+            return launch_tile<T, 32, G, D, NT, B>(
+                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream);
     }
-    if constexpr (D == 1) {
+    if constexpr (D == 1 && B == QP_SIMT) {
         switch (et) {
             case 64:
-                return launch_tile<T, 64, G, D, NT>(in, b0, c12t, out, nm0,
-                                                    nrq, nq0, nkj, n_elem,
-                                                    stream);
+                return launch_tile<T, 64, G, D, NT, B>(in, b0, c12t, out, nm0,
+                                                       nrq, nq0, nkj, n_elem,
+                                                       stream);
             case 8:
                 if constexpr (f64)
-                    return launch_tile<T, 8, G, D, NT>(
+                    return launch_tile<T, 8, G, D, NT, B>(
                         in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
                         stream);
                 break;
             case 128:
                 if constexpr (!f64)
-                    return launch_tile<T, 128, G, D, NT>(
+                    return launch_tile<T, 128, G, D, NT, B>(
                         in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
                         stream);
                 break;
@@ -357,39 +536,54 @@ int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 
 // The (ring depth, threads) forms: kernels/bwdtrans3d.QP_FORMS (no f64
 // block of 512 threads).
-template <typename T, int G>
+template <typename T, int G, QPBody B>
 int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                   int nrq, int nq0, int nkj, long long n_elem, int et,
                   int depth, int threads, cudaStream_t stream) {
     if (depth == 1 && threads == QP_THREADS)
-        return launch_form<T, G, 1, QP_THREADS>(in, b0, c12t, out, nm0, nrq,
-                                                nq0, nkj, n_elem, et, stream);
+        return launch_form<T, G, 1, QP_THREADS, B>(
+            in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream);
     if (depth == 2 && threads == QP_THREADS)
-        return launch_form<T, G, 2, QP_THREADS>(in, b0, c12t, out, nm0, nrq,
-                                                nq0, nkj, n_elem, et, stream);
+        return launch_form<T, G, 2, QP_THREADS, B>(
+            in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream);
     if constexpr (sizeof(T) != 8)
         if (depth == 2 && threads == 2 * QP_THREADS)
-            return launch_form<T, G, 2, 2 * QP_THREADS>(
+            return launch_form<T, G, 2, 2 * QP_THREADS, B>(
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream);
     return cudaErrorInvalidValue;
 }
 
-// The element tiles et, plane groups g, ring depths and block threads it
-// is built for (qp_config in kernels/bwdtrans3d.py picks them for each
-// shape and dtype).
+template <typename T, QPBody B>
+int launch_body(const T* in, const T* b0, const T* c12t, T* out, int nm0,
+                int nrq, int nq0, int nkj, long long n_elem, int et, int g,
+                int depth, int threads, cudaStream_t stream) {
+    if (g == 4)
+        return launch_planes<T, 4, B>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
+                                      n_elem, et, depth, threads, stream);
+    if (g == 8)
+        return launch_planes<T, 8, B>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
+                                      n_elem, et, depth, threads, stream);
+    return cudaErrorInvalidValue;
+}
+
+// The element tiles et, plane groups g, ring depths, block threads and
+// stage-2 bodies (DMMA in f64 only) it is built for (qp_config in
+// kernels/bwdtrans3d.py picks them for each shape and dtype).
 template <typename T>
 int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
            int nq0, int nkj, long long n_elem, int et, int g, int depth,
-           int threads, cudaStream_t stream) {
+           int threads, int body, cudaStream_t stream) {
     if (n_elem <= 0) return cudaSuccess;
     if (nm0 <= 0 || nrq <= 0 || nq0 <= 0 || nkj <= 0)
         return cudaErrorInvalidValue;
-    if (g == 4)
-        return launch_planes<T, 4>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                   n_elem, et, depth, threads, stream);
-    if (g == 8)
-        return launch_planes<T, 8>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
-                                   n_elem, et, depth, threads, stream);
+    if (body == QP_SIMT)
+        return launch_body<T, QP_SIMT>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
+                                       n_elem, et, g, depth, threads, stream);
+    if constexpr (sizeof(T) == 8)
+        if (body == QP_DMMA)
+            return launch_body<T, QP_DMMA>(in, b0, c12t, out, nm0, nrq, nq0,
+                                           nkj, n_elem, et, g, depth, threads,
+                                           stream);
     return cudaErrorInvalidValue;
 }
 
@@ -732,10 +926,10 @@ extern "C" int tbt_qp_fused3d_f32(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,
                                   int nrq, int nq0, int nkj, long long n_elem,
                                   int et, int g, int depth, int threads,
-                                  void* stream) {
+                                  int body, void* stream) {
     return launch(static_cast<const float*>(in), static_cast<const float*>(b0),
                   static_cast<const float*>(c12t), static_cast<float*>(out),
-                  nm0, nrq, nq0, nkj, n_elem, et, g, depth, threads,
+                  nm0, nrq, nq0, nkj, n_elem, et, g, depth, threads, body,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -743,11 +937,11 @@ extern "C" int tbt_qp_fused3d_f64(const void* in, const void* b0,
                                   const void* c12t, void* out, int nm0,
                                   int nrq, int nq0, int nkj, long long n_elem,
                                   int et, int g, int depth, int threads,
-                                  void* stream) {
+                                  int body, void* stream) {
     return launch(static_cast<const double*>(in),
                   static_cast<const double*>(b0),
                   static_cast<const double*>(c12t), static_cast<double*>(out),
-                  nm0, nrq, nq0, nkj, n_elem, et, g, depth, threads,
+                  nm0, nrq, nq0, nkj, n_elem, et, g, depth, threads, body,
                   static_cast<cudaStream_t>(stream));
 }
 
@@ -755,29 +949,31 @@ extern "C" int tbt_qp_fused3d_bf16(const void* in, const void* b0,
                                    const void* c12t, void* out, int nm0,
                                    int nrq, int nq0, int nkj, long long n_elem,
                                    int et, int g, int depth, int threads,
-                                   void* stream) {
+                                   int body, void* stream) {
     return launch(static_cast<const tbt::bf16*>(in),
                   static_cast<const tbt::bf16*>(b0),
                   static_cast<const tbt::bf16*>(c12t),
                   static_cast<tbt::bf16*>(out), nm0, nrq, nq0, nkj, n_elem,
-                  et, g, depth, threads, static_cast<cudaStream_t>(stream));
+                  et, g, depth, threads, body,
+                  static_cast<cudaStream_t>(stream));
 }
 
-// Shared memory of one K1 block of element tile et, g planes a pass and
-// `depth` slab slots.
+// Shared memory of one K1 block of element tile et, g planes a pass,
+// `depth` slab slots and stage-2 body `body` (QP_SIMT or QP_DMMA).
 extern "C" long long tbt_qp_fused3d_smem(int itemsize, int et, int g,
                                          int nm0, int nrq, int nq0, int nkj,
-                                         int depth) {
+                                         int depth, int body) {
+    const QPBody b = body == QP_DMMA ? QP_DMMA : QP_SIMT;
     switch (itemsize) {
         case 2:
             return static_cast<long long>(qp_smem_bytes<tbt::bf16>(
-                et, g, nm0, nrq, nq0, nkj, depth));
+                et, g, nm0, nrq, nq0, nkj, depth, b));
         case 4:
             return static_cast<long long>(
-                qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj, depth));
+                qp_smem_bytes<float>(et, g, nm0, nrq, nq0, nkj, depth, b));
         default:
             return static_cast<long long>(
-                qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj, depth));
+                qp_smem_bytes<double>(et, g, nm0, nrq, nq0, nkj, depth, b));
     }
 }
 

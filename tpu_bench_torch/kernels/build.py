@@ -66,9 +66,9 @@ _D = ctypes.c_double
 # signature serves the _f32 and _f64 entries (and _bf16, BF16_KERNELS).
 _SIGNATURES = {
     # in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, g, depth,
-    # threads, stream
+    # threads, body, stream
     "tbt_qp_fused3d": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I,
-                       _P],
+                       _I, _P],
     # c, in, out, m_rows, k_depth, n_cols, n_chunks, strip, wgmma, stream
     "tbt_kron_blocked": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, s, out, e_rows, k_depth, n_cols, tile, stream
@@ -202,7 +202,7 @@ def library() -> ctypes.CDLL:
     lib.tbt_qp1d_smem.argtypes = [_I, _I, _I, _I, _I]
     lib.tbt_qp1d_smem.restype = _L
     # K1's and K2's shared memory
-    lib.tbt_qp_fused3d_smem.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I]
+    lib.tbt_qp_fused3d_smem.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, _I]
     lib.tbt_qp_fused3d_smem.restype = _L
     lib.tbt_kron_resident_smem.argtypes = [_I, _I, _I, _I]
     lib.tbt_kron_resident_smem.restype = _L
