@@ -27,7 +27,8 @@ five.  Every phase is fatal:
    entries of K5 and of K2's and K3's dense GEMM on mma.sync, HGMMA on
    TF32 in K2's f32 dense body on wgmma, DMMA in K5's f64 entry,
    sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
-   entries and in K1's f64 instances on its DMMA stage-2 body, no DMMA
+   entries and in K1's f64 instances on its DMMA stage-2 body (C12T
+   staged, and C12T held in registers, each), no DMMA
    in K1's f32 instances, and the bulk copy (UBLKCP) in the rings;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
@@ -358,10 +359,13 @@ TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
 # m8n8k4, which the H100 runs at half the rate (scripts/dmma_probe.cu)
 DMMA_F64_DENSE = ("K2 kron dense f64 (DMMA)", "K3 em dense f64 (DMMA)")
 # K1's instances by dtype and stage-2 body (the QPBody template argument,
-# QP_DMMA = 1): its f64 DMMA body must hold sm_90's m16n8k8 and no
-# m8n8k4, its f32 instances (all SIMT) no DMMA at all.
+# QP_DMMA = 1 with C12T staged, QP_DMMA_HELD = 2 with it in registers):
+# its f64 DMMA body must hold sm_90's m16n8k8 and no m8n8k4, its f32
+# instances (all SIMT) no DMMA at all.
 K1_DMMA, K1_F32 = "K1 qp_fused3d f64 (DMMA)", "K1 qp_fused3d f32"
+K1_HELD = "K1 qp_fused3d f64 (DMMA, C12T held)"
 K1_KERNELS = {K1_DMMA: r"qp_fused3d_kernelId.*QPBodyE1E",
+              K1_HELD: r"qp_fused3d_kernelId.*QPBodyE2E",
               K1_F32: "qp_fused3d_kernelIf"}
 # The cp.async.bulk rings (csrc/ring.cuh) of K12 (copy, scale, triad) and
 # K7's 16-byte form (add), whose SASS must hold the bulk copy (UBLKCP).
@@ -487,9 +491,10 @@ def build_kernels() -> None:
         print(f"  SASS: {n} {op} in {kernel}")
     for kernel, op in TC_MMA + RING_BULK:
         assert counts.get((kernel, op), 0) > 0, (kernel, op, counts)
-    for kernel in (*DMMA_F64_DENSE, K1_DMMA):
+    for kernel in (*DMMA_F64_DENSE, K1_DMMA, K1_HELD):
         assert counts.get((kernel, DMMA_SM80), 0) == 0, (kernel, counts)
-    assert counts.get((K1_DMMA, DMMA_SM90), 0) > 0, counts
+    for kernel in (K1_DMMA, K1_HELD):
+        assert counts.get((kernel, DMMA_SM90), 0) > 0, (kernel, counts)
     assert counts.get((K1_F32, "DMMA"), 0) == 0, counts
 
 
@@ -1820,6 +1825,8 @@ def main() -> int:
           f"{dict(sorted(k1.qp_depths.items()))}")
     print(f"K1 launches by (dtype, stage-2 body) (qp_bodies): "
           f"{dict(sorted(k1.qp_bodies.items()))}")
+    print(f"K1 DMMA launches by where C12T lived (qp_dmma_c12t): "
+          f"{dict(sorted(k1.qp_dmma_c12t.items()))}")
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

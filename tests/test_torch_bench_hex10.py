@@ -2,7 +2,7 @@
 hex-nq10-f64, cell hex10-f64-qp) on the CPU: the cell resolves, its path
 runs at 10^3 through the port's plain version and meets the plain
 reference, its limit parts the program from the control, the yardstick's
-counts at the configuration, and why K1 runs its depth-1 form there."""
+counts at the configuration, and why K1 runs its slab ring there."""
 
 import os
 import sys
@@ -75,20 +75,28 @@ def test_control_fails_the_limit_and_the_program_meets_it():
 
 
 def test_k1_takes_its_depth_1_form_alone_on_an_sm():
-    """No depth-2 form fits a block's shared memory at any ring tile, on
-    either stage-2 body, so qp_config keeps the sweep's (16, 4) at depth 1,
-    on DMMA, whose buffers (V and C12T padded: 223,712 B against SIMT's
-    203,040) leave room for one block an SM."""
-    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 4, 1, 256, "dmma")
-    for et in k1.QP_RING_TILES:
-        for g in k1.QP_PLANE_GROUPS:
-            for body in k1.QP_BODIES:
-                assert k1.qp_smem(8, et, g, *SHAPE, 2, body) > k1.SMEM_BLOCK
-    assert k1.qp_smem(8, 16, 4, *SHAPE, 2) == 296368
+    """K1 runs the sweep's (16, 4) in the slab ring on DMMA, one block an
+    SM: with C12T's A fragments held in registers and V unpadded its two
+    slabs fit a block (228,976 B of 232,448), where a staged C12T (112 rows
+    of 88 values, V 88 rows of 18) or SIMT's C12T^T would not.  No other
+    depth-2 form fits, and the depth-1 form leaves room for one block an
+    SM only."""
+    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 4, 2, 256, "dmma",
+                                                  "regs")
+    ring = k1.qp_smem(8, 16, 4, *SHAPE, 2, "dmma", "regs")
+    assert ring == 228976 <= k1.SMEM_BLOCK
+    # C12T staged: 112 rows of 88 values more; before V lost its padding
+    # (88 rows of 18 a plane), 317,040 B
+    staged = k1.qp_smem(8, 16, 4, *SHAPE, 2, "dmma", "smem")
+    assert staged == ring + 8 * 112 * 88 == 307824 > k1.SMEM_BLOCK
+    assert staged + 8 * 4 * (88 * 18 - 81 * 16) == 317040
+    assert k1.qp_smem(8, 16, 4, *SHAPE, 2) == 296368 > k1.SMEM_BLOCK
+    assert [c for c in k1.qp_settings(8, *SHAPE) if c.depth == 2] == \
+        [k1.QPConfig(16, 4, 2, 256, "dmma", "regs")]
     assert k1.qp_smem(8, 16, 4, *SHAPE) == 203040
-    alone = k1.qp_smem(8, 16, 4, *SHAPE, 1, "dmma")
-    assert alone == 223712 <= k1.SMEM_BLOCK
-    assert 2 * (alone + k1.SMEM_RESERVED) > k1.SMEM_SM
+    alone = k1.qp_smem(8, 16, 4, *SHAPE, 1, "dmma", "regs")
+    assert alone == 135648 <= k1.SMEM_BLOCK
+    assert 2 * (ring + k1.SMEM_RESERVED) > k1.SMEM_SM
 
 
 def test_yardstick_counts_at_the_configuration():

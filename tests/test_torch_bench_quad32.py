@@ -99,19 +99,22 @@ def test_yardstick_counts_at_the_configuration():
 
 def test_k1_runs_dmma_at_depth_1_alone_on_an_sm():
     """QP_MEASURED's setting for the 2D plane view at 32^2 in f64: tiles of
-    16, groups of 8 planes, depth 1, stage 2 on DMMA (C12T's 31 rq columns
-    padded to 32, rows of qp_lda(31) = 40 values).  Its buffers fit one
-    block, but not two an SM."""
-    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 8, 1, 256, "dmma")
+    16, groups of 8 planes, depth 1, stage 2 on DMMA (C12T = B1^T, 32 x
+    31, held in registers: two m tiles, the last k step masked).  Its
+    buffers fit one block, but not two an SM."""
+    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 8, 1, 256, "dmma",
+                                                  "regs")
     assert k1.QP_MEASURED[(8, *SHAPE)] == k1.qp_config(8, *SHAPE)
-    assert k1.qp_lda(31) == 40
-    smem = k1.qp_smem(8, 16, 8, *SHAPE, 1, "dmma")
-    assert smem == 178_048 <= k1.SMEM_BLOCK
+    assert k1.qp_dmma_takes(31, 32)
+    smem = k1.qp_smem(8, 16, 8, *SHAPE, 1, "dmma", "regs")
+    assert smem == 162_688 <= k1.SMEM_BLOCK
     assert 2 * (smem + k1.SMEM_RESERVED) > k1.SMEM_SM
     # no two slabs of a ring tile fit at 32^2 in f64
     for g in k1.QP_PLANE_GROUPS:
         for body in k1.QP_BODIES:
-            assert k1.qp_smem(8, 16, g, *SHAPE, 2, body) > k1.SMEM_BLOCK
+            for where in k1.qp_c12t_places(body, 31, 32):
+                assert k1.qp_smem(8, 16, g, *SHAPE, 2, body, where) > \
+                    k1.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("nelmt,fits", [(1048576, False), (524288, True)])

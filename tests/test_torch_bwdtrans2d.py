@@ -770,7 +770,7 @@ def test_smem_sizes_agree_with_the_library_on_card(itemsize):
     """The rules of kernels/ decide each configuration from the shared
     memory they count, so each count equals the library's own (csrc/): K1's
     qp_smem and tbt_qp_fused3d_smem at every element tile, plane group,
-    depth and stage-2 body, K2's kron_resident_smem and tbt_kron_resident_smem at every
+    depth, stage-2 body and place of C12T, K2's kron_resident_smem and tbt_kron_resident_smem at every
     strip (QP stage 1 and the kron), K3's em_resident_smem and
     tbt_em_resident_smem at every tile height (the kron and each QP-1D
     stage), K5's qp1d_smem and tbt_qp1d_smem at every element tile, at
@@ -796,12 +796,15 @@ def test_smem_sizes_agree_with_the_library_on_card(itemsize):
         for et in k1.QP_TILES[itemsize]:
             for g in k1.QP_PLANE_GROUPS:
                 for depth in (1, 2):
-                    for body in k1.qp_built_bodies(itemsize, et):
+                    for body, where in k1.QP_ENTRY_BODIES:
+                        if body not in k1.qp_built_bodies(itemsize, et):
+                            continue
                         assert k1.qp_smem(itemsize, et, g, *k1_shape, depth,
-                                          body) == lib.tbt_qp_fused3d_smem(
-                            itemsize, et, g, *k1_shape, depth,
-                            k1.QP_BODIES.index(body)), (nq, et, g, depth,
-                                                        body)
+                                          body, where) == \
+                            lib.tbt_qp_fused3d_smem(
+                                itemsize, et, g, *k1_shape, depth,
+                                k1.QP_ENTRY_BODIES[body, where]), (
+                                    nq, et, g, depth, body, where)
         stage1 = (k1_shape[3], k1_shape[1])
         for m, k in (stage1, (widths[-1], widths[0])):
             for w in k2.KRON_STRIPS:

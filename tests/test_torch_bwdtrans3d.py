@@ -175,15 +175,17 @@ K1_SHAPES = ([(f"b05 nq={n}^3", (n - 1, (n - 1) ** 2, n, n * n))
 @pytest.mark.parametrize("label,shape", K1_SHAPES)
 def test_qp_config_fits_the_card(label, shape, itemsize):
     """At every order both benchmarks sweep, in bf16, f32 and f64, qp_config
-    gives one of K1's tiles, plane groups, forms and stage-2 bodies, whose
-    buffers, slab slots included, fit the H100's 232,448 B of a block, and
-    the tile is a whole number of 4-element micro-tiles."""
-    et, g, depth, threads, body = k1.qp_config(itemsize, *shape)
+    gives one of K1's tiles, plane groups, forms, stage-2 bodies and
+    places of C12T, whose buffers, slab slots included, fit the H100's
+    232,448 B of a block, and the tile is a whole number of 4-element
+    micro-tiles."""
+    et, g, depth, threads, body, where = k1.qp_config(itemsize, *shape)
     assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
     assert (depth, threads) in k1.qp_forms(itemsize, et)
     assert body in k1.qp_built_bodies(itemsize, et)
+    assert where in k1.qp_c12t_places(body, shape[1], shape[3])
     assert et % k1.QP_TE == 0
-    assert k1.qp_smem(itemsize, et, g, *shape, depth, body) <= 232448
+    assert k1.qp_smem(itemsize, et, g, *shape, depth, body, where) <= 232448
 
 
 def test_qp_smem_counts_each_buffer():
@@ -199,25 +201,50 @@ def test_qp_smem_counts_each_buffer():
         2 * 343 * 16 + 8 * 49 * 16 + 49 * 64 + 7 * 8)
     assert k1.qp_smem(4, 32, 4, 7, 49, 8, 64, 2) == \
         k1.qp_smem(4, 32, 4, 7, 49, 8, 64) + 16 + 4 * 343 * 32
-    # DMMA: V's rows padded to 8 (81 -> 88) and 2 values longer, C12T's
-    # rows to 16 (100 -> 112), each of 88 values (8 mod 16)
+    # DMMA: V unpadded (nrq x et a plane, its columns swizzled); C12T held
+    # in registers takes no buffer
+    assert k1.qp_smem(8, 16, 4, 9, 81, 10, 100, 1, "dmma", "regs") == 8 * (
+        729 * 16 + 4 * 81 * 16 + 9 * 12) == 135648
+    assert k1.qp_smem(8, 16, 4, 9, 81, 10, 100, 2, "dmma", "regs") == \
+        16 + 8 * (2 * 729 * 16 + 4 * 81 * 16 + 9 * 12) == 228976
+    assert k1.qp_smem(8, 16, 8, 7, 49, 8, 64, 2, "dmma", "regs") == \
+        16 + 8 * (2 * 343 * 16 + 8 * 49 * 16 + 7 * 8)
+    # staged, C12T's rows padded to 16 (100 -> 112), each of 88 values (8
+    # mod 16)
     assert k1.qp_smem(8, 16, 4, 9, 81, 10, 100, 1, "dmma") == 8 * (
-        729 * 16 + 4 * 88 * 18 + 112 * 88 + 9 * 12) == 223712
-    assert k1.qp_smem(8, 16, 8, 7, 49, 8, 64, 2, "dmma") == 16 + 8 * (
-        2 * 343 * 16 + 8 * 56 * 18 + 64 * 56 + 7 * 8)
+        729 * 16 + 4 * 81 * 16 + 112 * 88 + 9 * 12) == 214496
+    assert k1.qp_smem(8, 16, 8, 7, 49, 8, 64, 2, "dmma", "smem") == \
+        16 + 8 * (2 * 343 * 16 + 8 * 49 * 16 + 64 * 56 + 7 * 8)
     # nrq = 12 pads to 16, a multiple of 16, so C12T's rows take 24 values
     assert k1.qp_smem(8, 16, 8, 2, 12, 3, 20, 1, "dmma") == 8 * (
-        24 * 16 + 8 * 16 * 18 + 32 * 24 + 2 * 8)
+        24 * 16 + 8 * 12 * 16 + 32 * 24 + 2 * 8)
+    assert k1.qp_smem(8, 16, 8, 2, 12, 3, 20, 1, "dmma", "regs") == 8 * (
+        24 * 16 + 8 * 12 * 16 + 2 * 8)
 
 
 @pytest.mark.parametrize("nrq,lda", [(81, 88), (49, 56), (12, 24), (7, 8),
                                      (16, 24), (31, 40), (1, 8)])
 def test_qp_lda_pads_c12t_rows_to_8_mod_16(nrq, lda):
-    """The DMMA body's C12T rows: nrq padded to the mma's 8-deep k step,
-    then to 8 mod 16 values, so a quarter warp's 16-byte A loads of two
-    rows 8 apart land in distinct banks."""
+    """The staged DMMA form's C12T rows: nrq padded to the mma's 8-deep k
+    step, then to 8 mod 16 values, so a quarter warp's 16-byte A loads of
+    two rows 8 apart land in distinct banks."""
     assert k1.qp_lda(nrq) == lda
     assert lda >= nrq and lda % 16 == 8
+
+
+@pytest.mark.parametrize("nrq,nkj,takes", [
+    (81, 100, True), (49, 64, True), (88, 128, True), (12, 20, True),
+    (31, 32, True), (89, 100, False), (81, 129, False), (100, 121, False)])
+def test_qp_dmma_takes_what_its_warps_hold(nrq, nkj, takes):
+    """DMMA holds C12T in registers where each of a block's 8 warps holds
+    one m tile of 16 kj rows (nkj <= 128) as 11 k steps of 8 rq (nrq <=
+    88), which covers every b05 order to 10^3 and b04 to 32^2.  Past that
+    the sweep has only the staged form and the launch refuses "regs"."""
+    assert k1.qp_dmma_takes(nrq, nkj) is takes
+    shape = (1, nrq, 4, nkj)
+    places = {c.c12t for c in k1.qp_settings(8, *shape) if c.body == "dmma"}
+    assert places == ({"smem", "regs"} if takes else {"smem"})
+    assert k1.qp_c12t_places("simt", nrq, nkj) == ("smem",)
 
 
 def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
@@ -226,7 +253,7 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     that fits one, else None."""
     # (3, 4, 5) is not in the table: tile 128 fits two blocks in f32
     assert (4, 2, 12, 3, 20) not in k1.QP_MEASURED
-    et, g, depth, threads, _ = k1.qp_config(4, 2, 12, 3, 20)
+    et, g, depth, threads, *_ = k1.qp_config(4, 2, 12, 3, 20)
     assert (et, depth, threads) == (128, 1, k1.QP_THREADS)
     assert 2 * (k1.qp_smem(4, et, g, 2, 12, 3, 20) + k1.SMEM_RESERVED) \
         <= k1.SMEM_SM
@@ -235,7 +262,8 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     # the largest tile that fits one block, 32
     shape = (31, 31, 32, 30)
     assert 2 * (k1.qp_smem(4, 16, 8, *shape) + k1.SMEM_RESERVED) <= k1.SMEM_SM
-    assert k1.qp_config(4, *shape) == (32, 8, 1, k1.QP_THREADS, "simt")
+    assert k1.qp_config(4, *shape) == (32, 8, 1, k1.QP_THREADS, "simt",
+                                       "smem")
     # a 32^3 slab (961 x 31 rows) fits no tile at all
     assert k1.qp_config(4, 31, 961, 32, 1024) is None
     assert k1.qp_config(4, 7, 49, 8, 64, block_limit=1024) is None
@@ -244,11 +272,13 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
 def test_qp_measured_settings_fit_and_are_the_configs():
     for (itemsize, *shape), cfg in k1.QP_MEASURED.items():
         assert type(cfg) is k1.QPConfig
-        et, g, depth, threads, body = cfg
+        et, g, depth, threads, body, where = cfg
         assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
         assert (depth, threads) in k1.qp_forms(itemsize, et)
         assert body in k1.qp_built_bodies(itemsize, et)
-        assert k1.qp_smem(itemsize, et, g, *shape, depth, body) <= 232448
+        assert where in k1.qp_c12t_places(body, shape[1], shape[3])
+        assert k1.qp_smem(itemsize, et, g, *shape, depth, body,
+                          where) <= 232448
         assert k1.qp_config(itemsize, *shape) == cfg
 
 
@@ -263,24 +293,29 @@ def test_qp_config_keeps_simt_outside_f64(label, shape, itemsize):
 
 def test_qp_config_takes_dmma_at_10_cubed_f64():
     """At b05 10^3 in f64 (cell hex10-f64-qp) K1's stage 2, 92% of its
-    FLOP, runs on the FP64 tensor units: the sweep's (16, 4) at depth 1 on
-    DMMA."""
-    assert k1.qp_config(8, 9, 81, 10, 100) == k1.QPConfig(16, 4, 1, 256,
-                                                          "dmma")
+    FLOP, runs on the FP64 tensor units: the sweep's (16, 4) in the slab
+    ring on DMMA, which fits a block (228,976 B) since C12T is held in
+    registers and V is unpadded."""
+    assert k1.qp_config(8, 9, 81, 10, 100) == k1.QPConfig(16, 4, 2, 256,
+                                                          "dmma", "regs")
+    assert k1.qp_smem(8, 16, 4, 9, 81, 10, 100, 2, "dmma", "regs") == \
+        228976 <= k1.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("shape,body", [
     ((8, 64, 9, 81), "dmma"), ((6, 36, 7, 49), "dmma"),
     ((4, 4, 5, 5), "simt"), ((1, 1, 2, 4), "simt"), ((13, 13, 14, 14),
-                                                     "simt")])
+                                                     "simt"),
+    ((1, 90, 2, 100), "dmma"), ((8, 64, 9, 144), "dmma")])
 def test_qp_config_default_rule_for_f64(shape, body):
-    """Off the measured table, f64 takes DMMA where C12T holds a whole
-    m16n8k8 tile (nkj >= 16, nrq >= 8) and a tile of QP_DMMA_TILES fits,
-    with the SIMT rule's choice of tile and group among those; else
-    SIMT."""
+    """Off the measured table, f64 takes DMMA with C12T staged where C12T
+    holds a whole m16n8k8 tile (nkj >= 16, nrq >= 8) and a tile of
+    QP_DMMA_TILES fits, also past what the held form serves (nrq = 90, nkj
+    = 144), with the SIMT rule's choice of tile and group among those;
+    else SIMT."""
     assert (8, *shape) not in k1.QP_MEASURED
     cfg = k1.qp_config(8, *shape)
-    assert cfg.body == body and cfg.depth == 1
+    assert cfg.body == body and cfg.depth == 1 and cfg.c12t == "smem"
     assert cfg.et in (k1.QP_DMMA_TILES if body == "dmma" else
                       k1.QP_TILES[8])
     assert cfg.planes == k1.qp_planes(cfg.et, shape[3])
@@ -290,19 +325,20 @@ def test_qp_config_default_rule_for_f64(shape, body):
 
 @pytest.mark.parametrize("itemsize,shape,depth", [
     (4, (7, 49, 8, 64), 2), (8, (7, 49, 8, 64), 2),
-    (8, (31, 31, 32, 32), 1)])
+    (8, (31, 31, 32, 32), 1), (8, (9, 81, 10, 100), 2)])
 def test_qp_config_takes_the_ring_where_measured(itemsize, shape, depth):
-    """Depth 2 at the benchmark's b05 nq=8^3 in f32 and f64, where the
-    sweep measured the ring faster; depth 1 at b04 nq=32^2, where two
-    slabs of the chosen tile do not fit a block.  Either way the buffers,
-    slots included, fit one block's shared memory."""
+    """Depth 2 at the benchmark's b05 nq=8^3 in f32 and f64 and at 10^3 in
+    f64 (on DMMA), where the sweep measured the ring faster; depth 1 at
+    b04 nq=32^2, where two slabs of the chosen tile do not fit a block.
+    Either way the buffers, slots included, fit one block's shared
+    memory."""
     cfg = k1.qp_config(itemsize, *shape)
     assert cfg.depth == depth
     assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
-                      cfg.depth, cfg.body) <= k1.SMEM_BLOCK
+                      cfg.depth, cfg.body, cfg.c12t) <= k1.SMEM_BLOCK
     if depth == 1:
         assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
-                          2, cfg.body) > k1.SMEM_BLOCK
+                          2, cfg.body, cfg.c12t) > k1.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("et,nkj,planes", [(32, 64, 4), (16, 64, 8),
@@ -320,14 +356,19 @@ def test_qp_planes_fills_stage_2(et, nkj, planes):
     ((32, 32), (1000, 131071)), ((10, 12), (1000, 131071)),
     ((10, 10, 10), (1000,)), ((8, 8, 8), (4099,)), ((5, 6, 7), (1000,))])
 def test_qp_fused3d_every_config_on_card(nq, sizes):
-    """K1 at every (element tile, plane group, depth, threads, body) that
-    fits, and qp_config's, on E elements that are no multiple of a tile:
+    """K1 at every (element tile, plane group, depth, threads, body, C12T's
+    place) that fits, and qp_config's, on E elements that are no multiple of a tile:
     within 1e-5 (f32), 1e-12 (f64) and 2^-7 (bf16, whose rounding of v and
     of each output may fall either side of a tie on other f32 sums) of the
-    plain version, relative to the largest output.  The f64 DMMA body at
-    b05 10^3 (E = 1000, a ragged last tile), 8^3 (E = 4099) and on shapes
-    whose nkj and nrq are no multiples of 16 and 8 ((3, 4, 5): 20 and 12;
-    (5, 6, 7): 42 and 30), where its operands are padded with zeros."""
+    plain version, relative to the largest output.  The f64 DMMA body
+    (C12T staged, and held in registers) at
+    b05 10^3 (E = 1000, a ragged last tile, and in the ring fewer tiles
+    than blocks), 8^3 (E = 4099) and on shapes whose nkj and nrq are no
+    multiples of 16 and 8 ((3, 4, 5): 20 and 12; (5, 6, 7): 42 and 30),
+    where its held C12T fragments are zero past nkj and nrq and its last
+    k step is masked.  Each depth-2 form also runs twice back to back on
+    one stream with no synchronisation between: the second launch takes
+    its tiles from the counter the first set back to zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     if len(nq) == 3:
@@ -344,12 +385,22 @@ def test_qp_fused3d_every_config_on_card(nq, sizes):
                                     dtype=dtype)
                         for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
             ref = k1.qp_shared3d_plain(x, b0, c)
-            configs = [(None,) * 5] + k1.qp_settings(
+            configs = [(None,) * 6] + k1.qp_settings(
                 size, nm0, nrq, nq0, nkj)
-            for et, g, d, t, body in configs:
+            for et, g, d, t, body, where in configs:
                 out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
-                                     threads=t, body=body)
-                card_agree(out, ref, dtype, tol, (e, et, g, d, t, body))
+                                     threads=t, body=body, where=where)
+                card_agree(out, ref, dtype, tol, (e, et, g, d, t, body,
+                                                  where))
+            for et, g, d, t, body, where in configs[1:]:
+                if d == 2:
+                    outs = [k1.qp_shared3d(x, b0, c, epb=et, planes=g,
+                                           depth=d, threads=t, body=body,
+                                           where=where)
+                            for _ in range(2)]
+                    for n, out in enumerate(outs):
+                        card_agree(out, ref, dtype, tol,
+                                   (e, et, g, d, t, body, where, n))
 
 
 # bf16's norm tolerance (test_torch_bf16's NORM_TOL): it catches a bias of

@@ -250,15 +250,15 @@ def test_qp_fused3d_ring_on_card(dtype, tol):
     for e in (131071, 1001):
         x, b0, c = operands(e)
         ref = k1.qp_shared3d_plain(x, b0, c)
-        for et, g, d, t, body in forms:
+        for et, g, d, t, body, where in forms:
             out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
-                                 threads=t, body=body)
+                                 threads=t, body=body, where=where)
             torch.cuda.synchronize()
-            assert _rel_err(out, ref) <= tol, (e, et, g, d, t, body)
-    et, g, d, t, body = forms[0]
+            assert _rel_err(out, ref) <= tol, (e, et, g, d, t, body, where)
+    et, g, d, t, body, where = forms[0]
     calls = [tuple(operands(1000)) for _ in range(4)]
     outs = [k1.qp_shared3d(*ops, epb=et, planes=g, depth=d, threads=t,
-                           body=body)
+                           body=body, where=where)
             for ops in calls]
     torch.cuda.synchronize()
     for ops, out in zip(calls, outs):
@@ -509,13 +509,14 @@ def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):
         planes = k1.qp_planes(tile, nkj)
         assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, tile,
                                    None) == (tile, planes, 1, k1.QP_THREADS,
-                                             "simt")
+                                             "simt", "smem")
         threads = k1.QP_FORMS[itemsize][-1][1]
         if k1.qp_smem(itemsize, tile, planes, nm0, nrq, nq0, nkj,
                       2) <= k1.SMEM_BLOCK:
             assert k1.qp_launch_config(
                 itemsize, nm0, nrq, nq0, nkj, tile, None, depth=2,
-                threads=threads) == (tile, planes, 2, threads, "simt")
+                threads=threads) == (tile, planes, 2, threads, "simt",
+                                     "smem")
     for m, k in kron:
         assert k2.kron_config(itemsize, m, k) == \
             k2.kron_config.__wrapped__(itemsize, m, k)
@@ -583,9 +584,25 @@ def test_qp_launch_config_refuses_bad_knobs():
         k1.qp_launch_config(8, 7, 49, 8, 64, 64, 4, body="dmma")
     with pytest.raises(ValueError, match="bodies"):
         k1.qp_launch_config(8, 7, 49, 8, 64, 16, 8, body="tf32")
-    # DMMA's padded V and C12T at b05 10^3 leave no room for 8 planes
+    # the ring at b05 10^3 leaves no room for V of 8 planes
     with pytest.raises(ValueError, match="does not fit"):
         k1.qp_launch_config(8, 9, 81, 10, 100, None, 8)
+    # DMMA's warps hold C12T for nrq <= 88 and nkj <= 128 only; staged,
+    # it serves those shapes
+    staged_only = r"where='regs' is not one of \('smem',\)"
+    with pytest.raises(ValueError, match=staged_only):
+        k1.qp_launch_config(8, 10, 100, 11, 121, 16, 4, body="dmma",
+                            where="regs")
+    with pytest.raises(ValueError, match=staged_only):
+        k1.qp_launch_config(8, 8, 64, 9, 144, 16, 4, body="dmma",
+                            where="regs")
+    assert k1.qp_launch_config(8, 1, 90, 2, 100, 16, 4,
+                               body="dmma").c12t == "smem"
+    # C12T held by the DMMA body only, and in one of QP_C12T
+    with pytest.raises(ValueError, match="body='simt'"):
+        k1.qp_launch_config(8, 7, 49, 8, 64, 16, 8, where="regs")
+    with pytest.raises(ValueError, match="where='l2'"):
+        k1.qp_launch_config(8, 7, 49, 8, 64, 16, 8, body="dmma", where="l2")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
@@ -619,32 +636,44 @@ def test_qp_launch_counts_its_depth(fake_library, monkeypatch, dtype):
         assert args[-4] == depth and args[-3] in (256, 512)
 
 
-@pytest.mark.parametrize("dtype,body", [
-    (torch.float32, None), (torch.bfloat16, None), (torch.float64, None),
-    (torch.float64, "simt"), (torch.float64, "dmma")],
-    ids=["f32", "bf16", "f64", "f64-simt", "f64-dmma"])
+@pytest.mark.parametrize("dtype,body,where", [
+    (torch.float32, None, None), (torch.bfloat16, None, None),
+    (torch.float64, None, None), (torch.float64, "simt", None),
+    (torch.float64, "dmma", None), (torch.float64, "dmma", "smem"),
+    (torch.float64, "dmma", "regs")],
+    ids=["f32", "bf16", "f64", "f64-simt", "f64-dmma", "f64-dmma-smem",
+         "f64-dmma-regs"])
 def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
-                                              dtype, body):
-    """K1's stage-2 body round-trips through the wrapper: the knob, or
-    qp_config's choice (SIMT outside f64), reaches the entry as the index
-    of QP_BODIES just before the stream, after the QPConfig's other
-    fields, and the launch is counted once in qp_bodies under (dtype,
-    body)."""
+                                              dtype, body, where):
+    """K1's stage-2 body and C12T's place round-trip through the wrapper:
+    the knobs (given at depth 1, where every pair fits at b05 8^3), or
+    qp_config's choice (SIMT outside f64; C12T staged where the body
+    differs from the choice's and no place is given), reach the
+    entry as QP_ENTRY_BODIES' code just before the stream, after the
+    QPConfig's other fields, and the launch is counted once in qp_bodies
+    under (dtype, body) and, on DMMA, once in qp_dmma_c12t under C12T's
+    place."""
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
     monkeypatch.setattr(build, "smem_limits", lambda index: (232448, 233472))
     gen = torch.Generator().manual_seed(6)
     x, b0, c12t = (torch.randn(*s, generator=gen).to(dtype)
                    for s in ((7 * 49, 64), (7, 8), (64, 49)))
+    depth = 1 if body or where else None
     cfg = k1.qp_launch_config(dtype.itemsize, 7, 49, 8, 64, None, None,
-                              body=body)
+                              depth=depth, body=body, where=where)
     rule = k1.qp_config(dtype.itemsize, 7, 49, 8, 64)
-    assert cfg == rule._replace(body=body or rule.body)
+    same = body in (None, rule.body)
+    assert cfg == rule._replace(depth=depth or rule.depth,
+                                body=body or rule.body,
+                                c12t=where or (rule.c12t if same else "smem"))
     if dtype != torch.float64:
         assert cfg.body == "simt"
-    bodies = k1.qp_bodies.copy()
-    k1._launch(x, b0, c12t, 49, None, None, body=body)
+    bodies, places = k1.qp_bodies.copy(), k1.qp_dmma_c12t.copy()
+    k1._launch(x, b0, c12t, 49, None, None, depth, body=body, where=where)
     name, args = fake_library.calls[-1]
     assert name == f"tbt_qp_fused3d_{build.SUFFIXES[dtype]}"
-    assert args[-6:-1] == (*cfg[:4], k1.QP_BODIES.index(cfg.body))
+    assert args[-6:-1] == (*cfg[:4], k1.QP_ENTRY_BODIES[cfg.body, cfg.c12t])
     assert k1.qp_bodies - bodies == {(build.SUFFIXES[dtype], cfg.body): 1}
+    assert k1.qp_dmma_c12t - places == (
+        {cfg.c12t: 1} if cfg.body == "dmma" else {})

@@ -13,10 +13,12 @@ before each) for every setting, one line per setting, in turns (each
 setting twice, in the order a b .. b a).  The sweeps:
 
 - K1 (qp_fused3d): every (element tile, plane group, depth, threads,
-  stage-2 body: SIMT, and in f64 DMMA) whose buffers fit, at
-  benchmark05's nq=4^3, 6^3, 8^3 and 10^3 (E=131072) and benchmark04's
-  8^2, 16^2 and 32^2 (E=1,048,576); `*` marks qp_config's choice; then
-  K1's launches by depth (qp_depths) and by (dtype, body) (qp_bodies);
+  stage-2 body: SIMT, and in f64 DMMA, with C12T staged in shared memory
+  or held in registers) whose buffers fit, at benchmark05's nq=4^3, 6^3,
+  8^3 and 10^3 (E=131072) and benchmark04's 8^2, 16^2 and 32^2
+  (E=1,048,576); `*` marks qp_config's choice; then K1's launches by
+  depth (qp_depths), by (dtype, body) (qp_bodies) and its DMMA launches
+  by where C12T lived (qp_dmma_c12t);
 - K2 (kron_blocked): every strip width of the C-resident configuration
   that fits, and 0, the dense one, at benchmark05's Pallas(QP) stage 1
   (64 x 49, nq=8^3), benchmark04's at nq=8^2 (8 x 7) and benchmark04's
@@ -166,9 +168,9 @@ def k1_sweep(rnd, tag, itemsize) -> None:
         settings = k1.qp_settings(itemsize, nm0, nrq, nq0, nkj)
         times = in_turns(lambda v: k1.qp_shared3d_flat(
             x, b0, c, nrq=nrq, epb=v[0], planes=v[1], depth=v[2],
-            threads=v[3], body=v[4]), settings)
+            threads=v[3], body=v[4], where=v[5]), settings)
         report(f"{tag} {label} E={e}",
-               "K1 (element tile, planes, depth, threads, body)", times,
+               "K1 (element tile, planes, depth, threads, body, C12T)", times,
                k1.qp_config(itemsize, nm0, nrq, nq0, nkj))
         best = min(times, key=lambda v: min(times[v]))
         print(f"{tag} {label} K1 best {best}: {min(times[best]):.4f} ms",
@@ -179,6 +181,8 @@ def k1_sweep(rnd, tag, itemsize) -> None:
           flush=True)
     print(f"{tag} K1 launches by (dtype, body): "
           f"{dict(sorted(k1.qp_bodies.items()))}", flush=True)
+    print(f"{tag} K1 DMMA launches by where C12T lived: "
+          f"{dict(sorted(k1.qp_dmma_c12t.items()))}", flush=True)
 
 
 def k2_sweep(rnd, tag, itemsize) -> None:

@@ -82,26 +82,41 @@
 //     shared-memory loads match its FMAs, and one block of 8 warps an SM
 //     hides no latency.  So in f64 stage 2 runs on sm_90's DMMA
 //     (mma.sync.m16n8k8 on f64, 66.7 TFLOP/s, IEEE FP64 FMAs as the SIMT
-//     body's; qp_stage2_dmma): C12T is staged untransposed, nkj padded
-//     with zero rows to 16 (100 -> 112) and each row zero-padded to nrq
-//     rounded to 8 (81 -> 88), then to 8 mod 16 values, so the A
-//     fragments' 16-byte loads hit distinct banks; V's rows (rq) are
-//     padded with zeros to 8 as well and each is ET + 2 values long for
-//     the B fragments' loads.  A warp's unit, 16 kj by 32 elements of the
-//     group's planes, loads 12 values a lane per k step for 4 m16n8k8
-//     products (8,192 FLOP): 0.375 shared-memory bytes a FLOP, a quarter
-//     of the SIMT micro-tile's 1.5.  Stage 1 stays SIMT (8% of the FLOP).
-//     The body is a template argument; kernels/bwdtrans3d.qp_config picks
-//     it from the shape (QP_MEASURED, else DMMA in f64 where nkj >= 16 and
-//     nrq >= 8); f32 and bf16 keep the SIMT body.  Measured at b05 10^3,
-//     E = 524,288 (NVIDIA H100 80GB HBM3, 700 W; L2 flushed, least of
-//     20): 5.37 ms against the SIMT body's 11.52 and the bytes' 2.165, a
-//     tile 21.6 us an SM, whose slab copy, products and stores still take
-//     turns at depth 1; at 8^3 in the ring, 0.460 ms against 0.636.
-// Later work: TMA for the slab; at 10^3 f64 a depth-2 ring at tile 16,
-// which would fit (228,976 B) once C12T leaves shared memory (its A
-// fragments held in registers, 88 a lane for a warp's 16 kj rows) and V
-// is unpadded (a swizzle for the B loads, the last k step masked).
+//     body's; qp_stage2_dmma).  Stage 1 stays SIMT (8% of the FLOP).  The
+//     body is a template argument; kernels/bwdtrans3d.qp_config picks it
+//     from the shape (QP_MEASURED, else DMMA in f64 where nkj >= 16, nrq
+//     >= 8 and the body serves the shape); f32 and bf16 keep the SIMT
+//     body.  Its first form staged C12T in shared memory (nkj padded to
+//     112 rows of 88 values at 10^3) and padded V's rows to 8 and to ET +
+//     2 values: 5.37 ms at b05 10^3, E = 524,288 (L2 flushed), a tile
+//     21.6 us an SM, whose slab copy, products and stores took turns in
+//     the one depth-1 block an SM, as no ring fitted beside those buffers
+//     (317,040 B).
+//   - C12T in registers, so that the ring fits at 10^3 f64 (QP_DMMA_HELD).
+//     Each warp holds one m tile (16 kj rows) of C12T as its m16n8k8 A
+//     fragments, QP_MMA_STEPS = 11 k steps of 4 values, 88 registers a
+//     lane, read once a block from global memory and live for every tile
+//     the block takes; rows past nkj and columns past nrq are zero.  Warp
+//     w holds m tile w mod the m tiles and takes only that tile's units
+//     (at 10^3, 7 m tiles for 8 warps: warps 0 and 7 share m tile 0).  A
+//     lane then loads only V from shared memory: 8 values a k step of a
+//     unit, where it loaded 12 with C12T staged.  V, in either DMMA form,
+//     is nrq x ET a plane, unpadded, its 16-byte words XORed with rq mod 8
+//     (qp_v_col), and the last k step, partial where nrq is no multiple of
+//     8, reads rows past nrq as zero in registers.  The block loses C12T's
+//     buffer and V's padding: at 10^3 (16, 4) the ring's two slabs fit,
+//     228,976 B of 232,448.  The held form serves nrq <= 88 and nkj <= 128
+//     (qp_dmma_takes: every b05 order to 10^3, b04 to 32^2), one block an
+//     SM, 197-236 registers a thread and no spill ((16, 4, 2): 232).
+//     Measured (NVIDIA H100 80GB HBM3, 700 W; L2 flushed, least of 20):
+//     at b05 10^3, E = 524,288, the staged form's 5.36-5.98 ms went to
+//     4.48-4.53 held at depth 1 and 4.20-4.33 in the ring; at b04 32^2 in
+//     f64, E = 524,288, 5.35-5.39 to 4.81 held.  Where C12T is small and
+//     the staged form's blocks (at most 128 registers) run two an SM, it
+//     stays faster (b05 6^3: 0.156 ms against 0.180 held; b04 16^2: 1.517
+//     against 1.929), so both forms are built and qp_config picks one by
+//     the shape (QP_MEASURED), as it picks the depth.
+// Later work: TMA for the slab.
 
 #include <cuda_runtime.h>
 
@@ -124,107 +139,194 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 // Stage 2's bodies (kernels/bwdtrans3d.QP_BODIES): the SIMT micro-tiles,
 // or in f64 sm_90's DMMA, on m16n8k8 tiles of QP_MMA_M kj rows, 8
 // elements and QP_MMA_K rq, a warp's unit one m tile by QP_MMA_PAIRS pairs
-// of n tiles (16 elements a pair).
-enum QPBody : int { QP_SIMT = 0, QP_DMMA = 1 };
+// of n tiles (16 elements a pair).  C12T's A fragments are staged in
+// shared memory (QP_DMMA) or held in registers (QP_DMMA_HELD): each warp
+// keeps one m tile's, QP_MMA_STEPS k steps of them, so the held form
+// serves nrq <= QP_MMA_K * QP_MMA_STEPS and nkj <= QP_MMA_M * warps
+// (kernels/bwdtrans3d.qp_dmma_takes).
+enum QPBody : int { QP_SIMT = 0, QP_DMMA = 1, QP_DMMA_HELD = 2 };
 constexpr int QP_MMA_M = 16;
 constexpr int QP_MMA_K = 8;
 constexpr int QP_MMA_PAIRS = 2;
+constexpr int QP_MMA_STEPS = 11;
 
-// V's rows a plane and its row stride: nrq x ET, or for DMMA nrq padded
-// with zero rows to QP_MMA_K and each row 2 values longer, so the B
-// fragments' 16-byte loads of a quarter warp hit distinct banks.
-__host__ __device__ constexpr int qp_v_rows(QPBody b, int nrq) {
-    return b == QP_DMMA ? round_up(nrq, QP_MMA_K) : nrq;
+// What a thread holds of C12T from tile to tile: the held form's A
+// fragments; nothing where C12T is staged in shared memory.
+template <QPBody B>
+struct QPHeld {};
+
+template <>
+struct QPHeld<QP_DMMA_HELD> {
+    double a[QP_MMA_STEPS][4];
+};
+
+// DMMA's V (either form), nrq x ET a plane with no padding: element e of row rq lies at
+// column e ^ 2 (rq % 8), the row's 16-byte words XORed with rq % 8, so a
+// quarter warp's 16-byte B loads (rows 2t + r of a k step, words g ^ (2t
+// + r)) and stage 1's stores (two rows, every other word) hit distinct
+// banks.
+__host__ __device__ constexpr int qp_v_col(int rq, int e) {
+    return e ^ ((rq & 7) << 1);
 }
 
-__host__ __device__ constexpr int qp_v_ld(QPBody b, int et) {
-    return b == QP_DMMA ? et + 2 : et;
-}
-
-// DMMA's C12T row stride: nrq padded to QP_MMA_K, then to 8 mod 16 values,
-// so the A fragments' 16-byte loads of a quarter warp hit distinct banks.
+// The staged DMMA form's C12T row stride: nrq padded to QP_MMA_K, then to
+// 8 mod 16 values, so the A fragments' 16-byte loads of a quarter warp
+// hit distinct banks.
 __host__ __device__ constexpr int qp_lda(int nrq) {
     const int kp = round_up(nrq, QP_MMA_K);
     return kp % 16 ? kp : kp + 8;
 }
 
-// C12T's buffer: C12T^T (nrq x nkj padded to QP_TK) for SIMT, C12T (nkj
-// padded to QP_MMA_M rows of qp_lda values) for DMMA.
+// C12T's buffer in shared memory: C12T^T (nrq x nkj padded to QP_TK) for
+// SIMT, C12T (nkj padded to QP_MMA_M rows of qp_lda values, zero past nkj
+// and nrq) for the staged DMMA form, none for the held one.
 __host__ __device__ constexpr int qp_c_size(QPBody b, int nrq, int nkj) {
-    return b == QP_DMMA ? round_up(nkj, QP_MMA_M) * qp_lda(nrq)
-                        : nrq * round_up(nkj, QP_TK);
+    return b == QP_DMMA_HELD ? 0
+           : b == QP_DMMA    ? round_up(nkj, QP_MMA_M) * qp_lda(nrq)
+                             : nrq * round_up(nkj, QP_TK);
 }
 
-// Dynamic shared memory of one block: `depth` slabs, V for G planes,
-// C12T's buffer and B0 (nm0 x nq0 padded to G), each a whole number of
-// 16-byte words; at depth 2 the slots' tiles first.
+// Dynamic shared memory of one block: `depth` slabs, V for G planes
+// (nrq x et each), C12T's buffer and B0 (nm0 x nq0 padded to G), each a
+// whole number of 16-byte words; at depth 2 the slots' tiles first.
 template <typename T>
 size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
                      int depth, QPBody body) {
     return (depth > 1 ? QP_SLOT_TILES_BYTES : 0) +
            sizeof(T) *
                (static_cast<size_t>(depth) * nm0 * nrq * et +
-                static_cast<size_t>(g) * qp_v_rows(body, nrq) *
-                    qp_v_ld(body, et) +
+                static_cast<size_t>(g) * nrq * et +
                 static_cast<size_t>(qp_c_size(body, nrq, nkj)) +
                 static_cast<size_t>(nm0) * round_up(nq0, g));
 }
 
+// Whether the held DMMA form serves a shape: at most one m tile of C12T a
+// warp of the block's QP_THREADS, and nrq within the k steps a lane holds.
+__host__ __device__ constexpr bool qp_dmma_takes(int nrq, int nkj) {
+    return nrq <= QP_MMA_K * QP_MMA_STEPS &&
+           round_up(nkj, QP_MMA_M) / QP_MMA_M <= QP_THREADS / 32;
+}
+
+// Warp w's A fragments of m tile w mod the m tiles (where the warps
+// outnumber the m tiles, some tiles have two or more warps, which deal
+// that tile's units between them), read once from global memory: as in
+// K2's f64 body (csrc/bwdtrans2d.cu), lane 4g + t's k slots t and t + 4
+// take rq 2t and 2t + 1 of a step, so a[s] = {C12T[kj][rq], C12T[kj +
+// 8][rq], C12T[kj][rq + 1], C12T[kj + 8][rq + 1]} at kj = 16 mt + g, rq
+// = 8s + 2t; zero past nkj and nrq.
+__device__ __forceinline__ void qp_hold_c12t(QPHeld<QP_DMMA_HELD>& held,
+                                             const double* __restrict__ c12t,
+                                             int nrq, int nkj) {
+    const int mt = threadIdx.x / 32 % (round_up(nkj, QP_MMA_M) / QP_MMA_M);
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+#pragma unroll
+    for (int s = 0; s < QP_MMA_STEPS; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int kj = mt * QP_MMA_M + gq + 8 * (i % 2);
+            const int rq = s * QP_MMA_K + 2 * tq + i / 2;
+            held.a[s][i] = kj < nkj && rq < nrq ? c12t[kj * nrq + rq] : 0.0;
+        }
+}
+
+// One k step (rq k .. k + 7) of a unit on DMMA: the lane's B values of
+// pair np's two n tiles, rows k + 2t + r (r = 0, 1), one 16-byte load each
+// from b[np][r] (n slot g takes elements 2g and 2g + 1); rows past nrq,
+// in a last step that is partial, zero in registers.  Then the 2NP
+// products with the step's A fragments af.
+template <int ET, int NP>
+__device__ __forceinline__ void qp_dmma_step(double (&acc)[2 * NP][4],
+                                             const double (&af)[4],
+                                             const double* (&b)[NP][2],
+                                             int k, int nrq, bool whole) {
+    const int tq = threadIdx.x % 4;
+    double bf[2 * NP][2];
+#pragma unroll
+    for (int np = 0; np < NP; ++np)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            double2 v = make_double2(0.0, 0.0);
+            if (whole || k + 2 * tq + r < nrq)
+                v = *reinterpret_cast<const double2*>(b[np][r] + k * ET);
+            bf[2 * np][r] = v.x;
+            bf[2 * np + 1][r] = v.y;
+        }
+#pragma unroll
+    for (int nt = 0; nt < 2 * NP; ++nt)
+        tbt::mma_f64_16x8x8(acc[nt], af, bf[nt]);
+}
+
 // Stage 2 of the planes [i0, i0 + G) on DMMA: out[i0+g][kj][e] = sum_rq
 // C12T[kj][rq] * V[g][rq][e], each plane's (nkj x nrq) @ (nrq x ET) as
-// m16n8k8 f64 products, IEEE FP64 FMAs throughout.  The group's G*ET
-// columns are ET/16 pairs of n tiles a plane; a warp's unit is m tile mt
-// by QP_MMA_PAIRS pairs, units dealt to the warps in turn, and a unit
-// whose planes all lie past nq0 is skipped.  As in K2's f64 body
-// (csrc/bwdtrans2d.cu), lane 4g + t's k slots t and t + 4 take rq 2t and
-// 2t + 1 of a step, so its A values of a row are one 16-byte load, and n
-// slot g of a pair's two tiles takes elements 2g and 2g + 1, so its B
-// values of an rq are one 16-byte load too; each lane then holds four
-// neighbouring elements of a row, stored as two 16-byte stores along e
-// where aligned, with the streaming hint (st.global.cs, as K4's: 5% off
-// the kernel at b05 10^3 against plain stores), masked past nkj and E.
-// Padding (kj rows past nkj, rq past nrq) is zero in both operands.
-template <int ET, int G, int NT>
+// m16n8k8 f64 products, IEEE FP64 FMAs throughout, summed in the same k
+// order by either form.  The group's G*ET columns are ET/16 pairs of n
+// tiles a plane; a unit is one m tile by QP_MMA_PAIRS pairs, and a warp
+// stops at its first unit whose planes lie past nq0.  Staged (QP_DMMA):
+// the units are dealt to the warps in turn, and a lane loads its A
+// values of a row from C12T's buffer s_c, one 16-byte load (lane 4g + t's
+// k slots t and t + 4 take rq 2t and 2t + 1, as in K2's f64 body,
+// csrc/bwdtrans2d.cu).  Held (QP_DMMA_HELD): a warp takes only units of
+// the m tile it holds (qp_hold_c12t), dealt in turn among that tile's
+// warps, and loads only V: at b05 10^3 (7 m tiles, 8 warps, 2 units a
+// tile) warps 0 and 7 take one unit each of m tile 0 and warps 1-6 both
+// units of theirs, so no warp takes more than the 2 of the staged deal.
+// Each lane then holds four neighbouring elements of a row, stored as two
+// 16-byte stores along e where aligned, with the streaming hint
+// (st.global.cs, as K4's: 5% off the kernel at b05 10^3 against plain
+// stores), masked past nkj and E.
+template <int ET, int G, int NT, QPBody B>
 __device__ __forceinline__ void qp_stage2_dmma(
-    const double* s_v, const double* s_c, double* __restrict__ out, int nrq,
-    int nq0, int nkj, long long n_elem, long long e0, int i0, bool vec_out) {
-    constexpr int NP = QP_MMA_PAIRS, LDV = qp_v_ld(QP_DMMA, ET);
+    const double* s_v, const double* s_c, const QPHeld<B>& held,
+    double* __restrict__ out, int nrq, int nq0, int nkj, long long n_elem,
+    long long e0, int i0, bool vec_out) {
+    constexpr int NP = QP_MMA_PAIRS, WARPS = NT / 32;
     constexpr int UNITS_MT = G * ET / 16 / NP;  // units of one m tile
+    constexpr bool HELD = B == QP_DMMA_HELD;
     static_assert(ET % 16 == 0 && (G * ET / 16) % NP == 0, "whole units");
-    const int kp = qp_v_rows(QP_DMMA, nrq), lda = qp_lda(nrq);
     const int mts = round_up(nkj, QP_MMA_M) / QP_MMA_M;
+    const int w = threadIdx.x / 32;
     const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
-    for (int u = threadIdx.x / 32; u < mts * UNITS_MT; u += NT / 32) {
-        const int mt = u % mts, p0 = u / mts * NP;
-        if (i0 + p0 * 16 / ET >= nq0) continue;  // warp-uniform
-        const double* a = s_c + (mt * QP_MMA_M + gq) * lda + 2 * tq;
-        const double* b[NP];
+    // held: unit u is pair group u of m tile w % mts, the warps holding
+    // that tile taking every (warps holding it)-th; staged: m tile u % mts,
+    // pair group u / mts, every warp taking every WARPS-th
+    const int u0 = HELD ? w / mts : w;
+    const int du = HELD ? (WARPS - 1 - w % mts) / mts + 1 : WARPS;
+    const int units = HELD ? UNITS_MT : mts * UNITS_MT;
+    for (int u = u0; u < units; u += du) {
+        const int mt = HELD ? w % mts : u % mts;
+        const int p0 = (HELD ? u : u / mts) * NP;
+        if (i0 + p0 * 16 / ET >= nq0) break;  // warp-uniform
+        // rows 2t + r of each k step (r = 0, 1) of pair p0 + np's plane
+        const double* b[NP][2];
 #pragma unroll
-        for (int np = 0; np < NP; ++np) {
-            const int p = p0 + np;
-            b[np] = s_v + (p * 16 / ET * kp + 2 * tq) * LDV + p * 16 % ET +
-                    2 * gq;
-        }
+        for (int np = 0; np < NP; ++np)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int p = p0 + np, rq = 2 * tq + r;
+                b[np][r] = s_v + (p * 16 / ET * nrq + rq) * ET +
+                           qp_v_col(rq, p * 16 % ET + 2 * gq);
+            }
         double acc[2 * NP][4] = {};
+        if constexpr (HELD) {
+            const int whole = nrq / QP_MMA_K;  // steps with no row past nrq
+#pragma unroll
+            for (int s = 0; s < QP_MMA_STEPS; ++s) {
+                if (s * QP_MMA_K >= nrq) break;  // uniform
+                qp_dmma_step<ET, NP>(acc, held.a[s], b, s * QP_MMA_K, nrq,
+                                     s < whole);
+            }
+        } else {
+            const int lda = qp_lda(nrq);
+            const double* a = s_c + (mt * QP_MMA_M + gq) * lda + 2 * tq;
 #pragma unroll 2
-        for (int k = 0; k < kp; k += QP_MMA_K) {
-            const double2 lo = *reinterpret_cast<const double2*>(a + k);
-            const double2 hi =
-                *reinterpret_cast<const double2*>(a + k + 8 * lda);
-            const double af[4] = {lo.x, hi.x, lo.y, hi.y};
-            double bf[2 * NP][2];
-#pragma unroll
-            for (int np = 0; np < NP; ++np)
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    const double2 v = *reinterpret_cast<const double2*>(
-                        b[np] + (k + r) * LDV);
-                    bf[2 * np][r] = v.x;
-                    bf[2 * np + 1][r] = v.y;
-                }
-#pragma unroll
-            for (int nt = 0; nt < 2 * NP; ++nt)
-                tbt::mma_f64_16x8x8(acc[nt], af, bf[nt]);
+            for (int k = 0; k < nrq; k += QP_MMA_K) {
+                const double2 lo = *reinterpret_cast<const double2*>(a + k);
+                const double2 hi =
+                    *reinterpret_cast<const double2*>(a + k + 8 * lda);
+                const double af[4] = {lo.x, hi.x, lo.y, hi.y};
+                qp_dmma_step<ET, NP>(acc, af, b, k, nrq,
+                                     k + QP_MMA_K <= nrq);
+            }
         }
         // tiles 2np + q hold elements 4tq + 2r + q of the pair, row gq + 8h,
         // in acc[2np + q][2h + r]
@@ -259,16 +361,16 @@ __device__ __forceinline__ void qp_stage2_dmma(
 
 // Output elements [e0, e0 + ET) from their slab s_x in shared memory, NT
 // threads: for each group of G planes, stage 1 into s_v, a barrier,
-// stage 2 on body B and the stores, a barrier.
+// stage 2 on body B (C12T from s_ct, or the held fragments) and the
+// stores, a barrier.
 template <typename T, int ET, int G, int NT, QPBody B>
 __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
-                                        const T* s_b0, T* __restrict__ out,
-                                        int nm0, int nrq, int nq0, int nkj,
-                                        long long n_elem, long long e0) {
+                                        const QPHeld<B>& held, const T* s_b0,
+                                        T* __restrict__ out, int nm0, int nrq,
+                                        int nq0, int nkj, long long n_elem,
+                                        long long e0) {
     using A = tbt::Acc<T>;
     constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
-    constexpr int LDV = qp_v_ld(B, ET);
-    const int vrows = qp_v_rows(B, nrq);
     const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
     const bool vec_out =
         (n_elem * sizeof(T)) % 16 == 0 && tbt::aligned16(out);
@@ -296,13 +398,20 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
                         acc[g][c] = fma(w[g], xv[c], acc[g][c]);
             }
 #pragma unroll
-            for (int g = 0; g < G; ++g)
-                tbt::store4(s_v + (g * vrows + rq) * LDV + e, acc[g]);
+            for (int g = 0; g < G; ++g) {
+                T* v = s_v + (g * nrq + rq) * ET;
+                if constexpr (B != QP_SIMT) {  // two words, swizzled
+                    tbt::store16(v + qp_v_col(rq, e), acc[g]);
+                    tbt::store16(v + qp_v_col(rq, e + 2), acc[g] + 2);
+                } else {
+                    tbt::store4(v + e, acc[g]);
+                }
+            }
         }
         __syncthreads();
-        if constexpr (B == QP_DMMA) {
-            qp_stage2_dmma<ET, G, NT>(s_v, s_ct, out, nrq, nq0, nkj, n_elem,
-                                      e0, i0, vec_out);
+        if constexpr (B != QP_SIMT) {
+            qp_stage2_dmma<ET, G, NT, B>(s_v, s_ct, held, out, nrq, nq0, nkj,
+                                         n_elem, e0, i0, vec_out);
             __syncthreads();
             continue;
         }
@@ -354,10 +463,13 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
 
 // The blocks an SM that K1's registers must leave room for: two of 256
 // threads, one of 512; one in f64 at depth 2 (two f64 slabs fill an SM at
-// b05 8^3), whose loop spilled at 128 registers a thread.
-template <typename T, int D, int NT>
+// b05 8^3), whose loop spilled at 128 registers a thread, and one with
+// C12T held, whose lanes keep 88 registers of it.
+template <typename T, int D, int NT, QPBody B>
 constexpr int qp_min_blocks() {
-    return sizeof(T) == 8 && D > 1 ? 1 : 2 * QP_THREADS / NT;
+    return B == QP_DMMA_HELD || (sizeof(T) == 8 && D > 1)
+               ? 1
+               : 2 * QP_THREADS / NT;
 }
 
 // T is the storage type, tbt::Acc<T> the type of the sums.  D = 1: block
@@ -366,7 +478,7 @@ constexpr int qp_min_blocks() {
 // zero between launches) and copies tile j+1's slab into the other slot
 // while it computes tile j.  B: stage 2's body.
 template <typename T, int ET, int G, int D, int NT, QPBody B>
-__global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
+__global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT, B>())
     qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
                       const T* __restrict__ c12t, T* __restrict__ out,
                       int nm0, int nrq, int nq0, int nkj, long long n_elem,
@@ -379,11 +491,10 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
     T* s_x = reinterpret_cast<T*>(smem_raw +
                                   (D > 1 ? QP_SLOT_TILES_BYTES : 0));
     const size_t slab = static_cast<size_t>(rows) * ET;
-    constexpr int LDV = qp_v_ld(B, ET);
-    const int vrows = qp_v_rows(B, nrq);
-    T* s_v = s_x + D * slab;                            // (G, vrows, LDV)
-    T* s_ct = s_v + static_cast<size_t>(G) * vrows * LDV;  // qp_c_size
-    T* s_b0 = s_ct + qp_c_size(B, nrq, nkj);               // (nm0, nq0p)
+    T* s_v = s_x + D * slab;                            // (G, nrq, ET)
+    T* s_ct = s_v + static_cast<size_t>(G) * nrq * ET;  // qp_c_size
+    T* s_b0 = s_ct + qp_c_size(B, nrq, nkj);            // (nm0, nq0p)
+    QPHeld<B> held;
     // tile t's slab (rows x ET from element t*ET, zero past E) into slot s
     auto copy = [&](int s, long long t) {
         tbt::copy_tile_async<T, ET, NT>(
@@ -391,12 +502,15 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
             n_elem % V16 == 0 && tbt::aligned16(in));
     };
     auto stage_operators = [&] {
-        if constexpr (B == QP_DMMA) {
+        if constexpr (B == QP_DMMA_HELD) {
+            // the warp's A fragments into registers, once a block; the
+            // loads are in flight while the slab copy is
+            qp_hold_c12t(held, c12t, nrq, nkj);
+        } else if constexpr (B == QP_DMMA) {
             // C12T by cp.async, its own commit group (staged anew a tile at
             // depth 1: by plain loads it cost a fifth of the kernel at b05
-            // 10^3), zero rows past nkj and zero columns past nrq; V's rows
-            // past nrq, which stage 1 never writes, zero
-            const int lda = qp_lda(nrq), pad = (vrows - nrq) * LDV;
+            // 10^3), zero rows past nkj and zero columns past nrq
+            const int lda = qp_lda(nrq);
             for (int t = threadIdx.x; t < qp_c_size(B, nrq, nkj); t += NT) {
                 const int kj = t / lda, rq = t % lda;
                 const bool ok = kj < nkj && rq < nrq;
@@ -404,9 +518,6 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
                                          ok ? c12t + kj * nrq + rq : c12t, ok);
             }
             tbt::cp_async_commit();
-            for (int t = threadIdx.x; t < G * pad; t += NT)
-                s_v[(t / pad * vrows + nrq) * LDV + t % pad] =
-                    tbt::narrow<T>(0);
         } else {
             for (int t = threadIdx.x; t < nrq * kjp; t += NT) {
                 const int rq = t / kjp, kj = t % kjp;
@@ -425,8 +536,8 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
         stage_operators();
         tbt::cp_async_wait<0>();
         __syncthreads();
-        qp_tile<T, ET, G, NT, B>(s_x, s_v, s_ct, s_b0, out, nm0, nrq, nq0,
-                                 nkj, n_elem,
+        qp_tile<T, ET, G, NT, B>(s_x, s_v, s_ct, held, s_b0, out, nm0, nrq,
+                                 nq0, nkj, n_elem,
                                  static_cast<long long>(blockIdx.x) * ET);
     } else {
         if (threadIdx.x == 0) {
@@ -451,8 +562,9 @@ __global__ void __launch_bounds__(NT, qp_min_blocks<T, D, NT>())
             if (threadIdx.x == 0)
                 s_tile[s] =
                     static_cast<long long>(atomicAdd(&counter[0], 1ULL));
-            qp_tile<T, ET, G, NT, B>(s_x + s * slab, s_v, s_ct, s_b0, out,
-                                     nm0, nrq, nq0, nkj, n_elem, cur * ET);
+            qp_tile<T, ET, G, NT, B>(s_x + s * slab, s_v, s_ct, held, s_b0,
+                                     out, nm0, nrq, nq0, nkj, n_elem,
+                                     cur * ET);
             cur = s_tile[s ^ 1];  // next, read again, not held in a register
         }
         if (threadIdx.x == 0) {
@@ -567,7 +679,8 @@ int launch_body(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 }
 
 // The element tiles et, plane groups g, ring depths, block threads and
-// stage-2 bodies (DMMA in f64 only) it is built for (qp_config in
+// stage-2 bodies (DMMA in f64 only; with C12T held, at the shapes
+// qp_dmma_takes) it is built for (qp_config in
 // kernels/bwdtrans3d.py picks them for each shape and dtype).
 template <typename T>
 int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
@@ -579,11 +692,16 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
     if (body == QP_SIMT)
         return launch_body<T, QP_SIMT>(in, b0, c12t, out, nm0, nrq, nq0, nkj,
                                        n_elem, et, g, depth, threads, stream);
-    if constexpr (sizeof(T) == 8)
+    if constexpr (sizeof(T) == 8) {
         if (body == QP_DMMA)
             return launch_body<T, QP_DMMA>(in, b0, c12t, out, nm0, nrq, nq0,
                                            nkj, n_elem, et, g, depth, threads,
                                            stream);
+        if (body == QP_DMMA_HELD && qp_dmma_takes(nrq, nkj))
+            return launch_body<T, QP_DMMA_HELD>(in, b0, c12t, out, nm0, nrq,
+                                                nq0, nkj, n_elem, et, g, depth,
+                                                threads, stream);
+    }
     return cudaErrorInvalidValue;
 }
 
@@ -959,11 +1077,14 @@ extern "C" int tbt_qp_fused3d_bf16(const void* in, const void* b0,
 }
 
 // Shared memory of one K1 block of element tile et, g planes a pass,
-// `depth` slab slots and stage-2 body `body` (QP_SIMT or QP_DMMA).
+// `depth` slab slots and stage-2 body `body` (QP_SIMT, QP_DMMA or
+// QP_DMMA_HELD).
 extern "C" long long tbt_qp_fused3d_smem(int itemsize, int et, int g,
                                          int nm0, int nrq, int nq0, int nkj,
                                          int depth, int body) {
-    const QPBody b = body == QP_DMMA ? QP_DMMA : QP_SIMT;
+    const QPBody b = body == QP_DMMA        ? QP_DMMA
+                     : body == QP_DMMA_HELD ? QP_DMMA_HELD
+                                            : QP_SIMT;
     switch (itemsize) {
         case 2:
             return static_cast<long long>(qp_smem_bytes<tbt::bf16>(

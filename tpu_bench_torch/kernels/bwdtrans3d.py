@@ -67,13 +67,19 @@ QP_FORMS = {2: ((1, 256), (2, 256), (2, 512)),
 QP_RING_TILES = (32, 16)
 QP_THREADS = 256
 QP_TK, QP_TE = 8, 4
-# K1's stage-2 bodies, in the order of the entry's `body` argument: the
-# SIMT micro-tiles, and in f64 sm_90's DMMA (mma.sync.m16n8k8 on f64),
-# built for the tiles QP_DMMA_TILES at either depth; its m16n8k8 tile's kj
-# rows and rq depth, to which C12T and V are padded with zeros.
+# K1's stage-2 bodies: the SIMT micro-tiles, and in f64 sm_90's DMMA
+# (mma.sync.m16n8k8 on f64), built for the tiles QP_DMMA_TILES at either
+# depth; where DMMA's C12T lives: staged in shared memory, or held in
+# registers, each warp one m tile of QP_MMA_M rows and QP_MMA_STEPS k
+# steps of QP_MMA_K (qp_dmma_takes); the entry's `body` argument for each
+# (body, C12T) pair.
 QP_BODIES = ("simt", "dmma")
+QP_C12T = ("smem", "regs")
+QP_ENTRY_BODIES = {("simt", "smem"): 0, ("dmma", "smem"): 1,
+                   ("dmma", "regs"): 2}
 QP_DMMA_TILES = (32, 16)
 QP_MMA_M, QP_MMA_K = 16, 8
+QP_MMA_STEPS = 11
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
 SMEM_RESERVED = 1024
@@ -90,6 +96,7 @@ class QPConfig(typing.NamedTuple):
     depth: int = 1   # slab slots of a block (1: a block a tile)
     threads: int = QP_THREADS
     body: str = "simt"  # stage 2's body, one of QP_BODIES
+    c12t: str = "smem"  # where C12T lives, one of QP_C12T ("regs": DMMA)
 
 
 # K1's configuration at the shapes benchmarks/kernel_blocks.py sweeps, by
@@ -102,10 +109,16 @@ class QPConfig(typing.NamedTuple):
 # and 10^3 in f32 and 10^3, 8^2 and 32^2 in f64, and elsewhere a setting
 # 1.5-32% slower (f64 b04 16^2: 2.0687 ms against 1.5636).  The f64 rows
 # were swept again over both stage-2 bodies (PERF.md section 6): DMMA took
-# b05 10^3 from 2.87 to 1.46 ms (E=131072), 6^3 from 0.19 to 0.16 (now at
-# (32, 4)), b04 16^2 from 1.57 to 1.52 and 32^2 from 15.2 to 10.7; b05 8^3
-# keeps its (16, 8, 2) form, on DMMA, 0.645 to 0.454 (at depth 1, (16, 4)
-# on DMMA took 0.394); SIMT stayed fastest at b05 4^3 and b04 8^2.
+# b05 10^3 from 2.87 to 1.46 ms (E=131072), 6^3 from 0.19 to 0.16, b04
+# 16^2 from 1.57 to 1.52 and 32^2 from 15.2 to 10.7; SIMT stayed fastest
+# at b05 4^3 and b04 8^2.  Then over where DMMA's C12T lives: held in
+# registers it took b05 10^3 to 1.10 ms in the ring (16, 4, 2), which fits
+# only so (E = 524,288: 5.36-5.98 staged at depth 1, 4.20-4.33 held in
+# the ring), b04 32^2 to 9.44-9.80, and b05 8^3 to (32, 4, 2), which ran
+# a call of the cell's 1,048,576 elements in 3.21 ms back to back against
+# the staged ring's 3.63 and (16, 4, 1)'s 3.13-3.33 at depth 1; staged it
+# stays fastest at 6^3 ((32, 8, 1) now, 0.156 against the held form's
+# 0.180) and b04 16^2 (1.515 against 1.929).
 QP_MEASURED = {
     (4, 3, 9, 4, 16): QPConfig(128, 4, 1, 256),
     (4, 5, 25, 6, 36): QPConfig(32, 8, 2, 256),
@@ -115,20 +128,23 @@ QP_MEASURED = {
     (4, 15, 15, 16, 16): QPConfig(64, 4, 1, 256),
     (4, 31, 31, 32, 32): QPConfig(16, 8, 1, 256),
     (8, 3, 9, 4, 16): QPConfig(64, 4, 1, 256),
-    (8, 5, 25, 6, 36): QPConfig(32, 4, 1, 256, "dmma"),
-    (8, 7, 49, 8, 64): QPConfig(16, 8, 2, 256, "dmma"),
-    (8, 9, 81, 10, 100): QPConfig(16, 4, 1, 256, "dmma"),
+    (8, 5, 25, 6, 36): QPConfig(32, 8, 1, 256, "dmma"),
+    (8, 7, 49, 8, 64): QPConfig(32, 4, 2, 256, "dmma", "regs"),
+    (8, 9, 81, 10, 100): QPConfig(16, 4, 2, 256, "dmma", "regs"),
     (8, 7, 7, 8, 8): QPConfig(64, 8, 1, 256),
     (8, 15, 15, 16, 16): QPConfig(32, 8, 1, 256, "dmma"),
-    (8, 31, 31, 32, 32): QPConfig(16, 8, 1, 256, "dmma"),
+    (8, 31, 31, 32, 32): QPConfig(16, 8, 1, 256, "dmma", "regs"),
     (2, 9, 81, 10, 100): QPConfig(16, 8, 2, 256),
 }
 # K1's launches by the depth they took (a launch of the depth-2 form counts
 # under 2), since the count was last reset: how often the slab ring runs.
 qp_depths: collections.Counter = collections.Counter()
 # K1's launches by (dtype, body) since the count was last reset: "simt" or
-# "dmma" (f64 only), qp_config's choice.
+# "dmma" (f64 only, either form), qp_config's choice.
 qp_bodies: collections.Counter = collections.Counter()
+# K1's DMMA launches by where C12T lived ("smem" or "regs") since the count
+# was last reset.
+qp_dmma_c12t: collections.Counter = collections.Counter()
 # K4 (csrc/bwdtrans3d.cu): threads a block; the 16-byte vectors a thread
 # takes a step (its U), and the default, from benchmarks/kernel_blocks.py
 # --only k4 (PERF.md section 6); the largest nm0 kept whole in registers
@@ -172,27 +188,28 @@ def qp_shared3d_flat_plain(in_pflat, b0, c12t, *, nrq):
 
 
 def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None, depth=None,
-                threads=None, body=None):
+                threads=None, body=None, where=None):
     """out (nq0, nkj, E) from in (nm0, nrq, E), b0 (nm0, nq0),
     c12t (nkj, nrq).  `epb`: K1's element tile, one of QP_TILES for the
     dtype, `planes`, one of QP_PLANE_GROUPS, `depth` and `threads`, a
-    form of qp_forms, and `body`, stage 2's body of qp_built_bodies; None
-    takes qp_config's choice."""
+    form of qp_forms, `body`, stage 2's body of qp_built_bodies, and
+    `where`, where DMMA's C12T lives, one of QP_C12T; None takes
+    qp_config's choice."""
     if in_pcoa3.dim() != 3:
         raise ValueError(f"in_pcoa3 must be (nm0, nrq, E), got "
                          f"{tuple(in_pcoa3.shape)}")
     nm0, nrq, e = in_pcoa3.shape
     out = qp_shared3d_flat(in_pcoa3.reshape(nm0 * nrq, e), b0, c12t, nrq=nrq,
                            epb=epb, planes=planes, depth=depth,
-                           threads=threads, body=body)
+                           threads=threads, body=body, where=where)
     return out.reshape(-1, c12t.shape[0], e)
 
 
 def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None,
-                     depth=None, threads=None, body=None):
+                     depth=None, threads=None, body=None, where=None):
     """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq; under the
     span tbt.qp_shared3d_flat while a profiler records (core/spans.py)."""
-    knobs = (epb, planes, depth, threads, body)
+    knobs = (epb, planes, depth, threads, body, where)
     if spans.profiler._is_profiler_enabled:
         with spans.span("tbt.qp_shared3d_flat"):
             return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, *knobs)
@@ -200,14 +217,14 @@ def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None,
 
 
 def _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes, depth, threads,
-                      body):
+                      body, where):
     _check(in_pflat, b0, c12t, nrq)
     if in_pflat.is_cpu:
         return qp_shared3d_flat_plain(in_pflat, b0, c12t, nrq=nrq)
     if not in_pflat.is_cuda:
         raise ValueError(f"qp_shared3d: no kernel for device {in_pflat.device}")
     return _launch(in_pflat, b0, c12t, nrq, epb, planes, depth, threads,
-                   body)
+                   body, where)
 
 
 def _check(x, b0, c12t, nrq):
@@ -227,27 +244,34 @@ def _round_up(n, m):
 
 
 def qp_lda(nrq) -> int:
-    """The DMMA body's C12T row stride: nrq padded to QP_MMA_K, then to 8
-    mod 16 values (its A fragments' loads conflict-free)."""
+    """The staged DMMA form's C12T row stride: nrq padded to QP_MMA_K, then
+    to 8 mod 16 values (its A fragments' loads conflict-free)."""
     kp = _round_up(nrq, QP_MMA_K)
     return kp if kp % 16 else kp + 8
 
 
-def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1,
-            body="simt") -> int:
+def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1, body="simt",
+            where="smem") -> int:
     """Shared memory of one K1 block (csrc/bwdtrans3d.cu qp_smem_bytes):
-    `depth` input slabs of the element tile, V for g planes, C12T's
-    buffer and B0 with nq0 padded to g; at depth 2 the slots' tiles too.
-    SIMT: V (nrq x et) a plane, C12T^T with nkj padded to QP_TK.  DMMA:
-    V's nrq padded to QP_MMA_K and its rows 2 values longer, C12T with nkj
-    padded to QP_MMA_M rows of qp_lda values."""
-    if body == "dmma":
-        v = _round_up(nrq, QP_MMA_K) * (et + 2)
-        c = _round_up(nkj, QP_MMA_M) * qp_lda(nrq)
+    `depth` input slabs of the element tile, V (nrq x et) for g planes,
+    C12T's buffer and B0 with nq0 padded to g; at depth 2 the slots' tiles
+    too.  C12T's buffer: C12T^T with nkj padded to QP_TK for SIMT; for
+    DMMA with C12T `where` "smem", C12T with nkj padded to QP_MMA_M rows of
+    qp_lda values, and with "regs" none."""
+    if body == "simt":
+        c = nrq * _round_up(nkj, QP_TK)
     else:
-        v, c = nrq * et, nrq * _round_up(nkj, QP_TK)
+        c = 0 if where == "regs" else _round_up(nkj, QP_MMA_M) * qp_lda(nrq)
     return (QP_SLOT_TILES_BYTES if depth > 1 else 0) + itemsize * (
-        depth * nm0 * nrq * et + g * v + c + nm0 * _round_up(nq0, g))
+        depth * nm0 * nrq * et + g * nrq * et + c + nm0 * _round_up(nq0, g))
+
+
+def qp_dmma_takes(nrq, nkj) -> bool:
+    """Whether DMMA with C12T held in registers serves a shape: each warp
+    of QP_THREADS holds one m tile of C12T (nkj <= 128) as A fragments of
+    QP_MMA_STEPS k steps (nrq <= 88)."""
+    return (nrq <= QP_MMA_K * QP_MMA_STEPS
+            and _round_up(nkj, QP_MMA_M) // QP_MMA_M <= QP_THREADS // 32)
 
 
 def qp_forms(itemsize, et) -> tuple:
@@ -264,13 +288,21 @@ def qp_built_bodies(itemsize, et) -> tuple:
         QP_BODIES[:1]
 
 
+def qp_c12t_places(body, nrq, nkj) -> tuple:
+    """Where C12T may live for a body at a shape: staged in shared memory,
+    and for DMMA also held in registers where qp_dmma_takes."""
+    return QP_C12T if body == "dmma" and qp_dmma_takes(nrq, nkj) else \
+        QP_C12T[:1]
+
+
 def qp_settings(itemsize, nm0, nrq, nq0, nkj, limit=SMEM_BLOCK) -> list:
     """Every QPConfig K1 is built for whose buffers fit `limit` bytes at
     a shape (benchmarks/kernel_blocks.py sweeps them)."""
-    return [QPConfig(et, g, d, t, b) for et in QP_TILES[itemsize]
+    return [QPConfig(et, g, d, t, b, c) for et in QP_TILES[itemsize]
             for g in QP_PLANE_GROUPS for d, t in qp_forms(itemsize, et)
             for b in qp_built_bodies(itemsize, et)
-            if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d, b) <= limit]
+            for c in qp_c12t_places(b, nrq, nkj)
+            if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d, b, c) <= limit]
 
 
 def qp_planes(et, nkj) -> int:
@@ -285,17 +317,17 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
               sm_limit=SMEM_SM):
     """K1's QPConfig for a shape: QP_MEASURED's where the sweep measured
     the shape and it fits one block's `block_limit` bytes; else depth 1 on
-    the DMMA body in f64 where C12T holds a whole m16n8k8 tile (nkj >=
-    QP_MMA_M, nrq >= QP_MMA_K) and a tile of QP_DMMA_TILES fits, else on
-    the SIMT body, with the largest tile of that body's, with qp_planes'
-    group, whose buffers fit two blocks an SM of `sm_limit` bytes (each
+    the DMMA body in f64, C12T staged in shared memory, where C12T holds a
+    whole m16n8k8 tile (nkj >= QP_MMA_M, nrq >= QP_MMA_K) and a tile of
+    QP_DMMA_TILES fits, else on the SIMT body, with the largest tile of
+    that body's, with qp_planes' group, whose buffers fit two blocks an SM of `sm_limit` bytes (each
     block also costs SMEM_RESERVED) while stage 1 keeps at least half the
     block busy (nrq * et / QP_TE positions), else the largest that fits
     one block; None if none fits.  Depth 2 is taken only where the sweep
     measured it faster."""
     cfg = QP_MEASURED.get((itemsize, nm0, nrq, nq0, nkj))
     if cfg and qp_smem(itemsize, cfg.et, cfg.planes, nm0, nrq, nq0, nkj,
-                       cfg.depth, cfg.body) <= block_limit:
+                       cfg.depth, cfg.body, cfg.c12t) <= block_limit:
         return cfg
     bodies = [("simt", QP_TILES[itemsize])]
     if itemsize == 8 and nkj >= QP_MMA_M and nrq >= QP_MMA_K:
@@ -318,12 +350,13 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
 @functools.cache
 def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
                      block=SMEM_BLOCK, sm=SMEM_SM, depth=None,
-                     threads=None, body=None) -> QPConfig:
+                     threads=None, body=None, where=None) -> QPConfig:
     """K1's QPConfig for a launch: the knobs `epb`, `planes`, `depth`,
-    `threads` and `body` where given, else qp_config's choice under the
-    card's `block` and `sm` bytes of shared memory; with a given tile,
-    qp_planes' group, depth 1 and the SIMT body unless given too.  Raises
-    if the knobs are not the kernel's or the buffers do not fit."""
+    `threads`, `body` and `where` (C12T's place) where given, else
+    qp_config's choice under the card's `block` and `sm` bytes of shared
+    memory; with a given tile, qp_planes' group, depth 1 and the SIMT body
+    unless given too, and C12T staged unless given or the choice's.
+    Raises if the knobs are not the kernel's or the buffers do not fit."""
     tiles = QP_TILES[itemsize]
     if epb is not None and epb not in tiles:
         raise ValueError(f"qp_shared3d: epb={epb} is not one of the "
@@ -333,14 +366,17 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
         raise ValueError(f"qp_shared3d: planes={planes} is not one of "
                          f"{QP_PLANE_GROUPS}")
     if epb is None:
-        et, g, d, t, b = (qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm)
-                          or (None, None, 1, QP_THREADS, "simt"))
+        et, g, d, t, b, c = (
+            qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm)
+            or (None, None, 1, QP_THREADS, "simt", "smem"))
     else:
-        et, g, d, t, b = epb, qp_planes(epb, nkj), 1, QP_THREADS, "simt"
+        et, g, d, t, b, c = (epb, qp_planes(epb, nkj), 1, QP_THREADS, "simt",
+                             "smem")
     g = planes or g
     depth = depth or d
     threads = threads or (t if depth == d else QP_THREADS)
     body = body or b
+    where = where or (c if body == b else "smem")
     if et is not None and (depth, threads) not in qp_forms(itemsize, et):
         raise ValueError(f"qp_shared3d: depth={depth}, threads={threads} "
                          "is not one of the kernel's forms "
@@ -350,23 +386,30 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
         raise ValueError(f"qp_shared3d: body={body!r} is not one of the "
                          f"kernel's bodies {qp_built_bodies(itemsize, et)} "
                          f"at element tile {et}, itemsize {itemsize}")
+    places = qp_c12t_places(body, nrq, nkj)
+    if where not in places:
+        raise ValueError(f"qp_shared3d: where={where!r} is not one of "
+                         f"{places} for body={body!r} at nrq={nrq}, "
+                         f"nkj={nkj} (DMMA holds C12T in registers for nrq "
+                         f"<= {QP_MMA_K * QP_MMA_STEPS} and nkj <= "
+                         f"{QP_MMA_M * QP_THREADS // 32})")
     if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth,
-                             body) > block:
+                             body, where) > block:
         raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
                          f" of nm0*nrq = {nm0 * nrq} input rows and depth "
                          f"{depth} does not fit the card's {block} B of "
                          "shared memory")
-    return QPConfig(et, g, depth, threads, body)
+    return QPConfig(et, g, depth, threads, body, where)
 
 
 def _launch(x, b0, c12t, nrq, epb, planes, depth=None, threads=None,
-            body=None):
+            body=None, where=None):
     nm0, nq0 = b0.shape
     nkj = c12t.shape[0]
     e = x.shape[1]
     cfg = qp_launch_config(x.element_size(), nm0, nrq, nq0, nkj, epb,
                            planes, *build.smem_limits(x.get_device()), depth,
-                           threads, body)
+                           threads, body, where)
     if spans.profiler._is_profiler_enabled:
         out = spans.alloc((nq0 * nkj, e), x,
                           build.key("qp_fused3d", x.dtype))
@@ -374,9 +417,11 @@ def _launch(x, b0, c12t, nrq, epb, planes, depth=None, threads=None,
         out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
     build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
               out.data_ptr(), nm0, nrq, nq0, nkj, e, *cfg[:4],
-              QP_BODIES.index(cfg.body))
+              QP_ENTRY_BODIES[cfg.body, cfg.c12t])
     qp_depths[cfg.depth] += 1
     qp_bodies[(build.SUFFIXES[x.dtype], cfg.body)] += 1
+    if cfg.body == "dmma":
+        qp_dmma_c12t[cfg.c12t] += 1
     return out
 
 
