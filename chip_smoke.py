@@ -22,14 +22,19 @@ five.  Every phase is fatal:
    kernels K14, K5 and the dense GEMM that K2 and K3 share, nor in K1,
    K2's C-resident and K3's S-resident configurations, K4 (every nm0
    instance), K8, K9 and the cp.async.bulk rings of K12 and K7 (f32 and
-   f64; K1-K5 in bf16 too), and
+   f64; K1-K5 in bf16 too) nor in K1's probe form (P = true), and
    `cuobjdump -sass` must show HMMA in K14 and in the f32 and bf16
    entries of K5 and of K2's and K3's dense GEMM on mma.sync, HGMMA on
    TF32 in K2's f32 dense body on wgmma, DMMA in K5's f64 entry,
    sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
    entries and in K1's f64 instances on its DMMA stage-2 body (C12T
    staged, and C12T held in registers, each), no DMMA
-   in K1's f32 instances, and the bulk copy (UBLKCP) in the rings;
+   in K1's f32 instances, the bulk copy (UBLKCP) in the rings, and no
+   read of the SM clock or %globaltimer in K1's plain instances (P =
+   false), where its probe instances read both; with `--parent-build-log
+   <build.log of the parent tree>`, K1's plain instances' ptxas lines
+   (registers, stack, spills) must equal the parent's, instance for
+   instance;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -328,8 +333,11 @@ FP64_TC_FLOP_PER_S = 67e12  # FP64 on the tensor cores (DMMA)
 DMMA_SM90, DMMA_SM80 = "DMMA.16x8x8", "DMMA.8x8x4"
 # a warp-group mma on TF32 operands (wgmma, e.g. HGMMA.64x128x8.F32.TF32)
 HGMMA_TF32 = "HGMMA TF32"
+# reads of the SM clock and of %globaltimer (csrc/qp_fused3d.cuh's probe)
+CLOCK, TIMER = "SR_CLOCK", "SR_GLOBALTIMER"
 # SASS patterns (re.search) of ops that are no literal prefix of a line
-SASS_PATTERNS = {HGMMA_TF32: r"\bHGMMA\.\S*TF32"}
+SASS_PATTERNS = {HGMMA_TF32: r"\bHGMMA\.\S*TF32",
+                 CLOCK: r"\bSR_CLOCK(LO|HI)\b", TIMER: r"\bSR_GLOBALTIMER"}
 # The tensor-core kernels: name: a pattern (re.search) of their instances'
 # mangled names, and the mma instruction each must hold in the SASS.  K2
 # and K3 share one dense GEMM on mma.sync, told apart by its tile-order
@@ -358,6 +366,15 @@ TC_MMA = [("K14 ozaki_slices", "HMMA"), ("K5 qp1d f32 (3xTF32)", "HMMA"),
 # The f64 dense entries issue sm_90's m16n8k8 only, never the A100's
 # m8n8k4, which the H100 runs at half the rate (scripts/dmma_probe.cu)
 DMMA_F64_DENSE = ("K2 kron dense f64 (DMMA)", "K3 em dense f64 (DMMA)")
+# K1's plain instances (P = false) and its probe form's (P = true, the
+# bool template argument after QPBody): only the probe form may read the
+# SM clock or %globaltimer (SR_CLOCKLO, SR_CLOCKHI, SR_GLOBALTIMERLO/HI).
+K1_PLAIN, K1_PROBE = "K1 qp_fused3d (plain form)", "K1 qp_fused3d (probe form)"
+K1_FORMS = {K1_PLAIN: r"qp_fused3d_kernel.*QPBodyE\dELb0E",
+            K1_PROBE: r"qp_fused3d_kernel.*QPBodyE\dELb1E"}
+# K1's instance in a ptxas line's mangled name: its template arguments up
+# to the stage-2 body, the same with or without the probe argument
+K1_INSTANCE = r"qp_fused3d_kernelI(.*?QPBodyE\dE)"
 # K1's instances by dtype and stage-2 body (the QPBody template argument,
 # QP_DMMA = 1 with C12T staged, QP_DMMA_HELD = 2 with it in registers):
 # its f64 DMMA body must hold sm_90's m16n8k8 and no m8n8k4, its f32
@@ -378,6 +395,7 @@ RING_BULK = [(name, "UBLKCP") for name in RING_KERNELS]
 # K1, K2's C-resident and K3's S-resident configurations, K4 (every nm0
 # instance, f32, f64 and bf16), K8, K9 and the rings of K12 and K7.
 NO_SPILL = {**TC_KERNELS, "K1 qp_fused3d": "qp_fused3d_kernel",
+            K1_PROBE: K1_FORMS[K1_PROBE],
             "K2 kron resident": "kron_resident_kernel",
             "K3 em resident": "em_resident_kernel",
             "K4 qp_stage2_3d": "qp_stage2_3d_kernel",
@@ -461,12 +479,80 @@ def device_facts(torch) -> None:
           f"L2 {p.L2_cache_size} B, memory {p.total_memory} B")
 
 
-def build_kernels() -> None:
+def k1_ptxas(text) -> dict:
+    """{(K1 instance, probe form): its ptxas lines of registers and of
+    stack and spills} in a build.log's text."""
+    found, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "stack frame" in line):
+            m = re.search(K1_INSTANCE, name)
+            if m:
+                key = (m[1], bool(re.search(K1_FORMS[K1_PROBE], name)))
+                found.setdefault(key, []).append(line.strip())
+    return found
+
+
+REGS_SM, REGS_UNIT = 65536, 8  # an SM's registers; a thread's granule
+
+
+def k1_resident(lines, threads, smem) -> int:
+    """K1's blocks an SM by the registers of its ptxas lines and by its
+    `smem` bytes of shared memory a block."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    regs = int(next(re.search(r"Used (\d+) registers", line)[1]
+                    for line in lines if "registers" in line))
+    return min(REGS_SM // (-(-regs // REGS_UNIT) * REGS_UNIT * threads),
+               k1.SMEM_SM // (smem + k1.SMEM_RESERVED))
+
+
+def same_k1_residency(log) -> None:
+    """At the qp cells' shapes (kernel_blocks.PROBE_SHAPES, at qp_config's
+    choice) K1's probe form keeps its plain form's blocks an SM, as
+    registers and shared memory set them: the probe's readings are those
+    of the form the timed runs take."""
+    from tpu_bench_torch.benchmarks.kernel_blocks import PROBE_SHAPES
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    found = k1_ptxas(log)
+    for label, dtype, *shape, _ in PROBE_SHAPES:
+        size, tag = dtype.itemsize, "f" if dtype.itemsize == 4 else "d"
+        cfg = k1.qp_config(size, *shape)
+        body = k1.QP_ENTRY_BODIES[cfg.body, cfg.c12t]
+        key = (f"{tag}Li{cfg.et}ELi{cfg.planes}ELi{cfg.depth}ELi"
+               f"{cfg.threads}ELNS_6QPBodyE{body}E")
+        smem = k1.qp_smem(size, cfg.et, cfg.planes, *shape, cfg.depth,
+                          cfg.body, cfg.c12t)
+        plain, probe = (k1_resident(found[(key, p)], cfg.threads, smem)
+                        for p in (False, True))
+        print(f"  ptxas: K1 at {label} {tuple(cfg)}: blocks an SM {plain}, "
+              f"probe form {probe}")
+        assert plain == probe, (label, cfg, plain, probe)
+
+
+def same_k1_registers(log, parent_log) -> None:
+    """K1's plain instances' ptxas lines in `log` equal those of the
+    parent tree's build.log `parent_log`, instance for instance."""
+    mine = {k: v for (k, probe), v in k1_ptxas(log).items() if not probe}
+    theirs = {k: v for (k, _), v in k1_ptxas(parent_log).items()}
+    assert mine and mine.keys() == theirs.keys(), (
+        sorted(mine.keys() ^ theirs.keys()))
+    differ = {k: (mine[k], theirs[k]) for k in mine if mine[k] != theirs[k]}
+    assert not differ, differ
+    print(f"  ptxas: K1's {len(mine)} plain instances as the parent's")
+
+
+def build_kernels(parent_log=None) -> None:
     """Phase 2: the build, ptxas's registers and spills (none allowed in
     NO_SPILL: the tensor-core kernels K14, K5 and the dense GEMM of K2 and
-    K3, K1, K2's C-resident and K3's S-resident configurations, K4, K8,
-    K9 and the rings of K12 and K7), the tensor-core kernels' mma
-    instructions and the rings' bulk copies in the library's SASS."""
+    K3, K1 and its probe form, K2's C-resident and K3's S-resident
+    configurations, K4, K8, K9 and the rings of K12 and K7), the
+    tensor-core kernels' mma instructions, the rings' bulk copies and K1's
+    clock reads in the library's SASS; with `parent_log` (the text of the
+    parent tree's build.log), K1's plain instances' ptxas lines against
+    the parent's."""
     from tpu_bench_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -474,8 +560,15 @@ def build_kernels() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     log = (build.BUILD_DIR / "build.log")
     if log.exists():  # absent when the library was already built
+        text = log.read_text()
+        probes = [k for k, probe in k1_ptxas(text) if probe]
+        assert probes, "no ptxas line of K1's probe form in build.log"
+        print(f"  ptxas: {len(probes)} instances of K1's probe form")
+        same_k1_residency(text)
+        if parent_log is not None:
+            same_k1_registers(text, parent_log)
         function = None
-        for line in log.read_text().splitlines():
+        for line in text.splitlines():
             if any(w in line for w in ("entry function", "registers",
                                         "spill")):
                 print("  ptxas:", line.strip())
@@ -496,6 +589,9 @@ def build_kernels() -> None:
     for kernel in (K1_DMMA, K1_HELD):
         assert counts.get((kernel, DMMA_SM90), 0) > 0, (kernel, counts)
     assert counts.get((K1_F32, "DMMA"), 0) == 0, counts
+    for op in (CLOCK, TIMER):
+        assert counts.get((K1_PLAIN, op), 0) == 0, (op, counts)
+        assert counts.get((K1_PROBE, op), 0) > 0, (op, counts)
 
 
 def sass_counts(library) -> dict:
@@ -504,22 +600,28 @@ def sass_counts(library) -> dict:
     tensor-core kernels (TC_KERNELS), each DMMA also under its shape
     (DMMA_SM90, DMMA_SM80), DMMA in K1's f64 DMMA body and f32 instances
     (K1_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
-    (SYNCS) in the rings (RING_KERNELS)."""
+    (SYNCS) in the rings (RING_KERNELS), and reads of the SM clock and
+    %globaltimer in K1's plain and probe forms (K1_FORMS).  A function
+    counts under the first kernel of each group whose pattern it
+    matches."""
     from tpu_bench_torch.kernels import build
 
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80,
                             HGMMA_TF32)),
               (K1_KERNELS, ("DMMA", DMMA_SM90, DMMA_SM80)),
-              (RING_KERNELS, ("UBLKCP", "SYNCS"))]
-    counts, kernel, ops = {}, None, ()
+              (RING_KERNELS, ("UBLKCP", "SYNCS")),
+              (K1_FORMS, (CLOCK, TIMER))]
+    counts, matched = {}, []
     for line in _run([tool, "-sass", str(library)]).splitlines():
         if "Function :" in line:
             name = line.split()[-1]
-            kernel, ops = next(((k, o) for kernels, o in groups
-                                for k, tag in kernels.items()
-                                if re.search(tag, name)), (None, ()))
-        elif kernel:
+            matched = [next(((k, o) for k, tag in kernels.items()
+                             if re.search(tag, name)), None)
+                       for kernels, o in groups]
+            matched = [m for m in matched if m]
+            continue
+        for kernel, ops in matched:
             for op in ops:
                 pattern = SASS_PATTERNS.get(op, rf"\b{re.escape(op)}[.\s]")
                 if re.search(pattern, line):
@@ -1743,7 +1845,15 @@ def bf16_sweeps(torch, bw) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="Smoke test of the port on one NVIDIA GPU.")
+    parser.add_argument("--parent-build-log", default=None,
+                        help="the parent tree's _build/build.log: phase 2 "
+                        "holds K1's plain instances' ptxas lines to it")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1762,7 +1872,8 @@ def main() -> int:
     print("== 1. device facts", flush=True)
     device_facts(torch)
     print("== 2. build", flush=True)
-    build_kernels()
+    build_kernels(None if args.parent_build_log is None else
+                  open(args.parent_build_log).read())
     print("== 3. kernels against their plain versions", flush=True)
     measured = kernels_vs_plain(torch)
     measured_bf16 = bf16_vs_plain(torch)

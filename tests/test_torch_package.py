@@ -80,7 +80,8 @@ def test_nvcc_command_builds_package_sources_for_sm90a():
     assert {p.name for p in sources} == {"bwdtrans2d.cu", "bwdtrans3d.cu",
                                          "qp1d_fused3d.cu", "reduction.cu",
                                          "stream.cu", "matvec.cu",
-                                         "stream_probes.cu", "ozaki.cu"}
+                                         "stream_probes.cu", "ozaki.cu",
+                                         "qp_fused3d_probe.cu"}
     assert len(compiles) == len(sources)
     assert all(p.parent == build.CSRC_DIR for p in sources)
     for cmd in (*compiles, link):

@@ -110,8 +110,8 @@ def test_cpu_call_records_its_wrapper_span(column, no_blocks):
 def test_launch_span_nested_in_the_wrapper(k1_on_launch_path, no_blocks):
     """K1's launch path under the profiler: tbt.alloc, then
     tbt.launch.qp_fused3d, both inside tbt.qp_shared3d_flat; the output's
-    address kept in spans.blocks under the launch's key; the launch counted
-    once and passed the output's address."""
+    address kept in spans.blocks under the launch's key; the launch (of
+    K1's probe entry) counted once and passed the output's address."""
     x, b0, c12t = _k1_operands()
     before = build.launches["qp_fused3d"]
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -123,7 +123,7 @@ def test_launch_span_nested_in_the_wrapper(k1_on_launch_path, no_blocks):
     assert alloc[2] <= launch[1]
     assert build.launches["qp_fused3d"] == before + 1
     name, args = k1_on_launch_path.calls[-1]
-    assert name == "tbt_qp_fused3d_f32" and args[3] == out.data_ptr()
+    assert name == "tbt_qp_fused3d_probe_f32" and args[3] == out.data_ptr()
     assert list(no_blocks) == [("qp_fused3d", out.data_ptr())]
     assert out.shape == (NQ0 * NKJ, E)
 
@@ -160,7 +160,40 @@ def test_blocks_name_the_launch_key(dtype, k1_on_launch_path, no_blocks,
                                (f"kron_blocked{suffix}", out2.data_ptr())]
     tag = "bf16" if suffix else "f64"
     assert [name for name, _ in k1_on_launch_path.calls[-2:]] == [
-        f"tbt_qp_fused3d_{tag}", f"tbt_kron_blocked_{tag}"]
+        f"tbt_qp_fused3d_probe_{tag}", f"tbt_kron_blocked_{tag}"]
+
+
+def test_profiled_k1_launches_the_probe_entry(k1_on_launch_path,
+                                               no_blocks, monkeypatch):
+    """K1 under the profiler launches tbt_qp_fused3d_probe_<dtype>: K1's
+    arguments, then its device's probe buffer (made, zeroed, inside the
+    call's tbt.qp_shared3d_flat span on the first probed launch), the
+    launch's number and the buffer's block records.  Without a profiler
+    K1 launches tbt_qp_fused3d_<dtype> with K1's arguments alone and makes
+    no buffer."""
+    monkeypatch.setattr(k1, "qp_probes", {})
+    x, b0, c12t = _k1_operands()
+    k1.qp_shared3d_flat(x, b0, c12t, nrq=NRQ)
+    name, plain = k1_on_launch_path.calls[-1]
+    assert name == "tbt_qp_fused3d_f32" and len(plain) == 15
+    assert k1.qp_probes == {}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            k1.qp_shared3d_flat(x, b0, c12t, nrq=NRQ)
+    calls = k1_on_launch_path.calls[-2:]
+    probe = k1.qp_probes[x.get_device()]
+    assert probe.launches == 2
+    for n, (name, args) in enumerate(calls):
+        assert name == "tbt_qp_fused3d_probe_f32"
+        assert args[:3] == plain[:3] and args[4:14] == plain[4:14]
+        assert args[-1] == plain[-1]
+        assert args[14:17] == (probe.words.data_ptr(), n, probe.capacity)
+    wrapper = next(sp for sp in _spans(prof)
+                   if sp[0] == "tbt.qp_shared3d_flat")
+    zeros = [(ev.name(), ev.start_ns(), ev.end_ns())
+             for ev in prof.profiler.kineto_results.events()
+             if ev.name() == "aten::zeros"]
+    assert zeros and all(_inside(z, wrapper) for z in zeros)
 
 
 def test_blocks_keeps_its_bound(no_blocks):

@@ -4,6 +4,7 @@
     python -m tpu_bench_torch.benchmarks.kernel_blocks --uses
     python -m tpu_bench_torch.benchmarks.kernel_blocks --only host
     python -m tpu_bench_torch.benchmarks.kernel_blocks --only ring
+    python -m tpu_bench_torch.benchmarks.kernel_blocks --only k1 --probe
 
 For each kernel with a block-size knob, on random inputs in f32 and f64
 (`--dtype`; `--dtype bf16` runs the sweeps of K1-K5, whose bf16 instances
@@ -66,6 +67,13 @@ setting twice, in the order a b .. b a).  The sweeps:
   columns the enqueue in parts, beside the library column's (`--rows b02`
   runs the rows whose label holds b02).
 
+`--only k1 --probe` times instead K1 at qp_config's choice in its plain
+form and in its probe form (kernels/bwdtrans3d.qp_probed, the form a
+profiled call runs), in turns, at the shapes of the benchmark's five qp
+cells (PROBE_SHAPES): PROBE_ROUNDS rounds of `in_turns`, each time the
+least of 20 flushed calls, and the probe's cost, its least time over the
+plain form's, less 1.
+
 After each K1 shape, a `best` line gives the fastest setting.  The
 constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_UNROLL, QP1D_TILES),
 kernels/bwdtrans2d.py (KRON_STRIPS, EM_TILES), kernels/matvec.py
@@ -111,6 +119,19 @@ K1_SHAPES = [(f"b05 nq={n}^3", n - 1, (n - 1) ** 2, n, n * n, NELMT)
              for n in (4, 6, 8, 10)]
 K1_SHAPES += [(f"b04 nq={n}^2", n - 1, n - 1, n, n, B04_NELMT)
               for n in (8, 16, 32)]
+# The shapes of the benchmark's five qp cells (port_bench): (label, dtype,
+# nm0, nrq, nq0, nkj, E), where --probe times K1's probe form
+PROBE_SHAPES = [("hex8-f32-qp b05 nq=8^3", torch.float32, 7, 49, 8, 64,
+                 NELMT),
+                ("hex8-f64-qp b05 nq=8^3", torch.float64, 7, 49, 8, 64,
+                 B04_NELMT),
+                ("hex10-f64-qp b05 nq=10^3", torch.float64, 9, 81, 10, 100,
+                 524288),
+                ("quad8-f32-qp b04 nq=8^2", torch.float32, 7, 7, 8, 8,
+                 B04_NELMT),
+                ("quad32-f64-qp b04 nq=32^2", torch.float64, 31, 31, 32, 32,
+                 524288)]
+PROBE_ROUNDS = 4
 # K2's products: (label, M, K, chunks, columns a chunk)
 K2_SHAPES = [("b05 nq=8^3 QP stage 1", 64, 49, 7, NELMT),
              ("b04 nq=8^2 QP stage 1", 8, 7, 7, B04_NELMT),
@@ -183,6 +204,30 @@ def k1_sweep(rnd, tag, itemsize) -> None:
           f"{dict(sorted(k1.qp_bodies.items()))}", flush=True)
     print(f"{tag} K1 DMMA launches by where C12T lived: "
           f"{dict(sorted(k1.qp_dmma_c12t.items()))}", flush=True)
+
+
+def probe_cost(gen) -> None:
+    """K1's plain form beside its probe form at PROBE_SHAPES (the least
+    flushed time of each, PROBE_ROUNDS rounds in turns)."""
+    for label, dtype, nm0, nrq, nq0, nkj, e in PROBE_SHAPES:
+        x, b0, c = (torch.randn(*shape, generator=gen, device="cuda",
+                                dtype=dtype)
+                    for shape in ((nm0 * nrq, e), (nm0, nq0), (nkj, nrq)))
+        forms = {"plain": k1.qp_shared3d_flat, "probe": k1.qp_probed}
+        times = {name: [] for name in forms}
+        for _ in range(PROBE_ROUNDS):
+            for name, ts in in_turns(
+                    lambda name: forms[name](x, b0, c, nrq=nrq),
+                    tuple(forms)).items():
+                times[name] += ts
+        report(label, "K1 form", times)
+        best = {name: min(ts) for name, ts in times.items()}
+        print(f"{label} K1 {k1.qp_config(dtype.itemsize, nm0, nrq, nq0, nkj)}"
+              f" probe cost: {100 * (best['probe'] / best['plain'] - 1):+.3f}"
+              f"% ({best['probe']:.4f} ms against {best['plain']:.4f})",
+              flush=True)
+        del x
+        torch.cuda.empty_cache()
 
 
 def k2_sweep(rnd, tag, itemsize) -> None:
@@ -681,6 +726,9 @@ def main(argv=None) -> None:
     parser.add_argument("--rows", default="",
                         help="host sweep: comma-separated parts of the "
                         "row labels to run (e.g. b02), all by default")
+    parser.add_argument("--probe", action="store_true",
+                        help="with --only k1: K1's plain form beside its "
+                        "probe form at the benchmark's qp cells' shapes")
     parser.add_argument("--dtype", default="f32,f64",
                         help="comma-separated element types of the sweeps "
                         f"({', '.join(DTYPES)}); bf16 runs {BF16_SWEEPS} "
@@ -689,6 +737,8 @@ def main(argv=None) -> None:
     only = set(args.only.split(","))
     if not only <= set(SWEEPS):
         parser.error(f"--only: {sorted(only - set(SWEEPS))} not in {SWEEPS}")
+    if args.probe and only != {"k1"}:
+        parser.error("--probe goes with --only k1")
     tags = args.dtype.split(",")
     if not set(tags) <= set(DTYPES):
         parser.error(f"--dtype: {sorted(set(tags) - set(DTYPES))} not in "
@@ -701,6 +751,9 @@ def main(argv=None) -> None:
     if "host" in only and not args.uses:
         host_sweep([r for r in args.rows.split(",") if r])
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.probe:
+        probe_cost(gen)
+        return
     for dtype in (DTYPES[t] for t in tags):
         def rnd(*shape):
             return torch.randn(*shape, generator=gen, device="cuda",

@@ -12,7 +12,9 @@ thread's call order:
                                              K1's and K2's _launch
     tbt.launch.<kernel>                      kernels/build.run for kernel
                                              <kernel> as build.launches
-                                             counts it
+                                             counts it (K1's: its probed
+                                             launch in kernels/bwdtrans3d,
+                                             which runs K1's probe form)
 
 and `blocks` takes (kernel, address) of each output a tbt.alloc span
 allocated, in launch order, <kernel> the key of the launch that writes

@@ -199,6 +199,12 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{dtype}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+    # K1's probe form: K1's arguments, then the probe's buffer, the
+    # launch's number and the block records the buffer holds; the stream
+    for dtype in ("f32", "f64", "bf16"):
+        fn = getattr(lib, f"tbt_qp_fused3d_probe_{dtype}")
+        fn.argtypes = [*_SIGNATURES["tbt_qp_fused3d"][:-1], _P, _L, _L, _P]
+        fn.restype = ctypes.c_int
     lib.tbt_qp1d_smem.argtypes = [_I, _I, _I, _I, _I]
     lib.tbt_qp1d_smem.restype = _L
     # K1's and K2's shared memory

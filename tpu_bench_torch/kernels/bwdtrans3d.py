@@ -11,7 +11,10 @@ qp_shared3d_flat.  Both compute, for every element e and output plane i,
 with the p-major coalesced input (nm0, nrq, E), nrq = nm2*nm1, and the
 i-major output (nq0, nkj, E), nkj = nq2*nq1.  The flat wrapper takes the
 same bytes viewed as (nm0*nrq, E) and returns (nq0*nkj, E), so one CUDA
-kernel (csrc/bwdtrans3d.cu) serves both.
+kernel (csrc/qp_fused3d.cuh, its entries in csrc/bwdtrans3d.cu) serves
+both.  While a torch profiler records, K1 runs its probe form instead
+(csrc/qp_fused3d_probe.cu), whose blocks time their own phases in SM
+cycles into a buffer on the card; qp_phases reads it back.
 
 qp_global3d, the Pallas(QP) column, is the same contraction in two kernels
 with the workspace w (nm0, nkj, E) in device memory: K2 (kernels/
@@ -47,7 +50,7 @@ from tpu_bench_torch.core import spans
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import build
 
-# K1 (csrc/bwdtrans3d.cu): its element tiles (the elements a block owns
+# K1 (csrc/qp_fused3d.cuh): its element tiles (the elements a block owns
 # and stages in shared memory) by element size, largest first; its plane
 # groups (output planes of one pass); its forms by element size, (slab
 # slots, threads a block): depth 1, a block a tile, and depth 2, a
@@ -145,6 +148,34 @@ qp_bodies: collections.Counter = collections.Counter()
 # K1's DMMA launches by where C12T lived ("smem" or "regs") since the count
 # was last reset.
 qp_dmma_c12t: collections.Counter = collections.Counter()
+# K1's probe form (csrc/qp_fused3d.cuh, P = true), which _launch takes in
+# place of the plain form only while a torch profiler records: the phases
+# whose SM cycles its blocks sum (the block, the wait for the slab, stage
+# 1, stage 2 with its stores), and the layout of its buffer in device
+# memory, of 64-bit words (csrc/qp_fused3d.cuh QPProbe):
+# QP_PROBE_HEAD head words (the newest launch's grid, resident block
+# slots and number), QP_PROBE_ROWS rows of QP_PHASES totals, a ring of
+# QP_PROBE_LAUNCHES launch spans (two words each), then QP_PROBE_RECORD
+# words a block of the newest launch.  A device's buffer is made, zeroed,
+# on its first probed launch and grown where a launch has more blocks than
+# it holds records for (at least QP_PROBE_MIN_RECORDS).
+QP_PHASES = ("block", "wait", "stage1", "stage2")
+QP_PROBE_HEAD, QP_PROBE_ROWS = 4, 32
+QP_PROBE_LAUNCHES, QP_PROBE_RECORD = 32768, 4
+QP_PROBE_MIN_RECORDS = 8192
+_WORD = 2**64
+
+
+class QPProbe:
+    """A device's probe buffer (`words`, int64 on the card), the block
+    records it holds and K1's probed launches on the device so far."""
+
+    def __init__(self, words: torch.Tensor, capacity: int, launches: int):
+        self.words, self.capacity, self.launches = words, capacity, launches
+
+
+# K1's probe buffers by device index.
+qp_probes: dict = {}
 # K4 (csrc/bwdtrans3d.cu): threads a block; the 16-byte vectors a thread
 # takes a step (its U), and the default, from benchmarks/kernel_blocks.py
 # --only k4 (PERF.md section 6); the largest nm0 kept whole in registers
@@ -252,7 +283,7 @@ def qp_lda(nrq) -> int:
 
 def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1, body="simt",
             where="smem") -> int:
-    """Shared memory of one K1 block (csrc/bwdtrans3d.cu qp_smem_bytes):
+    """Shared memory of one K1 block (csrc/qp_fused3d.cuh qp_smem_bytes):
     `depth` input slabs of the element tile, V (nrq x et) for g planes,
     C12T's buffer and B0 with nq0 padded to g; at depth 2 the slots' tiles
     too.  C12T's buffer: C12T^T with nkj padded to QP_TK for SIMT; for
@@ -411,18 +442,131 @@ def _launch(x, b0, c12t, nrq, epb, planes, depth=None, threads=None,
                            planes, *build.smem_limits(x.get_device()), depth,
                            threads, body, where)
     if spans.profiler._is_profiler_enabled:
-        out = spans.alloc((nq0 * nkj, e), x,
-                          build.key("qp_fused3d", x.dtype))
+        key = build.key("qp_fused3d", x.dtype)
+        out = spans.alloc((nq0 * nkj, e), x, key)
+        with spans.span(f"tbt.launch.{key}"):
+            _launch_probe(x, b0, c12t, out, nrq, cfg)
     else:
         out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
-    build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
-              out.data_ptr(), nm0, nrq, nq0, nkj, e, *cfg[:4],
-              QP_ENTRY_BODIES[cfg.body, cfg.c12t])
+        build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(),
+                  c12t.data_ptr(), out.data_ptr(), nm0, nrq, nq0, nkj, e,
+                  *cfg[:4], QP_ENTRY_BODIES[cfg.body, cfg.c12t])
     qp_depths[cfg.depth] += 1
     qp_bodies[(build.SUFFIXES[x.dtype], cfg.body)] += 1
     if cfg.body == "dmma":
         qp_dmma_c12t[cfg.c12t] += 1
     return out
+
+
+def _launch_probe(x, b0, c12t, out, nrq, cfg):
+    """K1's launch at `cfg` through its probe entry
+    (tbt_qp_fused3d_probe_<dtype>) on the device's probe buffer, counted
+    in build.launches under K1's key."""
+    nm0, nq0 = b0.shape
+    nkj, e = c12t.shape[0], x.shape[1]
+    probe = _qp_probe(x, -(-e // cfg.et))
+    err = build.call(build.entry("qp_fused3d_probe", x.dtype), x,
+                     x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
+                     out.data_ptr(), nm0, nrq, nq0, nkj, e, *cfg[:4],
+                     QP_ENTRY_BODIES[cfg.body, cfg.c12t],
+                     probe.words.data_ptr(), probe.launches, probe.capacity)
+    build.launched(err, build.key("qp_fused3d", x.dtype))
+    if e:  # no block ran on no element
+        probe.launches += 1
+
+
+def _qp_probe_words(capacity) -> int:
+    """Words of a probe buffer that holds `capacity` block records."""
+    return (QP_PROBE_HEAD + QP_PROBE_ROWS * len(QP_PHASES)
+            + 2 * QP_PROBE_LAUNCHES + QP_PROBE_RECORD * capacity)
+
+
+def _qp_probe(x, blocks) -> QPProbe:
+    """x's device's probe buffer, made zeroed on the device's first probed
+    launch, and grown (its head, totals and spans kept) where a launch of
+    `blocks` blocks would outgrow its block records."""
+    index = x.get_device()
+    probe = qp_probes.get(index)
+    if probe is not None and blocks <= probe.capacity:
+        return probe
+    capacity = max(blocks, QP_PROBE_MIN_RECORDS,
+                   2 * probe.capacity if probe else 0)
+    words = torch.zeros(_qp_probe_words(capacity), dtype=torch.int64,
+                        device=x.device)
+    launches = 0
+    if probe is not None:
+        kept = _qp_probe_words(0)
+        words[:kept] = probe.words[:kept]
+        launches = probe.launches
+    probe = qp_probes[index] = QPProbe(words, capacity, launches)
+    return probe
+
+
+def qp_probed(in_pflat, b0, c12t, *, nrq):
+    """qp_shared3d_flat at qp_config's choice through K1's probe form,
+    whether or not a profiler records, on the device's probe buffer: the
+    probe's cost beside the plain form (benchmarks/kernel_blocks.py
+    --probe).  CUDA tensors only."""
+    _check(in_pflat, b0, c12t, nrq)
+    if not in_pflat.is_cuda:
+        raise ValueError("qp_probed: K1's probe form runs on a CUDA device")
+    nm0, nq0 = b0.shape
+    nkj, e = c12t.shape[0], in_pflat.shape[1]
+    cfg = qp_launch_config(in_pflat.element_size(), nm0, nrq, nq0, nkj, None,
+                           None, *build.smem_limits(in_pflat.get_device()))
+    out = torch.empty((nq0 * nkj, e), dtype=in_pflat.dtype,
+                      device=in_pflat.device)
+    _launch_probe(in_pflat, b0, c12t, out, nrq, cfg)
+    return out
+
+
+def qp_phases(device=None) -> dict | None:
+    """K1's probe readings on the CUDA device of index `device` (None: the
+    current device) as plain numbers (qp_probe_reduce); None where no
+    probed launch ran there.  It waits for the device and copies the
+    buffer to the host, so it never runs on the launch path."""
+    if not qp_probes:
+        return None
+    index = torch.cuda.current_device() if device is None else device
+    probe = qp_probes.get(index)
+    if probe is None or not probe.launches:
+        return None
+    return qp_probe_reduce(probe.words.cpu().tolist(), probe.launches)
+
+
+def qp_probe_reduce(words, launches) -> dict:
+    """A probe buffer's words (int64, the card's unsigned 64-bit words as
+    read back) after `launches` probed launches:
+
+        launches  the probed launches;
+        cycles    {phase of QP_PHASES: SM cycles summed over the blocks of
+                  every probed launch};
+        spans     [(first block's start, last block's exit)] in ns of
+                  %globaltimer, of the newest min(launches,
+                  QP_PROBE_LAUNCHES) launches, oldest first;
+        grid, slots  the newest launch's blocks and resident block slots
+                  (the occupancy API's blocks an SM times the SMs);
+        blocks    [(start ns, exit ns, SM, cycles)] of the newest launch's
+                  blocks, by block index, as many as the buffer holds."""
+    def word(i):
+        return words[i] % _WORD
+
+    phases = len(QP_PHASES)
+    cycles = {phase: sum(word(QP_PROBE_HEAD + r * phases + k)
+                         for r in range(QP_PROBE_ROWS))
+              for k, phase in enumerate(QP_PHASES)}
+    ring = QP_PROBE_HEAD + QP_PROBE_ROWS * phases
+    spans_ns = []
+    for n in range(max(0, launches - QP_PROBE_LAUNCHES), launches):
+        at = ring + 2 * (n % QP_PROBE_LAUNCHES)
+        spans_ns.append((_WORD - 1 - word(at), word(at + 1)))
+    records = ring + 2 * QP_PROBE_LAUNCHES
+    held = min(word(0), (len(words) - records) // QP_PROBE_RECORD)
+    blocks = [(word(at), word(at + 1), word(at + 3), word(at + 2))
+              for at in range(records, records + QP_PROBE_RECORD * held,
+                              QP_PROBE_RECORD)]
+    return {"launches": launches, "cycles": cycles, "spans": spans_ns,
+            "grid": word(0), "slots": word(1), "blocks": blocks}
 
 
 # ---- Pallas(QP): K2 then K4, workspace in device memory ------------------
