@@ -273,6 +273,62 @@ def test_qp_fused3d_ring_on_card(dtype, tol):
     assert k1.qp_depths - before == {depth: 1}
 
 
+def _measured_rings():
+    """QP_MEASURED's depth-2 entries: ((itemsize, nm0, nrq, nq0, nkj),
+    QPConfig), the rings qp_config takes."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    return [(shape, cfg) for shape, cfg in k1.QP_MEASURED.items()
+            if cfg.depth == 2]
+
+
+RING_DTYPES = {2: (torch.bfloat16, 2**-7), 4: (torch.float32, 1e-5),
+               8: (torch.float64, 1e-12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cfg", _measured_rings(),
+                         ids=lambda v: "-".join(map(str, v)))
+def test_qp_fused3d_measured_rings_on_card(shape, cfg):
+    """Each depth-2 setting qp_config records (QP_MEASURED) at its shape:
+    on E = 131071 (a ragged last tile, and dozens of tiles a block),
+    against the plain version and, where qp_settings offers the same
+    (tile, planes, threads, body, C12T) at depth 1, bit for bit against
+    it (each tile is computed by the same code whichever block takes it
+    and whenever its index is read); then four launches of 1000, 20001,
+    1001 and 4099 elements back to back on one stream with no
+    synchronisation between (each takes its tiles from the counter the
+    one before set back to zero)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    size, nm0, nrq, nq0, nkj = shape
+    dtype, tol = RING_DTYPES[size]
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    knobs = dict(epb=cfg.et, planes=cfg.planes, depth=cfg.depth,
+                 threads=cfg.threads, body=cfg.body, where=cfg.c12t)
+
+    def operands(e):
+        return tuple(torch.randn(*s, generator=gen, device="cuda",
+                                 dtype=dtype)
+                     for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
+
+    ops = operands(131071)
+    out = k1.qp_shared3d(*ops, **knobs)
+    torch.cuda.synchronize()
+    assert _rel_err(out, k1.qp_shared3d_plain(*ops)) <= tol
+    flat = cfg._replace(depth=1)
+    if flat in k1.qp_settings(*shape):
+        assert torch.equal(out, k1.qp_shared3d(*ops, **dict(knobs, depth=1)))
+    del ops, out
+    calls = [operands(e) for e in (1000, 20001, 1001, 4099)]
+    outs = [k1.qp_shared3d(*ops, **knobs) for ops in calls]
+    torch.cuda.synchronize()
+    for ops, out in zip(calls, outs):
+        assert _rel_err(out, k1.qp_shared3d_plain(*ops)) <= tol, ops[0].shape
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form,t_c,t_x", [("pair", 9, 9), ("band", 9, 9),
                                           ("band", 7, 9), ("band", 9, 7)])

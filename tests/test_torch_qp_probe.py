@@ -323,6 +323,47 @@ def test_slot_idle_none_without_blocks_slots_or_length(blocks, slots):
     assert qp_probe.slot_idle_pct(blocks, slots) is None
 
 
+# ---- kernel_blocks --only k1 --probe --------------------------------------
+
+
+def _totals(words, block, wait, stage1, stage2):
+    """The phases' totals of a probe buffer, split over two rows."""
+    for k, v in enumerate((block, wait, stage1, stage2)):
+        words[k1.QP_PROBE_HEAD + k] = v - v // 3
+        words[k1.QP_PROBE_HEAD + 7 * ROW + k] = v // 3
+
+
+def test_sweep_shares_are_the_cells_readings_of_one_shapes_launches(
+        monkeypatch):
+    """From a fake buffer read before and after a shape's probed calls:
+    the shares of the cycles between the two readings, under the qp cells'
+    metric names, the rest of the block outside the three phases, and the
+    newest launch's slot idle share as the cells' reader takes it."""
+    from tpu_bench_torch.benchmarks import kernel_blocks
+
+    words = _buffer(capacity=3)
+    _totals(words, 1000, 100, 200, 600)
+    before = k1.qp_probe_reduce(words, 2)
+    _totals(words, 1000 + 4000, 100 + 400, 200 + 1000, 600 + 2000)
+    words[0], words[1] = 3, 2  # the newest launch: 3 blocks, 2 slots
+    blocks = [(1000, 1100, 0, 200), (1000, 1040, 1, 80), (1040, 1060, 1, 40)]
+    for b, (start, end, sm, cycles) in enumerate(blocks):
+        at = RECORDS + b * k1.QP_PROBE_RECORD
+        words[at:at + 4] = [start, end, cycles, sm]
+    after = k1.qp_probe_reduce(words, 5)
+    got = kernel_blocks.probe_shares(before, after)
+    assert got == pytest.approx({"qp_wait_pct": 10.0, "qp_stage1_pct": 25.0,
+                                 "qp_stage2_pct": 50.0, "rest": 15.0,
+                                 "qp_slot_idle_pct": 20.0})
+    assert list(got) == [*READERS[:3], "rest", READERS[3]]
+    assert kernel_blocks.probe_shares(None, before) == pytest.approx(
+        {"qp_wait_pct": 10.0, "qp_stage1_pct": 20.0, "qp_stage2_pct": 60.0,
+         "rest": 10.0, "qp_slot_idle_pct": None})
+    monkeypatch.setattr(k1, "qp_phases", lambda device=None: after)
+    assert got["qp_slot_idle_pct"] == _read("qp_slot_idle_pct", after,
+                                            monkeypatch)
+
+
 def test_probed_refuses_a_cpu_tensor():
     x, b0, c12t = torch.zeros(8, 4), torch.zeros(2, 3), torch.zeros(9, 4)
     with pytest.raises(ValueError, match="CUDA device"):

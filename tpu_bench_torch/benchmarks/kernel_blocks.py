@@ -72,7 +72,9 @@ form and in its probe form (kernels/bwdtrans3d.qp_probed, the form a
 profiled call runs), in turns, at the shapes of the benchmark's five qp
 cells (PROBE_SHAPES): PROBE_ROUNDS rounds of `in_turns`, each time the
 least of 20 flushed calls, and the probe's cost, its least time over the
-plain form's, less 1.
+plain form's, less 1; then the probe's readings of the shape's probed
+calls under the qp cells' metric names (qp_wait_pct, qp_stage1_pct,
+qp_stage2_pct, the rest of the block outside them, qp_slot_idle_pct).
 
 After each K1 shape, a `best` line gives the fastest setting.  The
 constants of kernels/bwdtrans3d.py (QP_MEASURED, QP2_UNROLL, QP1D_TILES),
@@ -206,9 +208,33 @@ def k1_sweep(rnd, tag, itemsize) -> None:
           f"{dict(sorted(k1.qp_dmma_c12t.items()))}", flush=True)
 
 
+def probe_shares(before, after) -> dict:
+    """K1's probe readings over the probed launches between two qp_phases
+    readings (`before` None where none ran before), under the names of the
+    qp cells' metrics (port_bench/metrics): qp_wait_pct, qp_stage1_pct and
+    qp_stage2_pct, 100 x the phase's SM cycles over the blocks'; rest, 100
+    less those three, thread 0's share of the block outside the phases;
+    and qp_slot_idle_pct of the newest launch, None where the buffer holds
+    fewer block records than that launch had blocks."""
+    from port_bench.qp_probe import slot_idle_pct
+
+    cycles = {phase: after["cycles"][phase]
+              - (before["cycles"][phase] if before else 0)
+              for phase in k1.QP_PHASES}
+    shares = {f"qp_{phase}_pct": 100 * cycles[phase] / cycles["block"]
+              for phase in ("wait", "stage1", "stage2")}
+    shares["rest"] = 100 - sum(shares.values())
+    shares["qp_slot_idle_pct"] = (
+        slot_idle_pct(after["blocks"], after["slots"])
+        if len(after["blocks"]) == after["grid"] else None)
+    return shares
+
+
 def probe_cost(gen) -> None:
     """K1's plain form beside its probe form at PROBE_SHAPES (the least
-    flushed time of each, PROBE_ROUNDS rounds in turns)."""
+    flushed time of each, PROBE_ROUNDS rounds in turns), and the probe's
+    readings of each shape's probed launches (probe_shares)."""
+    before = k1.qp_phases()
     for label, dtype, nm0, nrq, nq0, nkj, e in PROBE_SHAPES:
         x, b0, c = (torch.randn(*shape, generator=gen, device="cuda",
                                 dtype=dtype)
@@ -226,6 +252,12 @@ def probe_cost(gen) -> None:
               f" probe cost: {100 * (best['probe'] / best['plain'] - 1):+.3f}"
               f"% ({best['probe']:.4f} ms against {best['plain']:.4f})",
               flush=True)
+        after = k1.qp_phases()
+        print(f"{label} K1 probe phases: "
+              + ", ".join(f"{name} {'None' if v is None else f'{v:.2f}'}"
+                          for name, v in probe_shares(before, after).items()),
+              flush=True)
+        before = after
         del x
         torch.cuda.empty_cache()
 

@@ -52,12 +52,25 @@
 //     hid them.  At depth 2 the grid is one wave (the occupancy API's
 //     blocks an SM times the SMs) of persistent blocks with two slab slots
 //     each: a block takes element tiles one after another from a counter
-//     in device memory (one atomicAdd a tile; the stream's counter of
-//     csrc/ring.cuh, which the last block to finish sets back to zero),
-//     and copies tile j+1's slab into the other slot (cp.async, a commit
-//     group a tile, wait_group 1) while it computes tile j and stores its
-//     outputs.  A slot is refilled only after the barrier that ends its
-//     tile; B0 and C12T^T are staged once a block.  Blocks of 256 or 512
+//     in device memory (the stream's counter of csrc/ring.cuh, which the
+//     last block to finish sets back to zero), and copies tile j+1's slab
+//     into the other slot (cp.async, a commit group a tile, wait_group 1)
+//     while it computes tile j and stores its outputs.  The index runs two
+//     tiles ahead: thread 0 takes the first two before the loop, and at
+//     the top of tile j's iteration, before its share of tile j+1's copy,
+//     one atomicAdd for tile j+2, whose result it keeps in a register and
+//     stores into tile j's slot word only before the closing barrier of
+//     tile j's last plane group (QPAhead, qp_publish); the word is first
+//     read after that barrier, at tile j+1's start.  So no warp waits on
+//     the atomic's round trip, which returns behind the SM's cp.async
+//     requests for the next slab: stored right after the wait's barrier,
+//     it held warp 0, and at stage 1's barrier the block.  Measured
+//     flushed (kernel_blocks --only k1 --probe; NVIDIA H100 80GB HBM3,
+//     700 W), thread 0's share of the block outside the probe's phases
+//     fell from 21.9 to 7.1% at b05 8^3 f32, 14.7 to 2.9% at 8^3 f64 and
+//     30.8 to 23.3% at 10^3 f64, and K1 ran 3.6-6.4% faster there.  A
+//     slot is refilled only after the barrier that ends its tile; B0 and
+//     C12T^T are staged once a block.  Blocks of 256 or 512
 //     threads, 128 registers a thread either way, but for f64's depth-2
 //     blocks (256 threads, one an SM), which spilled at 128.  Measured at
 //     b05 8^3 with calls back to back (port_bench; NVIDIA H100 80GB HBM3,
@@ -538,17 +551,42 @@ __device__ __forceinline__ void qp_probe_exit(QPSums<true>& sums,
     }
 }
 
+// What a depth-2 block publishes during a tile: the slot's word and the
+// tile after next, which thread 0 took from the counter at the loop's top
+// and holds in a register (0 in the block's other threads).  An empty
+// struct at depth 1.
+template <int D>
+struct QPAhead {};
+
+template <>
+struct QPAhead<2> {
+    long long* slot;
+    long long tile;
+};
+
+// Before the closing barrier of a tile's last plane group: thread 0 stores
+// the tile after next into its slot.  Its atomicAdd has had the whole tile
+// to return, and the word is first read after that barrier.
+template <int D>
+__device__ __forceinline__ void qp_publish(const QPAhead<D>& ahead,
+                                           bool last) {
+    if constexpr (D > 1)
+        if (last && threadIdx.x == 0) *ahead.slot = ahead.tile;
+}
+
 // Output elements [e0, e0 + ET) from their slab s_x in shared memory, NT
 // threads: for each group of G planes, stage 1 into s_v, a barrier,
 // stage 2 on body B (C12T from s_ct, or the held fragments) and the
-// stores, a barrier.  P: the probe form, whose thread 0 stamps the
+// stores, a barrier; at depth 2 the last group publishes `ahead` before
+// its barrier (qp_publish).  P: the probe form, whose thread 0 stamps the
 // stages' ends after those barriers.
-template <typename T, int ET, int G, int NT, QPBody B, bool P>
+template <typename T, int ET, int G, int D, int NT, QPBody B, bool P>
 __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
                                         const QPHeld<B>& held, const T* s_b0,
                                         T* __restrict__ out, int nm0, int nrq,
                                         int nq0, int nkj, long long n_elem,
-                                        long long e0, QPSums<P>& sums) {
+                                        long long e0, QPSums<P>& sums,
+                                        const QPAhead<D>& ahead) {
     using A = tbt::Acc<T>;
     constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
     const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
@@ -594,6 +632,7 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
         if constexpr (B != QP_SIMT) {
             qp_stage2_dmma<ET, G, NT, B>(s_v, s_ct, held, out, nrq, nq0, nkj,
                                          n_elem, e0, i0, vec_out);
+            qp_publish(ahead, i0 + G >= nq0);
             __syncthreads();
             if constexpr (P) qp_stamp(sums, QP_STAGE2, QP_NO_PHASE);
             continue;
@@ -640,6 +679,7 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
                 }
             }
         }
+        qp_publish(ahead, i0 + G >= nq0);
         __syncthreads();
         if constexpr (P) qp_stamp(sums, QP_STAGE2, QP_NO_PHASE);
     }
@@ -739,10 +779,9 @@ __global__ void __launch_bounds__(NT, qp_probe_min_blocks<T, D, NT, B, P>())
         tbt::cp_async_wait<0>();
         __syncthreads();
         if constexpr (P) qp_stamp(sums, QP_WAIT, QP_NO_PHASE);
-        qp_tile<T, ET, G, NT, B, P>(s_x, s_v, s_ct, held, s_b0, out, nm0,
-                                    nrq, nq0, nkj, n_elem,
-                                    static_cast<long long>(blockIdx.x) * ET,
-                                    sums);
+        qp_tile<T, ET, G, D, NT, B, P>(
+            s_x, s_v, s_ct, held, s_b0, out, nm0, nrq, nq0, nkj, n_elem,
+            static_cast<long long>(blockIdx.x) * ET, sums, QPAhead<D>{});
     } else {
         if (threadIdx.x == 0) {
             s_tile[0] = static_cast<long long>(atomicAdd(&counter[0], 1ULL));
@@ -754,23 +793,28 @@ __global__ void __launch_bounds__(NT, qp_probe_min_blocks<T, D, NT, B, P>())
         if (cur * ET < n_elem) copy(0, cur);
         tbt::cp_async_commit();
         // s: the slot of cur, the tile in hand; s_tile[s ^ 1], the tile of
-        // the other slot, is written during the tile before cur and read
+        // the other slot, is published during the tile before cur and read
         // at cur's start and end
         for (int s = 0; cur * ET < n_elem; s ^= 1) {
             if constexpr (P) qp_stamp(sums, QP_NO_PHASE, QP_WAIT);
+            // the tile after next, for slot s: taken before thread 0's
+            // share of next's copy, so that it does not queue behind the
+            // slab, and published by qp_tile at this tile's end, where no
+            // warp waits for it (the word holds cur until the wait's
+            // barrier)
+            QPAhead<D> ahead{s_tile + s, 0};
+            if (threadIdx.x == 0)
+                ahead.tile =
+                    static_cast<long long>(atomicAdd(&counter[0], 1ULL));
             const long long next = s_tile[s ^ 1];
             if (next * ET < n_elem) copy(s ^ 1, next);  // every thread has
             tbt::cp_async_commit();                     // left that slot
             tbt::cp_async_wait<1>();  // this thread's copies of cur
             __syncthreads();          // everyone's
             if constexpr (P) qp_stamp(sums, QP_WAIT, QP_NO_PHASE);
-            // the tile after next, for slot s, read after cur's barriers
-            if (threadIdx.x == 0)
-                s_tile[s] =
-                    static_cast<long long>(atomicAdd(&counter[0], 1ULL));
-            qp_tile<T, ET, G, NT, B, P>(s_x + s * slab, s_v, s_ct, held,
-                                        s_b0, out, nm0, nrq, nq0, nkj, n_elem,
-                                        cur * ET, sums);
+            qp_tile<T, ET, G, D, NT, B, P>(s_x + s * slab, s_v, s_ct, held,
+                                           s_b0, out, nm0, nrq, nq0, nkj,
+                                           n_elem, cur * ET, sums, ahead);
             cur = s_tile[s ^ 1];  // next, read again, not held in a register
         }
         if (threadIdx.x == 0) {
