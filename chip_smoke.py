@@ -29,12 +29,15 @@ five.  Every phase is fatal:
    sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
    entries and in K1's f64 instances on its DMMA stage-2 body (C12T
    staged, and C12T held in registers, each), no DMMA
-   in K1's f32 instances, the bulk copy (UBLKCP) in the rings, and no
+   in K1's f32 instances, the bf16 m16n8k16 with f32 sums
+   (HMMA.16816.F32.BF16) in K1's bf16 instances on its HMMA stage-2
+   body and no HMMA in K1's f32 and f64 instances nor in its bf16 SIMT
+   ones, the bulk copy (UBLKCP) in the rings, and no
    read of the SM clock or %globaltimer in K1's plain instances (P =
    false), where its probe instances read both; with `--parent-build-log
    <build.log of the parent tree>`, K1's plain instances' ptxas lines
    (registers, stack, spills) must equal the parent's, instance for
-   instance;
+   instance, for every instance the parent has;
 3. each kernel, in each of its uses, and the two-kernel Pallas(QP) and
    multi-launch Pallas(QP-1D) compositions against their plain PyTorch
    versions on the card, on random inputs in f32 and f64 (f32 to 1e-5,
@@ -376,14 +379,21 @@ K1_FORMS = {K1_PLAIN: r"qp_fused3d_kernel.*QPBodyE\dELb0E",
 # to the stage-2 body, the same with or without the probe argument
 K1_INSTANCE = r"qp_fused3d_kernelI(.*?QPBodyE\dE)"
 # K1's instances by dtype and stage-2 body (the QPBody template argument,
-# QP_DMMA = 1 with C12T staged, QP_DMMA_HELD = 2 with it in registers):
-# its f64 DMMA body must hold sm_90's m16n8k8 and no m8n8k4, its f32
-# instances (all SIMT) no DMMA at all.
+# QP_DMMA = 1 with C12T staged, QP_DMMA_HELD = 2 with it in registers,
+# QP_HMMA = 3 in bf16): its f64 DMMA body must hold sm_90's m16n8k8 and no
+# m8n8k4, its f32 instances (all SIMT) no DMMA at all, its bf16 HMMA body
+# the bf16 m16n8k16 with f32 sums, and no other instance any HMMA.
 K1_DMMA, K1_F32 = "K1 qp_fused3d f64 (DMMA)", "K1 qp_fused3d f32"
 K1_HELD = "K1 qp_fused3d f64 (DMMA, C12T held)"
+K1_HMMA = "K1 qp_fused3d bf16 (HMMA)"
+K1_F64, K1_BF16 = "K1 qp_fused3d f64 (SIMT)", "K1 qp_fused3d bf16 (SIMT)"
 K1_KERNELS = {K1_DMMA: r"qp_fused3d_kernelId.*QPBodyE1E",
               K1_HELD: r"qp_fused3d_kernelId.*QPBodyE2E",
-              K1_F32: "qp_fused3d_kernelIf"}
+              K1_HMMA: r"qp_fused3d_kernelI13__nv_bfloat16.*QPBodyE3E",
+              K1_F32: "qp_fused3d_kernelIf", K1_F64: "qp_fused3d_kernelId",
+              K1_BF16: "qp_fused3d_kernelI13__nv_bfloat16"}
+# the bf16 m16n8k16 with f32 sums in cuobjdump's SASS
+HMMA_BF16 = "HMMA.16816.F32.BF16"
 # The cp.async.bulk rings (csrc/ring.cuh) of K12 (copy, scale, triad) and
 # K7's 16-byte form (add), whose SASS must hold the bulk copy (UBLKCP).
 RING_KERNELS = {"K12 ring f32": "ring_kernelIfN.*(Copy|Scale|Triad)",
@@ -518,7 +528,8 @@ def same_k1_residency(log) -> None:
 
     found = k1_ptxas(log)
     for label, dtype, *shape, _ in PROBE_SHAPES:
-        size, tag = dtype.itemsize, "f" if dtype.itemsize == 4 else "d"
+        size = dtype.itemsize
+        tag = {2: "13__nv_bfloat16", 4: "f", 8: "d"}[size]
         cfg = k1.qp_config(size, *shape)
         body = k1.QP_ENTRY_BODIES[cfg.body, cfg.c12t]
         key = (f"{tag}Li{cfg.et}ELi{cfg.planes}ELi{cfg.depth}ELi"
@@ -534,14 +545,19 @@ def same_k1_residency(log) -> None:
 
 def same_k1_registers(log, parent_log) -> None:
     """K1's plain instances' ptxas lines in `log` equal those of the
-    parent tree's build.log `parent_log`, instance for instance."""
+    parent tree's build.log `parent_log`, instance for instance, for each
+    instance the parent has; those it lacks are listed."""
     mine = {k: v for (k, probe), v in k1_ptxas(log).items() if not probe}
-    theirs = {k: v for (k, _), v in k1_ptxas(parent_log).items()}
-    assert mine and mine.keys() == theirs.keys(), (
-        sorted(mine.keys() ^ theirs.keys()))
-    differ = {k: (mine[k], theirs[k]) for k in mine if mine[k] != theirs[k]}
+    theirs = {k: v for (k, probe), v in k1_ptxas(parent_log).items()
+              if not probe}
+    assert theirs and theirs.keys() <= mine.keys(), (
+        sorted(theirs.keys() - mine.keys()))
+    differ = {k: (mine[k], theirs[k]) for k in theirs
+              if mine[k] != theirs[k]}
     assert not differ, differ
-    print(f"  ptxas: K1's {len(mine)} plain instances as the parent's")
+    print(f"  ptxas: K1's {len(theirs)} plain instances as the parent's")
+    for k in sorted(mine.keys() - theirs.keys()):
+        print(f"  ptxas: K1 instance the parent lacks: {k}: {mine[k]}")
 
 
 def build_kernels(parent_log=None) -> None:
@@ -589,6 +605,9 @@ def build_kernels(parent_log=None) -> None:
     for kernel in (K1_DMMA, K1_HELD):
         assert counts.get((kernel, DMMA_SM90), 0) > 0, (kernel, counts)
     assert counts.get((K1_F32, "DMMA"), 0) == 0, counts
+    assert counts.get((K1_HMMA, HMMA_BF16), 0) > 0, counts
+    for kernel in (K1_DMMA, K1_HELD, K1_F32, K1_F64, K1_BF16):
+        assert counts.get((kernel, "HMMA"), 0) == 0, (kernel, counts)
     for op in (CLOCK, TIMER):
         assert counts.get((K1_PLAIN, op), 0) == 0, (op, counts)
         assert counts.get((K1_PROBE, op), 0) > 0, (op, counts)
@@ -598,8 +617,8 @@ def sass_counts(library) -> dict:
     """{(kernel, op): instructions over its instances} in `cuobjdump
     -sass` of the built library: HMMA, DMMA and HGMMA on TF32 in the
     tensor-core kernels (TC_KERNELS), each DMMA also under its shape
-    (DMMA_SM90, DMMA_SM80), DMMA in K1's f64 DMMA body and f32 instances
-    (K1_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
+    (DMMA_SM90, DMMA_SM80), DMMA and HMMA (also as HMMA_BF16) in K1's
+    instances by dtype and body (K1_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
     (SYNCS) in the rings (RING_KERNELS), and reads of the SM clock and
     %globaltimer in K1's plain and probe forms (K1_FORMS).  A function
     counts under the first kernel of each group whose pattern it
@@ -609,7 +628,8 @@ def sass_counts(library) -> dict:
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80,
                             HGMMA_TF32)),
-              (K1_KERNELS, ("DMMA", DMMA_SM90, DMMA_SM80)),
+              (K1_KERNELS, ("DMMA", DMMA_SM90, DMMA_SM80, "HMMA",
+                            HMMA_BF16)),
               (RING_KERNELS, ("UBLKCP", "SYNCS")),
               (K1_FORMS, (CLOCK, TIMER))]
     counts, matched = {}, []

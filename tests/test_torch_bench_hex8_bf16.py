@@ -25,8 +25,8 @@ SHAPE = (7, 49, 8, 64)
 # The card's device memory (NVIDIA H100 80GB HBM3)
 CARD_BYTES = 80 * 10**9
 K1_METRICS = {"qp_fused3d_roofline", "qp_ring_pct", "qp_dmma_pct",
-              "qp_wait_pct", "qp_stage1_pct", "qp_stage2_pct",
-              "qp_slot_idle_pct"}
+              "qp_hmma_pct", "qp_wait_pct", "qp_stage1_pct",
+              "qp_stage2_pct", "qp_slot_idle_pct"}
 
 
 def _config(**changes):
@@ -81,7 +81,7 @@ def test_cell_resolves_to_the_configuration():
     assert {"out_block_spread_pct", "call_us", "alloc_us", "launch_us",
             "device_allocs", "device_idle_pct", "enqueue_us",
             "library_s"} <= per_layer
-    assert len(per_layer) == 15
+    assert len(per_layer) == 16
     assert not {"kron_blocked_roofline", "kron_wgmma_pct",
                 "kron_resident_pct"} & per_layer
     [conf] = [c for c in spec.benchmark()["configs"] if c["name"] == CONFIG]
@@ -123,19 +123,22 @@ def test_yardstick_counts_at_the_configuration():
 
 
 def test_k1_runs_the_rules_depth_1_simt_form():
-    """QP_MEASURED has no bf16 entry at 8^3, so qp_config's rule picks:
-    the largest SIMT tile whose buffers fit two blocks an SM while stage 1
-    keeps half the block busy, (64, 4) at depth 1."""
-    assert (2, *SHAPE) not in k1.QP_MEASURED
-    assert k1.qp_config(2, *SHAPE) == k1.QPConfig(64, 4, 1, 256, "simt")
-    smem = k1.qp_smem(2, 64, 4, *SHAPE)
-    assert smem == 75_376
-    assert 2 * (smem + k1.SMEM_RESERVED) <= k1.SMEM_SM
-    assert 49 * 64 // k1.QP_TE >= k1.QP_THREADS // 2
-    # the 128-element tile fits a block, but not two an SM
-    big = k1.qp_smem(2, 128, 4, *SHAPE)
-    assert big == 144_368 <= k1.SMEM_BLOCK
-    assert 2 * (big + k1.SMEM_RESERVED) > k1.SMEM_SM
+    """QP_MEASURED's bf16 entry at 8^3, the fastest of the sweep back to
+    back at the cell's 1,048,576 elements: (64, 4) at depth 1, stage 2 on
+    the bf16 tensor cores (HMMA), C12T held in registers; the rule, which
+    takes HMMA where C12T fills an m16n8k16 tile, gives the same.  Three
+    blocks an SM fit its shared memory (the SIMT form this entry replaced
+    fit three too, at 75,376 B)."""
+    cfg = k1.QPConfig(64, 4, 1, 256, "hmma", "regs")
+    assert k1.QP_MEASURED[(2, *SHAPE)] == cfg == k1.qp_config(2, *SHAPE)
+    assert k1.qp_config.__wrapped__(2, *SHAPE) == cfg
+    assert k1.qp_hmma_takes(49, 64)
+    smem = k1.qp_smem(2, 64, 4, *SHAPE, 1, "hmma", "regs")
+    assert smem == 69_616
+    assert 3 * (smem + k1.SMEM_RESERVED) <= k1.SMEM_SM
+    assert k1.qp_smem(2, 64, 4, *SHAPE) == 75_376
+    # the 128-element tile has no HMMA instance
+    assert "hmma" not in k1.qp_built_bodies(2, 128)
 
 
 def test_held_outputs_fit_the_card():

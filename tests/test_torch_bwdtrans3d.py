@@ -181,7 +181,7 @@ def test_qp_config_fits_the_card(label, shape, itemsize):
     micro-tiles."""
     et, g, depth, threads, body, where = k1.qp_config(itemsize, *shape)
     assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
-    assert (depth, threads) in k1.qp_forms(itemsize, et)
+    assert (depth, threads) in k1.qp_forms(itemsize, et, body)
     assert body in k1.qp_built_bodies(itemsize, et)
     assert where in k1.qp_c12t_places(body, shape[1], shape[3])
     assert et % k1.QP_TE == 0
@@ -274,7 +274,7 @@ def test_qp_measured_settings_fit_and_are_the_configs():
         assert type(cfg) is k1.QPConfig
         et, g, depth, threads, body, where = cfg
         assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
-        assert (depth, threads) in k1.qp_forms(itemsize, et)
+        assert (depth, threads) in k1.qp_forms(itemsize, et, body)
         assert body in k1.qp_built_bodies(itemsize, et)
         assert where in k1.qp_c12t_places(body, shape[1], shape[3])
         assert k1.qp_smem(itemsize, et, g, *shape, depth, body,
@@ -282,13 +282,138 @@ def test_qp_measured_settings_fit_and_are_the_configs():
         assert k1.qp_config(itemsize, *shape) == cfg
 
 
+# The bf16 shapes of K1_SHAPES whose C12T fills an m16n8k16 tile (nkj >=
+# 16, nrq >= 16), where qp_config takes HMMA: b05 5^3 .. 10^3 and b04 32^2
+HMMA_SHAPES = {f"b05 nq={n}^3" for n in range(5, 11)} | {"b04 nq=32^2"}
+
+
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("label,shape", K1_SHAPES)
 def test_qp_config_keeps_simt_outside_f64(label, shape, itemsize):
-    """DMMA is f64's alone: in bf16 and f32 qp_config gives the SIMT body at
-    every order both benchmarks sweep, and the sweep has no other."""
-    assert k1.qp_config(itemsize, *shape).body == "simt"
-    assert {c.body for c in k1.qp_settings(itemsize, *shape)} <= {"simt"}
+    """DMMA is f64's alone: in f32 qp_config gives the SIMT body at every
+    order both benchmarks sweep, and the sweep has no other.  In bf16 it
+    gives the bf16 tensor cores' body (HMMA) where C12T fills an m16n8k16
+    tile (HMMA_SHAPES), else SIMT, and the sweep has no DMMA."""
+    bodies = {c.body for c in k1.qp_settings(itemsize, *shape)}
+    if itemsize == 4:
+        assert k1.qp_config(itemsize, *shape).body == "simt"
+        assert bodies <= {"simt"}
+    else:
+        assert k1.qp_config(itemsize, *shape).body == (
+            "hmma" if label in HMMA_SHAPES else "simt")
+        assert bodies <= {"simt", "hmma"}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("label,shape", K1_SHAPES)
+def test_qp_config_takes_no_hmma_outside_bf16(label, shape, itemsize):
+    """HMMA is bf16's alone: neither qp_config nor the sweep takes it in
+    f32 or f64."""
+    assert k1.qp_config(itemsize, *shape).body != "hmma"
+    assert "hmma" not in {c.body for c in k1.qp_settings(itemsize, *shape)}
+
+
+@pytest.mark.parametrize("shape,body", [
+    ((5, 25, 6, 36), "hmma"), ((7, 49, 8, 64), "hmma"),
+    ((31, 31, 32, 32), "hmma"), ((4, 16, 5, 25), "hmma"),
+    ((7, 7, 8, 8), "simt"), ((15, 15, 16, 16), "simt"),
+    ((3, 9, 4, 16), "simt"), ((9, 81, 10, 100), "hmma"),
+    ((1, 97, 2, 100), "simt"), ((8, 64, 9, 144), "simt")])
+def test_qp_config_takes_hmma_where_c12t_fills_its_tile(shape, body):
+    """In bf16 qp_config takes HMMA, C12T held in registers, where C12T
+    fills a whole m16n8k16 tile (nkj >= 16 and nrq >= 16) and
+    qp_hmma_takes the shape: b05 6^3, 8^3 and 10^3 (QP_MEASURED's), b04
+    32^2 (nrq = 31) and b05 5^3 (nrq = 16); SIMT at b04 8^2 (nkj = 8) and
+    16^2 (nrq = 15), b05 4^3 (nrq = 9) and past what the warps hold (nrq =
+    97, nkj = 144)."""
+    cfg = k1.qp_config(2, *shape)
+    assert cfg.body == body
+    assert cfg.c12t == ("regs" if body == "hmma" else "smem")
+    assert k1.qp_smem(2, cfg.et, cfg.planes, *shape, cfg.depth, cfg.body,
+                      cfg.c12t) <= k1.SMEM_BLOCK
+    if body == "hmma":
+        assert cfg.et in k1.QP_HMMA_TILES
+
+
+def test_qp_smem_counts_hmma_buffers():
+    """The HMMA body's shared memory: V's rows in whole pairs (nrq rounded
+    up to even), no C12T buffer (held in registers), the rest as SIMT's."""
+    # b05 8^3, tile 64, 4 planes: the slab (343 x 64), V (4 x 50 x 64), B0
+    assert k1.qp_smem(2, 64, 4, 7, 49, 8, 64, 1, "hmma", "regs") == 2 * (
+        343 * 64 + 4 * 50 * 64 + 7 * 8) == 69616
+    assert k1.qp_smem(2, 32, 8, 7, 49, 8, 64, 2, "hmma", "regs") == \
+        16 + 2 * (2 * 343 * 32 + 8 * 50 * 32 + 7 * 8) == 69632
+    # SIMT at the same tile: V of 49 rows, C12T^T (49 x 64)
+    assert k1.qp_smem(2, 64, 4, 7, 49, 8, 64) == 2 * (
+        343 * 64 + 4 * 49 * 64 + 49 * 64 + 7 * 8)
+    # b05 10^3: nrq = 81 pads to 82 rows, nq0 = 10 to 16 planes of B0
+    assert k1.qp_smem(2, 16, 8, 9, 81, 10, 100, 1, "hmma", "regs") == 2 * (
+        729 * 16 + 8 * 82 * 16 + 9 * 16)
+    # b04 32^2: nrq = 31 pads to 32
+    assert k1.qp_smem(2, 32, 8, 31, 31, 32, 32, 1, "hmma", "regs") == 2 * (
+        961 * 32 + 8 * 32 * 32 + 31 * 32)
+    # an even nrq takes no pad row
+    assert k1.qp_smem(2, 16, 4, 5, 36, 7, 49, 1, "hmma", "regs") == 2 * (
+        180 * 16 + 4 * 36 * 16 + 5 * 8)
+
+
+@pytest.mark.parametrize("nrq,nkj,takes", [
+    (49, 64, True), (81, 100, True), (96, 128, True), (31, 32, True),
+    (7, 8, True), (97, 100, False), (81, 129, False), (100, 121, False)])
+def test_qp_hmma_takes_what_its_warps_hold(nrq, nkj, takes):
+    """HMMA holds C12T in registers, each of a block's 8 warps one m tile
+    of 16 kj rows (nkj <= 128) as 6 k steps of 16 rq (nrq <= 96): every
+    b05 order to 10^3 and b04 to 32^2.  It has no staged form, so past
+    that it has no place for C12T and the sweep has no HMMA setting; its
+    blocks are of 256 threads at either depth."""
+    assert k1.qp_hmma_takes(nrq, nkj) is takes
+    assert k1.qp_c12t_places("hmma", nrq, nkj) == (("regs",) if takes
+                                                   else ())
+    shape = (1, nrq, 4, nkj)
+    hmma = {c for c in k1.qp_settings(2, *shape) if c.body == "hmma"}
+    assert {c.c12t for c in hmma} == ({"regs"} if takes else set())
+    assert {c.et for c in hmma} <= set(k1.QP_HMMA_TILES)
+    assert {c.threads for c in hmma} <= {k1.QP_THREADS}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_qp_launch_config_refuses_hmma_outside_bf16(itemsize):
+    """The body knob takes "hmma" in bf16 only: f32 and f64 have no such
+    instance, at qp_config's tile or a given one."""
+    with pytest.raises(ValueError, match="body='hmma' is not one of"):
+        k1.qp_launch_config(itemsize, 7, 49, 8, 64, None, None,
+                            body="hmma")
+    with pytest.raises(ValueError, match="body='hmma' is not one of"):
+        k1.qp_launch_config(itemsize, 7, 49, 8, 64, 16, 8, body="hmma")
+
+
+def test_qp_launch_config_takes_hmma_in_bf16():
+    """In bf16 the knob takes HMMA at its tiles, C12T held (its one
+    place), and refuses it at a tile it is not built for, with C12T
+    staged, and past what its warps hold."""
+    assert k1.qp_launch_config(2, 7, 49, 8, 64, 16, 8, body="hmma") == \
+        k1.QPConfig(16, 8, 1, 256, "hmma", "regs")
+    assert k1.qp_launch_config(2, 7, 49, 8, 64, 32, 8, depth=2,
+                               body="hmma") == \
+        k1.QPConfig(32, 8, 2, 256, "hmma", "regs")
+    # no ring of 512 threads on HMMA (SIMT has one)
+    with pytest.raises(ValueError, match="forms"):
+        k1.qp_launch_config(2, 7, 49, 8, 64, 32, 8, depth=2, threads=512,
+                            body="hmma")
+    assert k1.qp_launch_config(2, 7, 49, 8, 64, 32, 8, depth=2,
+                               threads=512).body == "simt"
+    # b04 8^2, whose rule is SIMT: HMMA asked for at a tile of its own
+    assert k1.qp_launch_config(2, 7, 7, 8, 8, 16, 8, body="hmma") == \
+        k1.QPConfig(16, 8, 1, 256, "hmma", "regs")
+    with pytest.raises(ValueError, match="bodies"):
+        k1.qp_launch_config(2, 7, 49, 8, 64, 128, 4, body="hmma")
+    with pytest.raises(ValueError, match="forms"):
+        k1.qp_launch_config(2, 7, 49, 8, 64, 64, 4, depth=2, body="hmma")
+    with pytest.raises(ValueError, match=r"where='smem' is not one of"):
+        k1.qp_launch_config(2, 7, 49, 8, 64, 16, 8, body="hmma",
+                            where="smem")
+    with pytest.raises(ValueError, match=r"is not one of \(\)"):
+        k1.qp_launch_config(2, 1, 97, 2, 100, 16, 8, body="hmma")
 
 
 def test_qp_config_takes_dmma_at_10_cubed_f64():
@@ -401,6 +526,45 @@ def test_qp_fused3d_every_config_on_card(nq, sizes):
                     for n, out in enumerate(outs):
                         card_agree(out, ref, dtype, tol,
                                    (e, et, g, d, t, body, where, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,e", [
+    ((8, 8, 8), 4099), ((8, 8, 8), 4104), ((10, 10, 10), 1000),
+    ((5, 6, 7), 1000), ((32, 32), 1000)],
+    ids=["b05 8^3 E=4099", "b05 8^3 E=4104", "b05 10^3", "(5,6,7)",
+         "b04 32^2"])
+def test_qp_fused3d_hmma_on_card(nq, e):
+    """K1's bf16 tensor-core body (HMMA) at every (tile, planes, depth,
+    threads) it is built for, and qp_config's choice, against the plain
+    version in bf16 within 2^-7 of the largest output and the norms within
+    1e-4: at b05 8^3 on E = 4099 (rows of out off 16-byte boundaries, so
+    every store is masked per value, and a last tile of 3 elements) and E
+    = 4104 (16-byte stores, a ragged last tile), 10^3 (nrq = 81, nkj =
+    100: a partial last k step, an odd nrq, and a partial last m tile of
+    4 rows), (5, 6, 7) (nrq = 30, nkj = 42, nq0 = 5: planes past nq0 in a
+    group) and b04 32^2 on the plane view (nrq = 31, nkj = 32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if len(nq) == 3:
+        nm0, nrq, nq0, nkj = nq[0] - 1, (nq[1] - 1) * (nq[2] - 1), nq[0], \
+            nq[1] * nq[2]
+    else:
+        nm0, nrq, nq0, nkj = nq[0] - 1, nq[1] - 1, nq[0], nq[1]
+    gen = torch.Generator(device="cuda").manual_seed(e + sum(nq))
+    x, b0, c = (torch.randn(*s, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+                for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
+    ref = k1.qp_shared3d_plain(x, b0, c)
+    settings = [v for v in k1.qp_settings(2, nm0, nrq, nq0, nkj)
+                if v.body == "hmma"]
+    assert len(settings) >= 6
+    for v in [None, *settings]:
+        out = (k1.qp_shared3d(x, b0, c) if v is None else
+               k1.qp_shared3d(x, b0, c, epb=v.et, planes=v.planes,
+                              depth=v.depth, threads=v.threads, body=v.body,
+                              where=v.c12t))
+        card_agree(out, ref, torch.bfloat16, 2**-7, (e, v))
 
 
 # bf16's norm tolerance (test_torch_bf16's NORM_TOL): it catches a bias of

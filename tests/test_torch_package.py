@@ -697,19 +697,20 @@ def test_qp_launch_counts_its_depth(fake_library, monkeypatch, dtype):
     (torch.float32, None, None), (torch.bfloat16, None, None),
     (torch.float64, None, None), (torch.float64, "simt", None),
     (torch.float64, "dmma", None), (torch.float64, "dmma", "smem"),
-    (torch.float64, "dmma", "regs")],
+    (torch.float64, "dmma", "regs"), (torch.bfloat16, "simt", None),
+    (torch.bfloat16, "hmma", None), (torch.bfloat16, "hmma", "regs")],
     ids=["f32", "bf16", "f64", "f64-simt", "f64-dmma", "f64-dmma-smem",
-         "f64-dmma-regs"])
+         "f64-dmma-regs", "bf16-simt", "bf16-hmma", "bf16-hmma-regs"])
 def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
                                               dtype, body, where):
     """K1's stage-2 body and C12T's place round-trip through the wrapper:
     the knobs (given at depth 1, where every pair fits at b05 8^3), or
-    qp_config's choice (SIMT outside f64; C12T staged where the body
-    differs from the choice's and no place is given), reach the
-    entry as QP_ENTRY_BODIES' code just before the stream, after the
-    QPConfig's other fields, and the launch is counted once in qp_bodies
-    under (dtype, body) and, on DMMA, once in qp_dmma_c12t under C12T's
-    place."""
+    qp_config's choice (SIMT in f32, HMMA in bf16, DMMA in f64; C12T
+    staged where the body differs from the choice's and no place is
+    given), reach the entry as QP_ENTRY_BODIES' code just before the
+    stream, after the QPConfig's other fields, and the launch is counted
+    once in qp_bodies under (dtype, body) and, on DMMA, once in
+    qp_dmma_c12t under C12T's place."""
     from tpu_bench_torch.kernels import bwdtrans3d as k1
 
     monkeypatch.setattr(build, "smem_limits", lambda index: (232448, 233472))
@@ -724,8 +725,9 @@ def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
     assert cfg == rule._replace(depth=depth or rule.depth,
                                 body=body or rule.body,
                                 c12t=where or (rule.c12t if same else "smem"))
-    if dtype != torch.float64:
-        assert cfg.body == "simt"
+    assert cfg.body == (body or {torch.float32: "simt",
+                                 torch.bfloat16: "hmma",
+                                 torch.float64: "dmma"}[dtype])
     bodies, places = k1.qp_bodies.copy(), k1.qp_dmma_c12t.copy()
     k1._launch(x, b0, c12t, 49, None, None, depth, body=body, where=where)
     name, args = fake_library.calls[-1]

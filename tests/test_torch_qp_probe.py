@@ -234,6 +234,32 @@ def test_smoke_holds_plain_registers_to_the_parents(smoke, regs, same):
             smoke.same_k1_registers(log, _ptxas(PARENT, 77))
 
 
+def test_smoke_compares_the_parents_plain_lines_not_its_probes(smoke):
+    """A parent with K1's probe form holds both forms' lines under one
+    instance: this tree's plain lines are held to the parent's plain ones,
+    not to its probe's."""
+    parent = _ptxas(PLAIN, 77) + _ptxas(PROBE, 80)
+    smoke.same_k1_registers(_ptxas(PLAIN, 77) + _ptxas(PROBE, 80), parent)
+    with pytest.raises(AssertionError):
+        smoke.same_k1_registers(_ptxas(PLAIN, 80), parent)
+
+
+def test_smoke_lists_instances_the_parent_lacks(smoke, capsys):
+    """An instance of this tree's that the parent lacks (a new stage-2
+    body) is listed, not compared; one of the parent's that this tree
+    lacks fails."""
+    hmma = PLAIN.replace("IfLi128ELi4ELi1ELi256ELNS_6QPBodyE0E",
+                         "I13__nv_bfloat16Li64ELi4ELi1ELi256ELNS_6QPBodyE3E")
+    smoke.same_k1_registers(_ptxas(PLAIN, 77) + _ptxas(hmma, 72),
+                            _ptxas(PARENT, 77))
+    out = capsys.readouterr().out
+    assert "K1's 1 plain instances as the parent's" in out
+    assert "parent lacks: 13__nv_bfloat16Li64ELi4ELi1ELi256ELNS_6QPBodyE3E" \
+        in out
+    with pytest.raises(AssertionError):
+        smoke.same_k1_registers(_ptxas(hmma, 72), _ptxas(PARENT, 77))
+
+
 @pytest.mark.parametrize("regs,blocks", [(77, 3), (80, 3), (81, 2),
                                          (128, 2), (129, 1)])
 def test_smoke_counts_blocks_an_sm_by_registers(smoke, regs, blocks):
@@ -391,12 +417,13 @@ CARD_SHAPES = [("b05 8^3", 7, 49, 8, 64, 4099), ("b04 8^2", 7, 7, 8, 8, 4099)]
 
 # (dtype, stage-2 body, where C12T lives)
 CARD_FORMS = [(torch.float32, "simt", "smem"), (torch.float64, "simt", "smem"),
-              (torch.float64, "dmma", "regs")]
+              (torch.float64, "dmma", "regs"), (torch.bfloat16, "hmma", "regs")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", CARD_FORMS,
-                         ids=["f32", "f64-simt", "f64-dmma-regs"])
+                         ids=["f32", "f64-simt", "f64-dmma-regs",
+                              "bf16-hmma-regs"])
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: s[0])
 def test_probed_launch_writes_the_plain_forms_bits(shape, depth, form,

@@ -69,7 +69,7 @@ setting twice, in the order a b .. b a).  The sweeps:
 
 `--only k1 --probe` times instead K1 at qp_config's choice in its plain
 form and in its probe form (kernels/bwdtrans3d.qp_probed, the form a
-profiled call runs), in turns, at the shapes of the benchmark's five qp
+profiled call runs), in turns, at the shapes of the benchmark's six qp
 cells (PROBE_SHAPES): PROBE_ROUNDS rounds of `in_turns`, each time the
 least of 20 flushed calls, and the probe's cost, its least time over the
 plain form's, less 1; then the probe's readings of the shape's probed
@@ -121,7 +121,7 @@ K1_SHAPES = [(f"b05 nq={n}^3", n - 1, (n - 1) ** 2, n, n * n, NELMT)
              for n in (4, 6, 8, 10)]
 K1_SHAPES += [(f"b04 nq={n}^2", n - 1, n - 1, n, n, B04_NELMT)
               for n in (8, 16, 32)]
-# The shapes of the benchmark's five qp cells (port_bench): (label, dtype,
+# The shapes of the benchmark's six qp cells (port_bench): (label, dtype,
 # nm0, nrq, nq0, nkj, E), where --probe times K1's probe form
 PROBE_SHAPES = [("hex8-f32-qp b05 nq=8^3", torch.float32, 7, 49, 8, 64,
                  NELMT),
@@ -132,7 +132,9 @@ PROBE_SHAPES = [("hex8-f32-qp b05 nq=8^3", torch.float32, 7, 49, 8, 64,
                 ("quad8-f32-qp b04 nq=8^2", torch.float32, 7, 7, 8, 8,
                  B04_NELMT),
                 ("quad32-f64-qp b04 nq=32^2", torch.float64, 31, 31, 32, 32,
-                 524288)]
+                 524288),
+                ("hex8-bf16-qp b05 nq=8^3", torch.bfloat16, 7, 49, 8, 64,
+                 B04_NELMT)]
 PROBE_ROUNDS = 4
 # K2's products: (label, M, K, chunks, columns a chunk)
 K2_SHAPES = [("b05 nq=8^3 QP stage 1", 64, 49, 7, NELMT),

@@ -82,12 +82,34 @@
 //     fastest of benchmarks/kernel_blocks.py's sweep at the benchmarks'
 //     main orders (QP_MEASURED), else depth 1 with the largest tile that
 //     fits two blocks an SM, else one.  Full FP32/FP64 FMA throughout.
-//   - bf16 (benchmarks 04 and 05 with --dtype bf16): the slab, V, C12T^T
+//   - bf16 (benchmarks 04 and 05 with --dtype bf16): the slab, V, C12T
 //     and B0 are stored in bf16 and widened to f32 on load, every sum is
 //     f32, and V is rounded to bf16 when it is stored, before stage 2,
 //     where the JAX kernel rounds its f32 v (bwdtrans3d.py:90); each
 //     output is rounded once.  The bf16 bytes halve the bound (0.067 ms
-//     at b05 8^3 against 0.134 in f32).
+//     at b05 8^3 against 0.134 in f32), but on the SIMT body, which widens
+//     each value it loads, bf16 took f32's time (0.2742 ms at b05 8^3, E =
+//     131,072, flushed), stage 2 half of each block.  Stage 2's operands
+//     are exactly bf16, so it runs on the bf16 tensor cores (QP_HMMA,
+//     qp_stage2_hmma): mma.sync.m16n8k16 with f32 sums, whose products of
+//     two bf16 values are exact in f32; only the order of the f32 sums in
+//     a 16-deep k step differs from the SIMT body's, a few f32 ulps under
+//     the one bf16 rounding of each output.  C12T is held in registers as
+//     each warp's A fragments (as QP_DMMA_HELD, below: QP_HMMA_STEPS k
+//     steps, 24 registers a lane), and a stage 1 of its own
+//     (qp_stage1_pairs) stores V in pair rows (qp_h_col), so that one
+//     16-byte shared load gives a lane its B registers of four n tiles and
+//     the products leave it 8 neighbouring outputs of a row, one 16-byte
+//     st.global.cs.  qp_config takes it where C12T fills an m16n8k16 tile
+//     (nkj >= 16, nrq >= 16) and qp_hmma_takes the shape; it is built at
+//     depth 1 and in the ring, in blocks of 256 threads (its 512-thread
+//     ring was its slowest form at every order).  Measured (NVIDIA H100
+//     80GB HBM3, 700 W): at b05 8^3, E = 131,072, 0.1158-0.1183 ms
+//     flushed (57% of the bytes bound); at the cell's 1,048,576 elements
+//     back to back (64, 4, 1) took 0.8055-0.8278 ms a call against
+//     SIMT's 1.9719 (bytes 0.5352); at 10^3, E = 524,288, (32, 4, 1)
+//     1.1358-1.1509 against the SIMT ring's 3.6362-3.8224; at b04 32^2,
+//     E = 1,048,576, 3.3100 flushed against SIMT's 4.3414.
 //   - f64 at b05 10^3: the operations, not the bytes, bound the SIMT form.
 //     An element takes 2*nq0*nrq*(nm0 + nkj) = 176,580 FLOP, 162,000 of
 //     them (92%) in stage 2, 92.6 GFLOP a call of 524,288 elements: 2.76
@@ -100,8 +122,7 @@
 //     body's; qp_stage2_dmma).  Stage 1 stays SIMT (8% of the FLOP).  The
 //     body is a template argument; kernels/bwdtrans3d.qp_config picks it
 //     from the shape (QP_MEASURED, else DMMA in f64 where nkj >= 16, nrq
-//     >= 8 and the body serves the shape); f32 and bf16 keep the SIMT
-//     body.  Its first form staged C12T in shared memory (nkj padded to
+//     >= 8 and the body serves the shape); f32 keeps the SIMT body.  Its first form staged C12T in shared memory (nkj padded to
 //     112 rows of 88 values at 10^3) and padded V's rows to 8 and to ET +
 //     2 values: 5.37 ms at b05 10^3, E = 524,288 (L2 flushed), a tile
 //     21.6 us an SM, whose slab copy, products and stores took turns in
@@ -186,12 +207,17 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 // shared memory (QP_DMMA) or held in registers (QP_DMMA_HELD): each warp
 // keeps one m tile's, QP_MMA_STEPS k steps of them, so the held form
 // serves nrq <= QP_MMA_K * QP_MMA_STEPS and nkj <= QP_MMA_M * warps
-// (kernels/bwdtrans3d.qp_dmma_takes).
-enum QPBody : int { QP_SIMT = 0, QP_DMMA = 1, QP_DMMA_HELD = 2 };
+// (kernels/bwdtrans3d.qp_dmma_takes).  In bf16 the bf16 tensor cores
+// (QP_HMMA): m16n8k16 tiles of QP_MMA_M kj rows, 8 elements and QP_HMMA_K
+// rq, with f32 sums, C12T held as in QP_DMMA_HELD, QP_HMMA_STEPS k steps a
+// lane (kernels/bwdtrans3d.qp_hmma_takes).
+enum QPBody : int { QP_SIMT = 0, QP_DMMA = 1, QP_DMMA_HELD = 2, QP_HMMA = 3 };
 constexpr int QP_MMA_M = 16;
 constexpr int QP_MMA_K = 8;
 constexpr int QP_MMA_PAIRS = 2;
 constexpr int QP_MMA_STEPS = 11;
+constexpr int QP_HMMA_K = 16;
+constexpr int QP_HMMA_STEPS = 6;
 
 // What a thread holds of C12T from tile to tile: the held form's A
 // fragments; nothing where C12T is staged in shared memory.
@@ -203,6 +229,11 @@ struct QPHeld<QP_DMMA_HELD> {
     double a[QP_MMA_STEPS][4];
 };
 
+template <>
+struct QPHeld<QP_HMMA> {
+    unsigned a[QP_HMMA_STEPS][4];  // two bf16 a register
+};
+
 // DMMA's V (either form), nrq x ET a plane with no padding: element e of row rq lies at
 // column e ^ 2 (rq % 8), the row's 16-byte words XORed with rq % 8, so a
 // quarter warp's 16-byte B loads (rows 2t + r of a k step, words g ^ (2t
@@ -210,6 +241,26 @@ struct QPHeld<QP_DMMA_HELD> {
 // banks.
 __host__ __device__ constexpr int qp_v_col(int rq, int e) {
     return e ^ ((rq & 7) << 1);
+}
+
+// HMMA's V, round_up(nrq, 2) x ET values a plane, in pair rows: pair row
+// pr holds rows 2pr and 2pr + 1 of V as one 32-bit word an element (the
+// even row in the low half, the odd one zero past nrq), so that a word is
+// one register of an m16n8k16 B fragment.  Element e of pair row pr lies
+// at word qp_h_col(pr, e): its 16-byte words (4 elements each) are XORed
+// with 2 (pr % 4), or 2 (pr % 4 / 2) where a pair row holds 4 words (ET =
+// 16), so a quarter warp's 16-byte B loads (pair rows t = 0..3, words g =
+// 0, 1 or 2, 3 of a k step) and stage 1's 8-byte stores hit distinct
+// banks.
+template <int ET>
+__host__ __device__ constexpr int qp_h_col(int pr, int e) {
+    constexpr int W = ET / 4 < 8 ? ET / 4 : 8;  // a pair row's words, to 8
+    return e ^ (2 * ((pr & 3) * W / 8) << 2);
+}
+
+// V's rows a plane: nrq, HMMA's in whole pairs.
+__host__ __device__ constexpr int qp_v_rows(QPBody b, int nrq) {
+    return b == QP_HMMA ? round_up(nrq, 2) : nrq;
 }
 
 // The staged DMMA form's C12T row stride: nrq padded to QP_MMA_K, then to
@@ -222,23 +273,23 @@ __host__ __device__ constexpr int qp_lda(int nrq) {
 
 // C12T's buffer in shared memory: C12T^T (nrq x nkj padded to QP_TK) for
 // SIMT, C12T (nkj padded to QP_MMA_M rows of qp_lda values, zero past nkj
-// and nrq) for the staged DMMA form, none for the held one.
+// and nrq) for the staged DMMA form, none for the held ones.
 __host__ __device__ constexpr int qp_c_size(QPBody b, int nrq, int nkj) {
-    return b == QP_DMMA_HELD ? 0
+    return b == QP_DMMA_HELD || b == QP_HMMA ? 0
            : b == QP_DMMA    ? round_up(nkj, QP_MMA_M) * qp_lda(nrq)
                              : nrq * round_up(nkj, QP_TK);
 }
 
 // Dynamic shared memory of one block: `depth` slabs, V for G planes
-// (nrq x et each), C12T's buffer and B0 (nm0 x nq0 padded to G), each a
-// whole number of 16-byte words; at depth 2 the slots' tiles first.
+// (qp_v_rows x et each), C12T's buffer and B0 (nm0 x nq0 padded to G),
+// each a whole number of 16-byte words; at depth 2 the slots' tiles first.
 template <typename T>
 size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
                      int depth, QPBody body) {
     return (depth > 1 ? QP_SLOT_TILES_BYTES : 0) +
            sizeof(T) *
                (static_cast<size_t>(depth) * nm0 * nrq * et +
-                static_cast<size_t>(g) * nrq * et +
+                static_cast<size_t>(g) * qp_v_rows(body, nrq) * et +
                 static_cast<size_t>(qp_c_size(body, nrq, nkj)) +
                 static_cast<size_t>(nm0) * round_up(nq0, g));
 }
@@ -247,6 +298,13 @@ size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
 // warp of the block's QP_THREADS, and nrq within the k steps a lane holds.
 __host__ __device__ constexpr bool qp_dmma_takes(int nrq, int nkj) {
     return nrq <= QP_MMA_K * QP_MMA_STEPS &&
+           round_up(nkj, QP_MMA_M) / QP_MMA_M <= QP_THREADS / 32;
+}
+
+// Whether the HMMA body serves a shape: as qp_dmma_takes, with nrq within
+// QP_HMMA_STEPS k steps of QP_HMMA_K.
+__host__ __device__ constexpr bool qp_hmma_takes(int nrq, int nkj) {
+    return nrq <= QP_HMMA_K * QP_HMMA_STEPS &&
            round_up(nkj, QP_MMA_M) / QP_MMA_M <= QP_THREADS / 32;
 }
 
@@ -269,6 +327,31 @@ __device__ __forceinline__ void qp_hold_c12t(QPHeld<QP_DMMA_HELD>& held,
             const int kj = mt * QP_MMA_M + gq + 8 * (i % 2);
             const int rq = s * QP_MMA_K + 2 * tq + i / 2;
             held.a[s][i] = kj < nkj && rq < nrq ? c12t[kj * nrq + rq] : 0.0;
+        }
+}
+
+// The same for HMMA's m16n8k16 A fragments (row-major, two bf16 a
+// register, the lower k in the low half): a[s] = {C12T[kj][rq..rq+1],
+// C12T[kj+8][rq..rq+1], C12T[kj][rq+8..rq+9], C12T[kj+8][rq+8..rq+9]} at
+// kj = 16 mt + g, rq = 16s + 2t; zero past nkj and nrq.  The values are
+// read as bits: a row of C12T starts on an odd value where nrq is odd.
+__device__ __forceinline__ void qp_hold_c12t(QPHeld<QP_HMMA>& held,
+                                             const tbt::bf16* __restrict__ c12t,
+                                             int nrq, int nkj) {
+    const int mt = threadIdx.x / 32 % (round_up(nkj, QP_MMA_M) / QP_MMA_M);
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+    const unsigned short* c = reinterpret_cast<const unsigned short*>(c12t);
+#pragma unroll
+    for (int s = 0; s < QP_HMMA_STEPS; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int kj = mt * QP_MMA_M + gq + 8 * (i % 2);
+            const int rq = s * QP_HMMA_K + 2 * tq + 8 * (i / 2);
+            const unsigned lo =
+                kj < nkj && rq < nrq ? c[kj * nrq + rq] : 0u;
+            const unsigned hi =
+                kj < nkj && rq + 1 < nrq ? c[kj * nrq + rq + 1] : 0u;
+            held.a[s][i] = lo | hi << 16;
         }
 }
 
@@ -397,6 +480,136 @@ __device__ __forceinline__ void qp_stage2_dmma(
                     for (int c = 0; c < 4; ++c)
                         if (ee + c < n_elem) y[c] = v[c];
                 }
+            }
+        }
+    }
+}
+
+// Stage 1 into HMMA's V (qp_h_col) for the planes [i0, i0 + G): thread q
+// owns pair row pr (rows 2pr and 2pr + 1, the second zero past nrq) by
+// two elements, two 4-byte loads of the slab a p for 4G FMAs, summed in
+// the SIMT form's order, and stores each plane's four sums rounded to
+// bf16 as one 8-byte pair of words.
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_stage1_pairs(const tbt::bf16* s_x,
+                                                tbt::bf16* s_v,
+                                                const tbt::bf16* s_b0,
+                                                int nm0, int nrq, int nq0p,
+                                                int i0) {
+    constexpr int TX = ET / 2;  // element pairs of a pair row
+    const int pairs = (nrq + 1) / 2, vplane = 2 * pairs * ET;
+    for (int q = threadIdx.x; q < pairs * TX; q += NT) {
+        const int pr = q / TX, e = (q % TX) * 2;
+        const bool two = 2 * pr + 1 < nrq;
+        float acc[G][4];  // [g][2 * row + element]
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[g][c] = 0.0f;
+        for (int p = 0; p < nm0; ++p) {
+            const tbt::bf16* x = s_x + (p * nrq + 2 * pr) * ET + e;
+            const unsigned x0 = *reinterpret_cast<const unsigned*>(x);
+            const unsigned x1 =
+                two ? *reinterpret_cast<const unsigned*>(x + ET) : 0u;
+            const float xv[4] = {tbt::bf16_lo(x0), tbt::bf16_hi(x0),
+                                 tbt::bf16_lo(x1), tbt::bf16_hi(x1)};
+            float w[G];
+#pragma unroll
+            for (int g = 0; g < G; g += 4)
+                tbt::load4(s_b0 + p * nq0p + i0 + g, w + g);
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                    acc[g][c] = fma(w[g], xv[c], acc[g][c]);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+            *reinterpret_cast<uint2*>(s_v + g * vplane + pr * 2 * ET +
+                                      2 * qp_h_col<ET>(pr, e)) =
+                make_uint2(tbt::pack_bf16(acc[g][0], acc[g][2]),
+                           tbt::pack_bf16(acc[g][1], acc[g][3]));
+    }
+}
+
+// Stage 2 of the planes [i0, i0 + G) on the bf16 tensor cores: out[i0+g]
+// [kj][e] = sum_rq C12T[kj][rq] * V[g][rq][e], each plane's (nkj x nrq) @
+// (nrq x ET) as m16n8k16 products of bf16 values, which are exact in f32,
+// summed in f32.  The group's G*ET columns are quads of 32 (4 n tiles); a
+// unit is one m tile by one quad, and warp w takes only units of the m
+// tile it holds (qp_hold_c12t), dealt in turn among that tile's warps as
+// in the held DMMA form; a warp stops at its first unit whose planes lie
+// past nq0.  n slot n of the quad's tile q is its column 4n + q, so lane
+// 4g + t loads the B values of a k step as two 16-byte words of V (pair
+// rows t and t + 4, columns 4g .. 4g + 3: word q is tile q's register),
+// and after the products holds columns 8t .. 8t + 7 of rows g and g + 8.
+// Pair rows past nrq, in a last step that is partial, read zero in
+// registers (a zero of A would not clear a NaN there).  Each output is
+// rounded to bf16 once; a row's 8 go out as one 16-byte st.global.cs
+// where aligned, masked past nkj, nq0 and E.
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_stage2_hmma(
+    const tbt::bf16* s_v, const QPHeld<QP_HMMA>& held,
+    tbt::bf16* __restrict__ out, int nrq, int nq0, int nkj,
+    long long n_elem, long long e0, int i0, bool vec_out) {
+    constexpr int WARPS = NT / 32, QUADS = G * ET / 32;
+    static_assert(ET % 16 == 0 && (G * ET) % 32 == 0, "whole quads");
+    const int mts = round_up(nkj, QP_MMA_M) / QP_MMA_M;
+    const int w = threadIdx.x / 32, mt = w % mts;
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+    const int pairs = (nrq + 1) / 2, vplane = 2 * pairs * ET;
+    const int whole = pairs / 8;  // steps with no pair row past nrq
+    for (int u = w / mts; u < QUADS; u += (WARPS - 1 - mt) / mts + 1) {
+        if (i0 + u * 32 / ET >= nq0) break;  // warp-uniform
+        // pair row 8s + t + 4h of the plane of columns jb .. jb + 3
+        const int jb = u * 32 + 4 * gq;
+        const tbt::bf16* b = s_v + jb / ET * vplane + tq * 2 * ET +
+                             2 * qp_h_col<ET>(tq, jb % ET);
+        float acc[4][4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[q][c] = 0.0f;
+#pragma unroll
+        for (int s = 0; s < QP_HMMA_STEPS; ++s) {
+            if (8 * s >= pairs) break;  // uniform
+            uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+            if (s < whole || 8 * s + tq < pairs)
+                lo = *reinterpret_cast<const uint4*>(b + s * 16 * ET);
+            if (s < whole || 8 * s + tq + 4 < pairs)
+                hi = *reinterpret_cast<const uint4*>(b + s * 16 * ET +
+                                                     8 * ET);
+            const unsigned bl[4] = {lo.x, lo.y, lo.z, lo.w};
+            const unsigned bh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                const unsigned bq[2] = {bl[q], bh[q]};
+                tbt::mma_bf16(acc[q], held.a[s], bq);
+            }
+        }
+        // tile q holds columns 8t + q and 8t + 4 + q of row g + 8h in
+        // acc[q][2h] and acc[q][2h + 1]
+        const int j = u * 32 + 8 * tq;
+        const int i = i0 + j / ET;
+        const long long ee = e0 + j % ET;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int kj = mt * QP_MMA_M + gq + 8 * h;
+            if (i >= nq0 || kj >= nkj) continue;
+            tbt::bf16* y =
+                out + (static_cast<long long>(i) * nkj + kj) * n_elem + ee;
+            float v[8];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+                v[c] = acc[c][2 * h];
+                v[c + 4] = acc[c][2 * h + 1];
+            }
+            if (vec_out && ee + 8 <= n_elem) {
+                tbt::store_cs(y, v);
+            } else {
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+                    if (ee + c < n_elem) y[c] = __float2bfloat16_rn(v[c]);
             }
         }
     }
@@ -595,6 +808,17 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
     const int kgs = kjp / QP_TK;
     for (int i0 = 0; i0 < nq0; i0 += G) {
         if constexpr (P) qp_stamp(sums, QP_NO_PHASE, QP_STAGE1);
+        if constexpr (B == QP_HMMA) {
+            qp_stage1_pairs<ET, G, NT>(s_x, s_v, s_b0, nm0, nrq, nq0p, i0);
+            __syncthreads();
+            if constexpr (P) qp_stamp(sums, QP_STAGE1, QP_STAGE2);
+            qp_stage2_hmma<ET, G, NT>(s_v, held, out, nrq, nq0, nkj, n_elem,
+                                      e0, i0, vec_out);
+            qp_publish(ahead, i0 + G >= nq0);
+            __syncthreads();
+            if constexpr (P) qp_stamp(sums, QP_STAGE2, QP_NO_PHASE);
+            continue;
+        }
         // stage 1: V[g][rq][e] = sum_p B0[p, i0+g] * slab[p*nrq + rq][e],
         // stored as T (the bf16 rounding of v)
         for (int q = threadIdx.x; q < nrq * TX; q += NT) {
@@ -619,7 +843,8 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
 #pragma unroll
             for (int g = 0; g < G; ++g) {
                 T* v = s_v + (g * nrq + rq) * ET;
-                if constexpr (B != QP_SIMT) {  // two words, swizzled
+                if constexpr (B == QP_DMMA || B == QP_DMMA_HELD) {
+                    // two words, swizzled
                     tbt::store16(v + qp_v_col(rq, e), acc[g]);
                     tbt::store16(v + qp_v_col(rq, e + 2), acc[g] + 2);
                 } else {
@@ -629,7 +854,7 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
         }
         __syncthreads();
         if constexpr (P) qp_stamp(sums, QP_STAGE1, QP_STAGE2);
-        if constexpr (B != QP_SIMT) {
+        if constexpr (B == QP_DMMA || B == QP_DMMA_HELD) {
             qp_stage2_dmma<ET, G, NT, B>(s_v, s_ct, held, out, nrq, nq0, nkj,
                                          n_elem, e0, i0, vec_out);
             qp_publish(ahead, i0 + G >= nq0);
@@ -698,11 +923,13 @@ constexpr int qp_min_blocks() {
 
 // The probe form's: as many as its plain form reaches, where its sums'
 // registers would take a block off an SM.  The plain f32 and bf16 SIMT
-// blocks at depth 1 take 72-80 registers, three an SM; their probe form
-// is held to that.
-template <typename T, int D, int NT, QPBody B, bool P>
+// blocks at depth 1 take 72-80 registers, three an SM, and so do the bf16
+// HMMA blocks of 4 planes at depth 1 (76-78); their probe form is held
+// to that.
+template <typename T, int G, int D, int NT, QPBody B, bool P>
 constexpr int qp_probe_min_blocks() {
-    return P && sizeof(T) < 8 && D == 1 && NT == QP_THREADS && B == QP_SIMT
+    return P && sizeof(T) < 8 && D == 1 && NT == QP_THREADS &&
+                   (B == QP_SIMT || (B == QP_HMMA && G == 4))
                ? 3
                : qp_min_blocks<T, D, NT, B>();
 }
@@ -716,7 +943,8 @@ constexpr int qp_probe_min_blocks() {
 // that form's parameters are the ones above.
 template <typename T, int ET, int G, int D, int NT, QPBody B, bool P,
           typename... Probe>
-__global__ void __launch_bounds__(NT, qp_probe_min_blocks<T, D, NT, B, P>())
+__global__ void __launch_bounds__(NT,
+                                  qp_probe_min_blocks<T, G, D, NT, B, P>())
     qp_fused3d_kernel(const T* __restrict__ in, const T* __restrict__ b0,
                       const T* __restrict__ c12t, T* __restrict__ out,
                       int nm0, int nrq, int nq0, int nkj, long long n_elem,
@@ -731,8 +959,8 @@ __global__ void __launch_bounds__(NT, qp_probe_min_blocks<T, D, NT, B, P>())
     T* s_x = reinterpret_cast<T*>(smem_raw +
                                   (D > 1 ? QP_SLOT_TILES_BYTES : 0));
     const size_t slab = static_cast<size_t>(rows) * ET;
-    T* s_v = s_x + D * slab;                            // (G, nrq, ET)
-    T* s_ct = s_v + static_cast<size_t>(G) * nrq * ET;  // qp_c_size
+    T* s_v = s_x + D * slab;  // (G, qp_v_rows, ET)
+    T* s_ct = s_v + static_cast<size_t>(G) * qp_v_rows(B, nrq) * ET;
     T* s_b0 = s_ct + qp_c_size(B, nrq, nkj);            // (nm0, nq0p)
     QPSums<P> sums;
     if constexpr (P) qp_probe_enter<D>(sums, probe...);
@@ -744,7 +972,7 @@ __global__ void __launch_bounds__(NT, qp_probe_min_blocks<T, D, NT, B, P>())
             n_elem % V16 == 0 && tbt::aligned16(in));
     };
     auto stage_operators = [&] {
-        if constexpr (B == QP_DMMA_HELD) {
+        if constexpr (B == QP_DMMA_HELD || B == QP_HMMA) {
             // the warp's A fragments into registers, once a block; the
             // loads are in flight while the slab copy is
             qp_hold_c12t(held, c12t, nrq, nkj);
@@ -870,7 +1098,9 @@ int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 }
 
 // The element tiles of T at depth 1 (kernels/bwdtrans3d.QP_TILES) and
-// at depth 2 (QP_RING_TILES); DMMA's at either depth (QP_DMMA_TILES).
+// at depth 2 (QP_RING_TILES); DMMA's at either depth (QP_DMMA_TILES);
+// HMMA's (QP_HMMA_TILES) at depth 1, and at depth 2 the ring's, in
+// blocks of QP_THREADS.
 template <typename T, int G, int D, int NT, QPBody B, bool P,
           typename... Probe>
 int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
@@ -887,6 +1117,11 @@ int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
                 probe...);
     }
+    if constexpr (D == 1 && B == QP_HMMA)
+        if (et == 64)
+            return launch_tile<T, 64, G, D, NT, B, P>(
+                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                probe...);
     if constexpr (D == 1 && B == QP_SIMT) {
         switch (et) {
             case 64:
@@ -911,7 +1146,7 @@ int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 }
 
 // The (ring depth, threads) forms: kernels/bwdtrans3d.QP_FORMS (no f64
-// block of 512 threads).
+// block of 512 threads, nor HMMA's).
 template <typename T, int G, QPBody B, bool P, typename... Probe>
 int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                   int nrq, int nq0, int nkj, long long n_elem, int et,
@@ -925,7 +1160,7 @@ int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
         return launch_form<T, G, 2, QP_THREADS, B, P>(
             in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream,
             probe...);
-    if constexpr (sizeof(T) != 8)
+    if constexpr (sizeof(T) != 8 && B != QP_HMMA)
         if (depth == 2 && threads == 2 * QP_THREADS)
             return launch_form<T, G, 2, 2 * QP_THREADS, B, P>(
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream,
@@ -951,7 +1186,8 @@ int launch_body(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 
 // The element tiles et, plane groups g, ring depths, block threads and
 // stage-2 bodies (DMMA in f64 only; with C12T held, at the shapes
-// qp_dmma_takes) it is built for (qp_config in
+// qp_dmma_takes; HMMA in bf16 only, at the shapes qp_hmma_takes) it is
+// built for (qp_config in
 // kernels/bwdtrans3d.py picks them for each shape and dtype); P and its
 // QPProbe: the probe form (csrc/qp_fused3d_probe.cu).
 template <typename T, bool P, typename... Probe>
@@ -974,6 +1210,12 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
             return launch_body<T, QP_DMMA_HELD, P>(
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, g, depth,
                 threads, stream, probe...);
+    }
+    if constexpr (sizeof(T) == 2) {
+        if (body == QP_HMMA && qp_hmma_takes(nrq, nkj))
+            return launch_body<T, QP_HMMA, P>(in, b0, c12t, out, nm0, nrq,
+                                              nq0, nkj, n_elem, et, g, depth,
+                                              threads, stream, probe...);
     }
     return cudaErrorInvalidValue;
 }

@@ -70,19 +70,24 @@ QP_FORMS = {2: ((1, 256), (2, 256), (2, 512)),
 QP_RING_TILES = (32, 16)
 QP_THREADS = 256
 QP_TK, QP_TE = 8, 4
-# K1's stage-2 bodies: the SIMT micro-tiles, and in f64 sm_90's DMMA
+# K1's stage-2 bodies: the SIMT micro-tiles, in f64 sm_90's DMMA
 # (mma.sync.m16n8k8 on f64), built for the tiles QP_DMMA_TILES at either
-# depth; where DMMA's C12T lives: staged in shared memory, or held in
+# depth, and in bf16 the bf16 tensor cores (HMMA, mma.sync.m16n8k16 with
+# f32 sums), built for QP_HMMA_TILES at depth 1 and the ring's tiles at
+# depth 2; where DMMA's C12T lives: staged in shared memory, or held in
 # registers, each warp one m tile of QP_MMA_M rows and QP_MMA_STEPS k
-# steps of QP_MMA_K (qp_dmma_takes); the entry's `body` argument for each
+# steps of QP_MMA_K (qp_dmma_takes); HMMA holds it so, QP_HMMA_STEPS k
+# steps of QP_HMMA_K (qp_hmma_takes); the entry's `body` argument for each
 # (body, C12T) pair.
-QP_BODIES = ("simt", "dmma")
+QP_BODIES = ("simt", "dmma", "hmma")
 QP_C12T = ("smem", "regs")
 QP_ENTRY_BODIES = {("simt", "smem"): 0, ("dmma", "smem"): 1,
-                   ("dmma", "regs"): 2}
+                   ("dmma", "regs"): 2, ("hmma", "regs"): 3}
 QP_DMMA_TILES = (32, 16)
+QP_HMMA_TILES = (64, 32, 16)
 QP_MMA_M, QP_MMA_K = 16, 8
 QP_MMA_STEPS = 11
+QP_HMMA_K, QP_HMMA_STEPS = 16, 6
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
 SMEM_RESERVED = 1024
@@ -99,7 +104,8 @@ class QPConfig(typing.NamedTuple):
     depth: int = 1   # slab slots of a block (1: a block a tile)
     threads: int = QP_THREADS
     body: str = "simt"  # stage 2's body, one of QP_BODIES
-    c12t: str = "smem"  # where C12T lives, one of QP_C12T ("regs": DMMA)
+    c12t: str = "smem"  # where C12T lives, one of QP_C12T ("regs": DMMA,
+                        # HMMA)
 
 
 # K1's configuration at the shapes benchmarks/kernel_blocks.py sweeps, by
@@ -121,7 +127,12 @@ class QPConfig(typing.NamedTuple):
 # a call of the cell's 1,048,576 elements in 3.21 ms back to back against
 # the staged ring's 3.63 and (16, 4, 1)'s 3.13-3.33 at depth 1; staged it
 # stays fastest at 6^3 ((32, 8, 1) now, 0.156 against the held form's
-# 0.180) and b04 16^2 (1.515 against 1.929).
+# 0.180) and b04 16^2 (1.515 against 1.929).  The bf16 rows over both
+# bodies, then back to back at the cells' sizes (PERF.md section 6): at
+# b05 8^3 (E = 1,048,576) HMMA (64, 4, 1) ran a call in
+# 0.8055-0.8278 ms and (32, 8, 2) 0.8148-0.8294, against SIMT's 1.9719; at
+# 10^3 (E = 524,288) HMMA (32, 4, 1) 1.1358-1.1509 against the SIMT ring's
+# 3.6362-3.8224.
 QP_MEASURED = {
     (4, 3, 9, 4, 16): QPConfig(128, 4, 1, 256),
     (4, 5, 25, 6, 36): QPConfig(32, 8, 2, 256),
@@ -137,13 +148,15 @@ QP_MEASURED = {
     (8, 7, 7, 8, 8): QPConfig(64, 8, 1, 256),
     (8, 15, 15, 16, 16): QPConfig(32, 8, 1, 256, "dmma"),
     (8, 31, 31, 32, 32): QPConfig(16, 8, 1, 256, "dmma", "regs"),
-    (2, 9, 81, 10, 100): QPConfig(16, 8, 2, 256),
+    (2, 7, 49, 8, 64): QPConfig(64, 4, 1, 256, "hmma", "regs"),
+    (2, 9, 81, 10, 100): QPConfig(32, 4, 1, 256, "hmma", "regs"),
 }
 # K1's launches by the depth they took (a launch of the depth-2 form counts
 # under 2), since the count was last reset: how often the slab ring runs.
 qp_depths: collections.Counter = collections.Counter()
-# K1's launches by (dtype, body) since the count was last reset: "simt" or
-# "dmma" (f64 only, either form), qp_config's choice.
+# K1's launches by (dtype, body) since the count was last reset: "simt",
+# "dmma" (f64 only, either form) or "hmma" (bf16 only), qp_config's
+# choice.
 qp_bodies: collections.Counter = collections.Counter()
 # K1's DMMA launches by where C12T lived ("smem" or "regs") since the count
 # was last reset.
@@ -224,7 +237,7 @@ def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None, depth=None,
     c12t (nkj, nrq).  `epb`: K1's element tile, one of QP_TILES for the
     dtype, `planes`, one of QP_PLANE_GROUPS, `depth` and `threads`, a
     form of qp_forms, `body`, stage 2's body of qp_built_bodies, and
-    `where`, where DMMA's C12T lives, one of QP_C12T; None takes
+    `where`, where C12T lives, one of qp_c12t_places; None takes
     qp_config's choice."""
     if in_pcoa3.dim() != 3:
         raise ValueError(f"in_pcoa3 must be (nm0, nrq, E), got "
@@ -284,17 +297,18 @@ def qp_lda(nrq) -> int:
 def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1, body="simt",
             where="smem") -> int:
     """Shared memory of one K1 block (csrc/qp_fused3d.cuh qp_smem_bytes):
-    `depth` input slabs of the element tile, V (nrq x et) for g planes,
-    C12T's buffer and B0 with nq0 padded to g; at depth 2 the slots' tiles
-    too.  C12T's buffer: C12T^T with nkj padded to QP_TK for SIMT; for
-    DMMA with C12T `where` "smem", C12T with nkj padded to QP_MMA_M rows of
-    qp_lda values, and with "regs" none."""
+    `depth` input slabs of the element tile, V (nrq x et; HMMA's rows in
+    whole pairs) for g planes, C12T's buffer and B0 with nq0 padded to g;
+    at depth 2 the slots' tiles too.  C12T's buffer: C12T^T with nkj
+    padded to QP_TK for SIMT; for DMMA with C12T `where` "smem", C12T with
+    nkj padded to QP_MMA_M rows of qp_lda values, and with "regs" none."""
     if body == "simt":
         c = nrq * _round_up(nkj, QP_TK)
     else:
         c = 0 if where == "regs" else _round_up(nkj, QP_MMA_M) * qp_lda(nrq)
+    v = _round_up(nrq, 2) if body == "hmma" else nrq
     return (QP_SLOT_TILES_BYTES if depth > 1 else 0) + itemsize * (
-        depth * nm0 * nrq * et + g * nrq * et + c + nm0 * _round_up(nq0, g))
+        depth * nm0 * nrq * et + g * v * et + c + nm0 * _round_up(nq0, g))
 
 
 def qp_dmma_takes(nrq, nkj) -> bool:
@@ -305,23 +319,39 @@ def qp_dmma_takes(nrq, nkj) -> bool:
             and _round_up(nkj, QP_MMA_M) // QP_MMA_M <= QP_THREADS // 32)
 
 
-def qp_forms(itemsize, et) -> tuple:
+def qp_hmma_takes(nrq, nkj) -> bool:
+    """Whether the HMMA body serves a shape: each warp of QP_THREADS holds
+    one m tile of C12T (nkj <= 128) as m16n8k16 A fragments of
+    QP_HMMA_STEPS k steps (nrq <= 96)."""
+    return (nrq <= QP_HMMA_K * QP_HMMA_STEPS
+            and _round_up(nkj, QP_MMA_M) // QP_MMA_M <= QP_THREADS // 32)
+
+
+def qp_forms(itemsize, et, body="simt") -> tuple:
     """K1's (depth, threads) forms at element tile et: depth 2 at
-    QP_RING_TILES only."""
-    forms = QP_FORMS[itemsize]
-    return forms if et in QP_RING_TILES else forms[:1]
+    QP_RING_TILES only, and HMMA's in blocks of QP_THREADS only (its
+    512-thread ring was the slowest of its forms at every order swept)."""
+    forms = QP_FORMS[itemsize] if et in QP_RING_TILES else \
+        QP_FORMS[itemsize][:1]
+    return tuple(f for f in forms if body != "hmma" or f[1] == QP_THREADS)
 
 
 def qp_built_bodies(itemsize, et) -> tuple:
     """K1's stage-2 bodies at element tile et: DMMA in f64 at
-    QP_DMMA_TILES only."""
-    return QP_BODIES if itemsize == 8 and et in QP_DMMA_TILES else \
-        QP_BODIES[:1]
+    QP_DMMA_TILES only, HMMA in bf16 at QP_HMMA_TILES only."""
+    if itemsize == 8 and et in QP_DMMA_TILES:
+        return ("simt", "dmma")
+    if itemsize == 2 and et in QP_HMMA_TILES:
+        return ("simt", "hmma")
+    return ("simt",)
 
 
 def qp_c12t_places(body, nrq, nkj) -> tuple:
     """Where C12T may live for a body at a shape: staged in shared memory,
-    and for DMMA also held in registers where qp_dmma_takes."""
+    and for DMMA also held in registers where qp_dmma_takes; HMMA holds it
+    in registers, where qp_hmma_takes (else none)."""
+    if body == "hmma":
+        return QP_C12T[1:] if qp_hmma_takes(nrq, nkj) else ()
     return QP_C12T if body == "dmma" and qp_dmma_takes(nrq, nkj) else \
         QP_C12T[:1]
 
@@ -330,8 +360,9 @@ def qp_settings(itemsize, nm0, nrq, nq0, nkj, limit=SMEM_BLOCK) -> list:
     """Every QPConfig K1 is built for whose buffers fit `limit` bytes at
     a shape (benchmarks/kernel_blocks.py sweeps them)."""
     return [QPConfig(et, g, d, t, b, c) for et in QP_TILES[itemsize]
-            for g in QP_PLANE_GROUPS for d, t in qp_forms(itemsize, et)
+            for g in QP_PLANE_GROUPS
             for b in qp_built_bodies(itemsize, et)
+            for d, t in qp_forms(itemsize, et, b)
             for c in qp_c12t_places(b, nrq, nkj)
             if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d, b, c) <= limit]
 
@@ -350,8 +381,11 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
     the shape and it fits one block's `block_limit` bytes; else depth 1 on
     the DMMA body in f64, C12T staged in shared memory, where C12T holds a
     whole m16n8k8 tile (nkj >= QP_MMA_M, nrq >= QP_MMA_K) and a tile of
-    QP_DMMA_TILES fits, else on the SIMT body, with the largest tile of
-    that body's, with qp_planes' group, whose buffers fit two blocks an SM of `sm_limit` bytes (each
+    QP_DMMA_TILES fits, on the HMMA body in bf16, C12T held, where C12T
+    holds a whole m16n8k16 tile (nkj >= QP_MMA_M, nrq >= QP_HMMA_K),
+    qp_hmma_takes the shape and a tile of QP_HMMA_TILES fits, else on the
+    SIMT body, with the largest tile of that body's, with qp_planes'
+    group, whose buffers fit two blocks an SM of `sm_limit` bytes (each
     block also costs SMEM_RESERVED) while stage 1 keeps at least half the
     block busy (nrq * et / QP_TE positions), else the largest that fits
     one block; None if none fits.  Depth 2 is taken only where the sweep
@@ -363,12 +397,16 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
     bodies = [("simt", QP_TILES[itemsize])]
     if itemsize == 8 and nkj >= QP_MMA_M and nrq >= QP_MMA_K:
         bodies.insert(0, ("dmma", QP_DMMA_TILES))
+    if (itemsize == 2 and nkj >= QP_MMA_M and nrq >= QP_HMMA_K
+            and qp_hmma_takes(nrq, nkj)):
+        bodies.insert(0, ("hmma", QP_HMMA_TILES))
     for body, tiles in bodies:
+        where = "regs" if body == "hmma" else "smem"
         sizes = {}
         for et in tiles:
             g = qp_planes(et, nkj)
-            sizes[QPConfig(et, g, body=body)] = qp_smem(
-                itemsize, et, g, nm0, nrq, nq0, nkj, 1, body)
+            sizes[QPConfig(et, g, body=body, c12t=where)] = qp_smem(
+                itemsize, et, g, nm0, nrq, nq0, nkj, 1, body, where)
         fits = [c for c, b in sizes.items() if b <= block_limit]
         two = [c for c in fits
                if 2 * (sizes[c] + SMEM_RESERVED) <= sm_limit
@@ -386,7 +424,8 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
     `threads`, `body` and `where` (C12T's place) where given, else
     qp_config's choice under the card's `block` and `sm` bytes of shared
     memory; with a given tile, qp_planes' group, depth 1 and the SIMT body
-    unless given too, and C12T staged unless given or the choice's.
+    unless given too, and C12T where the body first may keep it
+    (qp_c12t_places: staged but for HMMA) unless given or the choice's.
     Raises if the knobs are not the kernel's or the buffers do not fit."""
     tiles = QP_TILES[itemsize]
     if epb is not None and epb not in tiles:
@@ -407,22 +446,24 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
     depth = depth or d
     threads = threads or (t if depth == d else QP_THREADS)
     body = body or b
-    where = where or (c if body == b else "smem")
-    if et is not None and (depth, threads) not in qp_forms(itemsize, et):
+    places = qp_c12t_places(body, nrq, nkj)
+    where = where or (c if body == b else (places or ("smem",))[0])
+    if et is not None and (depth, threads) not in qp_forms(itemsize, et,
+                                                           body):
         raise ValueError(f"qp_shared3d: depth={depth}, threads={threads} "
                          "is not one of the kernel's forms "
-                         f"{qp_forms(itemsize, et)} at element tile {et}, "
-                         f"itemsize {itemsize}")
+                         f"{qp_forms(itemsize, et, body)} at element tile "
+                         f"{et}, itemsize {itemsize}, body={body!r}")
     if et is not None and body not in qp_built_bodies(itemsize, et):
         raise ValueError(f"qp_shared3d: body={body!r} is not one of the "
                          f"kernel's bodies {qp_built_bodies(itemsize, et)} "
                          f"at element tile {et}, itemsize {itemsize}")
-    places = qp_c12t_places(body, nrq, nkj)
     if where not in places:
         raise ValueError(f"qp_shared3d: where={where!r} is not one of "
                          f"{places} for body={body!r} at nrq={nrq}, "
                          f"nkj={nkj} (DMMA holds C12T in registers for nrq "
-                         f"<= {QP_MMA_K * QP_MMA_STEPS} and nkj <= "
+                         f"<= {QP_MMA_K * QP_MMA_STEPS}, HMMA for nrq <= "
+                         f"{QP_HMMA_K * QP_HMMA_STEPS}, each for nkj <= "
                          f"{QP_MMA_M * QP_THREADS // 32})")
     if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth,
                              body, where) > block:
