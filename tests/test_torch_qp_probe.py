@@ -24,7 +24,7 @@ CUH = os.path.join(os.path.dirname(k1.__file__), "..", "csrc",
 READERS = ("qp_wait_pct", "qp_stage1_pct", "qp_stage2_pct",
            "qp_slot_idle_pct")
 QP_CELLS = ["hex8-f32-qp", "hex8-f64-qp", "hex10-f64-qp", "quad8-f32-qp",
-            "quad32-f64-qp", "hex8-bf16-qp"]
+            "quad32-f64-qp", "hex8-bf16-qp", "quad8-bf16-qp"]
 ROW = len(k1.QP_PHASES)
 RING = k1.QP_PROBE_HEAD + k1.QP_PROBE_ROWS * ROW
 RECORDS = RING + 2 * k1.QP_PROBE_LAUNCHES
@@ -398,7 +398,7 @@ def test_probed_refuses_a_cpu_tensor():
 
 @pytest.mark.parametrize("name", READERS)
 def test_readers_are_the_qp_cells(name):
-    """Each reader is a per-layer metric of the six qp cells, of K1's
+    """Each reader is a per-layer metric of the seven qp cells, of K1's
     layer, moving gdof_s."""
     [entry] = [m for m in spec.benchmark()["per_layer"] if m["name"] == name]
     assert entry["workloads"] == QP_CELLS
