@@ -32,7 +32,9 @@ five.  Every phase is fatal:
    in K1's f32 instances, the bf16 m16n8k16 with f32 sums
    (HMMA.16816.F32.BF16) in K1's bf16 instances on its HMMA stage-2
    body and no HMMA in K1's f32 and f64 instances nor in its bf16 SIMT
-   ones, the bulk copy (UBLKCP) in the rings, and no
+   ones, HGMMA on TF32 in K1's f32 instances on its TF32 stage-2 body
+   (3xTF32 on wgmma) and no HGMMA in K1's other instances, the bulk copy
+   (UBLKCP) in the rings, and no
    read of the SM clock or %globaltimer in K1's plain instances (P =
    false), where its probe instances read both; with `--parent-build-log
    <build.log of the parent tree>`, K1's plain instances' ptxas lines
@@ -380,16 +382,19 @@ K1_FORMS = {K1_PLAIN: r"qp_fused3d_kernel.*QPBodyE\dELb0E",
 K1_INSTANCE = r"qp_fused3d_kernelI(.*?QPBodyE\dE)"
 # K1's instances by dtype and stage-2 body (the QPBody template argument,
 # QP_DMMA = 1 with C12T staged, QP_DMMA_HELD = 2 with it in registers,
-# QP_HMMA = 3 in bf16): its f64 DMMA body must hold sm_90's m16n8k8 and no
-# m8n8k4, its f32 instances (all SIMT) no DMMA at all, its bf16 HMMA body
-# the bf16 m16n8k16 with f32 sums, and no other instance any HMMA.
-K1_DMMA, K1_F32 = "K1 qp_fused3d f64 (DMMA)", "K1 qp_fused3d f32"
+# QP_HMMA = 3 in bf16, QP_TF32 = 4 in f32): its f64 DMMA body must hold
+# sm_90's m16n8k8 and no m8n8k4, its f32 instances no DMMA at all, its
+# bf16 HMMA body the bf16 m16n8k16 with f32 sums, its f32 TF32 body HGMMA
+# on TF32, and no other instance any HMMA or HGMMA.
+K1_DMMA, K1_F32 = "K1 qp_fused3d f64 (DMMA)", "K1 qp_fused3d f32 (SIMT)"
 K1_HELD = "K1 qp_fused3d f64 (DMMA, C12T held)"
 K1_HMMA = "K1 qp_fused3d bf16 (HMMA)"
+K1_TF32 = "K1 qp_fused3d f32 (TF32 on wgmma)"
 K1_F64, K1_BF16 = "K1 qp_fused3d f64 (SIMT)", "K1 qp_fused3d bf16 (SIMT)"
 K1_KERNELS = {K1_DMMA: r"qp_fused3d_kernelId.*QPBodyE1E",
               K1_HELD: r"qp_fused3d_kernelId.*QPBodyE2E",
               K1_HMMA: r"qp_fused3d_kernelI13__nv_bfloat16.*QPBodyE3E",
+              K1_TF32: r"qp_fused3d_kernelIf.*QPBodyE4E",
               K1_F32: "qp_fused3d_kernelIf", K1_F64: "qp_fused3d_kernelId",
               K1_BF16: "qp_fused3d_kernelI13__nv_bfloat16"}
 # the bf16 m16n8k16 with f32 sums in cuobjdump's SASS
@@ -606,8 +611,12 @@ def build_kernels(parent_log=None) -> None:
         assert counts.get((kernel, DMMA_SM90), 0) > 0, (kernel, counts)
     assert counts.get((K1_F32, "DMMA"), 0) == 0, counts
     assert counts.get((K1_HMMA, HMMA_BF16), 0) > 0, counts
-    for kernel in (K1_DMMA, K1_HELD, K1_F32, K1_F64, K1_BF16):
+    assert counts.get((K1_TF32, HGMMA_TF32), 0) > 0, counts
+    assert counts.get((K1_TF32, "DMMA"), 0) == 0, counts
+    for kernel in (K1_DMMA, K1_HELD, K1_F32, K1_F64, K1_BF16, K1_TF32):
         assert counts.get((kernel, "HMMA"), 0) == 0, (kernel, counts)
+    for kernel in (K1_DMMA, K1_HELD, K1_HMMA, K1_F32, K1_F64, K1_BF16):
+        assert counts.get((kernel, "HGMMA"), 0) == 0, (kernel, counts)
     for op in (CLOCK, TIMER):
         assert counts.get((K1_PLAIN, op), 0) == 0, (op, counts)
         assert counts.get((K1_PROBE, op), 0) > 0, (op, counts)
@@ -617,8 +626,9 @@ def sass_counts(library) -> dict:
     """{(kernel, op): instructions over its instances} in `cuobjdump
     -sass` of the built library: HMMA, DMMA and HGMMA on TF32 in the
     tensor-core kernels (TC_KERNELS), each DMMA also under its shape
-    (DMMA_SM90, DMMA_SM80), DMMA and HMMA (also as HMMA_BF16) in K1's
-    instances by dtype and body (K1_KERNELS), and the bulk copies (UBLKCP) and mbarrier operations
+    (DMMA_SM90, DMMA_SM80), DMMA, HMMA (also as HMMA_BF16) and HGMMA (also
+    on TF32) in K1's instances by dtype and body (K1_KERNELS), and the
+    bulk copies (UBLKCP) and mbarrier operations
     (SYNCS) in the rings (RING_KERNELS), and reads of the SM clock and
     %globaltimer in K1's plain and probe forms (K1_FORMS).  A function
     counts under the first kernel of each group whose pattern it
@@ -629,7 +639,7 @@ def sass_counts(library) -> dict:
     groups = [(TC_KERNELS, ("HMMA", "DMMA", DMMA_SM90, DMMA_SM80,
                             HGMMA_TF32)),
               (K1_KERNELS, ("DMMA", DMMA_SM90, DMMA_SM80, "HMMA",
-                            HMMA_BF16)),
+                            HMMA_BF16, "HGMMA", HGMMA_TF32)),
               (RING_KERNELS, ("UBLKCP", "SYNCS")),
               (K1_FORMS, (CLOCK, TIMER))]
     counts, matched = {}, []

@@ -287,17 +287,24 @@ def test_qp_measured_settings_fit_and_are_the_configs():
 HMMA_SHAPES = {f"b05 nq={n}^3" for n in range(5, 11)} | {"b04 nq=32^2"}
 
 
+# The f32 shapes (nm0, nrq, nq0, nkj) where the sweep measured K1's TF32
+# body (3xTF32 on wgmma) faster than SIMT, which QP_MEASURED names
+TF32_MEASURED = {(7, 49, 8, 64)}
+
+
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("label,shape", K1_SHAPES)
 def test_qp_config_keeps_simt_outside_f64(label, shape, itemsize):
     """DMMA is f64's alone: in f32 qp_config gives the SIMT body at every
-    order both benchmarks sweep, and the sweep has no other.  In bf16 it
-    gives the bf16 tensor cores' body (HMMA) where C12T fills an m16n8k16
-    tile (HMMA_SHAPES), else SIMT, and the sweep has no DMMA."""
+    order both benchmarks sweep but where QP_MEASURED names the TF32 body
+    (TF32_MEASURED), and the sweep has no DMMA or HMMA.  In bf16 it gives
+    the bf16 tensor cores' body (HMMA) where C12T fills an m16n8k16 tile
+    (HMMA_SHAPES), else SIMT, and the sweep has no DMMA."""
     bodies = {c.body for c in k1.qp_settings(itemsize, *shape)}
     if itemsize == 4:
-        assert k1.qp_config(itemsize, *shape).body == "simt"
-        assert bodies <= {"simt"}
+        assert k1.qp_config(itemsize, *shape).body == (
+            "tf32" if shape in TF32_MEASURED else "simt")
+        assert bodies <= {"simt", "tf32"}
     else:
         assert k1.qp_config(itemsize, *shape).body == (
             "hmma" if label in HMMA_SHAPES else "simt")
@@ -311,6 +318,132 @@ def test_qp_config_takes_no_hmma_outside_bf16(label, shape, itemsize):
     f32 or f64."""
     assert k1.qp_config(itemsize, *shape).body != "hmma"
     assert "hmma" not in {c.body for c in k1.qp_settings(itemsize, *shape)}
+
+
+@pytest.mark.parametrize("itemsize", [2, 8])
+@pytest.mark.parametrize("label,shape", K1_SHAPES)
+def test_qp_config_takes_no_tf32_outside_f32(label, shape, itemsize):
+    """TF32 is f32's alone: neither qp_config nor the sweep takes it in
+    bf16 or f64."""
+    assert k1.qp_config(itemsize, *shape).body != "tf32"
+    assert "tf32" not in {c.body for c in k1.qp_settings(itemsize, *shape)}
+
+
+@pytest.mark.parametrize("shape", sorted(key[1:] for key in k1.QP_MEASURED
+                                         if key[0] == 4))
+def test_qp_config_takes_tf32_only_where_measured(shape):
+    """In f32 qp_config takes the TF32 body only where QP_MEASURED names
+    it (b05 8^3, TF32_MEASURED), and SIMT at every other f32 row the sweep
+    left there (b04 8^2 among them, whose 8 x 7 C12T fills no m64 tile):
+    the TF32 form C12T held, at one of its tiles with the plane group of
+    its two warp groups' 128 columns, in blocks of 256 threads whose
+    buffers fit two an SM."""
+    cfg = k1.qp_config(4, *shape)
+    assert cfg == k1.QP_MEASURED[(4, *shape)]
+    if shape not in TF32_MEASURED:
+        assert cfg.body == "simt"
+        return
+    assert cfg.body == "tf32" and cfg.c12t == "regs"
+    assert k1.qp_tf32_takes(shape[1], shape[3])
+    assert cfg.et in k1.QP_TF32_TILES and cfg.threads == k1.QP_THREADS
+    assert cfg.planes * cfg.et == k1.QP_TF32_COLUMNS
+    smem = k1.qp_smem(4, cfg.et, cfg.planes, *shape, cfg.depth, cfg.body,
+                      cfg.c12t)
+    assert 2 * (smem + k1.SMEM_RESERVED) <= k1.SMEM_SM
+
+
+def test_qp_smem_counts_tf32_buffers():
+    """The TF32 body's shared memory: V as two halves (big and small) of
+    its 7 k steps of 8 rows by the plane group's 128 columns whatever nrq
+    (rows past nrq zero); no C12T buffer (held in registers); the rest as
+    SIMT's.  The ring's (16, 8) fits two blocks an SM, (32, 4) at depth 2
+    only one."""
+    v = 2 * 56 * 128
+    # b05 8^3: the slab(s) (343 x et), V, B0
+    assert k1.qp_smem(4, 16, 8, 7, 49, 8, 64, 2, "tf32", "regs") == \
+        16 + 4 * (2 * 343 * 16 + v + 7 * 8) == 101488
+    assert k1.qp_smem(4, 16, 8, 7, 49, 8, 64, 1, "tf32", "regs") == 4 * (
+        343 * 16 + v + 7 * 8) == 79520
+    assert k1.qp_smem(4, 32, 4, 7, 49, 8, 64, 1, "tf32", "regs") == 4 * (
+        343 * 32 + v + 7 * 8) == 101472
+    assert k1.qp_smem(4, 32, 4, 7, 49, 8, 64, 2, "tf32", "regs") == 145392
+    assert 2 * (101488 + k1.SMEM_RESERVED) <= k1.SMEM_SM
+    assert 2 * (145392 + k1.SMEM_RESERVED) > k1.SMEM_SM
+    # b05 6^3: nrq = 25, V the same; nq0 = 6 pads to the group's 8 planes
+    # of B0
+    assert k1.qp_smem(4, 16, 8, 5, 25, 6, 36, 1, "tf32", "regs") == 4 * (
+        125 * 16 + v + 5 * 8)
+    # b04 8^2: nrq = 7
+    assert k1.qp_smem(4, 32, 4, 7, 7, 8, 8, 1, "tf32", "regs") == 4 * (
+        49 * 32 + v + 7 * 8)
+
+
+@pytest.mark.parametrize("nrq,nkj,takes", [
+    (49, 64, True), (56, 64, True), (25, 36, True), (31, 32, True),
+    (7, 8, True), (57, 64, False), (49, 65, False), (81, 100, False)])
+def test_qp_tf32_takes_what_its_warps_hold(nrq, nkj, takes):
+    """The TF32 body holds C12T in registers as one m64 tile (nkj <= 64),
+    7 k steps of 8 rq (nrq <= 56): b05 to 8^3 and b04 to 32^2, not b05
+    10^3.  It has no staged form, so past that it has no place for C12T
+    and the sweep has no TF32 setting; its settings are the ring's tiles
+    with the plane group of 128 columns, in blocks of 256 threads, at
+    either depth."""
+    assert k1.qp_tf32_takes(nrq, nkj) is takes
+    assert k1.qp_c12t_places("tf32", nrq, nkj) == (("regs",) if takes
+                                                   else ())
+    tf32 = {c for c in k1.qp_settings(4, 1, nrq, 4, nkj) if c.body == "tf32"}
+    assert {c.c12t for c in tf32} == ({"regs"} if takes else set())
+    assert {(c.et, c.planes) for c in tf32} == (
+        {(16, 8), (32, 4)} if takes else set())
+    assert {(c.depth, c.threads) for c in tf32} == (
+        {(1, 256), (2, 256)} if takes else set())
+
+
+@pytest.mark.parametrize("itemsize", [2, 8])
+def test_qp_launch_config_refuses_tf32_outside_f32(itemsize):
+    """The body knob takes "tf32" in f32 only: bf16 and f64 have no such
+    instance."""
+    with pytest.raises(ValueError, match="body='tf32' is not one of"):
+        k1.qp_launch_config(itemsize, 7, 49, 8, 64, 16, 8, body="tf32")
+
+
+def test_qp_launch_config_takes_tf32_in_f32():
+    """In f32 the knob takes TF32 at its tiles, each with the plane group
+    of 128 columns unless one is given, C12T held (its one place), and
+    refuses another plane group, a tile it is not built for, the
+    512-thread ring, C12T staged and a shape past what its warps hold.
+    The entry's body code is the kernel's QP_TF32, 4."""
+    assert k1.QP_ENTRY_BODIES["tf32", "regs"] == 4
+    assert k1.qp_built_bodies(4, 16) == k1.qp_built_bodies(4, 32) == \
+        ("simt", "tf32")
+    assert "tf32" not in k1.qp_built_bodies(4, 64) + k1.qp_built_bodies(4, 128)
+    assert k1.qp_forms(4, 16, "tf32") == ((1, 256), (2, 256))
+    assert k1.qp_tf32_planes(16) == 8 and k1.qp_tf32_planes(32) == 4
+    assert k1.qp_launch_config(4, 7, 49, 8, 64, 16, None, body="tf32") == \
+        k1.QPConfig(16, 8, 1, 256, "tf32", "regs")
+    assert k1.qp_launch_config(4, 7, 49, 8, 64, 32, None, depth=2,
+                               body="tf32") == \
+        k1.QPConfig(32, 4, 2, 256, "tf32", "regs")
+    # b04 8^2, whose rule is SIMT: TF32 asked for at a tile of its own
+    assert k1.qp_launch_config(4, 7, 7, 8, 8, 32, None, body="tf32") == \
+        k1.QPConfig(32, 4, 1, 256, "tf32", "regs")
+    with pytest.raises(ValueError, match="planes=8 with body='tf32'"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 32, 8, body="tf32")
+    with pytest.raises(ValueError, match="bodies"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 64, None, body="tf32")
+    with pytest.raises(ValueError, match="forms"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 16, None, depth=2, threads=512,
+                            body="tf32")
+    with pytest.raises(ValueError, match=r"where='smem' is not one of"):
+        k1.qp_launch_config(4, 7, 49, 8, 64, 16, None, body="tf32",
+                            where="smem")
+    with pytest.raises(ValueError, match=r"is not one of \(\)"):
+        k1.qp_launch_config(4, 9, 81, 10, 100, 16, None, body="tf32")
+    # the SIMT body asked for where the rule takes TF32: the rule's tile,
+    # group and form, C12T staged
+    assert k1.qp_launch_config(4, 7, 49, 8, 64, None, None,
+                               body="simt") == \
+        k1.QPConfig(32, 4, 1, 256, "simt", "smem")
 
 
 @pytest.mark.parametrize("shape,body", [
@@ -449,12 +582,13 @@ def test_qp_config_default_rule_for_f64(shape, body):
 
 
 @pytest.mark.parametrize("itemsize,shape,depth", [
-    (4, (7, 49, 8, 64), 2), (8, (7, 49, 8, 64), 2),
+    (4, (5, 25, 6, 36), 2), (8, (7, 49, 8, 64), 2),
     (8, (31, 31, 32, 32), 1), (8, (9, 81, 10, 100), 2)])
 def test_qp_config_takes_the_ring_where_measured(itemsize, shape, depth):
-    """Depth 2 at the benchmark's b05 nq=8^3 in f32 and f64 and at 10^3 in
-    f64 (on DMMA), where the sweep measured the ring faster; depth 1 at
-    b04 nq=32^2, where two slabs of the chosen tile do not fit a block.
+    """Depth 2 at b05 nq=6^3 in f32 (SIMT), at the benchmark's b05 nq=8^3
+    in f64 and at 10^3 in f64 (on DMMA), where the sweep measured the ring
+    faster (at 8^3 in f32 the TF32 body's depth 1 beat its ring); depth 1
+    at b04 nq=32^2, where two slabs of the chosen tile do not fit a block.
     Either way the buffers, slots included, fit one block's shared
     memory."""
     cfg = k1.qp_config(itemsize, *shape)
@@ -565,6 +699,49 @@ def test_qp_fused3d_hmma_on_card(nq, e):
                               depth=v.depth, threads=v.threads, body=v.body,
                               where=v.c12t))
         card_agree(out, ref, torch.bfloat16, 2**-7, (e, v))
+
+
+# The f32 shapes (nm0, nrq, nq0, nkj) where K1's TF32 body runs: b05 8^3
+# and every shape QP_MEASURED gives it
+TF32_SHAPES = sorted({(7, 49, 8, 64)} | {
+    key[1:] for key, cfg in k1.QP_MEASURED.items() if cfg.body == "tf32"})
+# K1's f32 output from the TF32 body against the f64 product of the same
+# f32 inputs, relative to its largest output: f32 level (the SIMT body
+# and K2's 3xTF32 read 2.5-4.4e-7 in the benchmark), where one TF32 pass
+# reads about 3e-4
+TF32_F64_RTOL = 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e", [4096, 4099, 15],
+                         ids=["whole tiles", "ragged", "under a tile"])
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=str)
+def test_qp_fused3d_tf32_on_card(shape, e):
+    """K1's f32 stage 2 as 3xTF32 on wgmma at every (tile, planes, depth)
+    it is built for, and qp_config's choice, on E a whole number of every
+    tile, E no multiple of a tile (rows of out off 16-byte boundaries, so
+    every store is masked per value) and E under one tile: within 1e-5 of
+    the plain version and TF32_F64_RTOL of the f64 product, relative to
+    the largest output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    nm0, nrq, nq0, nkj = shape
+    gen = torch.Generator(device="cuda").manual_seed(e + nrq)
+    x, b0, c = (torch.randn(*s, generator=gen, device="cuda")
+                for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
+    ref = k1.qp_shared3d_plain(x, b0, c)
+    ref64 = k1.qp_shared3d_plain(x.double(), b0.double(), c.double())
+    settings = [v for v in k1.qp_settings(4, nm0, nrq, nq0, nkj)
+                if v.body == "tf32"]
+    assert len(settings) >= 3
+    for v in [None, *settings]:
+        out = (k1.qp_shared3d(x, b0, c) if v is None else
+               k1.qp_shared3d(x, b0, c, epb=v.et, planes=v.planes,
+                              depth=v.depth, threads=v.threads, body=v.body,
+                              where=v.c12t))
+        card_agree(out, ref, torch.float32, 1e-5, (e, v))
+        err = float((out.double() - ref64).abs().max() / ref64.abs().max())
+        assert err <= TF32_F64_RTOL, (e, v, err)
 
 
 # bf16's norm tolerance (test_torch_bf16's NORM_TOL): it catches a bias of

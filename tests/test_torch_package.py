@@ -698,14 +698,17 @@ def test_qp_launch_counts_its_depth(fake_library, monkeypatch, dtype):
     (torch.float64, None, None), (torch.float64, "simt", None),
     (torch.float64, "dmma", None), (torch.float64, "dmma", "smem"),
     (torch.float64, "dmma", "regs"), (torch.bfloat16, "simt", None),
-    (torch.bfloat16, "hmma", None), (torch.bfloat16, "hmma", "regs")],
+    (torch.bfloat16, "hmma", None), (torch.bfloat16, "hmma", "regs"),
+    (torch.float32, "simt", None), (torch.float32, "tf32", None),
+    (torch.float32, "tf32", "regs")],
     ids=["f32", "bf16", "f64", "f64-simt", "f64-dmma", "f64-dmma-smem",
-         "f64-dmma-regs", "bf16-simt", "bf16-hmma", "bf16-hmma-regs"])
+         "f64-dmma-regs", "bf16-simt", "bf16-hmma", "bf16-hmma-regs",
+         "f32-simt", "f32-tf32", "f32-tf32-regs"])
 def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
                                               dtype, body, where):
     """K1's stage-2 body and C12T's place round-trip through the wrapper:
     the knobs (given at depth 1, where every pair fits at b05 8^3), or
-    qp_config's choice (SIMT in f32, HMMA in bf16, DMMA in f64; C12T
+    qp_config's choice (TF32 in f32, HMMA in bf16, DMMA in f64; C12T
     staged where the body differs from the choice's and no place is
     given), reach the entry as QP_ENTRY_BODIES' code just before the
     stream, after the QPConfig's other fields, and the launch is counted
@@ -725,7 +728,7 @@ def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
     assert cfg == rule._replace(depth=depth or rule.depth,
                                 body=body or rule.body,
                                 c12t=where or (rule.c12t if same else "smem"))
-    assert cfg.body == (body or {torch.float32: "simt",
+    assert cfg.body == (body or {torch.float32: "tf32",
                                  torch.bfloat16: "hmma",
                                  torch.float64: "dmma"}[dtype])
     bodies, places = k1.qp_bodies.copy(), k1.qp_dmma_c12t.copy()

@@ -417,13 +417,14 @@ CARD_SHAPES = [("b05 8^3", 7, 49, 8, 64, 4099), ("b04 8^2", 7, 7, 8, 8, 4099)]
 
 # (dtype, stage-2 body, where C12T lives)
 CARD_FORMS = [(torch.float32, "simt", "smem"), (torch.float64, "simt", "smem"),
-              (torch.float64, "dmma", "regs"), (torch.bfloat16, "hmma", "regs")]
+              (torch.float64, "dmma", "regs"), (torch.bfloat16, "hmma", "regs"),
+              (torch.float32, "tf32", "regs")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", CARD_FORMS,
                          ids=["f32", "f64-simt", "f64-dmma-regs",
-                              "bf16-hmma-regs"])
+                              "bf16-hmma-regs", "f32-tf32-regs"])
 @pytest.mark.parametrize("depth", [1, 2])
 @pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: s[0])
 def test_probed_launch_writes_the_plain_forms_bits(shape, depth, form,

@@ -17,7 +17,9 @@ JAX kernel at precision HIGHEST, and a single TF32 pass does not.  K2's
 dense configuration (csrc/bwdtrans2d.cu) runs the same 3xTF32 arithmetic
 in 32-deep partial sums, on wgmma in f32, as K3's does on mma.sync:
 emulated at the depths they run, they stay within 1e-5 of the f64
-product too.
+product too.  K1's f32 stage 2 on wgmma (csrc/qp_fused3d.cuh) sums its
+3xTF32 products in one accumulator, every small product first: emulated
+at the shapes it runs, it stays within 1e-6 of the f64 product.
 """
 
 import jax
@@ -307,3 +309,73 @@ def test_k2_3xtf32_within_1e5_at_its_depths(label, m, k):
     out = matmul_3xtf32_truncating(c, x, part)
     assert _rel(out, ref) <= K5_RTOL
     assert _rel(matmul_1xtf32(c, x), ref) > K5_RTOL
+
+
+# K1's f32 stage 2 on wgmma (csrc/qp_fused3d.cuh qp_stage2_tf32): C12T (nkj
+# x nrq, held in registers) @ V (nrq x the plane group's 128 columns), k
+# padded to whole 8-deep steps with zeros, 3xTF32 with the units'
+# truncating f32 sums in one accumulator: the two small products of every
+# k step first, then the big ones.
+K1_TF32_RTOL = 1e-6
+
+
+def k1_tf32_body(c12t, v, small_first=True):
+    """C12T @ V as K1's TF32 body sums it: each wgmma k8 product's eight
+    exact products added to the accumulator and truncated to f32; k steps
+    of 8 over nrq padded with zeros to whole steps; small*big and
+    big*small of every step, then big*big of every step (small_first),
+    or K2's order, a step's three products together."""
+    k = -(-c12t.shape[1] // 8) * 8
+    a = np.zeros((c12t.shape[0], k), np.float32)
+    b = np.zeros((k, v.shape[1]), np.float32)
+    a[:, :c12t.shape[1]], b[:v.shape[0]] = c12t, v
+    (ab, asm), (bb, bs) = _split(a), _split(b)
+    steps = [slice(k8, k8 + 8) for k8 in range(0, k, 8)]
+    if small_first:
+        order = [(x, y, s) for s in steps for x, y in ((asm, bb), (ab, bs))]
+        order += [(ab, bb, s) for s in steps]
+    else:
+        order = [(x, y, s) for s in steps
+                 for x, y in ((asm, bb), (ab, bs), (ab, bb))]
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for x, y, s in order:
+        acc = _round_toward_zero(acc.astype(np.float64)
+                                 + x[:, s].astype(np.float64)
+                                 @ y[s].astype(np.float64))
+    return acc
+
+
+# (nkj, nrq) of K1's 64 x 56 @ 56 x 128 at b05 nq=8^3 and of every shape
+# QP_MEASURED gives the TF32 body
+K1_TF32_SHAPES = sorted({(64, 49)} | {
+    (key[4], key[2]) for key, cfg in k1.QP_MEASURED.items()
+    if cfg.body == "tf32"})
+
+
+@pytest.mark.parametrize("nkj,nrq", K1_TF32_SHAPES)
+def test_k1_tf32_body_within_1e6_of_f64(nkj, nrq):
+    """K1's TF32 body on random dense C12T and V (the plane group's 128
+    columns) stays within 1e-6 of the f64 product, relative to its largest
+    output, at each shape it runs; one TF32 pass does not."""
+    assert nkj <= k1.QP_TF32_M and nrq <= k1.QP_TF32_K * k1.QP_TF32_STEPS
+    rng = np.random.default_rng(nkj * 100 + nrq)
+    c12t = rng.standard_normal((nkj, nrq)).astype(np.float32)
+    v = rng.standard_normal((nrq, k1.QP_TF32_COLUMNS)).astype(np.float32)
+    ref = c12t.astype(np.float64) @ v.astype(np.float64)
+    assert _rel(k1_tf32_body(c12t, v), ref) <= K1_TF32_RTOL
+    assert _rel(matmul_1xtf32(c12t, v), ref) > K1_TF32_RTOL
+
+
+def test_k1_tf32_body_adds_small_products_first():
+    """Why the body issues every small product before the big ones: at b05
+    nq=8^3 (seven k steps) K2's order, a step's three products together,
+    truncates the full running sum three times a step and lands more than
+    twice as far from f64 as the small-first order, which truncates it
+    once a step."""
+    rng = np.random.default_rng(8)
+    c12t = rng.standard_normal((64, 49)).astype(np.float32)
+    v = rng.standard_normal((49, k1.QP_TF32_COLUMNS)).astype(np.float32)
+    ref = c12t.astype(np.float64) @ v.astype(np.float64)
+    first = _rel(k1_tf32_body(c12t, v), ref)
+    together = _rel(k1_tf32_body(c12t, v, small_first=False), ref)
+    assert first < together / 2

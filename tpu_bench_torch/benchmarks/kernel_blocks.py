@@ -14,8 +14,9 @@ before each) for every setting, one line per setting, in turns (each
 setting twice, in the order a b .. b a).  The sweeps:
 
 - K1 (qp_fused3d): every (element tile, plane group, depth, threads,
-  stage-2 body: SIMT, and in f64 DMMA, with C12T staged in shared memory
-  or held in registers) whose buffers fit, at benchmark05's nq=4^3, 6^3,
+  stage-2 body: SIMT, in f64 DMMA, with C12T staged in shared memory or
+  held in registers, in bf16 HMMA and in f32 3xTF32 on wgmma, each with
+  C12T held) whose buffers fit, at benchmark05's nq=4^3, 6^3,
   8^3 and 10^3 (E=131072) and benchmark04's 8^2, 16^2 and 32^2
   (E=1,048,576); `*` marks qp_config's choice; then K1's launches by
   depth (qp_depths), by (dtype, body) (qp_bodies) and its DMMA launches

@@ -730,4 +730,30 @@ __device__ __forceinline__ void wgmma_tf32_m64n128(float (&d)[64],
           "r"(SCALE_D));
 }
 
+// The same on a 64-column B (8x64, descriptor b): d (64x64 f32), d[4j + i]
+// at (g + 8 (i / 2), 8j + 2t + i % 2) of warp w's rows.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_tf32_m64n64(float (&d)[32],
+                                                  const unsigned (&a)[4],
+                                                  unsigned long long b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(SCALE_D));
+}
+
 }  // namespace tbt

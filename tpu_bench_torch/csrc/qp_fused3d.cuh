@@ -122,12 +122,13 @@
 //     body's; qp_stage2_dmma).  Stage 1 stays SIMT (8% of the FLOP).  The
 //     body is a template argument; kernels/bwdtrans3d.qp_config picks it
 //     from the shape (QP_MEASURED, else DMMA in f64 where nkj >= 16, nrq
-//     >= 8 and the body serves the shape); f32 keeps the SIMT body.  Its first form staged C12T in shared memory (nkj padded to
-//     112 rows of 88 values at 10^3) and padded V's rows to 8 and to ET +
-//     2 values: 5.37 ms at b05 10^3, E = 524,288 (L2 flushed), a tile
-//     21.6 us an SM, whose slab copy, products and stores took turns in
-//     the one depth-1 block an SM, as no ring fitted beside those buffers
-//     (317,040 B).
+//     >= 8 and the body serves the shape); f32 takes 3xTF32 on wgmma
+//     where QP_MEASURED names it (below).  Its first form staged C12T in
+//     shared memory (nkj padded to 112 rows of 88 values at 10^3) and
+//     padded V's rows to 8 and to ET + 2 values: 5.37 ms at b05 10^3, E =
+//     524,288 (L2 flushed), a tile 21.6 us an SM, whose slab copy,
+//     products and stores took turns in the one depth-1 block an SM, as no
+//     ring fitted beside those buffers (317,040 B).
 //   - C12T in registers, so that the ring fits at 10^3 f64 (QP_DMMA_HELD).
 //     Each warp holds one m tile (16 kj rows) of C12T as its m16n8k8 A
 //     fragments, QP_MMA_STEPS = 11 k steps of 4 values, 88 registers a
@@ -152,6 +153,42 @@
 //     stays faster (b05 6^3: 0.156 ms against 0.180 held; b04 16^2: 1.517
 //     against 1.929), so both forms are built and qp_config picks one by
 //     the shape (QP_MEASURED), as it picks the depth.
+//   - f32 at b05 8^3: the FP32 lanes, not the bytes, bound the SIMT form.
+//     Stage 2 takes 2*nq0*nrq*nkj = 50,176 of an element's 55,664 FLOP,
+//     6.58 GFLOP a call of 131,072 elements, 0.11 ms at the lanes' 59
+//     TFLOP/s under the 700 W cap; with stage 1, 93% of the 0.134 ms of
+//     bytes.  The SIMT body ran stage 2 at about 34 TFLOP/s, 69% of each
+//     block (the probe), and K1 at 49% of its bytes bound.  So stage 2
+//     runs as 3xTF32 on wgmma (QP_TF32, qp_stage2_tf32): C12T and V each
+//     split into big (rounded to TF32) and small halves (tbt::split_tf32),
+//     and small*big + big*small + big*big summed in f32, which keeps the
+//     f32 result (K2's f32 dense body does the same; one TF32 pass would
+//     miss the benchmark's limit 60-fold).  Three products a k step and
+//     k padded 49 -> 56 ask 3.4x the lanes' work of the units, which
+//     K2's wgmma body runs at about 310 TFLOP/s (mma.sync's 3xTF32 about
+//     120).  C12T (nkj = 64 rows: one m64 tile) is held in registers as
+//     both halves of the A fragments, 56 registers a lane, split once a
+//     block; a stage 1 of its own (qp_stage1_tf32) stores V's halves
+//     K-major (qp_tf32_col), as tf32 wgmma reads B; a plane group is 128
+//     columns, (16, 8) or (32, 4), and each of the block's two warp
+//     groups takes 64 of them, m64n64k8 products into 32 f32 sums a lane,
+//     so that two blocks fit an SM at 128 registers (124-128, no spill; a
+//     stage 1 of more sums a thread, or a k step's wgmma behind a branch,
+//     which ptxas serializes, spilled or ran slower).  The units' sums
+//     truncate, so the small products of every k step go first and the
+//     seven big ones after (within 3.3e-7 of f64 at 8^3 in emulation,
+//     against 7.1e-7 for K2's order, a k step's three products together;
+//     on the card 3.46e-7 against SIMT's 3.34e-7).  Stage 1 stays SIMT,
+//     the stores st.global.cs.  Measured at b05 8^3, E = 131,072 (NVIDIA
+//     H100 80GB HBM3, 700 W): (32, 4, 1) 0.2056-0.2061 ms flushed and
+//     0.2008-0.2032 back to back, against the SIMT ring's 0.2804-0.2810
+//     and 0.2716-0.2734; of its block, stage 1 took 29%, stage 2 31% and
+//     the wait for the slab 33% (the probe).  Built for (16, 8) and (32,
+//     4) at depth 1 and in the ring, in f32 only, where qp_tf32_takes
+//     (nrq <= 56, nkj <= 64: b05 to 8^3, b04 to 32^2); qp_config takes it
+//     only where QP_MEASURED names it (b05 8^3: at every other f32 order
+//     swept, whose C12T fills at most 36 of the m64 tile's rows, SIMT
+//     stayed faster).
 //   - The probe form (template argument P = true; kernels/bwdtrans3d.py
 //     launches it only while a torch profiler records): the threads read
 //     the SM's clock right after barriers the kernel already has, and sum
@@ -211,13 +248,28 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 // (QP_HMMA): m16n8k16 tiles of QP_MMA_M kj rows, 8 elements and QP_HMMA_K
 // rq, with f32 sums, C12T held as in QP_DMMA_HELD, QP_HMMA_STEPS k steps a
 // lane (kernels/bwdtrans3d.qp_hmma_takes).
-enum QPBody : int { QP_SIMT = 0, QP_DMMA = 1, QP_DMMA_HELD = 2, QP_HMMA = 3 };
+// In f32 3xTF32 on wgmma (QP_TF32): m64nNk8 products of C12T (one m tile
+// of QP_TF32_M kj rows, its A fragments held in registers as big and small
+// halves, QP_TF32_STEPS k steps of QP_TF32_K rq) by V's halves in shared
+// memory, each of a block's two warp groups QP_TF32_N columns of a plane
+// group (kernels/bwdtrans3d.qp_tf32_takes).
+enum QPBody : int {
+    QP_SIMT = 0,
+    QP_DMMA = 1,
+    QP_DMMA_HELD = 2,
+    QP_HMMA = 3,
+    QP_TF32 = 4
+};
 constexpr int QP_MMA_M = 16;
 constexpr int QP_MMA_K = 8;
 constexpr int QP_MMA_PAIRS = 2;
 constexpr int QP_MMA_STEPS = 11;
 constexpr int QP_HMMA_K = 16;
 constexpr int QP_HMMA_STEPS = 6;
+constexpr int QP_TF32_M = 64;
+constexpr int QP_TF32_K = 8;
+constexpr int QP_TF32_STEPS = 7;
+constexpr int QP_TF32_N = 64;
 
 // What a thread holds of C12T from tile to tile: the held form's A
 // fragments; nothing where C12T is staged in shared memory.
@@ -232,6 +284,12 @@ struct QPHeld<QP_DMMA_HELD> {
 template <>
 struct QPHeld<QP_HMMA> {
     unsigned a[QP_HMMA_STEPS][4];  // two bf16 a register
+};
+
+template <>
+struct QPHeld<QP_TF32> {
+    unsigned big[QP_TF32_STEPS][4];    // C12T rounded to TF32
+    unsigned small[QP_TF32_STEPS][4];  // the rest, truncated by the units
 };
 
 // DMMA's V (either form), nrq x ET a plane with no padding: element e of row rq lies at
@@ -258,9 +316,33 @@ __host__ __device__ constexpr int qp_h_col(int pr, int e) {
     return e ^ (2 * ((pr & 3) * W / 8) << 2);
 }
 
+// The TF32 body's V: two halves (big, then small) of QP_TF32_K *
+// QP_TF32_STEPS rows (zero past nrq) by the plane group's N = G ET
+// columns, K-major as tf32 wgmma reads B: k group kg (rq 4kg .. 4kg + 3)
+// holds N rows of 16 bytes, column n's at (kg N + n) 16 bytes, so that its
+// core matrices (8 columns by 4 rq, 128 contiguous bytes, which a
+// descriptor read takes whole) lie SBO = 128 bytes apart along n and LBO
+// = 16 N along k.  Columns g ET .. g ET + ET - 1 are plane g's, and
+// element e of a plane lies at column qp_tf32_col(e): within each 16,
+// element 4t + 2j + r at column 8j + 2t + r, so that lane 4g + t of the
+// m64n64 products holds elements 4t .. 4t + 3 of a row, one 16-byte
+// store.
+__host__ __device__ constexpr int qp_tf32_col(int e) {
+    return (e & ~15) | (e & 2) << 2 | (e & 12) >> 1 | (e & 1);
+}
+
 // V's rows a plane: nrq, HMMA's in whole pairs.
 __host__ __device__ constexpr int qp_v_rows(QPBody b, int nrq) {
     return b == QP_HMMA ? round_up(nrq, 2) : nrq;
+}
+
+// V's values for g planes of et elements: qp_v_rows a plane, TF32's two
+// halves of QP_TF32_STEPS k steps whatever nrq.
+__host__ __device__ constexpr size_t qp_v_size(QPBody b, int g, int nrq,
+                                               int et) {
+    return b == QP_TF32
+               ? static_cast<size_t>(2 * QP_TF32_STEPS * QP_TF32_K * g * et)
+               : static_cast<size_t>(g) * qp_v_rows(b, nrq) * et;
 }
 
 // The staged DMMA form's C12T row stride: nrq padded to QP_MMA_K, then to
@@ -275,13 +357,13 @@ __host__ __device__ constexpr int qp_lda(int nrq) {
 // SIMT, C12T (nkj padded to QP_MMA_M rows of qp_lda values, zero past nkj
 // and nrq) for the staged DMMA form, none for the held ones.
 __host__ __device__ constexpr int qp_c_size(QPBody b, int nrq, int nkj) {
-    return b == QP_DMMA_HELD || b == QP_HMMA ? 0
+    return b == QP_DMMA_HELD || b == QP_HMMA || b == QP_TF32 ? 0
            : b == QP_DMMA    ? round_up(nkj, QP_MMA_M) * qp_lda(nrq)
                              : nrq * round_up(nkj, QP_TK);
 }
 
 // Dynamic shared memory of one block: `depth` slabs, V for G planes
-// (qp_v_rows x et each), C12T's buffer and B0 (nm0 x nq0 padded to G),
+// (qp_v_size), C12T's buffer and B0 (nm0 x nq0 padded to G),
 // each a whole number of 16-byte words; at depth 2 the slots' tiles first.
 template <typename T>
 size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
@@ -289,7 +371,7 @@ size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
     return (depth > 1 ? QP_SLOT_TILES_BYTES : 0) +
            sizeof(T) *
                (static_cast<size_t>(depth) * nm0 * nrq * et +
-                static_cast<size_t>(g) * qp_v_rows(body, nrq) * et +
+                qp_v_size(body, g, nrq, et) +
                 static_cast<size_t>(qp_c_size(body, nrq, nkj)) +
                 static_cast<size_t>(nm0) * round_up(nq0, g));
 }
@@ -306,6 +388,12 @@ __host__ __device__ constexpr bool qp_dmma_takes(int nrq, int nkj) {
 __host__ __device__ constexpr bool qp_hmma_takes(int nrq, int nkj) {
     return nrq <= QP_HMMA_K * QP_HMMA_STEPS &&
            round_up(nkj, QP_MMA_M) / QP_MMA_M <= QP_THREADS / 32;
+}
+
+// Whether the TF32 body serves a shape: C12T within its one m tile and the
+// k steps a lane holds.
+__host__ __device__ constexpr bool qp_tf32_takes(int nrq, int nkj) {
+    return nrq <= QP_TF32_K * QP_TF32_STEPS && nkj <= QP_TF32_M;
 }
 
 // Warp w's A fragments of m tile w mod the m tiles (where the warps
@@ -352,6 +440,26 @@ __device__ __forceinline__ void qp_hold_c12t(QPHeld<QP_HMMA>& held,
             const unsigned hi =
                 kj < nkj && rq + 1 < nrq ? c[kj * nrq + rq + 1] : 0u;
             held.a[s][i] = lo | hi << 16;
+        }
+}
+
+// The TF32 body's A fragments of the m64n?k8 products, each value split
+// once (tbt::split_tf32): warp w of a warp group holds kj rows 16w ..
+// 16w + 15, lane 4g + t's a[s][i] at kj = 16w + g + 8 (i % 2), rq = 8s +
+// t + 4 (i / 2); zero past nkj and nrq.  Both warp groups hold the same.
+__device__ __forceinline__ void qp_hold_c12t(QPHeld<QP_TF32>& held,
+                                             const float* __restrict__ c12t,
+                                             int nrq, int nkj) {
+    const int wq = threadIdx.x / 32 % 4;
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+#pragma unroll
+    for (int s = 0; s < QP_TF32_STEPS; ++s)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int kj = 16 * wq + gq + 8 * (i % 2);
+            const int rq = s * QP_TF32_K + tq + 4 * (i / 2);
+            tbt::split_tf32(kj < nkj && rq < nrq ? c12t[kj * nrq + rq] : 0.0f,
+                            held.big[s][i], held.small[s][i]);
         }
 }
 
@@ -615,6 +723,162 @@ __device__ __forceinline__ void qp_stage2_hmma(
     }
 }
 
+// Stage 1 into the TF32 body's V for the planes [i0, i0 + G): thread q
+// owns k group kg (rq 4kg .. 4kg + 3, zero past nrq) of four neighbouring
+// elements in two planes, taken as two pairs of elements in turn: a pass
+// loads four 8-byte words of the slab and one of B0 a p for 16 FMAs,
+// summed in the SIMT form's order (at ET = 16 the lanes of two plane
+// pairs read the same words), and each element's four sums of a plane,
+// split (tbt::split_tf32), go out as one 16-byte word a half, at its
+// column qp_tf32_col (two lanes of a quarter warp store to each bank
+// group: two passes).  Two planes and two elements a pass, with their 16
+// sums, not more: with 32 or more beside the 56 registers of held C12T,
+// K1 spilled at 128 registers a thread.  The k groups past nrq, to the
+// end of the QP_TF32_STEPS k steps, hold zeros from the block's start
+// (qp_zero_tf32).
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_stage1_tf32(const float* s_x, float* s_v,
+                                               const float* s_b0, int nm0,
+                                               int nrq, int nq0p, int i0) {
+    constexpr int N = G * ET, EQ = ET / 4, PAIRS = G / 2;
+    constexpr int HALF = QP_TF32_STEPS * QP_TF32_K * N;  // floats
+    const int kgs = (nrq + 3) / 4;
+    for (int q = threadIdx.x; q < kgs * PAIRS * EQ; q += NT) {
+        const int eq = q % EQ, pr = q / EQ % PAIRS, kg = q / (EQ * PAIRS);
+        bool in[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) in[r] = 4 * kg + r < nrq;
+        const float* w0 = s_b0 + i0 + 2 * pr;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // elements 4eq + 2h, 4eq + 2h + 1
+            const float* x = s_x + 4 * kg * ET + 4 * eq + 2 * h;
+            float acc[2][4][2];  // [plane][rq][element]
+#pragma unroll
+            for (int g = 0; g < 2; ++g)
+#pragma unroll
+                for (int r = 0; r < 4; ++r)
+                    acc[g][r][0] = acc[g][r][1] = 0.0f;
+            for (int p = 0; p < nm0; ++p) {
+                const float2 w =
+                    *reinterpret_cast<const float2*>(w0 + p * nq0p);
+#pragma unroll
+                for (int r = 0; r < 4; ++r) {
+                    float2 xv = make_float2(0.0f, 0.0f);
+                    if (in[r])
+                        xv = *reinterpret_cast<const float2*>(
+                            x + (p * nrq + r) * ET);
+                    acc[0][r][0] = fma(w.x, xv.x, acc[0][r][0]);
+                    acc[0][r][1] = fma(w.x, xv.y, acc[0][r][1]);
+                    acc[1][r][0] = fma(w.y, xv.x, acc[1][r][0]);
+                    acc[1][r][1] = fma(w.y, xv.y, acc[1][r][1]);
+                }
+            }
+#pragma unroll
+            for (int g = 0; g < 2; ++g)
+#pragma unroll
+                for (int c = 0; c < 2; ++c) {
+                    unsigned big[4], small[4];
+#pragma unroll
+                    for (int r = 0; r < 4; ++r)
+                        tbt::split_tf32(acc[g][r][c], big[r], small[r]);
+                    float* v = s_v + 4 * (kg * N + (2 * pr + g) * ET +
+                                          qp_tf32_col(4 * eq + 2 * h + c));
+                    *reinterpret_cast<uint4*>(v) =
+                        make_uint4(big[0], big[1], big[2], big[3]);
+                    *reinterpret_cast<uint4*>(v + HALF) =
+                        make_uint4(small[0], small[1], small[2], small[3]);
+                }
+        }
+    }
+}
+
+// Once a block: the TF32 body's V from the k group of row nrq to the end,
+// both halves, zero (stage 1 rewrites the rows below nrq).
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_zero_tf32(float* s_v, int nrq) {
+    constexpr int HALF = QP_TF32_STEPS * QP_TF32_K * G * ET;  // floats
+    for (int t = nrq / 4 * 4 * G * ET + threadIdx.x; t < HALF; t += NT) {
+        s_v[t] = 0.0f;
+        s_v[HALF + t] = 0.0f;
+    }
+}
+
+// Stage 2 of the planes [i0, i0 + G) as 3xTF32 on wgmma: out[i0+g][kj][e]
+// = sum_rq C12T[kj][rq] * V[g][rq][e], warp group wg the plane group's
+// columns wg QP_TF32_N .. (wg + 1) QP_TF32_N - 1 as m64n64k8 products of
+// the held C12T (A) by V (B, by descriptor), f32 sums in the units, which
+// truncate (tests/test_torch_tensorcore.py): the two small products of
+// every k step first (small C12T by big V, big C12T by small V), then the
+// big ones, so that the running sum stays small while the small terms
+// are added and each of its k steps' big terms truncates once; its first
+// product starts from zero.  Every warp group issues all QP_TF32_STEPS k
+// steps (rows past nrq are zero), whether or not its columns lie past
+// nq0: a wgmma on a path that branches is serialized (ptxas C7520).  Lane
+// 4g + t then holds elements 4t .. 4t + 3 of each 16 columns
+// (qp_tf32_col) of kj rows 16w + g and 16w + g + 8: one 16-byte
+// st.global.cs each where aligned, masked past nkj, nq0 and E.
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_stage2_tf32(
+    const float* s_v, const QPHeld<QP_TF32>& held, float* __restrict__ out,
+    int nq0, int nkj, long long n_elem, long long e0, int i0, bool vec_out) {
+    constexpr int N = G * ET, WN = QP_TF32_N;
+    static_assert(NT / 128 * WN == N, "a warp group's columns each");
+    constexpr unsigned LBO = 16 * N, SBO = 128;
+    const int wg = threadIdx.x / 128, wq = threadIdx.x / 32 % 4;
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+    const int c0 = wg * WN;
+    const float* vb = s_v + 4 * c0;
+    const unsigned long long big = tbt::wgmma_desc(vb, LBO, SBO);
+    const unsigned long long small =
+        tbt::wgmma_desc(vb + QP_TF32_STEPS * QP_TF32_K * N, LBO, SBO);
+    float acc[WN / 2];
+#pragma unroll
+    for (int j = 0; j < WN / 2; ++j) tbt::reg_fence(acc[j]);
+    tbt::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < QP_TF32_STEPS; ++s) {
+        const unsigned long long off = (2 * s * LBO) >> 4;
+        if (s == 0)
+            tbt::wgmma_tf32_m64n64<0>(acc, held.small[s], big + off);
+        else
+            tbt::wgmma_tf32_m64n64<1>(acc, held.small[s], big + off);
+        tbt::wgmma_tf32_m64n64<1>(acc, held.big[s], small + off);
+    }
+#pragma unroll
+    for (int s = 0; s < QP_TF32_STEPS; ++s)
+        tbt::wgmma_tf32_m64n64<1>(acc, held.big[s],
+                                  big + ((2 * s * LBO) >> 4));
+    tbt::wgmma_commit();
+    tbt::wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < WN / 2; ++j) tbt::reg_fence(acc[j]);
+    // columns c0 + 16jj + 8jo + 2t + r (element 4t + 2jo + r of the 16) of
+    // row 16w + g + 8h in acc[8jj + 4jo + 2h + r]
+#pragma unroll
+    for (int jj = 0; jj < WN / 16; ++jj) {
+        const int c = c0 + 16 * jj, i = i0 + c / ET;
+        if (i >= nq0) break;  // warp-uniform
+        const long long ee = e0 + c % ET + 4 * tq;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int kj = 16 * wq + gq + 8 * h;
+            if (kj >= nkj) continue;
+            float* y =
+                out + (static_cast<long long>(i) * nkj + kj) * n_elem + ee;
+            const float v[4] = {acc[8 * jj + 2 * h], acc[8 * jj + 2 * h + 1],
+                                acc[8 * jj + 4 + 2 * h],
+                                acc[8 * jj + 4 + 2 * h + 1]};
+            if (vec_out && ee + 4 <= n_elem) {
+                tbt::store_cs(y, v);
+            } else {
+#pragma unroll
+                for (int c4 = 0; c4 < 4; ++c4)
+                    if (ee + c4 < n_elem) y[c4] = v[c4];
+            }
+        }
+    }
+}
+
 // The probe form's phases (kernels/bwdtrans3d.QP_PHASES), and its buffer
 // in device memory, of unsigned 64-bit words: a head (the newest launch's
 // grid, resident block slots and number), QP_PROBE_ROWS rows of totals
@@ -808,6 +1072,18 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
     const int kgs = kjp / QP_TK;
     for (int i0 = 0; i0 < nq0; i0 += G) {
         if constexpr (P) qp_stamp(sums, QP_NO_PHASE, QP_STAGE1);
+        if constexpr (B == QP_TF32) {
+            qp_stage1_tf32<ET, G, NT>(s_x, s_v, s_b0, nm0, nrq, nq0p, i0);
+            tbt::fence_async_shared();  // V's stores before wgmma reads it
+            __syncthreads();
+            if constexpr (P) qp_stamp(sums, QP_STAGE1, QP_STAGE2);
+            qp_stage2_tf32<ET, G, NT>(s_v, held, out, nq0, nkj, n_elem, e0,
+                                      i0, vec_out);
+            qp_publish(ahead, i0 + G >= nq0);
+            __syncthreads();
+            if constexpr (P) qp_stamp(sums, QP_STAGE2, QP_NO_PHASE);
+            continue;
+        }
         if constexpr (B == QP_HMMA) {
             qp_stage1_pairs<ET, G, NT>(s_x, s_v, s_b0, nm0, nrq, nq0p, i0);
             __syncthreads();
@@ -959,8 +1235,8 @@ __global__ void __launch_bounds__(NT,
     T* s_x = reinterpret_cast<T*>(smem_raw +
                                   (D > 1 ? QP_SLOT_TILES_BYTES : 0));
     const size_t slab = static_cast<size_t>(rows) * ET;
-    T* s_v = s_x + D * slab;  // (G, qp_v_rows, ET)
-    T* s_ct = s_v + static_cast<size_t>(G) * qp_v_rows(B, nrq) * ET;
+    T* s_v = s_x + D * slab;  // qp_v_size(B, G, nrq, ET)
+    T* s_ct = s_v + qp_v_size(B, G, nrq, ET);
     T* s_b0 = s_ct + qp_c_size(B, nrq, nkj);            // (nm0, nq0p)
     QPSums<P> sums;
     if constexpr (P) qp_probe_enter<D>(sums, probe...);
@@ -972,10 +1248,11 @@ __global__ void __launch_bounds__(NT,
             n_elem % V16 == 0 && tbt::aligned16(in));
     };
     auto stage_operators = [&] {
-        if constexpr (B == QP_DMMA_HELD || B == QP_HMMA) {
+        if constexpr (B == QP_DMMA_HELD || B == QP_HMMA || B == QP_TF32) {
             // the warp's A fragments into registers, once a block; the
             // loads are in flight while the slab copy is
             qp_hold_c12t(held, c12t, nrq, nkj);
+            if constexpr (B == QP_TF32) qp_zero_tf32<ET, G, NT>(s_v, nrq);
         } else if constexpr (B == QP_DMMA) {
             // C12T by cp.async, its own commit group (staged anew a tile at
             // depth 1: by plain loads it cost a fifth of the kernel at b05
@@ -1100,53 +1377,69 @@ int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 // The element tiles of T at depth 1 (kernels/bwdtrans3d.QP_TILES) and
 // at depth 2 (QP_RING_TILES); DMMA's at either depth (QP_DMMA_TILES);
 // HMMA's (QP_HMMA_TILES) at depth 1, and at depth 2 the ring's, in
-// blocks of QP_THREADS.
+// blocks of QP_THREADS; TF32's the ring's at either depth, each with the
+// plane group that gives its two warp groups QP_TF32_N columns each.
 template <typename T, int G, int D, int NT, QPBody B, bool P,
           typename... Probe>
 int launch_form(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                 int nrq, int nq0, int nkj, long long n_elem, int et,
                 cudaStream_t stream, Probe... probe) {
-    constexpr bool f64 = sizeof(T) == 8;
-    switch (et) {
-        case 16:
-            return launch_tile<T, 16, G, D, NT, B, P>(
-                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
-                probe...);
-        case 32:
-            return launch_tile<T, 32, G, D, NT, B, P>(
-                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
-                probe...);
-    }
-    if constexpr (D == 1 && B == QP_HMMA)
-        if (et == 64)
-            return launch_tile<T, 64, G, D, NT, B, P>(
-                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
-                probe...);
-    if constexpr (D == 1 && B == QP_SIMT) {
+    if constexpr (B == QP_TF32) {
+        // a warp group's QP_TF32_N columns of the plane group each
+        if constexpr (16 * G == 2 * QP_TF32_N)
+            if (et == 16)
+                return launch_tile<T, 16, G, D, NT, B, P>(
+                    in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                    probe...);
+        if constexpr (32 * G == 2 * QP_TF32_N)
+            if (et == 32)
+                return launch_tile<T, 32, G, D, NT, B, P>(
+                    in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                    probe...);
+        return cudaErrorInvalidValue;
+    } else {
+        constexpr bool f64 = sizeof(T) == 8;
         switch (et) {
-            case 64:
+            case 16:
+                return launch_tile<T, 16, G, D, NT, B, P>(
+                    in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                    probe...);
+            case 32:
+                return launch_tile<T, 32, G, D, NT, B, P>(
+                    in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                    probe...);
+        }
+        if constexpr (D == 1 && B == QP_HMMA)
+            if (et == 64)
                 return launch_tile<T, 64, G, D, NT, B, P>(
                     in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
                     probe...);
-            case 8:
-                if constexpr (f64)
-                    return launch_tile<T, 8, G, D, NT, B, P>(
-                        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
-                        stream, probe...);
-                break;
-            case 128:
-                if constexpr (!f64)
-                    return launch_tile<T, 128, G, D, NT, B, P>(
-                        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
-                        stream, probe...);
-                break;
+        if constexpr (D == 1 && B == QP_SIMT) {
+            switch (et) {
+                case 64:
+                    return launch_tile<T, 64, G, D, NT, B, P>(
+                        in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                        probe...);
+                case 8:
+                    if constexpr (f64)
+                        return launch_tile<T, 8, G, D, NT, B, P>(
+                            in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
+                            stream, probe...);
+                    break;
+                case 128:
+                    if constexpr (!f64)
+                        return launch_tile<T, 128, G, D, NT, B, P>(
+                            in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem,
+                            stream, probe...);
+                    break;
+            }
         }
     }
     return cudaErrorInvalidValue;
 }
 
 // The (ring depth, threads) forms: kernels/bwdtrans3d.QP_FORMS (no f64
-// block of 512 threads, nor HMMA's).
+// block of 512 threads, nor HMMA's or TF32's).
 template <typename T, int G, QPBody B, bool P, typename... Probe>
 int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
                   int nrq, int nq0, int nkj, long long n_elem, int et,
@@ -1160,7 +1453,7 @@ int launch_planes(const T* in, const T* b0, const T* c12t, T* out, int nm0,
         return launch_form<T, G, 2, QP_THREADS, B, P>(
             in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream,
             probe...);
-    if constexpr (sizeof(T) != 8 && B != QP_HMMA)
+    if constexpr (sizeof(T) != 8 && B != QP_HMMA && B != QP_TF32)
         if (depth == 2 && threads == 2 * QP_THREADS)
             return launch_form<T, G, 2, 2 * QP_THREADS, B, P>(
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, stream,
@@ -1186,8 +1479,8 @@ int launch_body(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 
 // The element tiles et, plane groups g, ring depths, block threads and
 // stage-2 bodies (DMMA in f64 only; with C12T held, at the shapes
-// qp_dmma_takes; HMMA in bf16 only, at the shapes qp_hmma_takes) it is
-// built for (qp_config in
+// qp_dmma_takes; HMMA in bf16 only, at the shapes qp_hmma_takes; TF32 in
+// f32 only, at the shapes qp_tf32_takes) it is built for (qp_config in
 // kernels/bwdtrans3d.py picks them for each shape and dtype); P and its
 // QPProbe: the probe form (csrc/qp_fused3d_probe.cu).
 template <typename T, bool P, typename... Probe>
@@ -1210,6 +1503,12 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
             return launch_body<T, QP_DMMA_HELD, P>(
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, g, depth,
                 threads, stream, probe...);
+    }
+    if constexpr (sizeof(T) == 4) {
+        if (body == QP_TF32 && qp_tf32_takes(nrq, nkj))
+            return launch_body<T, QP_TF32, P>(in, b0, c12t, out, nm0, nrq,
+                                              nq0, nkj, n_elem, et, g, depth,
+                                              threads, stream, probe...);
     }
     if constexpr (sizeof(T) == 2) {
         if (body == QP_HMMA && qp_hmma_takes(nrq, nkj))

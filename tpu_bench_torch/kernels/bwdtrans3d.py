@@ -72,22 +72,30 @@ QP_THREADS = 256
 QP_TK, QP_TE = 8, 4
 # K1's stage-2 bodies: the SIMT micro-tiles, in f64 sm_90's DMMA
 # (mma.sync.m16n8k8 on f64), built for the tiles QP_DMMA_TILES at either
-# depth, and in bf16 the bf16 tensor cores (HMMA, mma.sync.m16n8k16 with
-# f32 sums), built for QP_HMMA_TILES at depth 1 and the ring's tiles at
-# depth 2; where DMMA's C12T lives: staged in shared memory, or held in
+# depth, in bf16 the bf16 tensor cores (HMMA, mma.sync.m16n8k16 with f32
+# sums), built for QP_HMMA_TILES at depth 1 and the ring's tiles at depth
+# 2, and in f32 3xTF32 on wgmma (TF32, m64n64k8 with f32 sums), built for
+# QP_TF32_TILES at either depth, each with the plane group of
+# QP_TF32_COLUMNS columns (qp_tf32_planes: one warp group of a block's two
+# takes half); where DMMA's C12T lives: staged in shared memory, or held in
 # registers, each warp one m tile of QP_MMA_M rows and QP_MMA_STEPS k
 # steps of QP_MMA_K (qp_dmma_takes); HMMA holds it so, QP_HMMA_STEPS k
-# steps of QP_HMMA_K (qp_hmma_takes); the entry's `body` argument for each
-# (body, C12T) pair.
-QP_BODIES = ("simt", "dmma", "hmma")
+# steps of QP_HMMA_K (qp_hmma_takes); TF32 holds its one m tile of
+# QP_TF32_M rows, QP_TF32_STEPS k steps of QP_TF32_K (qp_tf32_takes); the
+# entry's `body` argument for each (body, C12T) pair.
+QP_BODIES = ("simt", "dmma", "hmma", "tf32")
 QP_C12T = ("smem", "regs")
 QP_ENTRY_BODIES = {("simt", "smem"): 0, ("dmma", "smem"): 1,
-                   ("dmma", "regs"): 2, ("hmma", "regs"): 3}
+                   ("dmma", "regs"): 2, ("hmma", "regs"): 3,
+                   ("tf32", "regs"): 4}
 QP_DMMA_TILES = (32, 16)
 QP_HMMA_TILES = (64, 32, 16)
+QP_TF32_TILES = (32, 16)
 QP_MMA_M, QP_MMA_K = 16, 8
 QP_MMA_STEPS = 11
 QP_HMMA_K, QP_HMMA_STEPS = 16, 6
+QP_TF32_M, QP_TF32_K, QP_TF32_STEPS = 64, 8, 7
+QP_TF32_COLUMNS = 128
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
 SMEM_RESERVED = 1024
@@ -105,7 +113,7 @@ class QPConfig(typing.NamedTuple):
     threads: int = QP_THREADS
     body: str = "simt"  # stage 2's body, one of QP_BODIES
     c12t: str = "smem"  # where C12T lives, one of QP_C12T ("regs": DMMA,
-                        # HMMA)
+                        # HMMA, TF32)
 
 
 # K1's configuration at the shapes benchmarks/kernel_blocks.py sweeps, by
@@ -132,11 +140,18 @@ class QPConfig(typing.NamedTuple):
 # b05 8^3 (E = 1,048,576) HMMA (64, 4, 1) ran a call in
 # 0.8055-0.8278 ms and (32, 8, 2) 0.8148-0.8294, against SIMT's 1.9719; at
 # 10^3 (E = 524,288) HMMA (32, 4, 1) 1.1358-1.1509 against the SIMT ring's
-# 3.6362-3.8224.
+# 3.6362-3.8224.  The f32 rows over SIMT and 3xTF32 on wgmma (TF32, C12T
+# held), flushed and back to back at the sweep's sizes (PERF.md section
+# 6): TF32 took b05 8^3 (E = 131,072) from the ring's (16, 8, 2) on SIMT,
+# 0.2772-0.2810 ms flushed and 0.2716-0.2734 back to back, to (32, 4, 1),
+# 0.2056-0.2080 and 0.1996-0.2092 (TF32's (16, 8, 2): 0.2052-0.2080 and
+# 0.2045-0.2092); at every other f32 row SIMT stayed fastest, by 1.2-3.9x
+# (its C12T fills at most 36 of the m64 tile's rows, or, at 10^3, does not
+# fit it).
 QP_MEASURED = {
     (4, 3, 9, 4, 16): QPConfig(128, 4, 1, 256),
     (4, 5, 25, 6, 36): QPConfig(32, 8, 2, 256),
-    (4, 7, 49, 8, 64): QPConfig(16, 8, 2, 256),
+    (4, 7, 49, 8, 64): QPConfig(32, 4, 1, 256, "tf32", "regs"),
     (4, 9, 81, 10, 100): QPConfig(16, 8, 2, 512),
     (4, 7, 7, 8, 8): QPConfig(128, 4, 1, 256),
     (4, 15, 15, 16, 16): QPConfig(64, 4, 1, 256),
@@ -155,8 +170,8 @@ QP_MEASURED = {
 # under 2), since the count was last reset: how often the slab ring runs.
 qp_depths: collections.Counter = collections.Counter()
 # K1's launches by (dtype, body) since the count was last reset: "simt",
-# "dmma" (f64 only, either form) or "hmma" (bf16 only), qp_config's
-# choice.
+# "dmma" (f64 only, either form), "hmma" (bf16 only) or "tf32" (f32 only),
+# qp_config's choice.
 qp_bodies: collections.Counter = collections.Counter()
 # K1's DMMA launches by where C12T lived ("smem" or "regs") since the count
 # was last reset.
@@ -301,14 +316,19 @@ def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1, body="simt",
     whole pairs) for g planes, C12T's buffer and B0 with nq0 padded to g;
     at depth 2 the slots' tiles too.  C12T's buffer: C12T^T with nkj
     padded to QP_TK for SIMT; for DMMA with C12T `where` "smem", C12T with
-    nkj padded to QP_MMA_M rows of qp_lda values, and with "regs" none."""
+    nkj padded to QP_MMA_M rows of qp_lda values, and with "regs" none.
+    TF32's V: two halves (big and small) of its QP_TF32_STEPS k steps of
+    QP_TF32_K rows, whatever nrq."""
     if body == "simt":
         c = nrq * _round_up(nkj, QP_TK)
     else:
         c = 0 if where == "regs" else _round_up(nkj, QP_MMA_M) * qp_lda(nrq)
-    v = _round_up(nrq, 2) if body == "hmma" else nrq
+    if body == "tf32":
+        v = 2 * QP_TF32_STEPS * QP_TF32_K * g * et
+    else:
+        v = g * (_round_up(nrq, 2) if body == "hmma" else nrq) * et
     return (QP_SLOT_TILES_BYTES if depth > 1 else 0) + itemsize * (
-        depth * nm0 * nrq * et + g * v * et + c + nm0 * _round_up(nq0, g))
+        depth * nm0 * nrq * et + v + c + nm0 * _round_up(nq0, g))
 
 
 def qp_dmma_takes(nrq, nkj) -> bool:
@@ -327,41 +347,64 @@ def qp_hmma_takes(nrq, nkj) -> bool:
             and _round_up(nkj, QP_MMA_M) // QP_MMA_M <= QP_THREADS // 32)
 
 
+def qp_tf32_takes(nrq, nkj) -> bool:
+    """Whether the TF32 body serves a shape: C12T within its one m tile
+    of QP_TF32_M kj rows (nkj <= 64), held as A fragments of QP_TF32_STEPS
+    k steps (nrq <= 56): b05 to 8^3, b04 to 32^2."""
+    return nrq <= QP_TF32_K * QP_TF32_STEPS and nkj <= QP_TF32_M
+
+
+def qp_tf32_planes(et) -> int:
+    """The TF32 body's plane group at element tile et: QP_TF32_COLUMNS
+    columns, half to each of a block's two warp groups."""
+    return QP_TF32_COLUMNS // et
+
+
 def qp_forms(itemsize, et, body="simt") -> tuple:
     """K1's (depth, threads) forms at element tile et: depth 2 at
-    QP_RING_TILES only, and HMMA's in blocks of QP_THREADS only (its
-    512-thread ring was the slowest of its forms at every order swept)."""
+    QP_RING_TILES only, and HMMA's and TF32's in blocks of QP_THREADS only
+    (HMMA's 512-thread ring was the slowest of its forms at every order
+    swept; TF32's block is two warp groups)."""
     forms = QP_FORMS[itemsize] if et in QP_RING_TILES else \
         QP_FORMS[itemsize][:1]
-    return tuple(f for f in forms if body != "hmma" or f[1] == QP_THREADS)
+    return tuple(f for f in forms
+                 if body not in ("hmma", "tf32") or f[1] == QP_THREADS)
 
 
 def qp_built_bodies(itemsize, et) -> tuple:
     """K1's stage-2 bodies at element tile et: DMMA in f64 at
-    QP_DMMA_TILES only, HMMA in bf16 at QP_HMMA_TILES only."""
+    QP_DMMA_TILES only, HMMA in bf16 at QP_HMMA_TILES only, TF32 in f32 at
+    QP_TF32_TILES only."""
     if itemsize == 8 and et in QP_DMMA_TILES:
         return ("simt", "dmma")
     if itemsize == 2 and et in QP_HMMA_TILES:
         return ("simt", "hmma")
+    if itemsize == 4 and et in QP_TF32_TILES:
+        return ("simt", "tf32")
     return ("simt",)
 
 
 def qp_c12t_places(body, nrq, nkj) -> tuple:
     """Where C12T may live for a body at a shape: staged in shared memory,
-    and for DMMA also held in registers where qp_dmma_takes; HMMA holds it
-    in registers, where qp_hmma_takes (else none)."""
+    and for DMMA also held in registers where qp_dmma_takes; HMMA and TF32
+    hold it in registers, where qp_hmma_takes or qp_tf32_takes (else
+    none)."""
     if body == "hmma":
         return QP_C12T[1:] if qp_hmma_takes(nrq, nkj) else ()
+    if body == "tf32":
+        return QP_C12T[1:] if qp_tf32_takes(nrq, nkj) else ()
     return QP_C12T if body == "dmma" and qp_dmma_takes(nrq, nkj) else \
         QP_C12T[:1]
 
 
 def qp_settings(itemsize, nm0, nrq, nq0, nkj, limit=SMEM_BLOCK) -> list:
     """Every QPConfig K1 is built for whose buffers fit `limit` bytes at
-    a shape (benchmarks/kernel_blocks.py sweeps them)."""
+    a shape (benchmarks/kernel_blocks.py sweeps them); TF32's at its plane
+    group only (qp_tf32_planes)."""
     return [QPConfig(et, g, d, t, b, c) for et in QP_TILES[itemsize]
             for g in QP_PLANE_GROUPS
             for b in qp_built_bodies(itemsize, et)
+            if b != "tf32" or g == qp_tf32_planes(et)
             for d, t in qp_forms(itemsize, et, b)
             for c in qp_c12t_places(b, nrq, nkj)
             if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d, b, c) <= limit]
@@ -423,9 +466,10 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
     """K1's QPConfig for a launch: the knobs `epb`, `planes`, `depth`,
     `threads`, `body` and `where` (C12T's place) where given, else
     qp_config's choice under the card's `block` and `sm` bytes of shared
-    memory; with a given tile, qp_planes' group, depth 1 and the SIMT body
-    unless given too, and C12T where the body first may keep it
-    (qp_c12t_places: staged but for HMMA) unless given or the choice's.
+    memory; with a given tile, qp_planes' group (the TF32 body's,
+    qp_tf32_planes), depth 1 and the SIMT body unless given too, and C12T
+    where the body first may keep it (qp_c12t_places: staged but for HMMA
+    and TF32) unless given or the choice's.
     Raises if the knobs are not the kernel's or the buffers do not fit."""
     tiles = QP_TILES[itemsize]
     if epb is not None and epb not in tiles:
@@ -442,6 +486,8 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
     else:
         et, g, d, t, b, c = (epb, qp_planes(epb, nkj), 1, QP_THREADS, "simt",
                              "smem")
+    if body == "tf32" and b != "tf32" and et is not None:
+        g = qp_tf32_planes(et)
     g = planes or g
     depth = depth or d
     threads = threads or (t if depth == d else QP_THREADS)
@@ -458,13 +504,19 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
         raise ValueError(f"qp_shared3d: body={body!r} is not one of the "
                          f"kernel's bodies {qp_built_bodies(itemsize, et)} "
                          f"at element tile {et}, itemsize {itemsize}")
+    if body == "tf32" and et is not None and g != qp_tf32_planes(et):
+        raise ValueError(f"qp_shared3d: planes={g} with body='tf32' at "
+                         f"element tile {et}: its plane group has "
+                         f"{QP_TF32_COLUMNS} columns, {qp_tf32_planes(et)} "
+                         "planes")
     if where not in places:
         raise ValueError(f"qp_shared3d: where={where!r} is not one of "
                          f"{places} for body={body!r} at nrq={nrq}, "
                          f"nkj={nkj} (DMMA holds C12T in registers for nrq "
                          f"<= {QP_MMA_K * QP_MMA_STEPS}, HMMA for nrq <= "
                          f"{QP_HMMA_K * QP_HMMA_STEPS}, each for nkj <= "
-                         f"{QP_MMA_M * QP_THREADS // 32})")
+                         f"{QP_MMA_M * QP_THREADS // 32}; TF32 for nrq <= "
+                         f"{QP_TF32_K * QP_TF32_STEPS}, nkj <= {QP_TF32_M})")
     if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth,
                              body, where) > block:
         raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
