@@ -28,7 +28,8 @@ five.  Every phase is fatal:
    TF32 in K2's f32 dense body on wgmma, DMMA in K5's f64 entry,
    sm_90's m16n8k8 (DMMA.16x8x8) and no m8n8k4 in the dense GEMM's f64
    entries and in K1's f64 instances on its DMMA stage-2 body (C12T
-   staged, and C12T held in registers, each), no DMMA
+   staged, C12T held in registers, and C12T held with stage 1 on DMMA
+   too, each), no DMMA
    in K1's f32 instances, the bf16 m16n8k16 with f32 sums
    (HMMA.16816.F32.BF16) in K1's bf16 instances on its HMMA stage-2
    body and no HMMA in K1's f32 and f64 instances nor in its bf16 SIMT
@@ -382,17 +383,20 @@ K1_FORMS = {K1_PLAIN: r"qp_fused3d_kernel.*QPBodyE\dELb0E",
 K1_INSTANCE = r"qp_fused3d_kernelI(.*?QPBodyE\dE)"
 # K1's instances by dtype and stage-2 body (the QPBody template argument,
 # QP_DMMA = 1 with C12T staged, QP_DMMA_HELD = 2 with it in registers,
-# QP_HMMA = 3 in bf16, QP_TF32 = 4 in f32): its f64 DMMA body must hold
+# QP_HMMA = 3 in bf16, QP_TF32 = 4 in f32, QP_DMMA_S1 = 5 as 2 with stage
+# 1 on DMMA too): its f64 DMMA bodies must hold
 # sm_90's m16n8k8 and no m8n8k4, its f32 instances no DMMA at all, its
 # bf16 HMMA body the bf16 m16n8k16 with f32 sums, its f32 TF32 body HGMMA
 # on TF32, and no other instance any HMMA or HGMMA.
 K1_DMMA, K1_F32 = "K1 qp_fused3d f64 (DMMA)", "K1 qp_fused3d f32 (SIMT)"
 K1_HELD = "K1 qp_fused3d f64 (DMMA, C12T held)"
+K1_S1 = "K1 qp_fused3d f64 (DMMA, C12T held, stage 1 on DMMA)"
 K1_HMMA = "K1 qp_fused3d bf16 (HMMA)"
 K1_TF32 = "K1 qp_fused3d f32 (TF32 on wgmma)"
 K1_F64, K1_BF16 = "K1 qp_fused3d f64 (SIMT)", "K1 qp_fused3d bf16 (SIMT)"
 K1_KERNELS = {K1_DMMA: r"qp_fused3d_kernelId.*QPBodyE1E",
               K1_HELD: r"qp_fused3d_kernelId.*QPBodyE2E",
+              K1_S1: r"qp_fused3d_kernelId.*QPBodyE5E",
               K1_HMMA: r"qp_fused3d_kernelI13__nv_bfloat16.*QPBodyE3E",
               K1_TF32: r"qp_fused3d_kernelIf.*QPBodyE4E",
               K1_F32: "qp_fused3d_kernelIf", K1_F64: "qp_fused3d_kernelId",
@@ -536,11 +540,11 @@ def same_k1_residency(log) -> None:
         size = dtype.itemsize
         tag = {2: "13__nv_bfloat16", 4: "f", 8: "d"}[size]
         cfg = k1.qp_config(size, *shape)
-        body = k1.QP_ENTRY_BODIES[cfg.body, cfg.c12t]
+        body = k1.qp_entry_body(cfg)
         key = (f"{tag}Li{cfg.et}ELi{cfg.planes}ELi{cfg.depth}ELi"
                f"{cfg.threads}ELNS_6QPBodyE{body}E")
         smem = k1.qp_smem(size, cfg.et, cfg.planes, *shape, cfg.depth,
-                          cfg.body, cfg.c12t)
+                          cfg.body, cfg.c12t, cfg.stage1)
         plain, probe = (k1_resident(found[(key, p)], cfg.threads, smem)
                         for p in (False, True))
         print(f"  ptxas: K1 at {label} {tuple(cfg)}: blocks an SM {plain}, "
@@ -605,17 +609,19 @@ def build_kernels(parent_log=None) -> None:
         print(f"  SASS: {n} {op} in {kernel}")
     for kernel, op in TC_MMA + RING_BULK:
         assert counts.get((kernel, op), 0) > 0, (kernel, op, counts)
-    for kernel in (*DMMA_F64_DENSE, K1_DMMA, K1_HELD):
+    for kernel in (*DMMA_F64_DENSE, K1_DMMA, K1_HELD, K1_S1):
         assert counts.get((kernel, DMMA_SM80), 0) == 0, (kernel, counts)
-    for kernel in (K1_DMMA, K1_HELD):
+    for kernel in (K1_DMMA, K1_HELD, K1_S1):
         assert counts.get((kernel, DMMA_SM90), 0) > 0, (kernel, counts)
     assert counts.get((K1_F32, "DMMA"), 0) == 0, counts
     assert counts.get((K1_HMMA, HMMA_BF16), 0) > 0, counts
     assert counts.get((K1_TF32, HGMMA_TF32), 0) > 0, counts
     assert counts.get((K1_TF32, "DMMA"), 0) == 0, counts
-    for kernel in (K1_DMMA, K1_HELD, K1_F32, K1_F64, K1_BF16, K1_TF32):
+    for kernel in (K1_DMMA, K1_HELD, K1_S1, K1_F32, K1_F64, K1_BF16,
+                   K1_TF32):
         assert counts.get((kernel, "HMMA"), 0) == 0, (kernel, counts)
-    for kernel in (K1_DMMA, K1_HELD, K1_HMMA, K1_F32, K1_F64, K1_BF16):
+    for kernel in (K1_DMMA, K1_HELD, K1_S1, K1_HMMA, K1_F32, K1_F64,
+                   K1_BF16):
         assert counts.get((kernel, "HGMMA"), 0) == 0, (kernel, counts)
     for op in (CLOCK, TIMER):
         assert counts.get((K1_PLAIN, op), 0) == 0, (op, counts)
@@ -1968,6 +1974,8 @@ def main(argv=None) -> int:
           f"{dict(sorted(k1.qp_bodies.items()))}")
     print(f"K1 DMMA launches by where C12T lived (qp_dmma_c12t): "
           f"{dict(sorted(k1.qp_dmma_c12t.items()))}")
+    print(f"K1 launches by (dtype, stage-1 body) (qp_stage1_bodies): "
+          f"{dict(sorted(k1.qp_stage1_bodies.items()))}")
     print(card())  # again beside the numbers, for a reader of the tail
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,

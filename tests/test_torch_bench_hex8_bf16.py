@@ -26,7 +26,8 @@ SHAPE = (7, 49, 8, 64)
 CARD_BYTES = 80 * 10**9
 K1_METRICS = {"qp_fused3d_roofline", "qp_ring_pct", "qp_dmma_pct",
               "qp_hmma_pct", "qp_wait_pct", "qp_stage1_pct",
-              "qp_stage2_pct", "qp_slot_idle_pct", "qp_tf32_pct"}
+              "qp_stage2_pct", "qp_slot_idle_pct", "qp_tf32_pct",
+              "qp_s1_dmma_pct"}
 
 
 def _config(**changes):
@@ -81,7 +82,7 @@ def test_cell_resolves_to_the_configuration():
     assert {"out_block_spread_pct", "call_us", "alloc_us", "launch_us",
             "device_allocs", "device_idle_pct", "enqueue_us",
             "library_s"} <= per_layer
-    assert len(per_layer) == 17
+    assert len(per_layer) == 18
     assert not {"kron_blocked_roofline", "kron_wgmma_pct",
                 "kron_resident_pct"} & per_layer
     [conf] = [c for c in spec.benchmark()["configs"] if c["name"] == CONFIG]

@@ -100,14 +100,18 @@ def test_yardstick_counts_at_the_configuration():
 def test_k1_runs_dmma_at_depth_1_alone_on_an_sm():
     """QP_MEASURED's setting for the 2D plane view at 32^2 in f64: tiles of
     16, groups of 8 planes, depth 1, stage 2 on DMMA (C12T = B1^T, 32 x
-    31, held in registers: two m tiles, the last k step masked).  Its
-    buffers fit one block, but not two an SM."""
-    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 8, 1, 256, "dmma",
-                                                  "regs")
+    31, held in registers: two m tiles, the last k step masked), and stage
+    1 on DMMA too, in groups of 16 planes (nm0 = 31 in 4 k steps, the last
+    masked; the slab's rows 18 values long; a persistent block's one slot
+    and its tiles' words).  Its buffers fit one block, but not two an
+    SM."""
+    assert k1.qp_config(8, *SHAPE) == k1.QPConfig(16, 16, 1, 256, "dmma",
+                                                  "regs", "dmma")
     assert k1.QP_MEASURED[(8, *SHAPE)] == k1.qp_config(8, *SHAPE)
-    assert k1.qp_dmma_takes(31, 32)
-    smem = k1.qp_smem(8, 16, 8, *SHAPE, 1, "dmma", "regs")
-    assert smem == 162_688 <= k1.SMEM_BLOCK
+    assert k1.qp_dmma_takes(31, 32) and k1.qp_s1_dmma_takes(*SHAPE[:2], 32)
+    smem = k1.qp_smem(8, 16, 16, *SHAPE, 1, "dmma", "regs", "dmma")
+    assert smem == 16 + 8 * (961 * 18 + 16 * 31 * 16 + 31 * 32) == \
+        209_824 <= k1.SMEM_BLOCK
     assert 2 * (smem + k1.SMEM_RESERVED) > k1.SMEM_SM
     # no two slabs of a ring tile fit at 32^2 in f64
     for g in k1.QP_PLANE_GROUPS:

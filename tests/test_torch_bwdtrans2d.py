@@ -796,15 +796,15 @@ def test_smem_sizes_agree_with_the_library_on_card(itemsize):
         for et in k1.QP_TILES[itemsize]:
             for g in k1.QP_PLANE_GROUPS:
                 for depth in (1, 2):
-                    for body, where in k1.QP_ENTRY_BODIES:
+                    for body, where, s1 in k1.QP_ENTRY_BODIES:
                         if body not in k1.qp_built_bodies(itemsize, et):
                             continue
                         assert k1.qp_smem(itemsize, et, g, *k1_shape, depth,
-                                          body, where) == \
+                                          body, where, s1) == \
                             lib.tbt_qp_fused3d_smem(
                                 itemsize, et, g, *k1_shape, depth,
-                                k1.QP_ENTRY_BODIES[body, where]), (
-                                    nq, et, g, depth, body, where)
+                                k1.QP_ENTRY_BODIES[body, where, s1]), (
+                                    nq, et, g, depth, body, where, s1)
         stage1 = (k1_shape[3], k1_shape[1])
         for m, k in (stage1, (widths[-1], widths[0])):
             for w in k2.KRON_STRIPS:

@@ -178,14 +178,20 @@ def test_qp_config_fits_the_card(label, shape, itemsize):
     gives one of K1's tiles, plane groups, forms, stage-2 bodies and
     places of C12T, whose buffers, slab slots included, fit the H100's
     232,448 B of a block, and the tile is a whole number of 4-element
-    micro-tiles."""
-    et, g, depth, threads, body, where = k1.qp_config(itemsize, *shape)
-    assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
+    micro-tiles; stage 1 on a body built beside that setting."""
+    et, g, depth, threads, body, where, stage1 = k1.qp_config(itemsize,
+                                                              *shape)
+    assert et in k1.QP_TILES[itemsize]
+    assert g in (*k1.QP_PLANE_GROUPS, k1.QP_S1_PLANES)
     assert (depth, threads) in k1.qp_forms(itemsize, et, body)
     assert body in k1.qp_built_bodies(itemsize, et)
     assert where in k1.qp_c12t_places(body, shape[1], shape[3])
+    assert stage1 in k1.qp_stage1_places(itemsize, et, g, depth, threads,
+                                         body, where, shape[0], shape[1],
+                                         shape[3])
     assert et % k1.QP_TE == 0
-    assert k1.qp_smem(itemsize, et, g, *shape, depth, body, where) <= 232448
+    assert k1.qp_smem(itemsize, et, g, *shape, depth, body, where,
+                      stage1) <= 232448
 
 
 def test_qp_smem_counts_each_buffer():
@@ -263,7 +269,7 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
     shape = (31, 31, 32, 30)
     assert 2 * (k1.qp_smem(4, 16, 8, *shape) + k1.SMEM_RESERVED) <= k1.SMEM_SM
     assert k1.qp_config(4, *shape) == (32, 8, 1, k1.QP_THREADS, "simt",
-                                       "smem")
+                                       "smem", "simt")
     # a 32^3 slab (961 x 31 rows) fits no tile at all
     assert k1.qp_config(4, 31, 961, 32, 1024) is None
     assert k1.qp_config(4, 7, 49, 8, 64, block_limit=1024) is None
@@ -272,13 +278,17 @@ def test_qp_config_prefers_two_blocks_and_refuses_what_does_not_fit():
 def test_qp_measured_settings_fit_and_are_the_configs():
     for (itemsize, *shape), cfg in k1.QP_MEASURED.items():
         assert type(cfg) is k1.QPConfig
-        et, g, depth, threads, body, where = cfg
-        assert et in k1.QP_TILES[itemsize] and g in k1.QP_PLANE_GROUPS
+        et, g, depth, threads, body, where, stage1 = cfg
+        assert et in k1.QP_TILES[itemsize]
+        assert g in (*k1.QP_PLANE_GROUPS, k1.QP_S1_PLANES)
         assert (depth, threads) in k1.qp_forms(itemsize, et, body)
         assert body in k1.qp_built_bodies(itemsize, et)
         assert where in k1.qp_c12t_places(body, shape[1], shape[3])
+        assert stage1 in k1.qp_stage1_places(itemsize, et, g, depth,
+                                             threads, body, where, shape[0],
+                                             shape[1], shape[3])
         assert k1.qp_smem(itemsize, et, g, *shape, depth, body,
-                          where) <= 232448
+                          where, stage1) <= 232448
         assert k1.qp_config(itemsize, *shape) == cfg
 
 
@@ -413,7 +423,7 @@ def test_qp_launch_config_takes_tf32_in_f32():
     refuses another plane group, a tile it is not built for, the
     512-thread ring, C12T staged and a shape past what its warps hold.
     The entry's body code is the kernel's QP_TF32, 4."""
-    assert k1.QP_ENTRY_BODIES["tf32", "regs"] == 4
+    assert k1.QP_ENTRY_BODIES["tf32", "regs", "simt"] == 4
     assert k1.qp_built_bodies(4, 16) == k1.qp_built_bodies(4, 32) == \
         ("simt", "tf32")
     assert "tf32" not in k1.qp_built_bodies(4, 64) + k1.qp_built_bodies(4, 128)
@@ -594,10 +604,284 @@ def test_qp_config_takes_the_ring_where_measured(itemsize, shape, depth):
     cfg = k1.qp_config(itemsize, *shape)
     assert cfg.depth == depth
     assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
-                      cfg.depth, cfg.body, cfg.c12t) <= k1.SMEM_BLOCK
+                      cfg.depth, cfg.body, cfg.c12t,
+                      cfg.stage1) <= k1.SMEM_BLOCK
     if depth == 1:
         assert k1.qp_smem(itemsize, cfg.et, cfg.planes, *shape,
-                          2, cfg.body, cfg.c12t) > k1.SMEM_BLOCK
+                          2, cfg.body, cfg.c12t,
+                          cfg.stage1) > k1.SMEM_BLOCK
+
+
+# ---- K1's stage 1 on DMMA (QP_DMMA_S1) -------------------------------------
+
+# The DMMA stage 1's element tile (the m16 side of its products)
+S1_ET = 16
+
+
+def _v_col(rq, e):
+    """csrc/qp_fused3d.cuh qp_v_col: DMMA's V column of element e, row rq."""
+    return e ^ ((rq & 7) << 1)
+
+
+def _v_col_s1(g, rq, e):
+    """qp_v_col_s1: the DMMA stage 1's V column of element e, row rq of
+    plane g: qp_v_col's, its 16-byte word also XORed with 2 (g / 2 % 4)."""
+    return _v_col(rq, e) ^ ((g >> 1 & 3) << 2)
+
+
+def _banks(offsets):
+    """The bank groups (16 bytes of the 128 of a row of banks) of 16-byte
+    accesses at `offsets` (doubles, each on a 16-byte boundary)."""
+    assert all(o % 2 == 0 for o in offsets)
+    return [o // 2 % 8 for o in offsets]
+
+
+def _stage1_dmma(slab, b0, nq0, i0, planes):
+    """qp_stage1_dmma emulated lane by lane at one plane group [i0, i0 +
+    planes) of one tile: the slab (nm0, nrq, 16) copied into shared memory
+    at rows of qp_slab_ld values, NaN wherever the copy writes nothing (the
+    pads and past the last p), B0 (nm0, nq0) staged with nq0 padded to the
+    group, the units (rq rows) dealt to 8 warps in turn, and each k step's
+    A, B and D fragments placed at the m16n8k8 f64 positions of
+    tbt::mma_f64_16x8x8 (a[i] at (g + 8 (i % 2), t + 4 (i / 2)), b[i] at
+    (t + 4i, g), d[i] at (g + 8 (i / 2), 2t + i % 2)).  Returns V (planes
+    of nrq x 16 at their swizzled columns), each quarter warp's 16-byte
+    loads and stores (offsets in doubles) and the units of each warp."""
+    nm0, nrq, et = slab.shape
+    ld = k1.qp_slab_ld(et, "dmma")
+    ps = nrq * ld
+    smem = np.full((nm0 + 1) * ps, np.nan)
+    for p in range(nm0):
+        for rq in range(nrq):
+            smem[p * ps + rq * ld:p * ps + rq * ld + et] = slab[p, rq]
+    nq0p = -(-nq0 // planes) * planes
+    s_b0 = np.zeros((nm0, nq0p))
+    s_b0[:, :nq0] = b0
+    v = np.full(planes * nrq * et, np.nan)
+    loads, stores, dealt = [], [], {}
+    for w in range(8):
+        for rq in range(w, nrq, 8):
+            dealt.setdefault(w, []).append(rq)
+            acc = np.zeros((planes // 8, 32, 4))
+            for s in range(k1.QP_S1_STEPS):
+                if s * k1.QP_MMA_K >= nm0:
+                    break
+                a = np.zeros((16, 8))
+                b = np.zeros((planes // 8, 8, 8))
+                step = []
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    p = s * k1.QP_MMA_K + 2 * t
+                    x = p * ps + rq * ld + 2 * g
+                    lo = smem[x:x + 2] if p < nm0 else np.zeros(2)
+                    hi = smem[x + ps:x + ps + 2] if p + 1 < nm0 else \
+                        np.zeros(2)
+                    step.append((x, x + ps))
+                    af = [lo[0], lo[1], hi[0], hi[1]]
+                    for i in range(4):
+                        a[g + 8 * (i % 2), t + 4 * (i // 2)] = af[i]
+                    for n in range(planes // 8):
+                        for i in range(2):
+                            b[n, t + 4 * i, g] = (
+                                s_b0[p + i, i0 + 8 * n + g]
+                                if p + i < nm0 else 0.0)
+                loads += [[step[lane][h] for lane in range(q, q + 8)]
+                          for q in range(0, 32, 8) for h in range(2)]
+                for n in range(planes // 8):
+                    d = a @ b[n]
+                    for lane in range(32):
+                        g, t = lane // 4, lane % 4
+                        for i in range(4):
+                            acc[n, lane, i] += d[g + 8 * (i // 2),
+                                                 2 * t + i % 2]
+            for n in range(planes // 8):
+                put = []
+                for lane in range(32):
+                    g, t = lane // 4, lane % 4
+                    at = [(pl * nrq + rq) * et + _v_col_s1(pl, rq, 2 * g)
+                          for pl in (8 * n + 2 * t, 8 * n + 2 * t + 1)]
+                    v[at[0]:at[0] + 2] = acc[n, lane, [0, 2]]
+                    v[at[1]:at[1] + 2] = acc[n, lane, [1, 3]]
+                    put.append(at)
+                stores += [[put[lane][h] for lane in range(q, q + 8)]
+                           for q in range(0, 32, 8) for h in range(2)]
+    return v, loads, stores, dealt
+
+
+@pytest.mark.parametrize("nm0,nrq,nq0,planes", [
+    (31, 31, 32, 16), (31, 31, 32, 8), (5, 7, 6, 16), (9, 81, 10, 8)],
+    ids=["b04 32^2", "b04 32^2 G=8", "ragged", "b05 10^3 G=8"])
+def test_qp_stage1_dmma_lane_map_forms_v(nm0, nrq, nq0, planes):
+    """The DMMA stage 1's lane map, emulated lane by lane (_stage1_dmma):
+    with k slots t and t + 4 at p = 2t and 2t + 1 in A and B, m rows g and
+    g + 8 at elements 2g and 2g + 1, p past nm0 zero in registers (the
+    emulated shared memory holds NaN there and in the rows' pads, so a
+    read of it would show), V at qp_v_col_s1, it forms every plane group's
+    V within 1e-14 of einsum, planes past nq0 zero, and deals each rq row
+    to one warp once: at b04 32^2 in the cell's groups of 16 planes (nm0 =
+    31: the last k step holds one p past nm0) and in groups of 8, a ragged
+    shape (nm0 = 5 in one partial k step, nrq = 7 rows for 8 warps, nq0 =
+    6 in a group of 16) and b05 10^3 (nm0 = 9, nrq = 81: warp 0 takes one
+    row more than the others)."""
+    rng = np.random.default_rng(nm0 * nrq)
+    slab = rng.standard_normal((nm0, nrq, S1_ET))
+    b0 = rng.standard_normal((nm0, nq0))
+    for i0 in range(0, nq0, planes):
+        v, _, _, dealt = _stage1_dmma(slab, b0, nq0, i0, planes)
+        assert sorted(rq for units in dealt.values() for rq in units) == \
+            list(range(nrq))
+        valid = min(planes, nq0 - i0)
+        ref = np.zeros((planes, nrq, S1_ET))
+        ref[:valid] = np.einsum("pi,pre->ire", b0[:, i0:i0 + valid], slab)
+        got = np.array([[[v[(g * nrq + rq) * S1_ET + _v_col_s1(g, rq, e)]
+                          for e in range(S1_ET)] for rq in range(nrq)]
+                        for g in range(planes)])
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-14 * np.abs(ref).max())
+
+
+def test_qp_stage1_dmma_hits_distinct_banks():
+    """At b04 32^2 every 16-byte access of a quarter warp in the DMMA
+    stage 1 hits its own bank group: the A loads (p = 2t apart at rows of
+    18 values, 31 x 36 t = 4t mod 16 values) and the stores into V (planes
+    8n + 2t and 8n + 2t + 1 of one row at qp_v_col_s1); stage 2's B loads
+    of V at the same columns stay conflict-free, and read each value where
+    stage 1 stored it.  At rows of 16 values the loads would conflict 4
+    ways, and so would the stores at qp_v_col alone."""
+    nm0, nrq, nq0, planes = 31, 31, 32, 16
+    slab = np.ones((nm0, nrq, S1_ET))
+    _, loads, stores, _ = _stage1_dmma(slab, np.ones((nm0, nq0)), nq0, 0,
+                                       planes)
+    for group in loads + stores:
+        assert sorted(_banks(group)) == list(range(8)), group
+    assert len(set(_banks([2 * t * nrq * S1_ET + 2 * g for g in (0, 1)
+                           for t in range(4)]))) == 2
+    assert len(set(_banks([(2 * t * nrq + 5) * S1_ET + _v_col(5, 2 * g)
+                           for g in (0, 1) for t in range(4)]))) == 2
+    # stage 2 (qp_stage2_dmma, C12T held): lane 4g + t of a unit loads
+    # rows k + 2t + r of one plane at elements 2g, 2g + 1
+    for plane in range(planes):
+        for k in range(0, nrq, k1.QP_MMA_K):
+            for r in range(2):
+                for q in range(0, 32, 8):
+                    at = []
+                    for lane in range(q, q + 8):
+                        g, t = lane // 4, lane % 4
+                        base = (plane * nrq + 2 * t + r) * S1_ET + \
+                            _v_col_s1(plane, 2 * t + r, 2 * g)
+                        at.append(base + k * S1_ET)
+                        rq = k + 2 * t + r
+                        assert base + k * S1_ET == (plane * nrq + rq) * \
+                            S1_ET + _v_col_s1(plane, rq, 2 * g)
+                    assert sorted(_banks(at)) == list(range(8))
+
+
+def test_qp_config_takes_the_dmma_stage_1_only_at_b04_32_squared():
+    """QP_MEASURED names stage 1 on DMMA at (8, 31, 31, 32, 32) alone, the
+    plane view at 32^2 in f64 (cell quad32-f64-qp), beside the held DMMA
+    stage 2 at (16, 16, 1, 256); every other measured shape and every
+    order both benchmarks sweep keeps the SIMT stage 1 in any dtype."""
+    assert [key for key, cfg in k1.QP_MEASURED.items()
+            if cfg.stage1 == "dmma"] == [(8, 31, 31, 32, 32)]
+    assert k1.qp_config(8, 31, 31, 32, 32) == k1.QPConfig(
+        16, 16, 1, 256, "dmma", "regs", "dmma")
+    assert k1.qp_entry_body(k1.qp_config(8, 31, 31, 32, 32)) == 5
+    for (itemsize, *shape), cfg in k1.QP_MEASURED.items():
+        if (itemsize, *shape) != (8, 31, 31, 32, 32):
+            assert k1.qp_config(itemsize, *shape).stage1 == "simt"
+    for _, shape in K1_SHAPES:
+        for itemsize in (2, 4, 8):
+            if (itemsize, *shape) != (8, 31, 31, 32, 32):
+                assert k1.qp_config(itemsize, *shape).stage1 == "simt"
+
+
+@pytest.mark.parametrize("itemsize,shape,settings", [
+    (8, (31, 31, 32, 32), 1), (8, (7, 49, 8, 64), 1),
+    (8, (9, 81, 10, 100), 0), (8, (7, 7, 8, 8), 1), (8, (1, 90, 2, 100), 0),
+    (8, (33, 33, 34, 34), 0), (4, (31, 31, 32, 32), 0),
+    (2, (31, 31, 32, 32), 0)])
+def test_qp_smem_counts_the_dmma_stage_1(itemsize, shape, settings):
+    """The DMMA stage 1's slab rows are QP_S1_PAD values longer than the
+    SIMT form's (b04 32^2: 961 x 2 doubles, 15,376 B), its persistent
+    blocks keep the slots' tiles in front, and its one setting, (16, 16,
+    1, 256) beside DMMA with C12T held, is in the sweep wherever it is
+    built and fits SMEM_BLOCK: in f64, where C12T is held (nrq <= 88, nkj
+    <= 128) and nm0 <= 32; not at b05 10^3 (272,032 B), past what the
+    warps hold (nrq = 90), past 32 p (nm0 = 33), nor in f32 or bf16."""
+    nm0, nrq, nq0, nkj = shape
+    held = k1.qp_smem(itemsize, 16, 16, *shape, 1, "dmma", "regs")
+    dmma = k1.qp_smem(itemsize, 16, 16, *shape, 1, "dmma", "regs", "dmma")
+    assert dmma - held == 16 + itemsize * nm0 * nrq * k1.QP_S1_PAD
+    assert k1.qp_slab_ld(16, "dmma") == 18 and k1.qp_slab_ld(16) == 16
+    found = [c for c in k1.qp_settings(itemsize, *shape)
+             if c.stage1 == "dmma"]
+    assert found == [k1.QPConfig(16, 16, 1, 256, "dmma", "regs",
+                                 "dmma")] * settings
+    assert not [c for c in k1.qp_settings(itemsize, *shape)
+                if (c.planes == 16) != (c.stage1 == "dmma")]
+    if itemsize == 8 and shape != (9, 81, 10, 100):
+        assert k1.qp_s1_dmma_takes(nm0, nrq, nkj) is (settings == 1)
+    if shape == (9, 81, 10, 100):
+        assert dmma == 272_032 > k1.SMEM_BLOCK
+    for c in found:
+        assert k1.qp_smem(itemsize, c.et, c.planes, *shape, c.depth, c.body,
+                          c.c12t, c.stage1) == dmma <= k1.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_qp_launch_config_refuses_the_dmma_stage_1_outside_f64(itemsize):
+    """The stage1 knob takes "dmma" in f32 and bf16 at no setting: they
+    have no such instance."""
+    with pytest.raises(ValueError, match="stage1='dmma' is not one of"):
+        k1.qp_launch_config(itemsize, 31, 31, 32, 32, 16, 16, stage1="dmma")
+    with pytest.raises(ValueError, match="stage1='dmma' is not one of"):
+        k1.qp_launch_config(itemsize, 31, 31, 32, 32, None, None,
+                            stage1="dmma")
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(body="simt"), dict(body="dmma", where="smem"),
+    dict(body="dmma", where="regs", epb=32),
+    dict(body="dmma", where="regs", planes=8),
+    dict(body="dmma", where="regs", depth=2)],
+    ids=["simt", "dmma-staged", "tile-32", "planes-8", "depth-2"])
+def test_qp_launch_config_refuses_the_dmma_stage_1_off_its_form(knobs):
+    """In f64 the stage1 knob takes "dmma" only beside DMMA with C12T held
+    at (16, 16, 1, 256), its one instance: not beside the SIMT stage 2, nor
+    with C12T staged, nor at another tile, plane group or depth."""
+    epb, planes = knobs.pop("epb", 16), knobs.pop("planes", 16)
+    with pytest.raises(ValueError, match="stage1='dmma' is not one of"):
+        k1.qp_launch_config(8, 31, 31, 32, 32, epb, planes, stage1="dmma",
+                            **knobs)
+
+
+def test_qp_launch_config_takes_the_dmma_stage_1_in_f64():
+    """The knobs force the DMMA stage 1 (its group of 16 planes unless
+    planes are given) beside the held DMMA stage 2, also at a shape whose
+    rule keeps SIMT (b05 8^3); a group of 16 planes is the DMMA stage 1's
+    alone; the rule's setting at b04 32^2 takes it with no knob; a shape
+    past 32 p refuses it."""
+    forced = k1.QPConfig(16, 16, 1, 256, "dmma", "regs", "dmma")
+    assert k1.qp_launch_config(8, 31, 31, 32, 32, 16, 16, depth=1,
+                               body="dmma", where="regs",
+                               stage1="dmma") == forced
+    assert k1.qp_launch_config(8, 31, 31, 32, 32, None, None) == forced
+    assert k1.qp_launch_config(8, 7, 49, 8, 64, 16, None, body="dmma",
+                               where="regs", stage1="dmma") == forced
+    assert k1.qp_launch_config(8, 7, 49, 8, 64, 16, 16, body="dmma",
+                               where="regs") == forced
+    assert k1.qp_launch_config(8, 7, 49, 8, 64, 16, 8, body="dmma",
+                               where="regs").stage1 == "simt"
+    with pytest.raises(ValueError, match="stage1='simt' is not one of"):
+        k1.qp_launch_config(8, 31, 31, 32, 32, None, None, stage1="simt")
+    with pytest.raises(ValueError, match="stage1='simt' is not one of"):
+        k1.qp_launch_config(8, 7, 49, 8, 64, 16, 16, body="simt")
+    with pytest.raises(ValueError, match="nm0 <= 32"):
+        k1.qp_launch_config(8, 33, 33, 34, 34, 16, 16, body="dmma",
+                            where="regs", stage1="dmma")
+    with pytest.raises(ValueError, match="planes=12 is not one of"):
+        k1.qp_launch_config(8, 7, 49, 8, 64, 16, 12)
 
 
 @pytest.mark.parametrize("et,nkj,planes", [(32, 64, 4), (16, 64, 8),
@@ -644,22 +928,23 @@ def test_qp_fused3d_every_config_on_card(nq, sizes):
                                     dtype=dtype)
                         for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq)))
             ref = k1.qp_shared3d_plain(x, b0, c)
-            configs = [(None,) * 6] + k1.qp_settings(
+            configs = [(None,) * 7] + k1.qp_settings(
                 size, nm0, nrq, nq0, nkj)
-            for et, g, d, t, body, where in configs:
+            for et, g, d, t, body, where, s1 in configs:
                 out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
-                                     threads=t, body=body, where=where)
+                                     threads=t, body=body, where=where,
+                                     stage1=s1)
                 card_agree(out, ref, dtype, tol, (e, et, g, d, t, body,
-                                                  where))
-            for et, g, d, t, body, where in configs[1:]:
+                                                  where, s1))
+            for et, g, d, t, body, where, s1 in configs[1:]:
                 if d == 2:
                     outs = [k1.qp_shared3d(x, b0, c, epb=et, planes=g,
                                            depth=d, threads=t, body=body,
-                                           where=where)
+                                           where=where, stage1=s1)
                             for _ in range(2)]
                     for n, out in enumerate(outs):
                         card_agree(out, ref, dtype, tol,
-                                   (e, et, g, d, t, body, where, n))
+                                   (e, et, g, d, t, body, where, s1, n))
 
 
 @pytest.mark.cuda
@@ -699,6 +984,54 @@ def test_qp_fused3d_hmma_on_card(nq, e):
                               depth=v.depth, threads=v.threads, body=v.body,
                               where=v.c12t))
         card_agree(out, ref, torch.bfloat16, 2**-7, (e, v))
+
+
+# The f64 shapes (nm0, nrq, nq0, nkj) where the card test runs K1's DMMA
+# stage 1: b04 32^2 (its rule's), b05 8^3 (nm0 = 7: one partial k step)
+# and b05 at nq = (5, 6, 7) (nm0 = 4, nrq = 30: even, nq0 = 5 in a group
+# of 16 planes, nkj = 42: a partial m tile)
+S1_DMMA_SHAPES = [(31, 31, 32, 32), (7, 49, 8, 64), (4, 30, 5, 42)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", S1_DMMA_SHAPES,
+                         ids=["b04 32^2", "b05 8^3", "b05 (5, 6, 7)"])
+def test_qp_fused3d_s1_dmma_on_card(shape):
+    """K1 with stage 1 on DMMA, forced through the knobs at (16, 16, 1)
+    beside the held DMMA stage 2, its persistent blocks taking tiles from
+    the stream's counter, on E = 1005 (a ragged last tile of 13
+    elements, rows of out off 16-byte boundaries) and E = 4096 (whole
+    tiles), the four launches on one stream with no synchronisation
+    between: within 1e-12 of the plain version and of the held DMMA form
+    with the SIMT stage 1 at (16, 8, 1), relative to the largest output;
+    qp_stage1_bodies counts each launch under its stage-1 body, and at b04
+    32^2 the rule's launch (no knob) is one on DMMA too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    nm0, nrq, nq0, nkj = shape
+    gen = torch.Generator(device="cuda").manual_seed(nm0 * nrq)
+    knobs = dict(epb=16, depth=1, threads=256, body="dmma", where="regs")
+    ins = [[torch.randn(*s, generator=gen, device="cuda",
+                        dtype=torch.float64)
+            for s in ((nm0, nrq, e), (nm0, nq0), (nkj, nrq))]
+           for e in (1005, 4096)]
+    before = k1.qp_stage1_bodies.copy()
+    outs = [k1.qp_shared3d(*xs, **knobs, planes=16, stage1="dmma")
+            for xs in ins]
+    simt = [k1.qp_shared3d(*xs, **knobs, planes=8, stage1="simt")
+            for xs in ins]
+    assert k1.qp_stage1_bodies - before == {("f64", "dmma"): 2,
+                                            ("f64", "simt"): 2}
+    for xs, out, other in zip(ins, outs, simt):
+        e = xs[0].shape[2]
+        card_agree(out, k1.qp_shared3d_plain(*xs), torch.float64, 1e-12,
+                   (shape, e, "plain"))
+        card_agree(out, other, torch.float64, 1e-12, (shape, e, "simt"))
+    if shape == (31, 31, 32, 32):
+        before = k1.qp_stage1_bodies.copy()
+        out = k1.qp_shared3d(*ins[0])
+        assert k1.qp_stage1_bodies - before == {("f64", "dmma"): 1}
+        card_agree(out, outs[0], torch.float64, 1e-12, (shape, "rule"))
 
 
 # The f32 shapes (nm0, nrq, nq0, nkj) where K1's TF32 body runs: b05 8^3

@@ -251,15 +251,17 @@ def test_qp_fused3d_ring_on_card(dtype, tol):
     for e in (131071, 1001):
         x, b0, c = operands(e)
         ref = k1.qp_shared3d_plain(x, b0, c)
-        for et, g, d, t, body, where in forms:
+        for et, g, d, t, body, where, s1 in forms:
             out = k1.qp_shared3d(x, b0, c, epb=et, planes=g, depth=d,
-                                 threads=t, body=body, where=where)
+                                 threads=t, body=body, where=where,
+                                 stage1=s1)
             torch.cuda.synchronize()
-            assert _rel_err(out, ref) <= tol, (e, et, g, d, t, body, where)
-    et, g, d, t, body, where = forms[0]
+            assert _rel_err(out, ref) <= tol, (e, et, g, d, t, body, where,
+                                               s1)
+    et, g, d, t, body, where, s1 = forms[0]
     calls = [tuple(operands(1000)) for _ in range(4)]
     outs = [k1.qp_shared3d(*ops, epb=et, planes=g, depth=d, threads=t,
-                           body=body, where=where)
+                           body=body, where=where, stage1=s1)
             for ops in calls]
     torch.cuda.synchronize()
     for ops, out in zip(calls, outs):
@@ -566,14 +568,14 @@ def test_cached_bwdtrans_configs_equal_their_rules(nq, itemsize):
         planes = k1.qp_planes(tile, nkj)
         assert k1.qp_launch_config(itemsize, nm0, nrq, nq0, nkj, tile,
                                    None) == (tile, planes, 1, k1.QP_THREADS,
-                                             "simt", "smem")
+                                             "simt", "smem", "simt")
         threads = k1.QP_FORMS[itemsize][-1][1]
         if k1.qp_smem(itemsize, tile, planes, nm0, nrq, nq0, nkj,
                       2) <= k1.SMEM_BLOCK:
             assert k1.qp_launch_config(
                 itemsize, nm0, nrq, nq0, nkj, tile, None, depth=2,
                 threads=threads) == (tile, planes, 2, threads, "simt",
-                                     "smem")
+                                     "smem", "simt")
     for m, k in kron:
         assert k2.kron_config(itemsize, m, k) == \
             k2.kron_config.__wrapped__(itemsize, m, k)
@@ -735,7 +737,45 @@ def test_qp_launch_passes_and_counts_its_body(fake_library, monkeypatch,
     k1._launch(x, b0, c12t, 49, None, None, depth, body=body, where=where)
     name, args = fake_library.calls[-1]
     assert name == f"tbt_qp_fused3d_{build.SUFFIXES[dtype]}"
-    assert args[-6:-1] == (*cfg[:4], k1.QP_ENTRY_BODIES[cfg.body, cfg.c12t])
+    assert args[-6:-1] == (*cfg[:4], k1.qp_entry_body(cfg))
     assert k1.qp_bodies - bodies == {(build.SUFFIXES[dtype], cfg.body): 1}
     assert k1.qp_dmma_c12t - places == (
         {cfg.c12t: 1} if cfg.body == "dmma" else {})
+
+
+@pytest.mark.parametrize("dtype,shape,stage1,knobs", [
+    (torch.float64, (31, 31, 32, 32), "dmma", {}),
+    (torch.float64, (31, 31, 32, 32), "simt",
+     dict(planes=8, stage1="simt")),
+    (torch.float64, (7, 49, 8, 64), "dmma",
+     dict(epb=16, planes=16, body="dmma", where="regs", stage1="dmma")),
+    (torch.float64, (7, 49, 8, 64), "simt", {}),
+    (torch.float32, (31, 31, 32, 32), "simt", {}),
+    (torch.bfloat16, (31, 31, 32, 32), "simt", {})],
+    ids=["f64-32^2-rule", "f64-32^2-simt", "f64-8^3-forced", "f64-8^3-rule",
+         "f32-32^2", "bf16-32^2"])
+def test_qp_launch_passes_and_counts_its_stage1(fake_library, monkeypatch,
+                                                dtype, shape, stage1, knobs):
+    """K1's stage-1 body round-trips through the wrapper: the rule's (DMMA
+    at b04 32^2 in f64 alone) or the knobs', reaching the entry as
+    qp_entry_body's code (QP_DMMA_S1, 5, for DMMA), and the launch is
+    counted once in qp_stage1_bodies under (dtype, stage-1 body)."""
+    from tpu_bench_torch.kernels import bwdtrans3d as k1
+
+    monkeypatch.setattr(build, "smem_limits", lambda index: (232448, 233472))
+    nm0, nrq, nq0, nkj = shape
+    gen = torch.Generator().manual_seed(7)
+    x, b0, c12t = (torch.randn(*s, generator=gen).to(dtype)
+                   for s in ((nm0 * nrq, 40), (nm0, nq0), (nkj, nrq)))
+    knobs = dict(knobs)
+    epb, planes = knobs.pop("epb", None), knobs.pop("planes", None)
+    cfg = k1.qp_launch_config(dtype.itemsize, *shape, epb, planes, **knobs)
+    assert cfg.stage1 == stage1
+    counts = k1.qp_stage1_bodies.copy()
+    k1._launch(x, b0, c12t, nrq, epb, planes, **knobs)
+    name, args = fake_library.calls[-1]
+    assert name == f"tbt_qp_fused3d_{build.SUFFIXES[dtype]}"
+    assert args[-2] == k1.qp_entry_body(cfg) == (5 if stage1 == "dmma"
+                                                 else args[-2])
+    assert k1.qp_stage1_bodies - counts == {
+        (build.SUFFIXES[dtype], stage1): 1}

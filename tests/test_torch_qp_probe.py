@@ -435,13 +435,34 @@ def test_probed_launch_writes_the_plain_forms_bits(shape, depth, form,
     has a record, and the launch's span holds every block's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    _, nm0, nrq, nq0, nkj, e = shape
     dtype, body, where = form
+    _probed_writes_the_plain_forms_bits(shape, dtype, dict(
+        epb=16, planes=8, depth=depth, threads=256, body=body, where=where))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES + [("b04 32^2", 31, 31, 32,
+                                                  32, 1005)],
+                         ids=lambda s: s[0])
+def test_probed_launch_writes_the_plain_forms_bits_with_stage_1_on_dmma(
+        shape, no_probes):
+    """As test_probed_launch_writes_the_plain_forms_bits, in f64 with
+    stage 1 on DMMA beside the held DMMA stage 2, at its one setting (16,
+    16, 1, 256: persistent blocks, one slot), also at b04 32^2 (its
+    rule's) on a ragged last tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _probed_writes_the_plain_forms_bits(shape, torch.float64, dict(
+        epb=16, planes=16, depth=1, threads=256, body="dmma", where="regs",
+        stage1="dmma"))
+
+
+def _probed_writes_the_plain_forms_bits(shape, dtype, knobs):
+    _, nm0, nrq, nq0, nkj, e = shape
     gen = torch.Generator(device="cuda").manual_seed(9)
     x, b0, c = (torch.randn(*s, generator=gen, device="cuda", dtype=dtype)
                 for s in ((nm0 * nrq, e), (nm0, nq0), (nkj, nrq)))
-    knobs = dict(nrq=nrq, epb=16, planes=8, depth=depth, threads=256,
-                 body=body, where=where)
+    knobs = dict(knobs, nrq=nrq)
     plain = k1.qp_shared3d_flat(x, b0, c, **knobs)
     with profile(activities=[ProfilerActivity.CPU]):
         probed = k1.qp_shared3d_flat(x, b0, c, **knobs)

@@ -16,11 +16,17 @@ setting twice, in the order a b .. b a).  The sweeps:
 - K1 (qp_fused3d): every (element tile, plane group, depth, threads,
   stage-2 body: SIMT, in f64 DMMA, with C12T staged in shared memory or
   held in registers, in bf16 HMMA and in f32 3xTF32 on wgmma, each with
-  C12T held) whose buffers fit, at benchmark05's nq=4^3, 6^3,
-  8^3 and 10^3 (E=131072) and benchmark04's 8^2, 16^2 and 32^2
-  (E=1,048,576); `*` marks qp_config's choice; then K1's launches by
-  depth (qp_depths), by (dtype, body) (qp_bodies) and its DMMA launches
-  by where C12T lived (qp_dmma_c12t);
+  C12T held; stage-1 body: SIMT, and in f64 DMMA beside the held DMMA
+  form at (16, 16, 1, 256)) whose buffers fit, at benchmark05's nq=4^3,
+  6^3, 8^3 and 10^3 (E=131072) and benchmark04's 8^2, 16^2 and 32^2
+  (E=1,048,576; `--nelmt` sets E for every K1 shape, `--rows` keeps the
+  shapes whose label holds one of its parts); `*` marks qp_config's
+  choice; with `--back-to-back` each setting's line also gives its time a
+  call over K1_CALLS calls back to back (core/timing.run_ms, no flush),
+  in turns as the flushed times; then K1's launches by depth
+  (qp_depths), by (dtype, body) (qp_bodies), by (dtype, stage-1 body)
+  (qp_stage1_bodies) and its DMMA launches by where C12T lived
+  (qp_dmma_c12t);
 - K2 (kron_blocked): every strip width of the C-resident configuration
   that fits, and 0, the dense one, at benchmark05's Pallas(QP) stage 1
   (64 x 49, nq=8^3), benchmark04's at nq=8^2 (8 x 7) and benchmark04's
@@ -108,7 +114,7 @@ import time
 import torch
 
 from tpu_bench_torch.core.timing import (ENQUEUE_CYCLES, L2Flush, event_ms,
-                                         time_variant)
+                                         run_ms, time_variant)
 from tpu_bench_torch.kernels import build
 from tpu_bench_torch.kernels import bwdtrans2d as k2
 from tpu_bench_torch.kernels import bwdtrans3d as k1
@@ -139,6 +145,8 @@ PROBE_SHAPES = [("hex8-f32-qp b05 nq=8^3", torch.float32, 7, 49, 8, 64,
                 ("quad8-bf16-qp b04 nq=8^2", torch.bfloat16, 7, 7, 8, 8,
                  B04_NELMT)]
 PROBE_ROUNDS = 4
+# --back-to-back: K1's calls a run of core/timing.run_ms
+K1_CALLS = 10
 # K2's products: (label, M, K, chunks, columns a chunk)
 K2_SHAPES = [("b05 nq=8^3 QP stage 1", 64, 49, 7, NELMT),
              ("b04 nq=8^2 QP stage 1", 8, 7, 7, B04_NELMT),
@@ -190,18 +198,32 @@ def report(tag, name, times, chosen=None) -> None:
               + " ".join(f"{t:.4f}" for t in ts) + " ms", flush=True)
 
 
-def k1_sweep(rnd, tag, itemsize) -> None:
+def k1_sweep(rnd, tag, itemsize, rows=(), nelmt=None,
+             back_to_back=False) -> None:
     for label, nm0, nrq, nq0, nkj, e in K1_SHAPES:
+        if rows and not any(r in label for r in rows):
+            continue
+        e = nelmt or e
         x, b0, c = rnd(nm0 * nrq, e), rnd(nm0, nq0), rnd(nkj, nrq)
         settings = k1.qp_settings(itemsize, nm0, nrq, nq0, nkj)
-        times = in_turns(lambda v: k1.qp_shared3d_flat(
-            x, b0, c, nrq=nrq, epb=v[0], planes=v[1], depth=v[2],
-            threads=v[3], body=v[4], where=v[5]), settings)
+
+        def call(v):
+            return k1.qp_shared3d_flat(
+                x, b0, c, nrq=nrq, epb=v.et, planes=v.planes, depth=v.depth,
+                threads=v.threads, body=v.body, where=v.c12t,
+                stage1=v.stage1)
+
+        times = in_turns(call, settings)
+        if back_to_back:
+            for v in (*settings, *reversed(settings)):
+                times[v].append(run_ms(lambda: call(v), K1_CALLS, runs=3))
         report(f"{tag} {label} E={e}",
-               "K1 (element tile, planes, depth, threads, body, C12T)", times,
+               "K1 (element tile, planes, depth, threads, body, C12T, "
+               "stage 1)" + (": flushed, flushed, back to back, back to "
+                             "back" if back_to_back else ""), times,
                k1.qp_config(itemsize, nm0, nrq, nq0, nkj))
-        best = min(times, key=lambda v: min(times[v]))
-        print(f"{tag} {label} K1 best {best}: {min(times[best]):.4f} ms",
+        best = min(times, key=lambda v: min(times[v][:2]))
+        print(f"{tag} {label} K1 best {best}: {min(times[best][:2]):.4f} ms",
               flush=True)
         del x
         torch.cuda.empty_cache()
@@ -209,6 +231,8 @@ def k1_sweep(rnd, tag, itemsize) -> None:
           flush=True)
     print(f"{tag} K1 launches by (dtype, body): "
           f"{dict(sorted(k1.qp_bodies.items()))}", flush=True)
+    print(f"{tag} K1 launches by (dtype, stage-1 body): "
+          f"{dict(sorted(k1.qp_stage1_bodies.items()))}", flush=True)
     print(f"{tag} K1 DMMA launches by where C12T lived: "
           f"{dict(sorted(k1.qp_dmma_c12t.items()))}", flush=True)
 
@@ -761,8 +785,15 @@ def main(argv=None) -> None:
     parser.add_argument("--uses", action="store_true",
                         help="time K3's uses and K9 instead of sweeping")
     parser.add_argument("--rows", default="",
-                        help="host sweep: comma-separated parts of the "
-                        "row labels to run (e.g. b02), all by default")
+                        help="host and K1 sweeps: comma-separated parts of "
+                        "the row labels to run (e.g. b02, 32^2), all by "
+                        "default")
+    parser.add_argument("--nelmt", type=int, default=None,
+                        help="K1 sweep: elements of every shape (default: "
+                        "each shape's own)")
+    parser.add_argument("--back-to-back", action="store_true",
+                        help="K1 sweep: also time each setting over "
+                        "calls back to back")
     parser.add_argument("--probe", action="store_true",
                         help="with --only k1: K1's plain form beside its "
                         "probe form at the benchmark's qp cells' shapes")
@@ -785,8 +816,9 @@ def main(argv=None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
+    rows = [r for r in args.rows.split(",") if r]
     if "host" in only and not args.uses:
-        host_sweep([r for r in args.rows.split(",") if r])
+        host_sweep(rows)
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.probe:
         probe_cost(gen)
@@ -806,7 +838,8 @@ def main(argv=None) -> None:
             uses(rnd, tag)
             continue
         if "k1" in runs:
-            k1_sweep(rnd, tag, dtype.itemsize)
+            k1_sweep(rnd, tag, dtype.itemsize, rows, args.nelmt,
+                     args.back_to_back)
         if "k2" in runs:
             k2_sweep(rnd, tag, dtype.itemsize)
         if "k3" in runs:

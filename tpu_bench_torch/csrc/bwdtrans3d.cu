@@ -383,12 +383,13 @@ extern "C" int tbt_qp_fused3d_bf16(const void* in, const void* b0,
 
 // Shared memory of one K1 block of element tile et, g planes a pass,
 // `depth` slab slots and stage-2 body `body` (QP_SIMT, QP_DMMA,
-// QP_DMMA_HELD, QP_HMMA or QP_TF32).
+// QP_DMMA_HELD, QP_DMMA_S1, QP_HMMA or QP_TF32).
 extern "C" long long tbt_qp_fused3d_smem(int itemsize, int et, int g,
                                          int nm0, int nrq, int nq0, int nkj,
                                          int depth, int body) {
     const QPBody b = body == QP_DMMA        ? QP_DMMA
                      : body == QP_DMMA_HELD ? QP_DMMA_HELD
+                     : body == QP_DMMA_S1   ? QP_DMMA_S1
                      : body == QP_HMMA      ? QP_HMMA
                      : body == QP_TF32      ? QP_TF32
                                             : QP_SIMT;

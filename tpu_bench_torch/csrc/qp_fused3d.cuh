@@ -119,11 +119,13 @@
 //     shared-memory loads match its FMAs, and one block of 8 warps an SM
 //     hides no latency.  So in f64 stage 2 runs on sm_90's DMMA
 //     (mma.sync.m16n8k8 on f64, 66.7 TFLOP/s, IEEE FP64 FMAs as the SIMT
-//     body's; qp_stage2_dmma).  Stage 1 stays SIMT (8% of the FLOP).  The
-//     body is a template argument; kernels/bwdtrans3d.qp_config picks it
-//     from the shape (QP_MEASURED, else DMMA in f64 where nkj >= 16, nrq
-//     >= 8 and the body serves the shape); f32 takes 3xTF32 on wgmma
-//     where QP_MEASURED names it (below).  Its first form staged C12T in
+//     body's; qp_stage2_dmma).  Stage 1, 2*nq0*nrq*nm0 FLOP an element,
+//     stays SIMT where it is a small share (8% at 10^3, 10% at b05 8^3),
+//     but not at b04 32^2 (49%; below).  The body is a template
+//     argument; kernels/bwdtrans3d.qp_config picks it from the shape
+//     (QP_MEASURED, else DMMA in f64 where nkj >= 16, nrq >= 8 and the
+//     body serves the shape); f32 takes 3xTF32 on wgmma where QP_MEASURED
+//     names it (below).  Its first form staged C12T in
 //     shared memory (nkj padded to 112 rows of 88 values at 10^3) and
 //     padded V's rows to 8 and to ET + 2 values: 5.37 ms at b05 10^3, E =
 //     524,288 (L2 flushed), a tile 21.6 us an SM, whose slab copy,
@@ -153,6 +155,35 @@
 //     stays faster (b05 6^3: 0.156 ms against 0.180 held; b04 16^2: 1.517
 //     against 1.929), so both forms are built and qp_config picks one by
 //     the shape (QP_MEASURED), as it picks the depth.
+//   - f64 stage 1 on DMMA (QP_DMMA_S1, qp_stage1_dmma): at b04 32^2 stage
+//     1 (nm0 = 31) is 61,504 of an element's 124,992 FLOP, and the SIMT
+//     form, a thread an rq row by 4 elements, gave 124 work items to 256
+//     threads: 46.5% of the held DMMA form's block (the probe).  On DMMA
+//     each rq row's V^T (16 elements x 16 planes) is one m tile by two n
+//     tiles of m16n8k8 products over k = p (4 steps, p = 31 zero in
+//     registers), a warp a row at a time, its A fragments two 16-byte
+//     loads a step from slab rows padded to 18 values (qp_slab_ld), its
+//     sums stored into V at qp_v_col_s1, which stage 2 reads as it reads
+//     qp_v_col.  That stage alone took a call at b04 32^2, E = 524,288,
+//     from 4.87 to 4.38 ms (flushed; NVIDIA H100 80GB HBM3, 700 W): at
+//     depth 1 the one block an SM then waits longer for its slab than it
+//     computes (wait 36% of the block).  Its blocks are therefore
+//     persistent (a one-wave grid on the stream's counter, as the ring's)
+//     with one slab slot, whose next slab is copied as soon as the last
+//     plane group's stage 1 has read the slab (QPNext): the copy runs
+//     under that group's stage 2 and its stores, which groups of 16
+//     planes make half of stage 2 (V 63.5 KB; slab 138 KB; 209,824 B a
+//     block, where two slabs, 276 KB, fit no ring).  Measured at b04 32^2,
+//     E = 524,288 (kernel_blocks --only k1 --back-to-back): 3.4008 /
+//     3.4014 ms flushed and 3.4269 / 3.4317 back to back, against the held
+//     DMMA form's 4.8505 / 4.8465 and 4.8788 / 4.8780, the card at its
+//     700 W cap (SM clock 1575-1965 MHz; 1980 MHz and 660 W before); in
+//     the cell quad32-f64-qp (port_bench, ten seeds) gdof_s 101.90-102.81
+//     -> 147.80-148.86 and call_ms_p95 4.99-5.18 -> 3.44-3.58 ms.
+//     qp_config takes it only where QP_MEASURED names it (b04 32^2); at
+//     b05 8^3 it swept faster than the rule's ring (0.3728 / 0.3726
+//     against 0.4010 / 0.3986 ms flushed at E = 131,072), a candidate left
+//     to a run at the cell's size; 220 registers, no spill.
 //   - f32 at b05 8^3: the FP32 lanes, not the bytes, bound the SIMT form.
 //     Stage 2 takes 2*nq0*nrq*nkj = 50,176 of an element's 55,664 FLOP,
 //     6.58 GFLOP a call of 131,072 elements, 0.11 ms at the lanes' 59
@@ -196,8 +227,11 @@
 //     first instruction to its exit; the wait, at depth 2 each tile from
 //     the loop's top to the barrier after cp.async.wait_group 1 (the time
 //     its slab had not arrived), at depth 1 from the block's start to the
-//     barrier after its whole load (copy, operator staging and wait);
-//     stage 1 of each plane group, to the barrier after it; and stage 2,
+//     barrier after its whole load (copy, operator staging and wait), for
+//     the DMMA stage 1's persistent blocks from the loop's top to the
+//     barrier after cp.async.wait_group 0; stage 1 of each plane group, to
+//     the barrier after it (for the DMMA stage 1's last group, also the
+//     issue of the next tile's copy after that barrier); and stage 2,
 //     stores included, to the group's closing barrier.  A stamp adds the
 //     clock to the sum of the phase it closes and takes it from the one it
 //     opens, in four registers (QPSums, exact below 2^32 cycles, about 2 s
@@ -253,12 +287,21 @@ __host__ __device__ constexpr int round_up(int n, int m) {
 // halves, QP_TF32_STEPS k steps of QP_TF32_K rq) by V's halves in shared
 // memory, each of a block's two warp groups QP_TF32_N columns of a plane
 // group (kernels/bwdtrans3d.qp_tf32_takes).
+// QP_DMMA_S1 is QP_DMMA_HELD with stage 1 on DMMA too (qp_stage1_dmma):
+// m16n8k8 products of each rq row's slab (16 elements by QP_S1_STEPS k
+// steps of p) by B0's QP_S1_PLANES planes, a warp a row at a time, the
+// slab's rows padded by QP_S1_PAD values (qp_slab_ld); its
+// blocks are persistent, with one slab slot that takes the next tile's
+// slab as soon as the last plane group's stage 1 is done (QPNext).  Built
+// at (16, QP_S1_PLANES, 1, QP_THREADS) alone
+// (kernels/bwdtrans3d.qp_s1_dmma_takes).
 enum QPBody : int {
     QP_SIMT = 0,
     QP_DMMA = 1,
     QP_DMMA_HELD = 2,
     QP_HMMA = 3,
-    QP_TF32 = 4
+    QP_TF32 = 4,
+    QP_DMMA_S1 = 5
 };
 constexpr int QP_MMA_M = 16;
 constexpr int QP_MMA_K = 8;
@@ -270,6 +313,9 @@ constexpr int QP_TF32_M = 64;
 constexpr int QP_TF32_K = 8;
 constexpr int QP_TF32_STEPS = 7;
 constexpr int QP_TF32_N = 64;
+constexpr int QP_S1_STEPS = 4;
+constexpr int QP_S1_PAD = 2;
+constexpr int QP_S1_PLANES = 16;
 
 // What a thread holds of C12T from tile to tile: the held form's A
 // fragments; nothing where C12T is staged in shared memory.
@@ -280,6 +326,9 @@ template <>
 struct QPHeld<QP_DMMA_HELD> {
     double a[QP_MMA_STEPS][4];
 };
+
+template <>
+struct QPHeld<QP_DMMA_S1> : QPHeld<QP_DMMA_HELD> {};
 
 template <>
 struct QPHeld<QP_HMMA> {
@@ -299,6 +348,25 @@ struct QPHeld<QP_TF32> {
 // banks.
 __host__ __device__ constexpr int qp_v_col(int rq, int e) {
     return e ^ ((rq & 7) << 1);
+}
+
+// The DMMA stage 1's V (QP_DMMA_S1): element e of row rq of plane g (of
+// the group) at qp_v_col's column, its 16-byte word also XORed with 2 (g /
+// 2 % 4), so that the stage's 16-byte stores of a quarter warp (planes 8n
+// + 2t and 8n + 2t + 1 of one row, words g = 0, 1) hit distinct banks.
+// Stage 2's loads each read one plane, so a constant more in the XOR keeps
+// them as qp_v_col's.
+__host__ __device__ constexpr int qp_v_col_s1(int g, int rq, int e) {
+    return qp_v_col(rq, e) ^ ((g >> 1 & 3) << 2);
+}
+
+// A slab row's values in shared memory: et, and QP_S1_PAD more for the
+// DMMA stage 1, whose A loads of a quarter warp lie p = 2t apart (t =
+// 0..3), 2 nrq rows: at 18 values a row that is 4t nrq mod 16 values,
+// distinct banks where nrq is odd (every b05 and b04 order of even nq;
+// at 16 values a row, t = 0..3 on the same banks).
+__host__ __device__ constexpr int qp_slab_ld(QPBody b, int et) {
+    return et + (b == QP_DMMA_S1 ? QP_S1_PAD : 0);
 }
 
 // HMMA's V, round_up(nrq, 2) x ET values a plane, in pair rows: pair row
@@ -357,20 +425,24 @@ __host__ __device__ constexpr int qp_lda(int nrq) {
 // SIMT, C12T (nkj padded to QP_MMA_M rows of qp_lda values, zero past nkj
 // and nrq) for the staged DMMA form, none for the held ones.
 __host__ __device__ constexpr int qp_c_size(QPBody b, int nrq, int nkj) {
-    return b == QP_DMMA_HELD || b == QP_HMMA || b == QP_TF32 ? 0
+    return b == QP_DMMA_HELD || b == QP_DMMA_S1 || b == QP_HMMA ||
+                   b == QP_TF32
+               ? 0
            : b == QP_DMMA    ? round_up(nkj, QP_MMA_M) * qp_lda(nrq)
                              : nrq * round_up(nkj, QP_TK);
 }
 
-// Dynamic shared memory of one block: `depth` slabs, V for G planes
-// (qp_v_size), C12T's buffer and B0 (nm0 x nq0 padded to G),
-// each a whole number of 16-byte words; at depth 2 the slots' tiles first.
+// Dynamic shared memory of one block: `depth` slabs (nm0 nrq rows of
+// qp_slab_ld), V for G planes (qp_v_size), C12T's buffer and B0 (nm0 x
+// nq0 padded to G), each a whole number of 16-byte words; at depth 2, and
+// for the DMMA stage 1's persistent blocks, the slots' tiles first.
 template <typename T>
 size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
                      int depth, QPBody body) {
-    return (depth > 1 ? QP_SLOT_TILES_BYTES : 0) +
+    return (depth > 1 || body == QP_DMMA_S1 ? QP_SLOT_TILES_BYTES : 0) +
            sizeof(T) *
-               (static_cast<size_t>(depth) * nm0 * nrq * et +
+               (static_cast<size_t>(depth) * nm0 * nrq *
+                    qp_slab_ld(body, et) +
                 qp_v_size(body, g, nrq, et) +
                 static_cast<size_t>(qp_c_size(body, nrq, nkj)) +
                 static_cast<size_t>(nm0) * round_up(nq0, g));
@@ -381,6 +453,13 @@ size_t qp_smem_bytes(int et, int g, int nm0, int nrq, int nq0, int nkj,
 __host__ __device__ constexpr bool qp_dmma_takes(int nrq, int nkj) {
     return nrq <= QP_MMA_K * QP_MMA_STEPS &&
            round_up(nkj, QP_MMA_M) / QP_MMA_M <= QP_THREADS / 32;
+}
+
+// Whether the DMMA stage 1 serves a shape: the held DMMA form's, and nm0
+// within its QP_S1_STEPS k steps.
+__host__ __device__ constexpr bool qp_s1_dmma_takes(int nm0, int nrq,
+                                                    int nkj) {
+    return qp_dmma_takes(nrq, nkj) && nm0 <= QP_MMA_K * QP_S1_STEPS;
 }
 
 // Whether the HMMA body serves a shape: as qp_dmma_takes, with nrq within
@@ -515,7 +594,7 @@ __device__ __forceinline__ void qp_stage2_dmma(
     long long e0, int i0, bool vec_out) {
     constexpr int NP = QP_MMA_PAIRS, WARPS = NT / 32;
     constexpr int UNITS_MT = G * ET / 16 / NP;  // units of one m tile
-    constexpr bool HELD = B == QP_DMMA_HELD;
+    constexpr bool HELD = B == QP_DMMA_HELD || B == QP_DMMA_S1;
     static_assert(ET % 16 == 0 && (G * ET / 16) % NP == 0, "whole units");
     const int mts = round_up(nkj, QP_MMA_M) / QP_MMA_M;
     const int w = threadIdx.x / 32;
@@ -537,8 +616,10 @@ __device__ __forceinline__ void qp_stage2_dmma(
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
                 const int p = p0 + np, rq = 2 * tq + r;
+                const int e = p * 16 % ET + 2 * gq;
                 b[np][r] = s_v + (p * 16 / ET * nrq + rq) * ET +
-                           qp_v_col(rq, p * 16 % ET + 2 * gq);
+                           (B == QP_DMMA_S1 ? qp_v_col_s1(p * 16 / ET, rq, e)
+                                            : qp_v_col(rq, e));
             }
         double acc[2 * NP][4] = {};
         if constexpr (HELD) {
@@ -589,6 +670,77 @@ __device__ __forceinline__ void qp_stage2_dmma(
                         if (ee + c < n_elem) y[c] = v[c];
                 }
             }
+        }
+    }
+}
+
+// Stage 1 of the planes [i0, i0 + G) on DMMA (QP_DMMA_S1): each rq row's
+// V^T (ET = 16 elements x G planes) = slab_rq^T (16 x nm0) @ B0[:, i0:i0+G]
+// as m16n8k8 f64 products, one n tile of 8 planes each, k = p in
+// QP_S1_STEPS steps of 8, IEEE FP64 FMAs as the SIMT form's; only the
+// order of the p sums differs.  A unit is one rq row, dealt to the warps
+// in turn; its G / 8 n tiles are a warp's chains of products in flight
+// (b04 32^2, E = 524,288, flushed: at depth 1 with the slab copied at the
+// tile's start, one unit at a time at G = 8 4.80 ms a call, two 4.55, four
+// 4.47, two at G = 16 4.38; persistent at G = 16 (QPNext), one unit 3.28,
+// two 3.31).  Lane 4g + t's k slots t and t + 4 take p = 2t and 2t + 1 of
+// a step in A and B alike (as qp_hold_c12t's), and its m rows g and g + 8
+// are elements 2g and 2g + 1, so a[0..1] and a[2..3] are one 16-byte load
+// each, of the slab's p = 2t and 2t + 1 at elements 2g, 2g + 1; the slab's
+// rows of qp_slab_ld values put a quarter warp's loads on distinct banks.
+// B, B0[p][i0 + 8n + g], is loaded once a plane group, two values a k step
+// and n tile.  p past nm0 reads zero in registers in A and in B: the slab
+// has no row there, and a zero of one operand would not clear a NaN in the
+// other.  The lane's sums d[i] of n tile n, at element 2g + i / 2 of plane
+// 8n + 2t + i % 2, go to V as two 16-byte stores at qp_v_col_s1.
+template <int ET, int G, int NT>
+__device__ __forceinline__ void qp_stage1_dmma(const double* s_x,
+                                               double* s_v,
+                                               const double* s_b0, int nm0,
+                                               int nrq, int nq0p, int i0) {
+    static_assert(ET == 16 && G % 8 == 0, "one m16 tile a row, n8 tiles");
+    constexpr int NTL = G / 8, LD = qp_slab_ld(QP_DMMA_S1, ET);
+    const int gq = threadIdx.x % 32 / 4, tq = threadIdx.x % 4;
+    double bf[NTL][QP_S1_STEPS][2];
+#pragma unroll
+    for (int n = 0; n < NTL; ++n)
+#pragma unroll
+        for (int s = 0; s < QP_S1_STEPS; ++s)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const int p = s * QP_MMA_K + 2 * tq + r;
+                bf[n][s][r] =
+                    p < nm0 ? s_b0[p * nq0p + i0 + 8 * n + gq] : 0.0;
+            }
+    const int whole = nm0 / QP_MMA_K;  // steps with no p past nm0
+    const int ps = nrq * LD;           // a p's rows
+    for (int rq = threadIdx.x / 32; rq < nrq; rq += NT / 32) {
+        double acc[NTL][4] = {};
+#pragma unroll
+        for (int s = 0; s < QP_S1_STEPS; ++s) {
+            if (s * QP_MMA_K >= nm0) break;  // uniform
+            const int p = s * QP_MMA_K + 2 * tq;
+            const double* x = s_x + p * ps + rq * LD + 2 * gq;
+            double2 lo = make_double2(0.0, 0.0), hi = lo;
+            if (s < whole || p < nm0)
+                lo = *reinterpret_cast<const double2*>(x);
+            if (s < whole || p + 1 < nm0)
+                hi = *reinterpret_cast<const double2*>(x + ps);
+            const double af[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+            for (int n = 0; n < NTL; ++n)
+                tbt::mma_f64_16x8x8(acc[n], af, bf[n][s]);
+        }
+        double* v = s_v + rq * ET;
+#pragma unroll
+        for (int n = 0; n < NTL; ++n) {
+            const int g0 = 8 * n + 2 * tq;
+            const double v0[2] = {acc[n][0], acc[n][2]};
+            const double v1[2] = {acc[n][1], acc[n][3]};
+            tbt::store16(v + g0 * nrq * ET + qp_v_col_s1(g0, rq, 2 * gq), v0);
+            tbt::store16(
+                v + (g0 + 1) * nrq * ET + qp_v_col_s1(g0 + 1, rq, 2 * gq),
+                v1);
         }
     }
 }
@@ -1051,19 +1203,58 @@ __device__ __forceinline__ void qp_publish(const QPAhead<D>& ahead,
         if (last && threadIdx.x == 0) *ahead.slot = ahead.tile;
 }
 
+// What a persistent block of the DMMA stage 1 (QP_DMMA_S1) hands qp_tile:
+// the slot's word of the next tile, which thread 0 took from the counter
+// at the tile's start (`tile`, 0 in the other threads) and stores before
+// the barrier that ends the last plane group's stage 1, and what the copy
+// of that tile's slab into the one slot needs.  Once that barrier is
+// passed the slab is read no more (stage 2 reads V), so every thread
+// issues its share of the next tile's copy there (prefetch), which runs
+// under the last group's stage 2 and its stores.  Measured at b04 32^2, E
+// = 524,288 (NVIDIA H100 80GB HBM3, 700 W, flushed, in one call): 3.31-
+// 3.32 ms a call against 4.39-4.40 with the copy at the tile's start and
+// 4.82-4.85 on the SIMT stage 1.
+template <typename T, int ET, int NT>
+struct QPNext {
+    long long* slot;
+    long long tile;
+    T* s_x;
+    const T* in;
+    long long n_elem;
+    int rows;
+    bool vec;
+
+    __device__ __forceinline__ void prefetch() const {
+        const long long t = *slot;
+        if (t * ET < n_elem)
+            tbt::copy_tile_async<T, ET, NT>(
+                s_x, qp_slab_ld(QP_DMMA_S1, ET), rows, in, n_elem, 0, t * ET,
+                rows, n_elem, vec);
+        tbt::cp_async_commit();
+    }
+};
+
+// The DMMA stage 1 publishes the next tile in its own branch of qp_tile;
+// the branches after it, dead for that body, publish nothing.
+template <typename T, int ET, int NT>
+__device__ __forceinline__ void qp_publish(const QPNext<T, ET, NT>&, bool) {}
+
 // Output elements [e0, e0 + ET) from their slab s_x in shared memory, NT
 // threads: for each group of G planes, stage 1 into s_v, a barrier,
 // stage 2 on body B (C12T from s_ct, or the held fragments) and the
-// stores, a barrier; at depth 2 the last group publishes `ahead` before
-// its barrier (qp_publish).  P: the probe form, whose thread 0 stamps the
-// stages' ends after those barriers.
-template <typename T, int ET, int G, int D, int NT, QPBody B, bool P>
+// stores, a barrier; at depth 2 the last group publishes `ahead` (a
+// QPAhead<D>) before its barrier (qp_publish); the DMMA stage 1 (`ahead`
+// a QPNext) publishes the next tile before the barrier after the last
+// group's stage 1 and copies its slab after it.  P: the probe form, whose
+// thread 0 stamps the stages' ends after those barriers.
+template <typename T, int ET, int G, int D, int NT, QPBody B, bool P,
+          typename Ahead>
 __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
                                         const QPHeld<B>& held, const T* s_b0,
                                         T* __restrict__ out, int nm0, int nrq,
                                         int nq0, int nkj, long long n_elem,
                                         long long e0, QPSums<P>& sums,
-                                        const QPAhead<D>& ahead) {
+                                        const Ahead& ahead) {
     using A = tbt::Acc<T>;
     constexpr int TX = ET / QP_TE;  // micro-tile columns of the tile
     const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
@@ -1091,6 +1282,22 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
             qp_stage2_hmma<ET, G, NT>(s_v, held, out, nrq, nq0, nkj, n_elem,
                                       e0, i0, vec_out);
             qp_publish(ahead, i0 + G >= nq0);
+            __syncthreads();
+            if constexpr (P) qp_stamp(sums, QP_STAGE2, QP_NO_PHASE);
+            continue;
+        }
+        if constexpr (B == QP_DMMA_S1) {
+            qp_stage1_dmma<ET, G, NT>(s_x, s_v, s_b0, nm0, nrq, nq0p, i0);
+            const bool last = i0 + G >= nq0;
+            if (last && threadIdx.x == 0) *ahead.slot = ahead.tile;
+            __syncthreads();
+            // the next slab's copy is issued in the last group's stage-1
+            // phase: a stamp after it, to count it to the wait, took the
+            // probe form from +0.6% to +13% of the plain form's time
+            if (last) ahead.prefetch();
+            if constexpr (P) qp_stamp(sums, QP_STAGE1, QP_STAGE2);
+            qp_stage2_dmma<ET, G, NT, B>(s_v, s_ct, held, out, nrq, nq0, nkj,
+                                         n_elem, e0, i0, vec_out);
             __syncthreads();
             if constexpr (P) qp_stamp(sums, QP_STAGE2, QP_NO_PHASE);
             continue;
@@ -1192,7 +1399,7 @@ __device__ __forceinline__ void qp_tile(const T* s_x, T* s_v, const T* s_ct,
 // C12T held, whose lanes keep 88 registers of it.
 template <typename T, int D, int NT, QPBody B>
 constexpr int qp_min_blocks() {
-    return B == QP_DMMA_HELD || (sizeof(T) == 8 && D > 1)
+    return B == QP_DMMA_HELD || B == QP_DMMA_S1 || (sizeof(T) == 8 && D > 1)
                ? 1
                : 2 * QP_THREADS / NT;
 }
@@ -1210,13 +1417,29 @@ constexpr int qp_probe_min_blocks() {
                : qp_min_blocks<T, D, NT, B>();
 }
 
+// At a persistent block's exit: every block has taken its last tile once
+// all are done, so the last one sets the counter back to zero for the next
+// launch.
+__device__ __forceinline__ void qp_ring_done(unsigned long long* counter) {
+    if (threadIdx.x == 0) {
+        __threadfence();
+        if (atomicAdd(&counter[1], 1ULL) == gridDim.x - 1) {
+            counter[0] = 0;
+            counter[1] = 0;
+        }
+    }
+}
+
 // T is the storage type, tbt::Acc<T> the type of the sums.  D = 1: block
 // b owns element tile b.  D = 2: a persistent block of a one-wave grid
 // takes tiles from counter[0] (the stream's: {next tile, blocks done},
 // zero between launches) and copies tile j+1's slab into the other slot
 // while it computes tile j.  B: stage 2's body.  P: the probe form, whose
 // one argument more (Probe, a QPProbe) the form with P = false lacks, so
-// that form's parameters are the ones above.
+// that form's parameters are the ones above.  B = QP_DMMA_S1 (D = 1): a
+// persistent block of a one-wave grid takes tiles from counter[0] as at
+// depth 2, into one slot, whose next slab qp_tile copies once the last
+// plane group's stage 1 is done (QPNext).
 template <typename T, int ET, int G, int D, int NT, QPBody B, bool P,
           typename... Probe>
 __global__ void __launch_bounds__(NT,
@@ -1231,24 +1454,26 @@ __global__ void __launch_bounds__(NT,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const int rows = nm0 * nrq;
     const int kjp = round_up(nkj, QP_TK), nq0p = round_up(nq0, G);
-    long long* s_tile = reinterpret_cast<long long*>(smem_raw);  // D = 2
-    T* s_x = reinterpret_cast<T*>(smem_raw +
-                                  (D > 1 ? QP_SLOT_TILES_BYTES : 0));
-    const size_t slab = static_cast<size_t>(rows) * ET;
+    constexpr bool RING = D > 1 || B == QP_DMMA_S1;  // persistent blocks
+    long long* s_tile = reinterpret_cast<long long*>(smem_raw);  // RING
+    T* s_x = reinterpret_cast<T*>(smem_raw + (RING ? QP_SLOT_TILES_BYTES : 0));
+    const size_t slab = static_cast<size_t>(rows) * qp_slab_ld(B, ET);
     T* s_v = s_x + D * slab;  // qp_v_size(B, G, nrq, ET)
     T* s_ct = s_v + qp_v_size(B, G, nrq, ET);
     T* s_b0 = s_ct + qp_c_size(B, nrq, nkj);            // (nm0, nq0p)
     QPSums<P> sums;
-    if constexpr (P) qp_probe_enter<D>(sums, probe...);
+    if constexpr (P) qp_probe_enter<RING ? 2 : 1>(sums, probe...);
     QPHeld<B> held;
-    // tile t's slab (rows x ET from element t*ET, zero past E) into slot s
+    // tile t's slab (rows x ET from element t*ET, zero past E; rows of
+    // qp_slab_ld) into slot s
     auto copy = [&](int s, long long t) {
         tbt::copy_tile_async<T, ET, NT>(
-            s_x + s * slab, ET, rows, in, n_elem, 0, t * ET, rows, n_elem,
-            n_elem % V16 == 0 && tbt::aligned16(in));
+            s_x + s * slab, qp_slab_ld(B, ET), rows, in, n_elem, 0, t * ET,
+            rows, n_elem, n_elem % V16 == 0 && tbt::aligned16(in));
     };
     auto stage_operators = [&] {
-        if constexpr (B == QP_DMMA_HELD || B == QP_HMMA || B == QP_TF32) {
+        if constexpr (B == QP_DMMA_HELD || B == QP_DMMA_S1 || B == QP_HMMA ||
+                      B == QP_TF32) {
             // the warp's A fragments into registers, once a block; the
             // loads are in flight while the slab copy is
             qp_hold_c12t(held, c12t, nrq, nkj);
@@ -1277,7 +1502,35 @@ __global__ void __launch_bounds__(NT,
         }
     };
 
-    if constexpr (D == 1) {
+    if constexpr (B == QP_DMMA_S1) {
+        if (threadIdx.x == 0)
+            s_tile[0] = static_cast<long long>(atomicAdd(&counter[0], 1ULL));
+        stage_operators();
+        __syncthreads();
+        long long cur = s_tile[0];
+        if (cur * ET < n_elem) copy(0, cur);
+        tbt::cp_async_commit();
+        const bool vec = n_elem % V16 == 0 && tbt::aligned16(in);
+        while (cur * ET < n_elem) {
+            if constexpr (P) qp_stamp(sums, QP_NO_PHASE, QP_WAIT);
+            // the next tile, taken before the wait so that its round trip
+            // is hidden, and published by qp_tile (the word s_tile[1] holds
+            // cur until the wait's barrier)
+            QPNext<T, ET, NT> next{s_tile + 1, 0, s_x, in, n_elem, rows,
+                                   vec};
+            if (threadIdx.x == 0)
+                next.tile =
+                    static_cast<long long>(atomicAdd(&counter[0], 1ULL));
+            tbt::cp_async_wait<0>();
+            __syncthreads();
+            if constexpr (P) qp_stamp(sums, QP_WAIT, QP_NO_PHASE);
+            qp_tile<T, ET, G, D, NT, B, P>(s_x, s_v, s_ct, held, s_b0, out,
+                                           nm0, nrq, nq0, nkj, n_elem,
+                                           cur * ET, sums, next);
+            cur = s_tile[1];
+        }
+        qp_ring_done(counter);
+    } else if constexpr (D == 1) {
         copy(0, blockIdx.x);
         tbt::cp_async_commit();
         stage_operators();
@@ -1322,24 +1575,17 @@ __global__ void __launch_bounds__(NT,
                                            n_elem, cur * ET, sums, ahead);
             cur = s_tile[s ^ 1];  // next, read again, not held in a register
         }
-        if (threadIdx.x == 0) {
-            // every block has taken its last tile once all are done: the
-            // last one sets the counter back to zero for the next launch
-            __threadfence();
-            if (atomicAdd(&counter[1], 1ULL) == gridDim.x - 1) {
-                counter[0] = 0;
-                counter[1] = 0;
-            }
-        }
+        qp_ring_done(counter);
     }
     if constexpr (P) qp_probe_exit(sums, probe...);
 }
 
 // One launch of the instance (ET, G, D, NT, B, P): at depth 1 a block a
-// tile; at depth 2 one wave (the occupancy API's blocks an SM times the
-// SMs, once per device and size), no more than the tiles, on the stream's
-// counter.  The probe form (P, with its QPProbe) also takes that wave at
-// depth 1, as the launch's resident block slots.
+// tile; at depth 2, and for the DMMA stage 1, one wave (the occupancy
+// API's blocks an SM times the SMs, once per device and size), no more
+// than the tiles, on the stream's counter.  The probe form (P, with its
+// QPProbe) also takes that wave at depth 1, as the launch's resident
+// block slots.
 template <typename T, int ET, int G, int D, int NT, QPBody B, bool P,
           typename... Probe>
 int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
@@ -1352,7 +1598,7 @@ int launch_tile(const T* in, const T* b0, const T* c12t, T* out, int nm0,
     if (err != cudaSuccess) return err;
     long long blocks = (n_elem + ET - 1) / ET;
     unsigned long long* counter = nullptr;
-    if constexpr (D > 1) {
+    if constexpr (D > 1 || B == QP_DMMA_S1) {
         err = tbt::ring::stream_counter(stream, &counter);
         if (err != cudaSuccess) return err;
         const long long wave = tbt::wave_blocks(waves, kernel, NT, smem);
@@ -1479,10 +1725,12 @@ int launch_body(const T* in, const T* b0, const T* c12t, T* out, int nm0,
 
 // The element tiles et, plane groups g, ring depths, block threads and
 // stage-2 bodies (DMMA in f64 only; with C12T held, at the shapes
-// qp_dmma_takes; HMMA in bf16 only, at the shapes qp_hmma_takes; TF32 in
-// f32 only, at the shapes qp_tf32_takes) it is built for (qp_config in
-// kernels/bwdtrans3d.py picks them for each shape and dtype); P and its
-// QPProbe: the probe form (csrc/qp_fused3d_probe.cu).
+// qp_dmma_takes, and with stage 1 on DMMA too at (16, QP_S1_PLANES, 1,
+// QP_THREADS) where qp_s1_dmma_takes; HMMA in bf16 only, at the shapes
+// qp_hmma_takes; TF32 in f32 only, at the shapes qp_tf32_takes) it is
+// built for (qp_config in kernels/bwdtrans3d.py picks them for each shape
+// and dtype); P and its QPProbe: the probe form
+// (csrc/qp_fused3d_probe.cu).
 template <typename T, bool P, typename... Probe>
 int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
            int nq0, int nkj, long long n_elem, int et, int g, int depth,
@@ -1503,6 +1751,14 @@ int launch(const T* in, const T* b0, const T* c12t, T* out, int nm0, int nrq,
             return launch_body<T, QP_DMMA_HELD, P>(
                 in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, et, g, depth,
                 threads, stream, probe...);
+        // the DMMA stage 1's one instance
+        if (body == QP_DMMA_S1 && qp_s1_dmma_takes(nm0, nrq, nkj) &&
+            et == 16 && g == QP_S1_PLANES && depth == 1 &&
+            threads == QP_THREADS)
+            return launch_tile<T, 16, QP_S1_PLANES, 1, QP_THREADS, QP_DMMA_S1,
+                               P>(
+                in, b0, c12t, out, nm0, nrq, nq0, nkj, n_elem, stream,
+                probe...);
     }
     if constexpr (sizeof(T) == 4) {
         if (body == QP_TF32 && qp_tf32_takes(nrq, nkj))

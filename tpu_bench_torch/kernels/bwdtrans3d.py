@@ -81,13 +81,23 @@ QP_TK, QP_TE = 8, 4
 # registers, each warp one m tile of QP_MMA_M rows and QP_MMA_STEPS k
 # steps of QP_MMA_K (qp_dmma_takes); HMMA holds it so, QP_HMMA_STEPS k
 # steps of QP_HMMA_K (qp_hmma_takes); TF32 holds its one m tile of
-# QP_TF32_M rows, QP_TF32_STEPS k steps of QP_TF32_K (qp_tf32_takes); the
-# entry's `body` argument for each (body, C12T) pair.
+# QP_TF32_M rows, QP_TF32_STEPS k steps of QP_TF32_K (qp_tf32_takes);
+# stage 1's bodies: the SIMT sums, and in f64 DMMA beside the held DMMA
+# stage 2, built at QP_S1_DMMA_FORM alone (et, planes, depth, threads:
+# groups of QP_S1_PLANES planes, one slab slot in a persistent block that
+# copies the next tile's slab once the last group's stage 1 is done), for
+# nm0 within QP_S1_STEPS k steps of QP_MMA_K (qp_s1_dmma_takes), its
+# slab's rows padded by QP_S1_PAD values (qp_slab_ld); the entry's `body`
+# argument for each (body, C12T, stage 1) triple.
 QP_BODIES = ("simt", "dmma", "hmma", "tf32")
 QP_C12T = ("smem", "regs")
-QP_ENTRY_BODIES = {("simt", "smem"): 0, ("dmma", "smem"): 1,
-                   ("dmma", "regs"): 2, ("hmma", "regs"): 3,
-                   ("tf32", "regs"): 4}
+QP_STAGE1 = ("simt", "dmma")
+QP_ENTRY_BODIES = {("simt", "smem", "simt"): 0, ("dmma", "smem", "simt"): 1,
+                   ("dmma", "regs", "simt"): 2, ("hmma", "regs", "simt"): 3,
+                   ("tf32", "regs", "simt"): 4, ("dmma", "regs", "dmma"): 5}
+QP_S1_PLANES = 16
+QP_S1_DMMA_FORM = (16, QP_S1_PLANES, 1, 256)
+QP_S1_STEPS, QP_S1_PAD = 4, 2
 QP_DMMA_TILES = (32, 16)
 QP_HMMA_TILES = (64, 32, 16)
 QP_TF32_TILES = (32, 16)
@@ -114,6 +124,13 @@ class QPConfig(typing.NamedTuple):
     body: str = "simt"  # stage 2's body, one of QP_BODIES
     c12t: str = "smem"  # where C12T lives, one of QP_C12T ("regs": DMMA,
                         # HMMA, TF32)
+    stage1: str = "simt"  # stage 1's body, one of QP_STAGE1 ("dmma": f64,
+                          # beside DMMA with C12T held, QP_S1_DMMA_FORM)
+
+
+def qp_entry_body(cfg) -> int:
+    """The entry's `body` argument of a QPConfig."""
+    return QP_ENTRY_BODIES[cfg.body, cfg.c12t, cfg.stage1]
 
 
 # K1's configuration at the shapes benchmarks/kernel_blocks.py sweeps, by
@@ -147,7 +164,13 @@ class QPConfig(typing.NamedTuple):
 # 0.2056-0.2080 and 0.1996-0.2092 (TF32's (16, 8, 2): 0.2052-0.2080 and
 # 0.2045-0.2092); at every other f32 row SIMT stayed fastest, by 1.2-3.9x
 # (its C12T fills at most 36 of the m64 tile's rows, or, at 10^3, does not
-# fit it).
+# fit it).  The f64 rows over both stage-1 bodies, flushed and back to back
+# (PERF.md section 6): at b04 32^2 (E = 524,288) stage 1 on DMMA at (16,
+# 16, 1) took a call from the held DMMA form's (16, 8, 1) on the SIMT
+# stage 1, 4.82-4.91 ms, to 3.28-3.43; at b05 8^3 it swept faster than the
+# ring (0.37 against 0.40 ms at E = 131,072), a candidate left to its own
+# measurement at the cell's size; at b05 4^3, 6^3 and b04 8^2, 16^2 it was
+# slower, and at 10^3 it does not fit.
 QP_MEASURED = {
     (4, 3, 9, 4, 16): QPConfig(128, 4, 1, 256),
     (4, 5, 25, 6, 36): QPConfig(32, 8, 2, 256),
@@ -162,7 +185,7 @@ QP_MEASURED = {
     (8, 9, 81, 10, 100): QPConfig(16, 4, 2, 256, "dmma", "regs"),
     (8, 7, 7, 8, 8): QPConfig(64, 8, 1, 256),
     (8, 15, 15, 16, 16): QPConfig(32, 8, 1, 256, "dmma"),
-    (8, 31, 31, 32, 32): QPConfig(16, 8, 1, 256, "dmma", "regs"),
+    (8, 31, 31, 32, 32): QPConfig(16, 16, 1, 256, "dmma", "regs", "dmma"),
     (2, 7, 49, 8, 64): QPConfig(64, 4, 1, 256, "hmma", "regs"),
     (2, 9, 81, 10, 100): QPConfig(32, 4, 1, 256, "hmma", "regs"),
 }
@@ -173,6 +196,9 @@ qp_depths: collections.Counter = collections.Counter()
 # "dmma" (f64 only, either form), "hmma" (bf16 only) or "tf32" (f32 only),
 # qp_config's choice.
 qp_bodies: collections.Counter = collections.Counter()
+# K1's launches by (dtype, stage-1 body) since the count was last reset:
+# "simt", or "dmma" (f64 only, beside DMMA with C12T held).
+qp_stage1_bodies: collections.Counter = collections.Counter()
 # K1's DMMA launches by where C12T lived ("smem" or "regs") since the count
 # was last reset.
 qp_dmma_c12t: collections.Counter = collections.Counter()
@@ -247,28 +273,30 @@ def qp_shared3d_flat_plain(in_pflat, b0, c12t, *, nrq):
 
 
 def qp_shared3d(in_pcoa3, b0, c12t, *, epb=EPB, planes=None, depth=None,
-                threads=None, body=None, where=None):
+                threads=None, body=None, where=None, stage1=None):
     """out (nq0, nkj, E) from in (nm0, nrq, E), b0 (nm0, nq0),
     c12t (nkj, nrq).  `epb`: K1's element tile, one of QP_TILES for the
     dtype, `planes`, one of QP_PLANE_GROUPS, `depth` and `threads`, a
-    form of qp_forms, `body`, stage 2's body of qp_built_bodies, and
-    `where`, where C12T lives, one of qp_c12t_places; None takes
-    qp_config's choice."""
+    form of qp_forms, `body`, stage 2's body of qp_built_bodies, `where`,
+    where C12T lives, one of qp_c12t_places, and `stage1`, stage 1's body,
+    one of qp_stage1_places; None takes qp_config's choice."""
     if in_pcoa3.dim() != 3:
         raise ValueError(f"in_pcoa3 must be (nm0, nrq, E), got "
                          f"{tuple(in_pcoa3.shape)}")
     nm0, nrq, e = in_pcoa3.shape
     out = qp_shared3d_flat(in_pcoa3.reshape(nm0 * nrq, e), b0, c12t, nrq=nrq,
                            epb=epb, planes=planes, depth=depth,
-                           threads=threads, body=body, where=where)
+                           threads=threads, body=body, where=where,
+                           stage1=stage1)
     return out.reshape(-1, c12t.shape[0], e)
 
 
 def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None,
-                     depth=None, threads=None, body=None, where=None):
+                     depth=None, threads=None, body=None, where=None,
+                     stage1=None):
     """out (nq0*nkj, E) from in (nm0*nrq, E), rows p*nrq + rq; under the
     span tbt.qp_shared3d_flat while a profiler records (core/spans.py)."""
-    knobs = (epb, planes, depth, threads, body, where)
+    knobs = (epb, planes, depth, threads, body, where, stage1)
     if spans.profiler._is_profiler_enabled:
         with spans.span("tbt.qp_shared3d_flat"):
             return _qp_shared3d_flat(in_pflat, b0, c12t, nrq, *knobs)
@@ -276,14 +304,14 @@ def qp_shared3d_flat(in_pflat, b0, c12t, *, nrq, epb=EPB, planes=None,
 
 
 def _qp_shared3d_flat(in_pflat, b0, c12t, nrq, epb, planes, depth, threads,
-                      body, where):
+                      body, where, stage1):
     _check(in_pflat, b0, c12t, nrq)
     if in_pflat.is_cpu:
         return qp_shared3d_flat_plain(in_pflat, b0, c12t, nrq=nrq)
     if not in_pflat.is_cuda:
         raise ValueError(f"qp_shared3d: no kernel for device {in_pflat.device}")
     return _launch(in_pflat, b0, c12t, nrq, epb, planes, depth, threads,
-                   body, where)
+                   body, where, stage1)
 
 
 def _check(x, b0, c12t, nrq):
@@ -310,13 +338,15 @@ def qp_lda(nrq) -> int:
 
 
 def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1, body="simt",
-            where="smem") -> int:
+            where="smem", stage1="simt") -> int:
     """Shared memory of one K1 block (csrc/qp_fused3d.cuh qp_smem_bytes):
-    `depth` input slabs of the element tile, V (nrq x et; HMMA's rows in
-    whole pairs) for g planes, C12T's buffer and B0 with nq0 padded to g;
-    at depth 2 the slots' tiles too.  C12T's buffer: C12T^T with nkj
-    padded to QP_TK for SIMT; for DMMA with C12T `where` "smem", C12T with
-    nkj padded to QP_MMA_M rows of qp_lda values, and with "regs" none.
+    `depth` input slabs of the element tile (nm0 nrq rows of qp_slab_ld
+    values), V (nrq x et; HMMA's rows in whole pairs) for g planes, C12T's
+    buffer and B0 with nq0 padded to g; at depth 2, and for the DMMA stage
+    1's persistent blocks, the slots' tiles too.  C12T's buffer: C12T^T
+    with nkj padded to QP_TK for SIMT; for DMMA with C12T `where` "smem",
+    C12T with nkj padded to QP_MMA_M rows of qp_lda values, and with
+    "regs" none.
     TF32's V: two halves (big and small) of its QP_TF32_STEPS k steps of
     QP_TF32_K rows, whatever nrq."""
     if body == "simt":
@@ -327,8 +357,18 @@ def qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth=1, body="simt",
         v = 2 * QP_TF32_STEPS * QP_TF32_K * g * et
     else:
         v = g * (_round_up(nrq, 2) if body == "hmma" else nrq) * et
-    return (QP_SLOT_TILES_BYTES if depth > 1 else 0) + itemsize * (
-        depth * nm0 * nrq * et + v + c + nm0 * _round_up(nq0, g))
+    slots = depth > 1 or stage1 == "dmma"
+    return (QP_SLOT_TILES_BYTES if slots else 0) + itemsize * (
+        depth * nm0 * nrq * qp_slab_ld(et, stage1) + v + c
+        + nm0 * _round_up(nq0, g))
+
+
+def qp_slab_ld(et, stage1="simt") -> int:
+    """Values of a K1 slab row in shared memory (csrc/qp_fused3d.cuh
+    qp_slab_ld): et, and QP_S1_PAD more for the DMMA stage 1, whose A loads
+    of a quarter warp (p = 2t apart) then hit distinct banks where nrq is
+    odd."""
+    return et + (QP_S1_PAD if stage1 == "dmma" else 0)
 
 
 def qp_dmma_takes(nrq, nkj) -> bool:
@@ -337,6 +377,12 @@ def qp_dmma_takes(nrq, nkj) -> bool:
     QP_MMA_STEPS k steps (nrq <= 88)."""
     return (nrq <= QP_MMA_K * QP_MMA_STEPS
             and _round_up(nkj, QP_MMA_M) // QP_MMA_M <= QP_THREADS // 32)
+
+
+def qp_s1_dmma_takes(nm0, nrq, nkj) -> bool:
+    """Whether the DMMA stage 1 serves a shape: the held DMMA form's
+    (qp_dmma_takes), and nm0 within its QP_S1_STEPS k steps (nm0 <= 32)."""
+    return qp_dmma_takes(nrq, nkj) and nm0 <= QP_MMA_K * QP_S1_STEPS
 
 
 def qp_hmma_takes(nrq, nkj) -> bool:
@@ -397,17 +443,36 @@ def qp_c12t_places(body, nrq, nkj) -> tuple:
         QP_C12T[:1]
 
 
+def qp_stage1_places(itemsize, et, g, depth, threads, body, where, nm0,
+                     nrq, nkj) -> tuple:
+    """Stage 1's bodies K1 is built for beside a setting: SIMT at the
+    plane groups of QP_PLANE_GROUPS; DMMA alone at QP_S1_DMMA_FORM (its
+    group of QP_S1_PLANES planes), in f64 beside DMMA with C12T held, where
+    qp_s1_dmma_takes the shape; else none."""
+    if g in QP_PLANE_GROUPS:
+        return QP_STAGE1[:1]
+    if (itemsize == 8 and (et, g, depth, threads) == QP_S1_DMMA_FORM
+            and (body, where) == ("dmma", "regs")
+            and qp_s1_dmma_takes(nm0, nrq, nkj)):
+        return QP_STAGE1[1:]
+    return ()
+
+
 def qp_settings(itemsize, nm0, nrq, nq0, nkj, limit=SMEM_BLOCK) -> list:
     """Every QPConfig K1 is built for whose buffers fit `limit` bytes at
     a shape (benchmarks/kernel_blocks.py sweeps them); TF32's at its plane
-    group only (qp_tf32_planes)."""
-    return [QPConfig(et, g, d, t, b, c) for et in QP_TILES[itemsize]
-            for g in QP_PLANE_GROUPS
+    group only (qp_tf32_planes); the DMMA stage 1's at QP_S1_DMMA_FORM
+    only (qp_stage1_places)."""
+    return [QPConfig(et, g, d, t, b, c, s) for et in QP_TILES[itemsize]
+            for g in (*QP_PLANE_GROUPS, QP_S1_PLANES)
             for b in qp_built_bodies(itemsize, et)
             if b != "tf32" or g == qp_tf32_planes(et)
             for d, t in qp_forms(itemsize, et, b)
             for c in qp_c12t_places(b, nrq, nkj)
-            if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d, b, c) <= limit]
+            for s in qp_stage1_places(itemsize, et, g, d, t, b, c, nm0, nrq,
+                                      nkj)
+            if qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, d, b, c,
+                       s) <= limit]
 
 
 def qp_planes(et, nkj) -> int:
@@ -431,11 +496,12 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
     group, whose buffers fit two blocks an SM of `sm_limit` bytes (each
     block also costs SMEM_RESERVED) while stage 1 keeps at least half the
     block busy (nrq * et / QP_TE positions), else the largest that fits
-    one block; None if none fits.  Depth 2 is taken only where the sweep
-    measured it faster."""
+    one block; None if none fits.  Depth 2, and stage 1 on DMMA, are
+    taken only where the sweep measured them faster."""
     cfg = QP_MEASURED.get((itemsize, nm0, nrq, nq0, nkj))
     if cfg and qp_smem(itemsize, cfg.et, cfg.planes, nm0, nrq, nq0, nkj,
-                       cfg.depth, cfg.body, cfg.c12t) <= block_limit:
+                       cfg.depth, cfg.body, cfg.c12t,
+                       cfg.stage1) <= block_limit:
         return cfg
     bodies = [("simt", QP_TILES[itemsize])]
     if itemsize == 8 and nkj >= QP_MMA_M and nrq >= QP_MMA_K:
@@ -462,32 +528,38 @@ def qp_config(itemsize, nm0, nrq, nq0, nkj, block_limit=SMEM_BLOCK,
 @functools.cache
 def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
                      block=SMEM_BLOCK, sm=SMEM_SM, depth=None,
-                     threads=None, body=None, where=None) -> QPConfig:
+                     threads=None, body=None, where=None,
+                     stage1=None) -> QPConfig:
     """K1's QPConfig for a launch: the knobs `epb`, `planes`, `depth`,
-    `threads`, `body` and `where` (C12T's place) where given, else
-    qp_config's choice under the card's `block` and `sm` bytes of shared
-    memory; with a given tile, qp_planes' group (the TF32 body's,
-    qp_tf32_planes), depth 1 and the SIMT body unless given too, and C12T
-    where the body first may keep it (qp_c12t_places: staged but for HMMA
-    and TF32) unless given or the choice's.
+    `threads`, `body`, `where` (C12T's place) and `stage1` (stage 1's
+    body) where given, else qp_config's choice under the card's `block`
+    and `sm` bytes of shared memory; with a given tile, qp_planes' group
+    (the TF32 body's, qp_tf32_planes), depth 1 and the SIMT body unless
+    given too, C12T where the body first may keep it (qp_c12t_places:
+    staged but for HMMA and TF32) unless given or the choice's, and stage
+    1 the choice's where the rest is the choice's, else the first body
+    built beside the rest (qp_stage1_places); stage 1 "dmma" given takes
+    QP_S1_PLANES planes unless planes are given too.
     Raises if the knobs are not the kernel's or the buffers do not fit."""
     tiles = QP_TILES[itemsize]
     if epb is not None and epb not in tiles:
         raise ValueError(f"qp_shared3d: epb={epb} is not one of the "
                          f"kernel's element tiles {tiles} for itemsize "
                          f"{itemsize}")
-    if planes is not None and planes not in QP_PLANE_GROUPS:
+    if planes is not None and planes not in (*QP_PLANE_GROUPS,
+                                             QP_S1_PLANES):
         raise ValueError(f"qp_shared3d: planes={planes} is not one of "
-                         f"{QP_PLANE_GROUPS}")
+                         f"{(*QP_PLANE_GROUPS, QP_S1_PLANES)}")
     if epb is None:
-        et, g, d, t, b, c = (
-            qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm)
-            or (None, None, 1, QP_THREADS, "simt", "smem"))
+        choice = (qp_config(itemsize, nm0, nrq, nq0, nkj, block, sm)
+                  or QPConfig(None, None))
     else:
-        et, g, d, t, b, c = (epb, qp_planes(epb, nkj), 1, QP_THREADS, "simt",
-                             "smem")
+        choice = QPConfig(epb, qp_planes(epb, nkj))
+    et, g, d, t, b, c, s1 = choice
     if body == "tf32" and b != "tf32" and et is not None:
         g = qp_tf32_planes(et)
+    if stage1 == "dmma" and s1 != "dmma":
+        g = QP_S1_PLANES
     g = planes or g
     depth = depth or d
     threads = threads or (t if depth == d else QP_THREADS)
@@ -517,23 +589,37 @@ def qp_launch_config(itemsize, nm0, nrq, nq0, nkj, epb, planes,
                          f"{QP_HMMA_K * QP_HMMA_STEPS}, each for nkj <= "
                          f"{QP_MMA_M * QP_THREADS // 32}; TF32 for nrq <= "
                          f"{QP_TF32_K * QP_TF32_STEPS}, nkj <= {QP_TF32_M})")
+    if et is not None:
+        bodies1 = qp_stage1_places(itemsize, et, g, depth, threads, body,
+                                   where, nm0, nrq, nkj)
+        same = (et, g, depth, threads, body, where) == tuple(choice[:6])
+        stage1 = stage1 or (s1 if same else (*bodies1, "simt")[0])
+        if stage1 not in bodies1:
+            raise ValueError(
+                f"qp_shared3d: stage1={stage1!r} is not one of {bodies1} at "
+                f"{(et, g, depth, threads, body, where)}, itemsize "
+                f"{itemsize}, nm0={nm0}, nrq={nrq}, nkj={nkj} (stage 1 "
+                f"runs on DMMA in f64 only, at (et, planes, depth, threads) "
+                f"{QP_S1_DMMA_FORM} beside body='dmma' with C12T in "
+                f"registers, for nm0 <= {QP_MMA_K * QP_S1_STEPS}; on SIMT at "
+                f"planes {QP_PLANE_GROUPS})")
     if et is None or qp_smem(itemsize, et, g, nm0, nrq, nq0, nkj, depth,
-                             body, where) > block:
+                             body, where, stage1) > block:
         raise ValueError(f"qp_shared3d: element tile {epb or 'of any size'}"
                          f" of nm0*nrq = {nm0 * nrq} input rows and depth "
                          f"{depth} does not fit the card's {block} B of "
                          "shared memory")
-    return QPConfig(et, g, depth, threads, body, where)
+    return QPConfig(et, g, depth, threads, body, where, stage1)
 
 
 def _launch(x, b0, c12t, nrq, epb, planes, depth=None, threads=None,
-            body=None, where=None):
+            body=None, where=None, stage1=None):
     nm0, nq0 = b0.shape
     nkj = c12t.shape[0]
     e = x.shape[1]
     cfg = qp_launch_config(x.element_size(), nm0, nrq, nq0, nkj, epb,
                            planes, *build.smem_limits(x.get_device()), depth,
-                           threads, body, where)
+                           threads, body, where, stage1)
     if spans.profiler._is_profiler_enabled:
         key = build.key("qp_fused3d", x.dtype)
         out = spans.alloc((nq0 * nkj, e), x, key)
@@ -543,9 +629,10 @@ def _launch(x, b0, c12t, nrq, epb, planes, depth=None, threads=None,
         out = torch.empty((nq0 * nkj, e), dtype=x.dtype, device=x.device)
         build.run("qp_fused3d", x, x.data_ptr(), b0.data_ptr(),
                   c12t.data_ptr(), out.data_ptr(), nm0, nrq, nq0, nkj, e,
-                  *cfg[:4], QP_ENTRY_BODIES[cfg.body, cfg.c12t])
+                  *cfg[:4], qp_entry_body(cfg))
     qp_depths[cfg.depth] += 1
     qp_bodies[(build.SUFFIXES[x.dtype], cfg.body)] += 1
+    qp_stage1_bodies[(build.SUFFIXES[x.dtype], cfg.stage1)] += 1
     if cfg.body == "dmma":
         qp_dmma_c12t[cfg.c12t] += 1
     return out
@@ -561,7 +648,7 @@ def _launch_probe(x, b0, c12t, out, nrq, cfg):
     err = build.call(build.entry("qp_fused3d_probe", x.dtype), x,
                      x.data_ptr(), b0.data_ptr(), c12t.data_ptr(),
                      out.data_ptr(), nm0, nrq, nq0, nkj, e, *cfg[:4],
-                     QP_ENTRY_BODIES[cfg.body, cfg.c12t],
+                     qp_entry_body(cfg),
                      probe.words.data_ptr(), probe.launches, probe.capacity)
     build.launched(err, build.key("qp_fused3d", x.dtype))
     if e:  # no block ran on no element
